@@ -11,7 +11,12 @@ bf16 input (fp32 atol/rtol 1e-5: summation order over <= 100 terms; bf16
 computing the same weighted sum (the yardstick; the port never calls it)
 as device time (CUDA events around CUDA-graph replays, so no host launch
 cost), the kernel also with a cold L2 and eagerly from Python, and computes
-the kernel's bound from its bytes.
+the kernel's bound from the bytes these inputs need (``agg_work``: the
+active clients' rows, ``prev`` only where the result reads it).
+
+Phase 1 also runs the aggregation at the federated LM's shape,
+``[1, 8, 134,515,008]`` bf16 (more column blocks than CUDA's grid y axis
+holds), against the plain version, timed beside ``torch.bmm``.
 
 Phase 2 drives the main path through ``run_sweep`` at the Table-1 protocol
 (fedpbc / fedavg / fedavg_all / fedavg_known_p on bernoulli_tv, seeds 0-2,
@@ -21,6 +26,28 @@ every parameter must be finite and every algorithm must clear its accuracy
 bar. Phase 3 runs the same cell for 5 rounds down the kernel and the plain
 branch path from the same generators; the server params must agree to 1e-5.
 
+Phase 4 builds the CUDA flash-attention kernels (``nvcc`` into
+``build/cuda/``) and holds forward and dq/dk/dv against the plain version
+and its autograd at the reference's kernel-test shapes and at the LM
+path's shape ``[144, 2048, 64]`` bf16 causal (``FLASH_TOL``: fp32 atol
+and rtol 2e-3, the reference's; bf16 atol 1e-2 with the reference's rtol
+3e-2, set from the measured errors); it times the three kernels and the
+forward of ``scaled_dot_product_attention`` (the yardstick; the port never
+calls it) with CUDA-graph replays, the plain version and the yardstick's
+backward (which allocate) with CUDA events around eager calls, and
+computes each kernel's bound from its flops at the card's bf16 dense peak. Phase 5
+drives the LM slice: ``repro_torch.launch.train --full`` (SmolLM-135M,
+30 layers, 8 clients, 2 local steps, batch 2, 2048 tokens, 10 rounds,
+fedpbc over bernoulli links, the fused aggregation on); every loss must be
+finite, each attention kernel must launch rounds x local steps x 30 times
+and the aggregation once per round; it prints rounds/s, tokens/s and peak
+memory. Phase 6 runs the LM at full width, 2 layers, 512 tokens for
+2 rounds down the kernel path and down the plain path (plain attention by
+an explicit argument, branch aggregation) from the same generators; the
+plain path must launch no flash kernel, and the two server updates must
+lie within a relative distance of ``PATHS_TOL`` of each other, over all
+parameters and on each attention projection.
+
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -28,6 +55,7 @@ result line. Without CUDA, or without the repository beside it, it exits
 non-zero at once.
 """
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -51,6 +79,29 @@ REFERENCE_MEAN = {"fedpbc": 0.7043333649635315,
                   "fedavg_known_p": 0.8238889575004578}
 BARS = {k: v - 0.05 for k, v in REFERENCE_MEAN.items()}
 FP32_TOL, BF16_TOL = 1e-5, 2e-2
+# the LM slice (phase 5): SmolLM-135M at its published widths
+LM_N = 134_515_008
+LM_ROUNDS, LM_CLIENTS, LM_STEPS, LM_BATCH, LM_SEQ, LM_LAYERS = \
+    10, 8, 2, 2, 2048, 30
+# flash attention: the reference's kernel-test shapes, then the LM path's
+# (b, h, t, d, window, softcap, dtype); the LM's [B*m*b*H, T, D] is
+# [1 * 8 * 2 * 9, 2048, 64]
+FLASH_SHAPES = [(2, 2, 256, 64, 0, 0.0, "float32"),
+                (1, 3, 256, 128, 0, 0.0, "float32"),
+                (1, 2, 256, 64, 128, 0.0, "float32"),
+                (1, 2, 128, 64, 0, 50.0, "float32"),
+                (1, 2, 256, 64, 0, 0.0, "bfloat16")]
+FLASH_MAIN = (1, LM_CLIENTS * LM_BATCH * 9, LM_SEQ, 64, 0, 0.0, "bfloat16")
+# (atol, rtol) of the kernel against the plain version: fp32 the
+# reference's 2e-3; bf16 the reference's rtol 3e-2 with an atol of 1e-2,
+# above the 7.7e-3 that dq needs at the LM's shape (the largest measured)
+FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (1e-2, 3e-2)}
+# kernel vs plain LM path: ||update_kernel - update_plain|| / ||update_plain||
+# over all parameters and over each attention projection. Measured 0.13-0.15
+# (bf16 parameters: only ~2 % of them move in 2 rounds, each by one bf16
+# step, so a rounding flip decides whether an element moves); a zero dQ, dK
+# or dV reads 1.0 on wq, wk or wv.
+PATHS_TOL = 0.3
 
 
 def fail(msg):
@@ -58,12 +109,13 @@ def fail(msg):
 
 
 def peak_rates(name):
-    """(bytes/s, fp32 flop/s) of the card from its data sheet."""
+    """(bytes/s, fp32 flop/s, bf16 dense tensor-core flop/s) of the card
+    from its data sheet."""
     if "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "NVL" in name:
-        return 3.9e12, 60e12
-    return 3.35e12, 67e12          # H100 SXM
+        return 3.9e12, 60e12, 835e12
+    return 3.35e12, 67e12, 989e12          # H100 SXM
 
 
 def _graph(fn, iters):
@@ -123,6 +175,25 @@ def time_ms_cold(fn, iters=50):
     return (pairs - alone) / iters
 
 
+def time_ms_events(fn, iters=10):
+    """Device time per eager call: CUDA events around ``iters`` calls after
+    a warm-up (for ms-scale calls that allocate, such as an autograd
+    backward, where the host's launch cost is small beside the work)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def time_ms_host(fn, iters=200):
     """Wall time per eager call, back to back: the wrapper's checks and the
     launch from Python included (what the round loop pays per call)."""
@@ -136,6 +207,22 @@ def time_ms_host(fn, iters=200):
         fn()
     torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def agg_work(x, mask, op):
+    """(bytes, flops) the aggregation needs at these inputs: per trajectory
+    the mask, the opcode, the active clients' rows of ``x`` (and their
+    ``p`` under OP_KNOWN_P), ``prev`` only where the result reads it
+    (OP_ALL, OP_KNOWN_P, or no active client), and the fp32 output row
+    written once; one multiply-add per active element."""
+    _, m, n = x.shape
+    nbytes = nops = 0
+    for a, o in zip(mask.sum(1).tolist(), op.tolist()):
+        nbytes += m * mask.element_size() + 4 + n * 4
+        nbytes += a * n * x.element_size() + (a * 4 if o == 2 else 0)
+        nbytes += n * 4 if (o != 0 or a == 0) else 0
+        nops += 2 * a * n
+    return nbytes, nops
 
 
 def phase1_kernel(torch, masked, ref):
@@ -206,19 +293,46 @@ def phase1_kernel(torch, masked, ref):
                     torch.where((op == 1)[:, None], mk / m, mk))
     library_ms = time_ms(lambda: torch.bmm(w[:, None, :], x))
     name = torch.cuda.get_device_name(0)
-    bw, flops = peak_rates(name)
-    nbytes = (x.numel() * x.element_size() + mask.numel() + p.numel() * 4
-              + prev.numel() * 4 + op.numel() * 4 + prev.numel() * 4)
-    bound_ms = max(nbytes / bw, 3 * x.numel() / flops) * 1e3
+    bw, flops, _ = peak_rates(name)
+    nbytes, nops = agg_work(x, mask, op)
+    bound_ms = max(nbytes / bw, nops / flops) * 1e3
     print(f"phase1 timing [12,100,2762] fp32 (device time per call, CUDA "
           f"graph replay): kernel {kernel_ms:.5f} ms (L2 cold "
           f"{kernel_cold_ms:.5f} ms; eager from Python {kernel_host_ms:.5f} "
           f"ms wall), plain {plain_ms:.5f} ms, "
           f"torch.bmm {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
           f"({nbytes} bytes at {bw / 1e12:g} TB/s)", flush=True)
+    lm = phase1_lm_shape(torch, masked, ref, inputs, compare, bw, flops)
     return dict(max_abs_err=main_err, ms=kernel_ms, ms_l2_cold=kernel_cold_ms,
                 host_ms=kernel_host_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bytes=nbytes)
+                bytes=nbytes, lm=lm)
+
+
+def phase1_lm_shape(torch, masked, ref, inputs, compare, bw, flops):
+    """The aggregation at the LM's shape: one trajectory, 8 clients,
+    134,515,008 bf16 parameters (525,450 column blocks, past gridDim.y)."""
+    x, mask, op, prev, p = inputs(1, LM_CLIENTS, LM_N, [0],
+                                  dtype=torch.bfloat16)
+    mask[0, :2] = True
+    err = compare(f"LM shape [1,{LM_CLIENTS},{LM_N}] bf16",
+                  masked.fused_masked_agg(x, mask, op, prev, p),
+                  ref.fused_masked_agg_ref(x, mask, op, prev, p), BF16_TOL)
+    kernel_ms = time_ms(lambda: masked.fused_masked_agg(x, mask, op, prev, p),
+                        iters=10)
+    plain_ms = time_ms_events(
+        lambda: ref.fused_masked_agg_ref(x, mask, op, prev, p), iters=3)
+    w = mask.to(x.dtype)[:, None, :]
+    library_ms = time_ms(lambda: torch.bmm(w, x), iters=10)
+    nbytes, nops = agg_work(x, mask, op)
+    bound_ms = max(nbytes / bw, nops / flops) * 1e3
+    print(f"phase1 timing LM shape [1,{LM_CLIENTS},{LM_N}] bf16 (device "
+          f"time per call): kernel {kernel_ms:.5f} ms, plain {plain_ms:.5f} "
+          f"ms, torch.bmm {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
+          f"({nbytes} bytes at {bw / 1e12:g} TB/s)", flush=True)
+    del x, mask, op, prev, p, w
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes)
 
 
 def phase2_main_path(torch, masked, grid):
@@ -266,6 +380,271 @@ def phase3_paths_agree(torch, grid, spec):
         fail("kernel and plain aggregation paths diverge")
 
 
+def _attention_pairs(t, window):
+    """Allowed (query, key) pairs of one head under the causal mask and
+    the window: sum over queries q of min(q + 1, window)."""
+    q = np.arange(t)
+    return int(np.minimum(q + 1, window if window else t).sum())
+
+
+def phase4_flash(torch, fa, ref, bw, bf16_peak):
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    fa._library()
+    print(f"phase4 nvcc build of {fa.SOURCE.name}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    entry = None
+    for line in fa.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "Used" in line and "registers" in line and entry:
+            print(f"phase4 ptxas {entry}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
+        elif "spill" in line and "0 bytes spill stores" not in line:
+            print(f"phase4 ptxas {entry}: {line.strip()}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    errs = {}
+    for shape in FLASH_SHAPES + [FLASH_MAIN]:
+        b, h, t, d, win, cap, dtype = shape
+        dt = getattr(torch, dtype)
+        q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=dev)
+                      .to(dt) for _ in range(4))
+        ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_attention(*ts, window=win, logit_softcap=cap)
+        grads = torch.autograd.grad(out, ts, g)
+        rs = [x.float().requires_grad_(True) for x in (q, k, v)]
+        want = ref.flash_attention_ref(*rs, window=win, logit_softcap=cap)
+        want_grads = torch.autograd.grad(want, rs, g.float())
+        torch.cuda.synchronize()
+        atol, rtol = FLASH_TOL[dtype]
+        e, need = {}, {}
+        for n, a, w in zip(("o", "dq", "dk", "dv"), (out,) + grads,
+                           (want,) + want_grads):
+            diff = (a.float() - w).abs()
+            e[n] = diff.max().item()
+            # the smallest atol that passes at this rtol, and |w|'s scale
+            need[n] = ((diff - rtol * w.abs()).max().item(),
+                       w.abs().max().item())
+        ok = all(torch.allclose(a.float(), w, rtol=rtol, atol=atol)
+                 and torch.isfinite(a).all()
+                 for a, w in zip((out,) + grads, (want,) + want_grads))
+        print(f"phase4 flash {list(shape)}: max_abs_err " + " ".join(
+            f"{n} {x:.3e}" for n, x in e.items())
+            + " | atol needed at rtol " + f"{rtol:g}: " + " ".join(
+                f"{n} {x[0]:.3e}" for n, x in need.items())
+            + " | max|ref| " + " ".join(
+                f"{n} {x[1]:.3e}" for n, x in need.items())
+            + f" | atol {atol:g} rtol {rtol:g} {'ok' if ok else 'MISMATCH'}",
+            flush=True)
+        if not ok:
+            fail(f"flash attention disagrees with its plain version at "
+                 f"{shape}")
+        errs = e
+        del q, k, v, g, ts, out, grads, rs, want, want_grads
+    torch.cuda.empty_cache()
+
+    # timing at the LM path's shape, [B*m*b*H, T, D] bf16 causal
+    b, h, t, d, win, cap, dtype = FLASH_MAIN
+    bh = b * h
+    q, k, v, do = (torch.randn(bh, t, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
+    ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=20),
+          "dq": time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, do,
+                                                          lse), iters=20),
+          "dkdv": time_ms(lambda: fa.flash_attention_bwd_dkdv(
+              q, k, v, do, lse, delta), iters=20)}
+    # the plain version: forward, and its autograd for dq alone and for
+    # dk, dv alone (each less the forward it reruns)
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+    def plain_fwd():
+        return ref.flash_attention_ref(qr, kr, vr)
+
+    plain_f = time_ms_events(plain_fwd, iters=5)
+    plain = {"fwd": plain_f,
+             "dq": time_ms_events(lambda: torch.autograd.grad(
+                 plain_fwd(), [qr], do), iters=5) - plain_f,
+             "dkdv": time_ms_events(lambda: torch.autograd.grad(
+                 plain_fwd(), [kr, vr], do), iters=5) - plain_f}
+    # the yardstick: one scaled_dot_product_attention call, forward and
+    # backward (its backward computes dq, dk and dv together)
+    q4, k4, v4 = (x.view(1, bh, t, d).clone().requires_grad_(True)
+                  for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    sdpa_err = (sdpa().float() - o.view(1, bh, t, d).float()).abs().max()
+    lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+        q4.detach(), k4.detach(), v4.detach(), is_causal=True), iters=20)
+    lib_b = time_ms_events(lambda: torch.autograd.grad(
+        sdpa(), [q4, k4, v4], do.view(1, bh, t, d)), iters=10) \
+        - time_ms_events(sdpa, iters=10)
+    library = {"fwd": lib_f, "dq": lib_b, "dkdv": lib_b}
+    pairs = bh * _attention_pairs(t, win)
+    flops = {"fwd": 4 * pairs * d, "dq": 6 * pairs * d,
+             "dkdv": 8 * pairs * d}
+    row, mat = bh * t * 4, bh * t * d * 2
+    nbytes = {"fwd": 3 * mat + mat + row,                # q,k,v -> o, lse
+              "dq": 5 * mat + row + mat + row,           # +o,do,lse -> dq,delta
+              "dkdv": 4 * mat + 2 * row + 2 * mat}       # -> dk, dv
+    bound = {kk: max(nbytes[kk] / bw, flops[kk] / bf16_peak) * 1e3
+             for kk in ms}
+    by = {kk: "operations" if flops[kk] / bf16_peak > nbytes[kk] / bw
+          else "bytes" for kk in ms}
+    for kk in ms:
+        print(f"phase4 timing flash_attention_{'fwd' if kk == 'fwd' else 'bwd_' + kk} "
+              f"[{bh},{t},{d}] bf16 causal: kernel {ms[kk]:.5f} ms, plain "
+              f"{plain[kk]:.5f} ms, scaled_dot_product_attention "
+              f"{'fwd' if kk == 'fwd' else 'bwd (dq+dk+dv)'} "
+              f"{library[kk]:.5f} ms, bound {bound[kk]:.5f} ms "
+              f"({flops[kk]:.4e} flop at {bf16_peak / 1e12:g} TFLOP/s bf16; "
+              f"{nbytes[kk]} bytes), {flops[kk] / ms[kk] / 1e9:.2f} "
+              f"TFLOP/s achieved", flush=True)
+    print(f"phase4 scaled_dot_product_attention vs kernel forward: max "
+          f"|diff| {sdpa_err.item():.3e}", flush=True)
+    del q, k, v, do, o, lse, dq, delta, qr, kr, vr, q4, k4, v4
+    torch.cuda.empty_cache()
+    return {kk: dict(ms=ms[kk], plain_ms=plain[kk], library_ms=library[kk],
+                     bound_ms=bound[kk], bound_by=by[kk], flops=flops[kk],
+                     bytes=nbytes[kk],
+                     max_abs_err=(errs["o"] if kk == "fwd" else errs["dq"]
+                                  if kk == "dq" else max(errs["dk"],
+                                                         errs["dv"])))
+            for kk in ms}
+
+
+def _lm_args(batch):
+    return ["--full", "--arch", "smollm-135m", "--clients", str(LM_CLIENTS),
+            "--local-steps", str(LM_STEPS), "--batch", str(batch),
+            "--seq", str(LM_SEQ), "--rounds", str(LM_ROUNDS),
+            "--algorithm", "fedpbc", "--scheme", "bernoulli",
+            "--log-every", "1"]
+
+
+def phase5_slice(torch, train, fa, masked, card):
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv, masked.fused_masked_agg)
+    batch, out = LM_BATCH, None
+    while out is None:
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        os.environ["REPRO_USE_KERNEL"] = "1"     # the fused aggregation
+        try:
+            out = train.main(_lm_args(batch))
+        except torch.cuda.OutOfMemoryError:
+            if batch == 1:
+                raise
+            print(f"phase5 out of memory at --batch {batch}; halving it",
+                  flush=True)
+            batch //= 2
+        finally:
+            os.environ.pop("REPRO_USE_KERNEL", None)
+        if out is None:          # the failed run's tensors are released now
+            gc.collect()
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = LM_ROUNDS * LM_STEPS * LM_LAYERS
+    losses = np.asarray(out["losses"])
+    stamps = out["round_seconds"]
+    seconds = stamps[-1]
+    tokens = LM_ROUNDS * LM_CLIENTS * LM_STEPS * batch * LM_SEQ
+    steady = (LM_ROUNDS - 1) / (stamps[-1] - stamps[0])
+    print(f"phase5 LM slice (SmolLM-135M, {LM_LAYERS} layers, m={LM_CLIENTS},"
+          f" s={LM_STEPS}, b={batch}, T={LM_SEQ}, {LM_ROUNDS} rounds) on "
+          f"{card}: {seconds:.3f} s = {LM_ROUNDS / seconds:.4f} rounds/s, "
+          f"{tokens / seconds:.1f} tokens/s; after the first round "
+          f"{steady:.4f} rounds/s, {steady * tokens / LM_ROUNDS:.1f} "
+          f"tokens/s; first round {stamps[0]:.3f} s; peak memory "
+          f"{peak_gib:.2f} GiB", flush=True)
+    print(f"phase5 launches: flash fwd {launches[0]}, bwd_dq {launches[1]}, "
+          f"bwd_dkdv {launches[2]} (want {want} each), fused_masked_agg "
+          f"{launches[3]} (want {LM_ROUNDS}); losses "
+          f"{[round(float(x), 4) for x in losses]}", flush=True)
+    if len(losses) != LM_ROUNDS or not np.isfinite(losses).all():
+        fail("the LM slice logged a non-finite loss")
+    if launches[:3] != [want] * 3:
+        fail(f"flash attention launches {launches[:3]}, expected {want} each")
+    if launches[3] != LM_ROUNDS:
+        fail(f"fused_masked_agg launched {launches[3]} times on the LM "
+             f"path, expected {LM_ROUNDS}")
+    if not torch.isfinite(out["state"].server.float()).all():
+        fail("the LM slice's server params are not finite")
+    return dict(launches=launches, seconds=seconds, batch=batch,
+                rounds_per_s=LM_ROUNDS / seconds,
+                tokens_per_s=tokens / seconds, steady_rounds_per_s=steady,
+                peak_gib=peak_gib, first_round_s=stamps[0])
+
+
+def phase6_paths_agree(torch, train, fa):
+    """Full width, 2 layers, T = 512, 2 rounds, down the kernel path and the
+    plain path (plain attention, branch aggregation) from the same
+    generators. Compared: each path's server update (server minus the
+    initial params) by its relative distance, over all parameters and over
+    each attention projection; ``wq``, ``wk`` and ``wv`` get their gradient
+    only through dQ, dK and dV, so a zero one of these reads 1.0 there."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import param_layout
+
+    layers, rounds = 2, 2
+    args = ["--full", "--layers", str(layers), "--seq", "512", "--rounds",
+            str(rounds), "--clients", str(LM_CLIENTS), "--local-steps",
+            str(LM_STEPS), "--batch", str(LM_BATCH), "--log-every", "2"]
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv)
+    updates, losses = {}, {}
+    try:
+        for path, backend, agg in (("kernel", None, "1"),
+                                   ("plain", "torch", "0")):
+            os.environ["REPRO_USE_KERNEL"] = agg
+            for c in counters:
+                c.launches = 0
+            out = train.main(args, attention_backend=backend)
+            launches = [c.launches for c in counters]
+            want = rounds * LM_STEPS * layers if path == "kernel" else 0
+            print(f"phase6 {path} path: flash launches fwd/dq/dkdv "
+                  f"{launches} (want {want} each)", flush=True)
+            if launches != [want] * 3:
+                fail(f"the {path} path launched the flash kernels "
+                     f"{launches} times, expected {want} each")
+            updates[path] = (out["state"].server.float()
+                             - out["initial"].float())[0]
+            losses[path] = out["losses"]
+    finally:
+        os.environ.pop("REPRO_USE_KERNEL", None)
+    cfg = dataclasses.replace(get_config("smollm-135m"), num_layers=layers)
+    groups = {"all": [(0, updates["plain"].numel())]}
+    for name, _, a, b in param_layout(cfg).spans():
+        for leaf in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
+            if name.endswith(leaf):
+                groups.setdefault(leaf, []).append((a, b))
+    rel = {}
+    for g, spans in groups.items():
+        k = torch.cat([updates["kernel"][a:b] for a, b in spans])
+        p = torch.cat([updates["plain"][a:b] for a, b in spans])
+        rel[g] = ((k - p).norm() / p.norm()).item()
+    diff = (updates["kernel"] - updates["plain"]).abs()
+    print(f"phase6 kernel vs plain path, full width, {layers} layers, T=512, "
+          f"{rounds} rounds: relative update distance " + " ".join(
+              f"{g} {x:.4e}" for g, x in rel.items())
+          + f" (limit {PATHS_TOL:g}); max |update diff| "
+          f"{diff.max().item():.3e}, max |update| "
+          f"{updates['plain'].abs().max().item():.3e}, elements updated "
+          f"{(updates['plain'] != 0).float().mean().item():.4f}; losses "
+          f"kernel {losses['kernel']} plain {losses['plain']}", flush=True)
+    if not all(x <= PATHS_TOL for x in rel.values()):
+        fail("the LM's kernel and plain paths diverge")
+    return rel
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -286,15 +665,22 @@ def main():
         return 3
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.experiments import grid
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import masked_agg as masked
     from repro_torch.kernels import ref
+    from repro_torch.launch import train
 
+    card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+          f"{torch.cuda.get_device_name(0)} ({card})", flush=True)
+    bw, _, bf16_peak = peak_rates(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     k = phase1_kernel(torch, masked, ref)
     spec, launches, rounds_per_s = phase2_main_path(torch, masked, grid)
     phase3_paths_agree(torch, grid, spec)
+    f = phase4_flash(torch, fa, ref, bw, bf16_peak)
+    lm = phase5_slice(torch, train, fa, masked, card)
+    paths_err = phase6_paths_agree(torch, train, fa)
     kernel = {"name": "fused_masked_agg", "route": "triton",
               "source": "src/repro_torch/kernels/masked_agg.py",
               "replaces": "src/repro/kernels/masked_agg.py:180 "
@@ -306,15 +692,37 @@ def main():
               "library_ms": k["library_ms"], "kernel_ms": k["ms"],
               "bound_us": 1e3 * k["bound_ms"], "ms_l2_cold": k["ms_l2_cold"],
               "host_ms": k["host_ms"],
-              "bytes": k["bytes"], "main_path_rounds_per_s": rounds_per_s}
+              "bytes": k["bytes"], "main_path_rounds_per_s": rounds_per_s,
+              "lm_path_launches": lm["launches"][3],
+              "lm_shape": k["lm"]}
+    kernels = [kernel]
+    source = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    replaces = "src/repro/kernels/flash_attention.py:76 (flash_attention -> _kernel"
+    for i, (key, name, what) in enumerate((
+            ("fwd", "flash_attention_fwd", ")"),
+            ("dq", "flash_attention_bwd_dq",
+             "; its VJP, which the TPU kernel lacks: delta and dQ)"),
+            ("dkdv", "flash_attention_bwd_dkdv",
+             "; its VJP, which the TPU kernel lacks: dK and dV)"))):
+        r = f[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces + what, "launches": lm["launches"][i],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "flops": r["flops"], "bytes": r["bytes"],
+            "shape": list(FLASH_MAIN)})
+    kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
+                              if k2 != "launches"}
+    kernels[1]["lm_paths_relative_update_distance"] = paths_err
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
-    print(card_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,0 +1,13 @@
+"""Configurations (port of ``repro.configs``): ``FederationConfig``, the
+dense family's ``ModelConfig`` and ``get_config`` / ``reduced``."""
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    AttentionConfig,
+    FederationConfig,
+    ModelConfig,
+    get_config,
+    reduced,
+)
+
+__all__ = ["ARCH_IDS", "AttentionConfig", "FederationConfig", "ModelConfig",
+           "get_config", "reduced"]

@@ -3,8 +3,14 @@
 Inputs are numpy (the reference's arrays after ``np.asarray``), so this
 module needs neither JAX nor the reference package:
 
-- ``params_from_jax(np_tree, layout)``: a parameter dict (leaves with any
-  leading axes ``L``) -> the port's flat ``[*L, n]`` buffer in layout order;
+- ``params_from_jax(np_tree, layout)``: a parameter tree (nested dicts and
+  tuples, leaves with any leading axes ``L``) -> the port's flat ``[*L, n]``
+  buffer in layout order; nesting becomes dotted leaf names, so the LM's
+  ``blocks`` tuple (one layer dict per period position, each leaf stacked
+  ``[n_periods, ...]``) lands on ``blocks.{i}.attn.wq`` and so on;
+- ``lm_params_from_jax(np_params, cfg)``: the same for an LM at its
+  ``ModelConfig`` (its layout and dtype; the tied embedding is the one
+  ``embed`` leaf);
 - ``fed_state_from_jax(np_state, layout, scheme)``: a reference ``FedState``
   (an object with its fields, numpy leaves, leading ``[B]`` axis on every
   leaf, e.g. from a vmapped init) -> the port's ``FedState``, so a test can
@@ -12,7 +18,7 @@ module needs neither JAX nor the reference package:
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -22,17 +28,43 @@ from repro_torch.core.federated import FedState
 from repro_torch.core.params import ParamLayout
 
 
-def params_from_jax(np_tree: Mapping[str, Any], layout: ParamLayout,
-                    device=None) -> torch.Tensor:
-    """``{name: [*L, *shape]}`` -> flat fp32 ``[*L, n]``."""
+def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts / tuples / lists -> ``{dotted.name: leaf}``."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for key, sub in items:
+        out.update(flatten_tree(sub, f"{prefix}.{key}" if prefix
+                                else str(key)))
+    return out
+
+
+def params_from_jax(np_tree, layout: ParamLayout, device=None,
+                    dtype=torch.float32) -> torch.Tensor:
+    """A tree of ``[*L, *shape]`` leaves -> flat ``[*L, n]`` of ``dtype``."""
+    flat = flatten_tree(np_tree)
     first_name, first_shape = layout.leaves[0]
-    lead = np.shape(np_tree[first_name])[:np.ndim(np_tree[first_name])
-                                         - len(first_shape)]
-    return layout.flatten(np_tree, lead=tuple(lead), device=device)
+    lead = np.shape(flat[first_name])[:np.ndim(flat[first_name])
+                                      - len(first_shape)]
+    return layout.flatten(flat, lead=tuple(lead), device=device, dtype=dtype)
+
+
+def lm_params_from_jax(np_params, cfg, device=None) -> torch.Tensor:
+    """The reference LM's params (``repro.models.model.init_params``,
+    numpy leaves) -> the port's flat buffer in ``cfg.dtype``."""
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.model import param_layout
+
+    return params_from_jax(np_params, param_layout(cfg), device,
+                           dtype_of(cfg))
 
 
 def _t(x, device, dtype=None):
-    return torch.as_tensor(np.asarray(x), device=device, dtype=dtype)
+    return torch.as_tensor(np.array(x), device=device, dtype=dtype)
 
 
 def _link_state(link_state, scheme: str, device):
@@ -50,13 +82,14 @@ def _link_state(link_state, scheme: str, device):
 
 
 def fed_state_from_jax(np_state, layout: ParamLayout, scheme: str,
-                       device=None) -> FedState:
+                       device=None, dtype=torch.float32) -> FedState:
     """A reference ``FedState`` with a leading ``[B]`` axis on every leaf ->
     the port's (server, clients, optimizer state incl. the per-client step,
-    algorithm state, link state, round, ``last_active``). The reference's
-    ``key`` has no counterpart: the port's randomness is drawn outside."""
-    server = params_from_jax(np_state.server, layout, device)
-    clients = params_from_jax(np_state.clients, layout, device)
+    algorithm state, link state, round, ``last_active``); the parameter
+    buffers in ``dtype`` (the model's). The reference's ``key`` has no
+    counterpart: the port's randomness is drawn outside."""
+    server = params_from_jax(np_state.server, layout, device, dtype)
+    clients = params_from_jax(np_state.clients, layout, device, dtype)
     opt = {"step": _t(np_state.opt_state["step"], device, torch.int32)}
     for k, v in np_state.opt_state.items():
         if k != "step":
@@ -64,20 +97,21 @@ def fed_state_from_jax(np_state, layout: ParamLayout, scheme: str,
     a = np_state.algo_state
     B, m = clients.shape[:2]
 
-    def tree(field, rows):
+    def tree(field, rows, dt):
         leaves = getattr(a, field)
-        lead = np.shape(leaves[layout.leaves[0][0]])[1]
+        lead = np.shape(flatten_tree(leaves)[layout.leaves[0][0]])[1]
         if lead == 0:
-            return torch.zeros((B, 0, layout.size), device=device)
-        return params_from_jax(leaves, layout, device).reshape(B, rows, -1)
+            return torch.zeros((B, 0, layout.size), dtype=dt, device=device)
+        return params_from_jax(leaves, layout, device, dt).reshape(
+            B, rows, -1)
 
     algo = AlgoState(
         gap=_t(a.gap, device, torch.float32),
         sum_gaps=_t(a.sum_gaps, device, torch.float32),
         n_gaps=_t(a.n_gaps, device, torch.float32),
         lam=_t(a.lam, device, torch.float32),
-        mem=tree("mem", m),
-        mom=tree("mom", 1))
+        mem=tree("mem", m, dtype),
+        mom=tree("mom", 1, torch.float32))
     rounds = np.unique(np.asarray(np_state.round))
     if rounds.size != 1:
         raise ValueError(f"trajectories are at different rounds: {rounds}")

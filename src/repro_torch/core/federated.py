@@ -10,11 +10,14 @@ A round (Alg. 1 of the paper):
 
 Every tensor carries a leading trajectory axis ``B`` (one trajectory is
 ``B = 1``): ``server [B, n]``, ``clients [B, m, n]`` — each trajectory's
-client models as ONE flat fp32 buffer, so the server update is one kernel
-launch per round.
+client models as ONE flat buffer in the model's dtype (fp32 for the MLP,
+bf16 for the full-width LM), so the server update is one kernel launch per
+round.
 
 Drawing is separate from computing. The round's randomness — the link
-uniforms ``u [B, m]`` and the data index draw ``pick [B, m, s, b]`` — is a
+uniforms ``u [B, m]`` and the data draw ``pick`` (index draw
+``[B, m, s, b]`` of the classification sources, token draw
+``[B, m, s, b, T]`` of the LM source) — is a
 ``RoundDraws`` made by one drawer (``GeneratorDraws``, from explicit
 ``torch.Generator`` streams); ``round_fn(state, batches, u)`` and the
 step built by ``make_round_step`` compute the round given those draws, so a
@@ -54,7 +57,7 @@ class RoundDraws:
     """One round's randomness: the link uniforms and the data index draw."""
 
     u: torch.Tensor                       # [B, m] float32 in [0, 1)
-    pick: Optional[torch.Tensor] = None   # [B, m, s, b] int64
+    pick: Optional[torch.Tensor] = None   # [B, m, *shape] int64 (pick_spec)
 
 
 class GeneratorDraws:
@@ -65,9 +68,12 @@ class GeneratorDraws:
     numbers, as they see the same keys in the reference.
 
     Streams: ``params`` gives the initial model, ``state`` the link process's
-    initial draw and then every round's ``u``, ``data`` every round's
-    ``pick``. A round's draw is the next one on the stream, so rounds must be
-    drawn in order (the reference folds the round into its data key).
+    initial draw and then every round's ``u``, ``ds`` the data source's
+    init draw, ``data`` every round's ``pick``. A round's draw is the next
+    one on the stream, so rounds must be drawn in order (the reference folds
+    the round into its data key). ``pick_spec`` is the source's
+    ``(*per-client draw shape, high)``: each client draws integers in
+    ``[0, high)``.
     """
 
     def __init__(self, bundles: Sequence[Dict[str, torch.Generator]],
@@ -94,15 +100,23 @@ class GeneratorDraws:
                                        device=g["state"].device)
                             for g in self.bundles])
 
+    def source_init(self, high: int) -> torch.Tensor:
+        """``[B, m]`` per-client integers in ``[0, high)`` from the ``ds``
+        stream (the LM source's vocabulary offsets)."""
+        return self._stack([torch.randint(0, high, (self.m,),
+                                          generator=g["ds"],
+                                          device=g["ds"].device)
+                            for g in self.bundles])
+
     def __call__(self, t: int) -> RoundDraws:
         u = self._stack([torch.rand(self.m, generator=g["state"],
                                     device=g["state"].device)
                          for g in self.bundles])
         pick = None
         if self.pick_spec is not None:
-            s, b, per_client = self.pick_spec
+            *shape, high = self.pick_spec
             pick = self._stack([
-                torch.randint(0, per_client, (self.m, s, b),
+                torch.randint(0, high, (self.m, *shape),
                               generator=g["data"], device=g["data"].device)
                 for g in self.bundles])
         return RoundDraws(u, pick)

@@ -1,8 +1,9 @@
 """Flat parameter buffers and their named views.
 
-The port stores a model as one flat fp32 vector ``[..., n]`` (a whole
-sweep's client models as ``[B, m, n]``) so that local training writes one
-buffer and the server update is one kernel launch over it. A
+The port stores a model as one flat vector ``[..., n]`` (a whole sweep's
+client models as ``[B, m, n]``) in the model's dtype (fp32 for the MLP, the
+LM's ``ModelConfig.dtype``, bf16 at full width), so that local training
+writes one buffer and the server update is one kernel launch over it. A
 ``ParamLayout`` names the leaves: each is a view into the buffer with the
 reference's shape (``w1 [dim, hidden]`` stays ``[dim, hidden]``), in the
 order the layout lists them.
@@ -39,17 +40,52 @@ class ParamLayout:
         return {name: flat[..., a:b].reshape(lead + tuple(shape))
                 for name, shape, a, b in self.spans()}
 
+    def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Like :meth:`views`, but the gradient of ``flat`` is assembled in
+        ONE buffer: autograd would otherwise give every leaf's slice a
+        full-size zero gradient of ``flat`` and add them all up (for a
+        bf16 LM, a few hundred passes over the whole client buffer)."""
+        if not flat.requires_grad:
+            return self.views(flat)
+        return dict(zip([name for name, _ in self.leaves],
+                        _Unflatten.apply(flat, self)))
+
     def flatten(self, tree: Mapping[str, object], lead: Tuple[int, ...] = (),
-                device=None) -> torch.Tensor:
-        """Leaves (numpy or tensors, each ``[*lead, *shape]``) -> one
-        contiguous fp32 ``[*lead, n]`` buffer, in layout order."""
+                device=None, dtype=torch.float32) -> torch.Tensor:
+        """Leaves (numpy, bf16 numpy included, or tensors, each
+        ``[*lead, *shape]``) -> one contiguous ``[*lead, n]`` buffer of
+        ``dtype``, in layout order."""
         parts = []
         for name, shape, _, _ in self.spans():
             leaf = tree[name]
             if not isinstance(leaf, torch.Tensor):
+                leaf = np.asarray(leaf)
+                if leaf.dtype.name == "bfloat16":    # exact in fp32
+                    leaf = leaf.astype(np.float32)
                 leaf = torch.from_numpy(np.array(leaf))
             if tuple(leaf.shape) != tuple(lead) + tuple(shape):
                 raise ValueError(f"leaf {name!r}: shape {tuple(leaf.shape)}, "
                                  f"expected {tuple(lead) + tuple(shape)}")
-            parts.append(leaf.reshape(tuple(lead) + (-1,)).float())
+            parts.append(leaf.reshape(tuple(lead) + (-1,)).to(dtype))
         return torch.cat(parts, -1).contiguous().to(device)
+
+
+class _Unflatten(torch.autograd.Function):
+    """``flat [..., n]`` -> its leaves as views; the backward writes each
+    leaf's gradient into its span of one ``[..., n]`` buffer."""
+
+    @staticmethod
+    def forward(ctx, flat, layout):
+        ctx.layout = layout
+        ctx.shape, ctx.dtype, ctx.device = flat.shape, flat.dtype, flat.device
+        return tuple(layout.views(flat).values())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = torch.empty(ctx.shape, dtype=ctx.dtype, device=ctx.device)
+        for (_, _, a, b), g in zip(ctx.layout.spans(), grads):
+            if g is None:
+                out[..., a:b].zero_()
+            else:
+                out[..., a:b].copy_(g.reshape(ctx.shape[:-1] + (b - a,)))
+        return out, None

@@ -3,6 +3,7 @@ from repro_torch.data.sources import (
     DataSource,
     classification_source,
     fixed_source,
+    lm_source,
     traced_classification_source,
 )
 from repro_torch.data.synthetic import make_classification_data
@@ -13,5 +14,6 @@ __all__ = [
     "DataSource",
     "classification_source",
     "fixed_source",
+    "lm_source",
     "traced_classification_source",
 ]

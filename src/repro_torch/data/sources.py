@@ -6,12 +6,15 @@ the round consumes::
     sample(ds_state, round, pick) -> (batches, ds_state)
 
 ``batches`` leaves carry leading ``[B, m, s, ...]`` axes (trajectory,
-client, local step). The randomness is injected: ``pick [B, m, s, b]`` is
-the round's with-replacement index draw into every client's shard, made by
-the engine's draw function (``repro_torch.core.federated``) from explicit
-``torch.Generator``s, or handed in by a test. ``pick_spec`` tells the
-drawer the draw's shape, ``(local_steps, batch_size, per_client)``, or is
-``None`` for a source that needs no draw.
+client, local step). The randomness is injected: ``pick`` is the round's
+draw — ``[B, m, s, b]`` with-replacement indices into every client's shard
+for the classification sources, ``[B, m, s, b, T]`` tokens for the LM
+source — made by the engine's draw function
+(``repro_torch.core.federated``) from explicit ``torch.Generator``s, or
+handed in by a test. ``pick_spec`` tells the drawer the draw,
+``(*per-client shape, high)`` (integers in ``[0, high)``), or is ``None``
+for a source that needs no draw; ``init_high`` likewise the per-client
+draw that ``init`` takes (the LM source's offsets), or ``None``.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ class DataSource:
     init: Callable[..., Any]      # (data) -> ds_state
     sample: Callable[..., Any]    # (ds_state, round, pick) -> (batches, ds_state)
     name: str = ""
-    pick_spec: Optional[Tuple[int, int, int]] = None   # (s, b, per_client)
+    pick_spec: Optional[Tuple[int, ...]] = None   # (*per-client shape, high)
+    init_high: Optional[int] = None               # init's per-client draw
 
 
 def _gather(idx: torch.Tensor, pick: torch.Tensor) -> torch.Tensor:
@@ -77,6 +81,38 @@ def traced_classification_source(shared, *, local_steps: int, batch_size: int,
 
     return DataSource(init, sample, "classification_traced",
                       (local_steps, batch_size, per_client))
+
+
+def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
+              vocab: int, client_shift: bool = True,
+              memory_shape: Optional[Tuple[int, ...]] = None) -> DataSource:
+    """Synthetic non-IID token streams: each client draws tokens from its
+    own half-vocab slice ``[lo, lo + vocab // 2)``.
+
+    ``init(lo)`` takes the offsets ``lo [B, m]`` (drawn once, in
+    ``[0, vocab // 2)``; ``None`` without ``client_shift``);
+    ``sample(ds_state, t, pick)`` takes the round's token draw
+    ``pick [B, m, s, b, T]`` in ``[0, vocab // 2)`` and returns ``tokens =
+    lo + pick`` with ``labels = roll(tokens, -1)`` along the sequence.
+    ``num_clients`` is the reference's signature; the shapes come with the
+    draws.
+    """
+    if memory_shape is not None:
+        raise NotImplementedError(
+            "memory leaves (vlm/audio) wait for the model zoo (ROADMAP "
+            "Queue 1 item 7)")
+    half = vocab // 2
+
+    def init(lo=None):
+        return {"lo": lo}
+
+    def sample(ds_state, t, pick):
+        lo = ds_state["lo"]
+        toks = pick if lo is None else lo[:, :, None, None, None] + pick
+        return {"tokens": toks, "labels": toks.roll(-1, -1)}, ds_state
+
+    return DataSource(init, sample, "lm", (local_steps, batch, seq, half),
+                      half if client_shift else None)
 
 
 def fixed_source(batches: Batches) -> DataSource:

@@ -1,13 +1,20 @@
-"""Kernel dispatch for the fused aggregation hot path (port of
+"""Kernel dispatch for the fused aggregation and for attention (port of
 ``repro.kernels.dispatch``).
 
-The backend follows the tensor, never a guess:
+The backend follows the tensor, never a guess (:func:`resolve_backend`,
+the one rule both kernel wrappers use):
 
-- ``"triton"`` — CUDA tensors: the hand-written kernel
-  (``repro_torch.kernels.masked_agg``), always; there is no quiet fallback,
-  so a kernel that cannot launch raises.
+- ``"kernel"`` — CUDA tensors: the hand-written kernel, always (Triton in
+  ``repro_torch.kernels.masked_agg``, CUDA C++ behind
+  ``repro_torch.kernels.flash_attention``); there is no quiet fallback, so
+  a kernel that cannot launch raises.
 - ``"torch"`` — CPU tensors: the plain version
-  (``repro_torch.kernels.ref``), which defines what the kernel computes.
+  (``repro_torch.kernels.ref``, ``repro_torch.models.attention``), which
+  defines what the kernel computes.
+
+Attention takes the plain version on the card only when its caller passes
+``backend="torch"`` (the kernel-vs-plain comparisons do); no environment
+variable selects it.
 
 Whether the engine uses the fused aggregation at all is the ``use_kernel``
 knob, threaded through ``AlgorithmSpec.aggregate`` -> ``make_round_fn`` ->
@@ -22,13 +29,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.masked_agg import fused_masked_agg, resolve_backend
 from repro_torch.kernels.ref import OP_ALL, OP_KNOWN_P, OP_MEAN
 
-__all__ = ["BACKENDS", "FUSED_OPS", "fused_agg", "resolve_backend",
-           "resolve_use_kernel", "use_kernel_default"]
+__all__ = ["BACKENDS", "FUSED_OPS", "attention", "fused_agg",
+           "resolve_backend", "resolve_use_kernel", "use_kernel_default"]
 
-BACKENDS = ("triton", "torch")
+BACKENDS = ("kernel", "torch")
 
 _ENV_USE_KERNEL = "REPRO_USE_KERNEL"
 
@@ -41,6 +47,16 @@ FUSED_OPS = {
     "fedavg_all": OP_ALL,
     "fedavg_known_p": OP_KNOWN_P,
 }
+
+
+def resolve_backend(x: torch.Tensor) -> str:
+    """``"kernel"`` for a CUDA tensor, ``"torch"`` (the plain version) for a
+    CPU tensor; any other device raises."""
+    if x.is_cuda:
+        return "kernel"
+    if x.device.type == "cpu":
+        return "torch"
+    raise ValueError(f"no kernel backend for tensors on {x.device}")
 
 
 def use_kernel_default() -> bool:
@@ -61,4 +77,56 @@ def fused_agg(x: torch.Tensor, mask: torch.Tensor, op: torch.Tensor,
     ``[m, n]``) with the shapes of ``fused_masked_agg``; one kernel launch
     for the whole batch on the card (``resolve_backend``). Returns fp32
     ``[B, n]`` / ``[n]``."""
+    from repro_torch.kernels.masked_agg import fused_masked_agg
+
     return fused_masked_agg(x, mask, op, prev, p)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              kind: str = "full", window: int = 4096,
+              logit_softcap: float = 0.0, chunk: int = 1024,
+              q_offset: int = 0, backend: Optional[str] = None
+              ) -> torch.Tensor:
+    """Dispatched causal attention in the model stack's ``[B, T, H, D]``
+    layout (``repro_torch.models.attention.attention``'s signature; that
+    entry routes here).
+
+    The kernel covers the reference's kernel shapes: self-attention
+    (``Tq == Tk``, ``q_offset == 0``), ``kind`` full or swa, and
+    ``T % min(128, T) == 0``. Every other shape (block-local "chunked"
+    masks, decode/prefill offsets, ragged lengths) takes the plain chunked
+    version on any device, as in the reference; so do CPU tensors.
+    ``backend``: ``None`` follows the tensor (:func:`resolve_backend`);
+    ``"torch"`` takes the plain version on the card too (to compare the two
+    paths); ``"kernel"`` insists on the kernel and raises for CPU tensors.
+    On CUDA tensors the kernel path repeats GQA's KV heads, folds ``[B, H]``
+    into the kernel's batch axis and makes one forward launch (two backward
+    launches under autograd); autograd sums the KV gradient over the
+    repeats.
+    """
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as ref
+
+    if backend is None:
+        backend = resolve_backend(q)
+    elif backend not in BACKENDS:
+        raise ValueError(f"unknown attention backend {backend!r}; "
+                         f"available: {BACKENDS}")
+    elif backend == "kernel" and not q.is_cuda:
+        raise ValueError(f"the attention kernel takes CUDA tensors, got "
+                         f"{q.device}")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    kernel_ok = (kind in ("full", "swa") and q_offset == 0 and tq == tk
+                 and tq % min(128, tq) == 0)
+    if not kernel_ok or backend == "torch":
+        return ref.attention_ref(q, k, v, kind=kind, window=window,
+                                 logit_softcap=logit_softcap, chunk=chunk,
+                                 q_offset=q_offset)
+    n_rep = h // k.shape[2]
+    kr = ref.repeat_kv(k, n_rep).transpose(1, 2)
+    vr = ref.repeat_kv(v, n_rep).transpose(1, 2)
+    out = fa.flash_attention(q.transpose(1, 2), kr, vr, causal=True,
+                             window=window if kind == "swa" else 0,
+                             logit_softcap=logit_softcap)
+    return out.transpose(1, 2)

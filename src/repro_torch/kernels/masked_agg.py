@@ -20,9 +20,12 @@ Accumulation is fp32 and the output is fp32 ``[B, n]``.
 Bound: device-memory bandwidth. The kernel must read ``B * m * n``
 elements of ``x`` once (plus ``prev``, ``mask``, ``p``) and write
 ``B * n``; it does no tensor-core work and ~3 flops per element read.
-Design: a single streamed read. The grid is ``(B, cdiv(n, BLOCK_N))``;
-each program owns ``BLOCK_N`` columns of one trajectory and walks the client
-axis in ``BLOCK_M``-row tiles with coalesced masked loads, keeping one fp32
+Design: a single streamed read. The grid is ``(cdiv(n, BLOCK_N), B)``:
+the column blocks sit on grid axis 0 (CUDA's ``gridDim.x``, up to 2^31 - 1
+blocks) and the trajectory on axis 1 (``gridDim.y``, at most 65,535), so a
+134.5M-parameter LM buffer (525,450 column blocks) launches. Offsets are
+64-bit. Each program owns ``BLOCK_N`` columns of one trajectory and walks
+the client axis in ``BLOCK_M``-row tiles with coalesced masked loads, keeping one fp32
 accumulator row in registers. ``op[b]`` is uniform per program, so the
 branch only picks the weight of each row (``mask``, ``mask / m`` or
 ``mask / max(p, 1e-3) / m``) and the delta base (0 or ``prev``): one sum is
@@ -42,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.kernels.ref import (
     OP_ALL,
     OP_KNOWN_P,
@@ -55,7 +59,7 @@ BLOCK_N = 256
 NUM_WARPS = 4
 
 __all__ = ["OP_MEAN", "OP_ALL", "OP_KNOWN_P", "BLOCK_M", "BLOCK_N",
-           "fused_masked_agg", "masked_agg", "resolve_backend"]
+           "fused_masked_agg", "masked_agg"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,8 +73,8 @@ def _kernel():
     def fused_agg_kernel(x_ptr, mask_ptr, p_ptr, prev_ptr, op_ptr, out_ptr,
                          m, n, m_f,
                          BLOCK_M: tl.constexpr, BLOCK_N: tl.constexpr):
-        b = tl.program_id(0).to(tl.int64)
-        offs_n = tl.program_id(1) * BLOCK_N + tl.arange(0, BLOCK_N)
+        b = tl.program_id(1).to(tl.int64)
+        offs_n = tl.program_id(0).to(tl.int64) * BLOCK_N + tl.arange(0, BLOCK_N)
         n_ok = offs_n < n
         prev = tl.load(prev_ptr + b * n + offs_n, mask=n_ok, other=0.0)
         op = tl.load(op_ptr + b)
@@ -128,23 +132,13 @@ def _launch(x, mask, op, prev, p) -> torch.Tensor:
     _check("op", op, (B,), (torch.int32,))
     _check("p", p, (B, m), (torch.float32,))
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
-    grid = (B, -(-n // BLOCK_N))
+    grid = (-(-n // BLOCK_N), B)
     with torch.cuda.device(x.device):
         _kernel()[grid](
             x, mask, p, prev, op, out, m, n, float(m),
             BLOCK_M=BLOCK_M, BLOCK_N=BLOCK_N, num_warps=NUM_WARPS)
     fused_masked_agg.launches += 1
     return out
-
-
-def resolve_backend(x: torch.Tensor) -> str:
-    """``"triton"`` (the kernel) for a CUDA tensor, ``"torch"`` (the plain
-    version) for a CPU tensor; any other device raises."""
-    if x.is_cuda:
-        return "triton"
-    if x.device.type == "cpu":
-        return "torch"
-    raise ValueError(f"no aggregation backend for tensors on {x.device}")
 
 
 def fused_masked_agg(x: torch.Tensor, mask: torch.Tensor, op: torch.Tensor,

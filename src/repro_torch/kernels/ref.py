@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (port of ``repro.kernels.ref``).
 
-They define what the Triton kernel in ``repro_torch.kernels.masked_agg``
-computes. The kernel's wrapper runs them for CPU tensors only, the CPU
-tests hold them against the JAX package, and ``chip_smoke.py`` holds the
-kernel against them on the card.
+They define what the kernels compute: the Triton kernel in
+``repro_torch.kernels.masked_agg`` and the CUDA flash attention in
+``repro_torch.kernels.flash_attention``. The CPU tests hold them against
+the JAX package, and ``chip_smoke.py`` holds the kernels against them on
+the card.
 """
 from __future__ import annotations
 
@@ -61,3 +62,27 @@ def fused_masked_agg_ref(x: torch.Tensor, mask: torch.Tensor,
     op = torch.as_tensor(op, device=x.device).reshape(-1, 1)
     return torch.where(op == OP_MEAN, mean_out,
                        torch.where(op == OP_ALL, all_out, kp_out))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        logit_softcap: float = 0.0) -> torch.Tensor:
+    """Naive softmax attention over ``[..., T, D]`` (same head count; any
+    leading axes, ``[B, H]`` in the reference): fp32 scores ``(q k^T)
+    D^-1/2``, optional ``cap tanh(s / cap)``, the causal and window masks
+    by ``where(allow, s, -1e30)``, a full softmax, the output cast to
+    ``q.dtype``. Differentiable: its autograd is the backward kernel's
+    yardstick."""
+    t, d = q.shape[-2:]
+    s = (q.float() @ k.float().transpose(-1, -2)) * (d ** -0.5)
+    if logit_softcap:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    qp = torch.arange(t, device=q.device)
+    allow = torch.ones((t, t), dtype=torch.bool, device=q.device)
+    if causal:
+        allow &= qp[:, None] >= qp[None, :]
+    if window:
+        allow &= qp[:, None] - qp[None, :] < window
+    s = torch.where(allow, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return (p @ v.float()).to(q.dtype)

@@ -1,0 +1,89 @@
+// A CPU stand-in for the CUDA runtime features that
+// src/repro_torch/kernels/csrc/flash_attention.cu uses, so that its kernels
+// run on the host in tests/test_torch_flash_emulated.py: one std::thread per
+// CUDA thread, the blocks of a launch one after another, __syncthreads a
+// barrier of the block, warp shuffles through a per-warp buffer. It checks
+// the kernels' indexing and arithmetic, not their speed or their use of the
+// card's memory model.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__
+struct float4 { float x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 gridDim;
+typedef int cudaError_t;
+const int cudaSuccess = 0;
+typedef struct CUstream_st* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+// the card's limit on a block's shared memory (232,448 bytes on Hopper)
+template <class T>
+cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int bytes) {
+  return bytes <= 232448 ? 0 : 1;
+}
+inline cudaError_t cudaGetLastError() { return 0; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+inline float fmaxf(float a, float b) { return a > b ? a : b; }
+
+inline float* emu_smem = nullptr;
+inline std::barrier<>* emu_block = nullptr;
+inline std::vector<std::barrier<>*> emu_warp;
+inline float emu_lanes[32][32];
+
+inline void __syncthreads() { emu_block->arrive_and_wait(); }
+
+inline float __shfl_xor_sync(unsigned, float x, int off) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_lanes[w][l] = x;
+  emu_warp[w]->arrive_and_wait();
+  const float y = emu_lanes[w][l ^ off];
+  emu_warp[w]->arrive_and_wait();
+  return y;
+}
+
+// kernel<<<grid, threads, bytes, stream>>>(args...) on the host; shared
+// memory starts as NaN so that a read before a write shows up
+template <class F, class... A>
+void emu_launch(F kernel, dim3 grid, int threads, int bytes, cudaStream_t,
+                A... args) {
+  gridDim = grid;
+  std::vector<float> smem(bytes / 4 + 4);
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::fill(smem.begin(), smem.end(), std::nanf(""));
+      emu_smem = smem.data();
+      std::barrier<> block(threads);
+      emu_block = &block;
+      std::vector<std::barrier<>*> warps;
+      for (int w = 0; w < threads / 32; ++w)
+        warps.push_back(new std::barrier<>(32));
+      emu_warp = warps;
+      std::vector<std::thread> pool;
+      for (int t = 0; t < threads; ++t)
+        pool.emplace_back([&, t] {
+          threadIdx = dim3(t);
+          blockIdx = dim3(bx, by);
+          kernel(args...);
+        });
+      for (auto& th : pool) th.join();
+      for (auto* w : warps) delete w;
+    }
+}

@@ -1,0 +1,126 @@
+"""The port's kernels on the card, against their plain versions. Every test
+here is ``gpu``-marked and skips without CUDA.
+
+This file imports neither JAX nor the reference package, so it also runs
+on the machine with the card, where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q -p no:cacheprovider --noconftest \\
+        -m gpu tests/test_torch_gpu.py
+
+Tolerances: the flash-attention kernels vs the plain version and its
+autograd, fp32 atol and rtol 2e-3 (the reference's kernel tolerance: an
+online softmax in tiles vs a full one), bf16 atol 1e-2 and rtol 3e-2 (the
+reference's rtol; the atol as in ``chip_smoke.py``, from the measured
+errors); the aggregation kernel 1e-5
+(fp32 sums over 3 terms in another order); the LM loss and its gradient
+through the kernel vs the plain attention, bf16 5e-2 relative to the
+largest gradient (bf16 activations rounded at other places).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import masked_agg as tmasked  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+
+# the shapes of tests/test_kernels.py::test_flash_attention_sweep, then a
+# ragged T at D = 32 and a bf16 window with softcap
+FLASH_CASES = [
+    (2, 2, 256, 64, 0, 0.0, "float32"),
+    (1, 3, 256, 128, 0, 0.0, "float32"),
+    (1, 2, 256, 64, 128, 0.0, "float32"),
+    (1, 2, 128, 64, 0, 50.0, "float32"),
+    (1, 2, 256, 64, 0, 0.0, "bfloat16"),
+    (2, 3, 200, 32, 0, 0.0, "float32"),
+    (1, 2, 192, 64, 70, 5.0, "bfloat16"),
+    (3, 2, 80, 16, 0, 0.0, "float32"),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d,win,cap,dtype", FLASH_CASES)
+def test_flash_kernels_match_plain_version(cuda, b, h, t, d, win, cap,
+                                           dtype):
+    """Forward and dq/dk/dv of the CUDA kernels vs the plain version and
+    its autograd; one forward and two backward launches."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(t + d)
+    q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=cuda).to(dt)
+                  for _ in range(4))
+    counts = [f.launches for f in (tflash.flash_attention_fwd,
+                                   tflash.flash_attention_bwd_dq,
+                                   tflash.flash_attention_bwd_dkdv)]
+    ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tflash.flash_attention(*ts, window=win, logit_softcap=cap)
+    grads = torch.autograd.grad(out, ts, g)
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(
+        (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+         tflash.flash_attention_bwd_dkdv), counts)] == [1, 1, 1]
+    rs = [x.float().requires_grad_(True) for x in (q, k, v)]
+    ref = tref.flash_attention_ref(*rs, window=win, logit_softcap=cap)
+    ref_grads = torch.autograd.grad(ref, rs, g.float())
+    atol, rtol = (2e-3, 2e-3) if dtype == "float32" else (1e-2, 3e-2)
+    assert out.dtype == dt
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+    for got, want in zip(grads, ref_grads):
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_masked_agg_launches_past_the_grid_y_limit(cuda):
+    """n > 65,535 * BLOCK_N columns: the column blocks must sit on grid
+    axis 0 (CUDA's gridDim.y stops at 65,535; the LM's n = 134.5M needs
+    525,450 blocks)."""
+    n = 65_535 * tmasked.BLOCK_N + 3 * tmasked.BLOCK_N + 7
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(1, 3, n, generator=gen, device=cuda)
+    mask = torch.tensor([[True, False, True]], device=cuda)
+    prev = torch.randn(1, n, generator=gen, device=cuda)
+    p = torch.rand(1, 3, generator=gen, device=cuda)
+    for op in (0, 1, 2):
+        ops = torch.full((1,), op, dtype=torch.int32, device=cuda)
+        got = tmasked.fused_masked_agg(x, mask, ops, prev, p)
+        want = tref.fused_masked_agg_ref(x, mask, ops, prev, p)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_lm_loss_through_the_kernel_matches_plain_attention(cuda):
+    """The reduced LM (head dim 64) in bf16: the loss and its gradient with
+    the flash kernels vs with the plain chunked attention."""
+    cfg = dataclasses.replace(reduced(get_config("smollm-135m")),
+                              dtype="bfloat16")
+    flat = tmodel.init_params(
+        torch.Generator(device=cuda).manual_seed(0), cfg)[None, None]
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, 1, 2, 128)), device=cuda)
+    batch = {"tokens": toks, "labels": toks.roll(-1, -1)}
+    out = {}
+    for backend in ("kernel", "torch"):
+        loss = tmodel.make_loss(cfg, None if backend == "kernel" else backend)
+        before = tflash.flash_attention_fwd.launches
+        leaf = flat.clone().requires_grad_(True)
+        val = loss(leaf, batch)
+        (grad,) = torch.autograd.grad(val.sum(), leaf)
+        out[backend] = (val.float(), grad.float())
+        launched = tflash.flash_attention_fwd.launches - before
+        assert launched == (cfg.num_layers if backend == "kernel" else 0)
+    (lk, gk), (lp, gp) = out["kernel"], out["torch"]
+    torch.testing.assert_close(lk, lp, rtol=1e-2, atol=1e-2)
+    scale = gp.abs().max()
+    assert torch.isfinite(gk).all()
+    assert (gk - gp).abs().max() <= 5e-2 * scale
