@@ -48,6 +48,32 @@ plain path must launch no flash kernel, and the two server updates must
 lie within a relative distance of ``PATHS_TOL`` of each other, over all
 parameters and on each attention projection.
 
+Phase 7 holds the CUDA WKV6 chunk kernel (``csrc/rwkv6_chunk.cu``)
+against its plain chunked version, and against the step scan where the
+sequence is short, at the reference's kernel-test shapes, at strong decay
+(w in [1e-3, 0.1]: the kernel must stay finite), at T = 1 and a ragged T,
+and at the serving shapes: prefill ``[4, 40, 4096, 64]`` (T = 4096, the
+context of the published RWKV-6 World 3B checkpoints) and one decode step
+``[8, 40, 1, 64]`` (``WKV_TOL``). It times the kernel with CUDA-graph
+replays and the plain version with CUDA events, and computes the bound
+from the bytes the call must move and the flops the recurrence needs
+(``wkv_work``; bytes bound it at both shapes). No single
+PyTorch call computes WKV6, so its library time is null. Phase 8 drives the
+serving slice at full width (RWKV6-3B: 32 layers, d_model 2560, 40 heads of
+64, vocab 65,536, bf16): (a) ``forward`` on ``[4, 4096]`` tokens, finite
+logits, tokens/s and peak memory; (b) ``repro_torch.launch.serve --full
+--arch rwkv6-3b --batch 8 --prompt-len 128 --gen 64``, its ids, tokens/s
+and peak memory; the kernel must launch 32 times per forward and
+32 x (128 + 64) times per serve run; (c) ``forward`` at full width,
+2 layers, ``[4, 512]``, in bf16 and in fp32, through the kernel and with
+``backend="torch"`` (0 launches), the logits within ``RWKV_PATHS_TOL``.
+Phase 8 also profiles one forward and a short serve run (16 + 16 steps)
+under ``torch.profiler``: device time by kernel family, kernels and
+operator calls per step, and the device's idle share.
+
+Both CUDA sources are built at the start, one ``nvcc`` each, started
+together while phase 1 builds and checks the Triton kernel.
+
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -102,6 +128,28 @@ FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (1e-2, 3e-2)}
 # step, so a rounding flip decides whether an element moves); a zero dQ, dK
 # or dV reads 1.0 on wq, wk or wv.
 PATHS_TOL = 0.3
+# the WKV6 kernel (phase 7): (b, h, t, d, decay) at the reference's
+# kernel-test shapes (tests/test_kernels.py), strong decay, ragged T, T = 1,
+# then the serving shapes, prefill and one decode step
+WKV_SHAPES = [(1, 1, 64, 64, "ref"), (2, 2, 128, 64, "ref"),
+              (1, 2, 256, 128, "ref"), (1, 1, 192, 64, "ref"),
+              (2, 4, 256, 64, "strong"), (3, 2, 100, 64, "ref"),
+              (2, 4, 1, 128, "ref")]
+WKV_PREFILL = (4, 40, 4096, 64, "ref")
+WKV_DECODE = (8, 40, 1, 64, "ref")
+# kernel vs plain chunked version (and the step scan): fp32 atol = rtol,
+# the reference's kernel tolerance 3e-3 cut to 1e-3 (7.6e-6 measured on the
+# card, 1.2e-5 by the emulated build of the same source)
+WKV_TOL = 1e-3
+# the serving slice (phase 8): RWKV6-3B at full width
+RWKV_LAYERS, PREFILL_B, PREFILL_T = 32, 4, 4096
+SERVE_B, SERVE_P, SERVE_G = 8, 128, 64
+PROFILE_P, PROFILE_G = 16, 16       # the profiled serve window's steps
+# kernel vs plain forward (full width, 2 layers, T = 512): max |logit
+# difference| / max |logit|. bf16: a few bf16 steps (2^-8 = 3.9e-3), where
+# the fp32 WKV output rounds to bf16 differently (7.7e-3 measured); fp32:
+# the WKV outputs' ~1e-6 relative differences carried through 2 layers
+RWKV_PATHS_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def fail(msg):
@@ -387,22 +435,27 @@ def _attention_pairs(t, window):
     return int(np.minimum(q + 1, window if window else t).sum())
 
 
-def phase4_flash(torch, fa, ref, bw, bf16_peak):
-    import torch.nn.functional as F
-
-    t0 = time.perf_counter()
-    fa._library()
-    print(f"phase4 nvcc build of {fa.SOURCE.name}: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+def print_ptxas(phase, log):
+    """Registers and spills of every kernel in an ``nvcc -Xptxas -v``
+    report (``build.compile_all``'s; for a cached build, the report kept
+    beside the library, under a line that says so)."""
     entry = None
-    for line in fa.BUILD_LOG.splitlines():
-        if "Compiling entry function" in line:
+    for line in log.splitlines():
+        if line.startswith("cached build"):
+            print(f"{phase} {line.rstrip(':')}", flush=True)
+        elif "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
         elif "Used" in line and "registers" in line and entry:
-            print(f"phase4 ptxas {entry}: {line.split(':', 1)[-1].strip()}",
+            print(f"{phase} ptxas {entry}: {line.split(':', 1)[-1].strip()}",
                   flush=True)
-        elif "spill" in line and "0 bytes spill stores" not in line:
-            print(f"phase4 ptxas {entry}: {line.strip()}", flush=True)
+        elif "spill" in line and entry:
+            print(f"{phase} ptxas {entry}: {line.strip()}", flush=True)
+
+
+def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
+    import torch.nn.functional as F
+
+    print_ptxas("phase4", build_log)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -607,7 +660,7 @@ def phase6_paths_agree(torch, train, fa):
             os.environ["REPRO_USE_KERNEL"] = agg
             for c in counters:
                 c.launches = 0
-            out = train.main(args, attention_backend=backend)
+            out = train.main(args, backend=backend)
             launches = [c.launches for c in counters]
             want = rounds * LM_STEPS * layers if path == "kernel" else 0
             print(f"phase6 {path} path: flash launches fwd/dq/dkdv "
@@ -645,6 +698,269 @@ def phase6_paths_agree(torch, train, fa):
     return rel
 
 
+def wkv_work(b, h, t, d):
+    """(bytes, flops) one WKV6 call needs: r, k, v, w read and o written
+    once (fp32), u, s0 read and S_T written once; the flops of the step
+    recurrence (``ref.rwkv6_chunk_ref``), per (b, h) and step 5 D^2 + 5 D:
+    r_t S (2 D^2), diag(w_t) S (D^2), S + k_t^T v_t (2 D^2) and the bonus
+    (r_t . (u * k_t)) v_t added to o_t (5 D). The chunked form the kernel
+    runs does more (pairwise scores, exponentials); that is its cost, not
+    the function's."""
+    nbytes = 4 * (5 * b * h * t * d + h * d + 2 * b * h * d * d)
+    return nbytes, b * h * t * (5 * d * d + 5 * d)
+
+
+def phase7_wkv(torch, rk, ref, bw, fp32_peak, build_log):
+    print_ptxas("phase7", build_log)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def inputs(b, h, t, d, decay):
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+
+        r, k, v = (0.5 * rand(b, h, t, d) for _ in range(3))
+        if decay == "ref":          # tests/test_kernels.py's decays
+            w = torch.exp(-torch.exp(-3.0 + 0.5 * rand(b, h, t, d)))
+        else:
+            w = 1e-3 + (0.1 - 1e-3) * torch.rand(b, h, t, d, generator=gen,
+                                                   device=dev)
+        return r, k, v, w, 0.3 * rand(h, d), 0.1 * rand(b, h, d, d)
+
+    errs = {}
+    for shape in WKV_SHAPES + [WKV_DECODE, WKV_PREFILL]:
+        ins = inputs(*shape)
+        o, s_t = rk.rwkv6_chunk(*ins)
+        torch.cuda.synchronize()
+        wants = {"plain": ref.rwkv6_chunk_plain(*ins)}
+        if shape[2] <= 256:
+            wants["step scan"] = ref.rwkv6_chunk_ref(*ins)
+        finite = bool(torch.isfinite(o).all() and torch.isfinite(s_t).all())
+        line, ok = [], finite
+        for name, (wo, ws) in wants.items():
+            e = max((o - wo).abs().max().item(), (s_t - ws).abs().max().item())
+            ok = ok and torch.allclose(o, wo, rtol=WKV_TOL, atol=WKV_TOL) \
+                and torch.allclose(s_t, ws, rtol=WKV_TOL, atol=WKV_TOL)
+            line.append(f"{name} {e:.3e}")
+            errs[shape] = max(errs.get(shape, 0.0), e)
+        print(f"phase7 wkv6 {list(shape)}: max_abs_err (o, S_T) vs "
+              + ", ".join(line) + f"; max|o| {o.abs().max().item():.3e}; "
+              f"finite {finite}; tol {WKV_TOL:g} {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"the WKV6 kernel disagrees with its plain version at "
+                 f"{shape}")
+        del ins, o, s_t, wants
+    torch.cuda.empty_cache()
+
+    out = {}
+    for key, shape in (("prefill", WKV_PREFILL), ("decode", WKV_DECODE)):
+        ins = inputs(*shape)
+        ms = time_ms(lambda: rk.rwkv6_chunk(*ins), iters=20)
+        plain_ms = time_ms_events(lambda: ref.rwkv6_chunk_plain(*ins),
+                                  iters=3)
+        nbytes, flops = wkv_work(*shape[:4])
+        bound_ms = max(nbytes / bw, flops / fp32_peak) * 1e3
+        by = "operations" if flops / fp32_peak > nbytes / bw else "bytes"
+        print(f"phase7 timing wkv6 {key} {list(shape[:4])} fp32: kernel "
+              f"{ms:.5f} ms, plain {plain_ms:.5f} ms, library none (no "
+              f"single PyTorch call computes WKV6), bound {bound_ms:.5f} ms "
+              f"by {by} ({nbytes} bytes at {bw / 1e12:g} TB/s; {flops:.4e} "
+              f"flop at {fp32_peak / 1e12:g} TFLOP/s fp32), "
+              f"{nbytes / ms / 1e6:.1f} GB/s achieved", flush=True)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=by, bytes=nbytes, flops=flops,
+                        max_abs_err=errs[shape], shape=list(shape[:4]))
+        del ins
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family(name):
+    """A device kernel's family, for the profiles of phase 8."""
+    n = name.lower()
+    if "wkv6_fwd" in n:
+        return "wkv6_fwd (CUDA)"
+    if "gemm" in n or "gemv" in n or "sm90" in n or "cutlass" in n \
+            or "nvjet" in n:
+        return "matrix products (cuBLAS)"
+    if "index" in n or "gather" in n or "embedding" in n:
+        return "gather / index"
+    if "memcpy" in n or "memset" in n:
+        return "copies / fills"
+    return "elementwise / reductions"
+
+
+def profile_window(torch, label, fn, per, unit):
+    """``fn`` once under ``torch.profiler`` (CPU and CUDA activities):
+    wall and device kernel time per ``unit`` (``per`` of them in one call),
+    the device's idle share (1 - kernel time / wall time; the kernels run
+    on one stream), kernels and ``aten`` operator calls per unit, and the
+    device time per unit by kernel family."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_family, device_us, kernels, aten = {}, 0.0, 0, 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            aten += ev.count if ev.key.startswith("aten::") else 0
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        fam = _family(ev.key)
+        by_family[fam] = by_family.get(fam, 0.0) + us
+        device_us += us
+        kernels += ev.count
+    out = {f"wall_ms_per_{unit}": 1e3 * wall / per,
+           f"device_ms_per_{unit}": device_us / 1e3 / per,
+           "device_idle_share": 1.0 - device_us / 1e6 / wall,
+           f"kernels_per_{unit}": kernels / per,
+           f"aten_calls_per_{unit}": aten / per,
+           f"device_ms_per_{unit}_by_family": {
+               k: v / 1e3 / per for k, v in sorted(
+                   by_family.items(), key=lambda kv: -kv[1])}}
+    print(f"{label} profiled (torch.profiler): " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def phase8_serving(torch, rk, card):
+    """(a) forward of RWKV6-3B at full width on [4, 4096]; (b) the serving
+    launcher; (c) the kernel vs the plain forward at 2 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import set_fp32_matmul_precision
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    set_fp32_matmul_precision()
+    cfg = get_config("rwkv6-3b")
+    dev = torch.device("cuda")
+    params = model.init_leaves(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    n_params = sum(p.numel() for p in params.values())
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_T),
+                         generator=torch.Generator().manual_seed(1)
+                         ).to(dev)
+    res = {"params": n_params}
+    for run in ("first", "second"):
+        rk.rwkv6_chunk.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = model.forward(params, cfg, toks)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = rk.rwkv6_chunk.launches
+        finite = bool(torch.isfinite(logits).all())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"phase8a forward rwkv6-3b full width ({n_params} params, "
+              f"bf16) on [{PREFILL_B}, {PREFILL_T}], {run} call: "
+              f"{seconds:.4f} s = {PREFILL_B * PREFILL_T / seconds:.1f} "
+              f"tokens/s; logits {tuple(logits.shape)} {logits.dtype} "
+              f"finite {finite}; wkv6 launches {launches} (want "
+              f"{RWKV_LAYERS}); peak memory {peak:.2f} GiB on {card}",
+              flush=True)
+        if not finite or tuple(logits.shape) != (PREFILL_B, PREFILL_T,
+                                                 cfg.vocab_size):
+            fail("the RWKV6 forward's logits are not finite or misshapen")
+        if launches != RWKV_LAYERS:
+            fail(f"forward launched the WKV6 kernel {launches} times, "
+                 f"expected {RWKV_LAYERS}")
+        res[f"forward_{run}_s"] = seconds
+        res["forward_tokens_per_s"] = PREFILL_B * PREFILL_T / seconds
+        res["forward_peak_gib"] = peak
+        del logits
+
+    def forward():
+        with torch.no_grad():
+            model.forward(params, cfg, toks)
+
+    steps = PROFILE_P + PROFILE_G
+    res["forward_profile"] = profile_window(torch, "phase8a forward",
+                                            forward, 1, "call")
+    res["serve_profile"] = profile_window(
+        torch, f"phase8b serve (batch {SERVE_B}, prompt {PROFILE_P}, gen "
+        f"{PROFILE_G})", lambda: serve.main(
+            ["--full", "--arch", "rwkv6-3b", "--batch", str(SERVE_B),
+             "--prompt-len", str(PROFILE_P), "--gen", str(PROFILE_G)],
+            params=params), steps, "step")
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rk.rwkv6_chunk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(["--full", "--arch", "rwkv6-3b", "--batch",
+                      str(SERVE_B), "--prompt-len", str(SERVE_P), "--gen",
+                      str(SERVE_G)])
+    launches = rk.rwkv6_chunk.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = RWKV_LAYERS * (SERVE_P + SERVE_G)
+    decode_s = out["seconds"] - out["prefill_seconds"]
+    print(f"phase8b serve rwkv6-3b --full batch {SERVE_B} prompt "
+          f"{SERVE_P} gen {SERVE_G}: {out['seconds']:.4f} s = "
+          f"{out['tokens_per_s']:.1f} tokens/s incl. prefill (prefill "
+          f"{out['prefill_seconds']:.4f} s, decode "
+          f"{SERVE_B * SERVE_G / decode_s:.1f} tokens/s, "
+          f"{1e3 * out['seconds'] / (SERVE_P + SERVE_G):.3f} ms per step); "
+          f"first ids {out['ids'][0][:12].tolist()}; wkv6 launches "
+          f"{launches} (want {want}); peak memory {peak:.2f} GiB", flush=True)
+    if launches != want:
+        fail(f"serving launched the WKV6 kernel {launches} times, expected "
+             f"{want}")
+    if tuple(out["ids"].shape) != (SERVE_B, SERVE_G) or not (
+            (out["ids"] >= 0) & (out["ids"] < cfg.vocab_size)).all():
+        fail("the served ids are misshapen or out of the vocabulary")
+    res.update(serve_s=out["seconds"], serve_tokens_per_s=out["tokens_per_s"],
+               serve_prefill_s=out["prefill_seconds"], serve_peak_gib=peak,
+               serve_launches=launches, first_ids=out["ids"][0][:12].tolist())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, 512),
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+    for dtype, tol in RWKV_PATHS_TOL.items():
+        short = dataclasses.replace(cfg, num_layers=2, dtype=dtype)
+        params = model.init_leaves(
+            torch.Generator(device=dev).manual_seed(0), short)
+        got = {}
+        for path, backend in (("kernel", None), ("plain", "torch")):
+            rk.rwkv6_chunk.launches = 0
+            with torch.no_grad():
+                got[path], _ = model.forward(params, short, toks,
+                                             backend=backend)
+            want = 2 if path == "kernel" else 0
+            print(f"phase8c {dtype} {path} path: wkv6 launches "
+                  f"{rk.rwkv6_chunk.launches} (want {want})", flush=True)
+            if rk.rwkv6_chunk.launches != want:
+                fail(f"the {path} forward launched the WKV6 kernel "
+                     f"{rk.rwkv6_chunk.launches} times, expected {want}")
+        diff = (got["kernel"] - got["plain"]).abs().max().item()
+        scale = got["plain"].abs().max().item()
+        same = (got["kernel"].argmax(-1) == got["plain"].argmax(-1)).float()
+        print(f"phase8c kernel vs plain forward, full width, 2 layers, "
+              f"{dtype}, [{PREFILL_B}, 512]: max |logit diff| {diff:.3e} / "
+              f"max |logit| {scale:.3e} = {diff / scale:.3e} (limit "
+              f"{tol:g}); argmax equal at {same.mean().item():.4f} of "
+              f"positions", flush=True)
+        if not diff / scale <= tol:
+            fail(f"the RWKV6 kernel and plain forwards diverge ({dtype})")
+        res[f"paths_rel_diff_{dtype}"] = diff / scale
+        del params, got
+        torch.cuda.empty_cache()
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -664,23 +980,37 @@ def main():
               file=sys.stderr)
         return 3
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.experiments import grid
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import masked_agg as masked
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_chunk as rk
     from repro_torch.launch import train
 
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} ({card})", flush=True)
-    bw, _, bf16_peak = peak_rates(torch.cuda.get_device_name(0))
+    bw, fp32_peak, bf16_peak = peak_rates(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    k = phase1_kernel(torch, masked, ref)
+    # both CUDA sources build (one nvcc each) while phase 1 builds the
+    # Triton kernel
+    with ThreadPoolExecutor(1) as pool:
+        nvcc = pool.submit(build.compile_all, [fa.SOURCE, rk.SOURCE])
+        k = phase1_kernel(torch, masked, ref)
+        logs = nvcc.result()
+    print(f"nvcc builds of {fa.SOURCE.name} and {rk.SOURCE.name} (in "
+          f"parallel, beside phase 1) done at {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
     spec, launches, rounds_per_s = phase2_main_path(torch, masked, grid)
     phase3_paths_agree(torch, grid, spec)
-    f = phase4_flash(torch, fa, ref, bw, bf16_peak)
+    f = phase4_flash(torch, fa, ref, bw, bf16_peak, logs[fa.SOURCE.name])
     lm = phase5_slice(torch, train, fa, masked, card)
     paths_err = phase6_paths_agree(torch, train, fa)
+    wkv = phase7_wkv(torch, rk, ref, bw, fp32_peak, logs[rk.SOURCE.name])
+    rwkv = phase8_serving(torch, rk, card)
     kernel = {"name": "fused_masked_agg", "route": "triton",
               "source": "src/repro_torch/kernels/masked_agg.py",
               "replaces": "src/repro/kernels/masked_agg.py:180 "
@@ -716,6 +1046,18 @@ def main():
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err
+    w = wkv["prefill"]
+    kernels.append({
+        "name": "rwkv6_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
+        "replaces": "src/repro/kernels/rwkv6_chunk.py:73 "
+                    "(rwkv6_chunk -> _kernel)",
+        "launches": rwkv["serve_launches"],
+        "max_abs_err": max(x["max_abs_err"] for x in wkv.values()),
+        "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"], "library_ms": None,
+        "flops": w["flops"], "bytes": w["bytes"], "shape": w["shape"],
+        "decode": wkv["decode"], "rwkv_slice": rwkv})
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

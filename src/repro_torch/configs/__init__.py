@@ -1,13 +1,15 @@
 """Configurations (port of ``repro.configs``): ``FederationConfig``, the
-dense family's ``ModelConfig`` and ``get_config`` / ``reduced``."""
+dense and RWKV families' ``ModelConfig`` and ``get_config`` /
+``reduced``."""
 from repro_torch.configs.base import (
     ARCH_IDS,
     AttentionConfig,
     FederationConfig,
     ModelConfig,
+    RWKVConfig,
     get_config,
     reduced,
 )
 
 __all__ = ["ARCH_IDS", "AttentionConfig", "FederationConfig", "ModelConfig",
-           "get_config", "reduced"]
+           "RWKVConfig", "get_config", "reduced"]

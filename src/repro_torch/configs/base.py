@@ -1,20 +1,31 @@
 """Config system (own copy of ``repro.configs.base``): the model and
 federation configurations.
 
-Only the dense family is ported so far. ``get_config(name)`` resolves an
-arch id like ``"smollm-135m"``; the reference's other ids raise
-``NotImplementedError`` until the model zoo is ported (ROADMAP Queue 1
-item 7). ``reduced(cfg)`` produces the CPU-smoke variant of the same
-family (2 layers, d_model <= 512), as in the reference.
+The dense family and RWKV6 (family ``"ssm"``) are ported so far.
+``get_config(name)`` resolves an arch id like ``"smollm-135m"`` or
+``"rwkv6-3b"``; the reference's other ids raise ``NotImplementedError``
+until the rest of the model zoo is ported (ROADMAP Queue 1 item 7).
+``reduced(cfg)`` produces the CPU-smoke variant of the same family
+(2 layers, d_model <= 512), as in the reference.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, field, replace
+from typing import Optional
 
 # ---------------------------------------------------------------------------
 # Model configuration
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV6 'Finch' data-dependent decay linear attention."""
+
+    head_dim: int = 64
+    decay_lora: int = 64
+    token_shift: bool = True
 
 
 @dataclass(frozen=True)
@@ -33,16 +44,18 @@ class AttentionConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The dense family's fields of the reference ``ModelConfig`` (the
-    MoE / SSM / RWKV / VLM / audio fields wait for the model zoo)."""
+    """The dense and RWKV fields of the reference ``ModelConfig`` (the
+    MoE / Mamba / VLM / audio fields wait for the model zoo)."""
 
     name: str = "model"
+    # family: 'dense' | 'ssm' (rwkv6); the reference's others are not ported
     family: str = "dense"
     num_layers: int = 4
     d_model: int = 256
     d_ff: int = 1024
     vocab_size: int = 32000
     attention: AttentionConfig = field(default_factory=AttentionConfig)
+    rwkv: Optional[RWKVConfig] = None
     tie_embeddings: bool = False
     gated_mlp: bool = True  # SwiGLU (3 mats) vs classic MLP (2 mats, granite)
     norm_eps: float = 1e-6
@@ -64,10 +77,24 @@ class ModelConfig:
         attn = (d * hd * a.num_heads + 2 * d * hd * a.num_kv_heads
                 + hd * a.num_heads * d)
         ffn = (3 if self.gated_mlp else 2) * d * f
-        total = self.num_layers * (2 * d + attn + ffn) + v * d + d
+        if self.layer_kind(0) == "rwkv":
+            # r, k, v, g, o time-mix projections, the decay LoRA, and the
+            # channel mix's r, k, v (the reference's count: the mixes,
+            # decay base, bonus and ln_x vectors are left out)
+            layer = (2 * d + 5 * d * d
+                     + 2 * d * (self.rwkv.decay_lora if self.rwkv else 64)
+                     + d * d + 2 * d * f)
+        else:
+            layer = 2 * d + attn + ffn
+        total = self.num_layers * layer + v * d + d
         if not self.tie_embeddings:
             total += v * d
         return total
+
+    def layer_kind(self, i: int) -> str:
+        """'rwkv' or 'attn' for layer i (the reference's other kinds
+        belong to families not ported)."""
+        return "rwkv" if self.family == "ssm" else "attn"
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +138,7 @@ ARCH_IDS = (
 )
 
 # the arch ids whose config module is ported
-PORTED = ("smollm-135m",)
+PORTED = ("smollm-135m", "rwkv6-3b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -127,8 +154,9 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig, d_model: int = 256, layers: int = 2) -> ModelConfig:
     """Reduced smoke-test variant of the same family: the reference's
-    ``reduced`` for the dense fields (<= 4 heads, d_ff = 2 d_model,
-    vocab 512, window <= 64)."""
+    ``reduced`` for the dense and RWKV fields (<= 4 heads, d_ff =
+    2 d_model, vocab 512, window <= 64; RWKV head_dim d_model / heads,
+    decay LoRA 16)."""
     a = cfg.attention
     heads = max(2, min(4, a.num_heads))
     kv = max(1, min(heads, a.num_kv_heads if a.num_kv_heads < a.num_heads
@@ -137,5 +165,9 @@ def reduced(cfg: ModelConfig, d_model: int = 256, layers: int = 2) -> ModelConfi
         kv -= 1
     att = replace(a, num_heads=heads, num_kv_heads=kv,
                   head_dim=d_model // heads, window=min(a.window, 64))
+    kw = {}
+    if cfg.rwkv:
+        kw["rwkv"] = replace(cfg.rwkv, head_dim=d_model // heads,
+                             decay_lora=16)
     return replace(cfg, num_layers=layers, d_model=d_model,
-                   d_ff=2 * d_model, vocab_size=512, attention=att)
+                   d_ff=2 * d_model, vocab_size=512, attention=att, **kw)

@@ -11,6 +11,11 @@ module needs neither JAX nor the reference package:
 - ``lm_params_from_jax(np_params, cfg)``: the same for an LM at its
   ``ModelConfig`` (its layout and dtype; the tied embedding is the one
   ``embed`` leaf);
+- ``lm_leaves_from_jax(np_params, cfg)``: an LM's params as named tensors,
+  each in its dtype, for any ported family: the reference's RWKV6 tree
+  (``blocks[i]["tmix"][...]``, with the channel mix's leaves inside
+  ``tmix``) lands on ``blocks.{i}.tmix.wr`` and so on, and its fp32 leaves
+  (``decay_base``, ``bonus_u``, ``ln_x``) stay fp32 in a bf16 model;
 - ``fed_state_from_jax(np_state, layout, scheme)``: a reference ``FedState``
   (an object with its fields, numpy leaves, leading ``[B]`` axis on every
   leaf, e.g. from a vmapped init) -> the port's ``FedState``, so a test can
@@ -61,6 +66,17 @@ def lm_params_from_jax(np_params, cfg, device=None) -> torch.Tensor:
 
     return params_from_jax(np_params, param_layout(cfg), device,
                            dtype_of(cfg))
+
+
+def lm_leaves_from_jax(np_params, cfg, device=None) -> Dict[str, torch.Tensor]:
+    """The reference LM's params (numpy leaves) -> the port's named leaves
+    (``repro_torch.models.model.Params``), ``cfg.dtype`` but for the
+    layout's fp32 leaves, which are carried across bit for bit."""
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.model import param_layout
+
+    return param_layout(cfg).tensors(flatten_tree(np_params), device=device,
+                                     dtype=dtype_of(cfg))
 
 
 def _t(x, device, dtype=None):

@@ -7,11 +7,17 @@ writes one buffer and the server update is one kernel launch over it. A
 ``ParamLayout`` names the leaves: each is a view into the buffer with the
 reference's shape (``w1 [dim, hidden]`` stays ``[dim, hidden]``), in the
 order the layout lists them.
+
+Some leaves keep fp32 whatever the model's dtype (``ParamLayout.fp32``:
+RWKV6's decay base, bonus and ``ln_x``, as in the reference). One buffer of
+one dtype cannot hold them, so such a model is held leaf by leaf
+(``ParamLayout.tensors``: a dict of named tensors, each in its own dtype);
+``flatten`` refuses to round them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple
+from typing import Dict, FrozenSet, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +26,11 @@ import torch
 @dataclass(frozen=True)
 class ParamLayout:
     leaves: Tuple[Tuple[str, Tuple[int, ...]], ...]   # (name, shape) in order
+    fp32: FrozenSet[str] = frozenset()   # leaves kept in fp32 in any model
+
+    def dtype_of(self, name: str, dtype: torch.dtype) -> torch.dtype:
+        """A leaf's dtype in a model of ``dtype``."""
+        return torch.float32 if name in self.fp32 else dtype
 
     @property
     def size(self) -> int:
@@ -50,13 +61,13 @@ class ParamLayout:
         return dict(zip([name for name, _ in self.leaves],
                         _Unflatten.apply(flat, self)))
 
-    def flatten(self, tree: Mapping[str, object], lead: Tuple[int, ...] = (),
-                device=None, dtype=torch.float32) -> torch.Tensor:
+    def tensors(self, tree: Mapping[str, object], lead: Tuple[int, ...] = (),
+                device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
         """Leaves (numpy, bf16 numpy included, or tensors, each
-        ``[*lead, *shape]``) -> one contiguous ``[*lead, n]`` buffer of
-        ``dtype``, in layout order."""
-        parts = []
-        for name, shape, _, _ in self.spans():
+        ``[*lead, *shape]``) -> named tensors in layout order, each in its
+        dtype (``dtype``, or fp32 for the ``fp32`` leaves)."""
+        out = {}
+        for name, shape in self.leaves:
             leaf = tree[name]
             if not isinstance(leaf, torch.Tensor):
                 leaf = np.asarray(leaf)
@@ -66,7 +77,21 @@ class ParamLayout:
             if tuple(leaf.shape) != tuple(lead) + tuple(shape):
                 raise ValueError(f"leaf {name!r}: shape {tuple(leaf.shape)}, "
                                  f"expected {tuple(lead) + tuple(shape)}")
-            parts.append(leaf.reshape(tuple(lead) + (-1,)).to(dtype))
+            out[name] = leaf.to(device=device,
+                                dtype=self.dtype_of(name, dtype))
+        return out
+
+    def flatten(self, tree: Mapping[str, object], lead: Tuple[int, ...] = (),
+                device=None, dtype=torch.float32) -> torch.Tensor:
+        """Leaves (as for :meth:`tensors`) -> one contiguous ``[*lead, n]``
+        buffer of ``dtype``, in layout order. Raises where that would round
+        an ``fp32`` leaf."""
+        if self.fp32 and dtype != torch.float32:
+            raise ValueError(f"a {dtype} buffer would round the fp32 leaves "
+                             f"{sorted(self.fp32)}; hold the model leaf by "
+                             "leaf (ParamLayout.tensors)")
+        parts = [leaf.reshape(tuple(lead) + (-1,)) for leaf in
+                 self.tensors(tree, lead, dtype=dtype).values()]
         return torch.cat(parts, -1).contiguous().to(device)
 
 

@@ -1,20 +1,21 @@
-"""Kernel dispatch for the fused aggregation and for attention (port of
-``repro.kernels.dispatch``).
+"""Kernel dispatch for the fused aggregation, attention and the WKV6
+recurrence (port of ``repro.kernels.dispatch``).
 
 The backend follows the tensor, never a guess (:func:`resolve_backend`,
-the one rule both kernel wrappers use):
+the one rule every kernel wrapper uses):
 
 - ``"kernel"`` — CUDA tensors: the hand-written kernel, always (Triton in
   ``repro_torch.kernels.masked_agg``, CUDA C++ behind
-  ``repro_torch.kernels.flash_attention``); there is no quiet fallback, so
-  a kernel that cannot launch raises.
+  ``repro_torch.kernels.flash_attention`` and
+  ``repro_torch.kernels.rwkv6_chunk``); there is no quiet fallback, so a
+  kernel that cannot launch raises.
 - ``"torch"`` — CPU tensors: the plain version
   (``repro_torch.kernels.ref``, ``repro_torch.models.attention``), which
   defines what the kernel computes.
 
-Attention takes the plain version on the card only when its caller passes
-``backend="torch"`` (the kernel-vs-plain comparisons do); no environment
-variable selects it.
+Attention and the WKV6 recurrence take the plain version on the card only
+when their caller passes ``backend="torch"`` (the kernel-vs-plain
+comparisons do); no environment variable selects it.
 
 Whether the engine uses the fused aggregation at all is the ``use_kernel``
 knob, threaded through ``AlgorithmSpec.aggregate`` -> ``make_round_fn`` ->
@@ -32,7 +33,8 @@ import torch
 from repro_torch.kernels.ref import OP_ALL, OP_KNOWN_P, OP_MEAN
 
 __all__ = ["BACKENDS", "FUSED_OPS", "attention", "fused_agg",
-           "resolve_backend", "resolve_use_kernel", "use_kernel_default"]
+           "resolve_backend", "resolve_use_kernel", "use_kernel_default",
+           "wkv6"]
 
 BACKENDS = ("kernel", "torch")
 
@@ -57,6 +59,20 @@ def resolve_backend(x: torch.Tensor) -> str:
     if x.device.type == "cpu":
         return "torch"
     raise ValueError(f"no kernel backend for tensors on {x.device}")
+
+
+def _backend(backend: Optional[str], x: torch.Tensor, what: str) -> str:
+    """An explicit ``backend`` argument checked, or ``None`` resolved from
+    the tensor (:func:`resolve_backend`)."""
+    if backend is None:
+        return resolve_backend(x)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown {what} backend {backend!r}; available: "
+                         f"{BACKENDS}")
+    if backend == "kernel" and not x.is_cuda:
+        raise ValueError(f"the {what} kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    return backend
 
 
 def use_kernel_default() -> bool:
@@ -107,14 +123,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as ref
 
-    if backend is None:
-        backend = resolve_backend(q)
-    elif backend not in BACKENDS:
-        raise ValueError(f"unknown attention backend {backend!r}; "
-                         f"available: {BACKENDS}")
-    elif backend == "kernel" and not q.is_cuda:
-        raise ValueError(f"the attention kernel takes CUDA tensors, got "
-                         f"{q.device}")
+    backend = _backend(backend, q, "attention")
     b, tq, h, d = q.shape
     tk = k.shape[1]
     kernel_ok = (kind in ("full", "swa") and q_offset == 0 and tq == tk
@@ -130,3 +139,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              window=window if kind == "swa" else 0,
                              logit_softcap=logit_softcap)
     return out.transpose(1, 2)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
+         backend: Optional[str] = None):
+    """Dispatched WKV6 recurrence in the kernel's layout: ``r, k, v, w
+    [B, H, T, D]`` fp32, ``u [H, D]``, ``s0 [B, H, D, D]`` -> ``(o
+    [B, H, T, D], S_T [B, H, D, D])``.
+
+    ``backend``: ``None`` follows the tensor (:func:`resolve_backend`: one
+    launch of the CUDA kernel for CUDA tensors, the plain chunked version
+    for CPU tensors); ``"torch"`` takes the plain version on the card too
+    (to compare the two paths); ``"kernel"`` insists on the kernel. Both
+    walk chunks of ``rwkv6_chunk.CHUNK`` steps.
+    """
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_chunk as rk
+
+    if _backend(backend, r, "wkv6") == "torch":
+        return ref.rwkv6_chunk_plain(r, k, v, w, u, s0, chunk=rk.CHUNK)
+    return rk.rwkv6_chunk(r, k, v, w, u, s0)

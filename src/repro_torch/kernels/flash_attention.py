@@ -20,31 +20,24 @@ raises. Head dims 16, 32, 64 and 128, fp32 or bf16, any ``T`` (ragged tiles are
 masked).
 
 Build: at first launch ``nvcc`` compiles the source for the card
-(``sm_90a`` on an H100) into ``build/cuda/`` at the repository root, a
-shared library with a plain C interface, loaded with ``ctypes``; the file
-name carries a hash of the source, so an edit rebuilds. ``BUILD_LOG`` keeps
-the compiler's report (``-Xptxas -v``: registers, shared memory, spills).
+(``sm_90a`` on an H100) into ``build/cuda/``, a shared library with a plain
+C interface loaded with ``ctypes`` (``repro_torch.kernels.build``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
 HEAD_DIMS = (16, 32, 64, 128)
-BUILD_LOG = ""
 
 __all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkdv"]
@@ -57,47 +50,10 @@ _SIGNATURES = {
 }
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, CUDA_HOME or "
-                           "/usr/local/cuda): the flash-attention kernel is "
-                           "built from source at first use")
-    return path
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (once per source version and card) and load the kernels."""
-    global BUILD_LOG
-    major, minor = torch.cuda.get_device_capability()
-    arch = f"{major}{minor}" + ("a" if (major, minor) == (9, 0) else "")
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + arch.encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"flash_attention_sm{arch}_{tag}.so"
-    if not lib_path.exists():
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", f"arch=compute_{arch},code=sm_{arch}",
-               "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-        out = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = out.stdout + out.stderr
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
-                               f"{BUILD_LOG}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return build.load(SOURCE, _SIGNATURES)
 
 
 def _check(name: str, t: torch.Tensor, q: torch.Tensor, shape=None,

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's kernels (port of ``repro.kernels.ref``).
 
 They define what the kernels compute: the Triton kernel in
-``repro_torch.kernels.masked_agg`` and the CUDA flash attention in
-``repro_torch.kernels.flash_attention``. The CPU tests hold them against
-the JAX package, and ``chip_smoke.py`` holds the kernels against them on
-the card.
+``repro_torch.kernels.masked_agg``, the CUDA flash attention in
+``repro_torch.kernels.flash_attention`` and the CUDA WKV6 chunk kernel in
+``repro_torch.kernels.rwkv6_chunk``. The CPU tests hold them against the
+JAX package, and ``chip_smoke.py`` holds the kernels against them on the
+card.
 """
 from __future__ import annotations
 
@@ -86,3 +87,59 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(allow, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return (p @ v.float()).to(q.dtype)
+
+
+def rwkv6_chunk_ref(r, k, v, w, u, s0):
+    """RWKV6 recurrence, step by step (the semantic ground truth).
+
+    r, k, v, w: ``[B, H, T, D]``; u: ``[H, D]``; s0: ``[B, H, D, D]``
+    (``S[k_dim, v_dim]``). Returns ``(o [B, H, T, D], s_T)``, fp32:
+      o_t = r_t @ S_{t-1} + (r_t . (u * k_t)) v_t
+      S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    """
+    s = s0.float()
+    u = u.float()
+    outs = []
+    for t in range(r.shape[2]):
+        rt, kt, vt, wt = (x[:, :, t].float() for x in (r, k, v, w))
+        o = torch.einsum("bhk,bhkv->bhv", rt, s)
+        outs.append(o + (rt * u * kt).sum(-1, keepdim=True) * vt)
+        s = wt[..., None] * s + kt[..., None] * vt[..., None, :]
+    return torch.stack(outs, 2), s
+
+
+def rwkv6_chunk_plain(r, k, v, w, u, s0, *, chunk: int = 64):
+    """The chunked WKV6 recurrence that the CUDA kernel computes, in torch
+    ops: the same inputs and outputs as :func:`rwkv6_chunk_ref`, any
+    ``T >= 1`` (the last chunk may be short; nothing is padded).
+
+    Per chunk, with ``q_inc = cumsum(log w)`` and ``q_exc`` its exclusive
+    prefix (both <= 0), every exponent is <= 0, so nothing overflows at
+    strong decay (the reference's ``k * exp(-q_inc)`` factorization does):
+      inter-chunk  o_t += (r_t * exp(q_exc_t)) @ S
+      intra-chunk  o_t += sum_{s<t} [sum_d r_t k_s exp(q_exc_t - q_inc_s)] v_s
+      bonus        o_t += (r_t . (u * k_t)) v_t
+      state        S <- diag(exp(q_inc_last)) S
+                        + (k * exp(q_inc_last - q_inc))^T v
+    The chunks run in a Python loop, so one chunk's ``[B, H, C, C, D]``
+    pairwise decays are the largest temporaries.
+    """
+    s = s0.float()
+    u = u.float()[None, :, None, :]                     # [1, H, 1, D]
+    outs = []
+    for t0 in range(0, r.shape[2], chunk):
+        rb, kb, vb, wb = (x[:, :, t0:t0 + chunk].float() for x in (r, k, v, w))
+        n = rb.shape[2]
+        q_inc = torch.cumsum(torch.log(wb.clamp_min(1e-12)), 2)
+        q_exc = torch.nn.functional.pad(q_inc[:, :, :-1], (0, 0, 1, 0))
+        o = (rb * torch.exp(q_exc)) @ s
+        below = torch.ones(n, n, dtype=torch.bool, device=rb.device).tril(-1)
+        expo = q_exc[:, :, :, None, :] - q_inc[:, :, None, :, :]  # [.., t, s, D]
+        decay = torch.exp(torch.where(below[:, :, None], expo, -torch.inf))
+        scores = (rb[:, :, :, None, :] * kb[:, :, None, :, :] * decay).sum(-1)
+        o = o + scores @ vb + (rb * u * kb).sum(-1, keepdim=True) * vb
+        outs.append(o)
+        total = q_inc[:, :, -1:, :]                       # [B, H, 1, D]
+        s = (torch.exp(total).transpose(-1, -2) * s
+             + (kb * torch.exp(total - q_inc)).transpose(-1, -2) @ vb)
+    return torch.cat(outs, 2), s

@@ -14,7 +14,7 @@ per-seed generators of ``repro_torch.experiments.sweep.seed_generators``
 reference's key offsets).
 
 Kernels on this path: attention runs the CUDA flash kernel, forward and
-backward, for CUDA tensors (``main(..., attention_backend="torch")`` runs
+backward, for CUDA tensors (``main(..., backend="torch")`` runs
 the plain chunked version instead, to compare the two paths);
 ``REPRO_USE_KERNEL=1`` routes the server update through the fused
 aggregation kernel, as the knob does for the port's sweep.
@@ -56,12 +56,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[List[str]] = None, *,
-         attention_backend: Optional[str] = None) -> Dict:
+         backend: Optional[str] = None) -> Dict:
     """Run the launcher; returns ``{"losses", "round_seconds",
     "log_rounds", "initial", "state"}``: every round's mean client loss,
     the wall clock at each log line (after the rounds up to
     ``log_rounds[i]``), a copy of the initial server params and the final
-    ``FedState``. ``attention_backend``: ``None`` (the kernel on the card)
+    ``FedState``. ``backend``: ``None`` (the kernel on the card)
     or ``"torch"`` (the plain attention), see
     ``repro_torch.kernels.dispatch.attention``."""
     args = parse_args(argv)
@@ -109,7 +109,7 @@ def main(argv: Optional[List[str]] = None, *,
     opt = sgd(paper_decay(args.lr))
     source = lm_source(num_clients=m, local_steps=args.local_steps,
                        batch=args.batch, seq=args.seq, vocab=cfg.vocab_size)
-    run_rounds = make_run_rounds(make_loss(cfg, attention_backend), opt,
+    run_rounds = make_run_rounds(make_loss(cfg, backend), opt,
                                  algo, link, fed, source,
                                  use_kernel=resolve_use_kernel(),
                                  device=dev)

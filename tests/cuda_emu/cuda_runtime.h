@@ -1,6 +1,7 @@
-// A CPU stand-in for the CUDA runtime features that
-// src/repro_torch/kernels/csrc/flash_attention.cu uses, so that its kernels
-// run on the host in tests/test_torch_flash_emulated.py: one std::thread per
+// A CPU stand-in for the CUDA runtime features that the kernels of
+// src/repro_torch/kernels/csrc/ use, so that they run on the host in
+// tests/test_torch_flash_emulated.py and tests/test_torch_rwkv_emulated.py
+// (built by tests/_cuda_emu.py): one std::thread per
 // CUDA thread, the blocks of a launch one after another, __syncthreads a
 // barrier of the block, warp shuffles through a per-warp buffer. It checks
 // the kernels' indexing and arithmetic, not their speed or their use of the
@@ -18,7 +19,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 struct float4 { float x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
@@ -42,6 +43,7 @@ inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
+inline float __expf(float x) { return std::exp(x); }
 
 inline float* emu_smem = nullptr;
 inline std::barrier<>* emu_block = nullptr;

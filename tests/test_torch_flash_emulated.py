@@ -1,8 +1,8 @@
 """The CUDA flash-attention kernels' own source, compiled for the host with
-``g++`` against a stand-in for the CUDA runtime (``tests/cuda_emu``: one
-thread per CUDA thread, a barrier for ``__syncthreads``, shuffles through
-a buffer) and called through the same C interface and ``ctypes``
-signatures as on the card. This checks the kernels' tiling, indexing,
+``g++`` against a stand-in for the CUDA runtime (``tests/_cuda_emu.py``
+and ``tests/cuda_emu``: one thread per CUDA thread, a barrier for
+``__syncthreads``, shuffles through a buffer) and called through the same
+C interface and ``ctypes`` signatures as on the card. This checks the kernels' tiling, indexing,
 masks and arithmetic on the CPU; whether they compile for ``sm_90a``, and
 their speed, only a card can show (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).
@@ -11,21 +11,13 @@ Tolerance vs the plain ``flash_attention_ref`` and its autograd: fp32 1e-5
 (the same fp32 arithmetic, summed in tiles); bf16 3e-2 (the reference's
 kernel tolerance: bf16 outputs).
 """
-import ctypes
-import pathlib
-import shutil
-import subprocess
-
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import _cuda_emu  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
-
-EMU = pathlib.Path(__file__).resolve().parent / "cuda_emu"
-LAUNCH = "Kernel<<<grid, NT, bytes, stream>>>(args...);"
-SHARED = "extern __shared__ __align__(16) float smem[];"
 
 CASES = [  # (bh, t, d, dtype, causal, window, softcap)
     (2, 128, 64, "float32", True, 0, 0.0),
@@ -42,26 +34,8 @@ CASES = [  # (bh, t, d, dtype, causal, window, softcap)
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("needs g++ to build the host stand-in of the kernels")
-    src = tflash.SOURCE.read_text()
-    assert LAUNCH in src and SHARED in src, "kernel source layout changed"
-    src = src.replace(LAUNCH, "emu_launch(Kernel, grid, NT, bytes, stream, "
-                              "args...);")
-    src = src.replace(SHARED, "float* smem = emu_smem;")
-    out = tmp_path_factory.mktemp("flash_emu")
-    (out / "flash_attention_emu.cpp").write_text(src)
-    lib = out / "libflash_attention_emu.so"
-    subprocess.run([cxx, "-std=c++20", "-O2", "-fno-strict-aliasing",
-                    "-pthread", "-shared", "-fPIC", "-w", f"-I{EMU}",
-                    str(out / "flash_attention_emu.cpp"), "-o", str(lib)],
-                   check=True, capture_output=True, timeout=300)
-    cdll = ctypes.CDLL(str(lib))
-    for name, argtypes in tflash._SIGNATURES.items():
-        getattr(cdll, name).argtypes = argtypes
-        getattr(cdll, name).restype = ctypes.c_int
-    return cdll
+    return _cuda_emu.build(tflash.SOURCE, tflash._SIGNATURES,
+                           tmp_path_factory.mktemp("flash_emu"))
 
 
 @pytest.mark.parametrize("bh,t,d,dtype,causal,window,cap", CASES)

@@ -14,7 +14,11 @@ reference's rtol; the atol as in ``chip_smoke.py``, from the measured
 errors); the aggregation kernel 1e-5
 (fp32 sums over 3 terms in another order); the LM loss and its gradient
 through the kernel vs the plain attention, bf16 5e-2 relative to the
-largest gradient (bf16 activations rounded at other places).
+largest gradient (bf16 activations rounded at other places); the WKV6
+kernel vs its plain chunked version and the step scan, fp32 atol and rtol
+1e-4 (as its emulated build; the reference's kernel tolerance is 3e-3),
+at the serving shapes 1e-3 (64 chunks of a 4096-step sequence, and
+``__expf`` on the card).
 """
 import dataclasses
 
@@ -27,6 +31,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import masked_agg as tmasked  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import rwkv6_chunk as trwkv  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 
 # the shapes of tests/test_kernels.py::test_flash_attention_sweep, then a
@@ -124,3 +129,81 @@ def test_lm_loss_through_the_kernel_matches_plain_attention(cuda):
     scale = gp.abs().max()
     assert torch.isfinite(gk).all()
     assert (gk - gp).abs().max() <= 5e-2 * scale
+
+
+# (b, h, t, d, decay, atol = rtol): the shapes of
+# tests/test_kernels.py::test_rwkv6_chunk_sweep, strong decay, ragged T,
+# T = 1, then the serving shapes: prefill [4, 40, 4096, 64] and one decode
+# step [8, 40, 1, 64]
+WKV_CASES = [
+    (1, 1, 64, 64, "ref", 1e-4),
+    (2, 2, 128, 64, "ref", 1e-4),
+    (1, 2, 256, 128, "ref", 1e-4),
+    (1, 1, 192, 64, "ref", 1e-4),
+    (2, 3, 256, 64, "strong", 1e-4),
+    (3, 2, 100, 64, "ref", 1e-4),
+    (2, 4, 1, 128, "ref", 1e-4),
+    (4, 40, 4096, 64, "ref", 1e-3),
+    (8, 40, 1, 64, "ref", 1e-4),
+]
+
+
+def _wkv_inputs(b, h, t, d, decay, device):
+    gen = torch.Generator(device=device).manual_seed(b * t + d)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    r, k, v = (0.5 * rand(b, h, t, d) for _ in range(3))
+    if decay == "ref":
+        w = torch.exp(-torch.exp(-3.0 + 0.5 * rand(b, h, t, d)))
+    else:
+        w = 1e-3 + (0.1 - 1e-3) * torch.rand(b, h, t, d, generator=gen,
+                                               device=device)
+    return r, k, v, w, 0.3 * rand(h, d), 0.1 * rand(b, h, d, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d,decay,tol", WKV_CASES)
+def test_wkv6_kernel_matches_plain_version(cuda, b, h, t, d, decay, tol):
+    """One launch; finite, and within tolerance of the plain chunked
+    version (and of the step scan where it is short enough to run)."""
+    ins = _wkv_inputs(b, h, t, d, decay, cuda)
+    before = trwkv.rwkv6_chunk.launches
+    o, s = trwkv.rwkv6_chunk(*ins)
+    torch.cuda.synchronize()
+    assert trwkv.rwkv6_chunk.launches - before == 1
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    wants = [tref.rwkv6_chunk_plain(*ins)]
+    if t <= 256:
+        wants.append(tref.rwkv6_chunk_ref(*ins))
+    for want_o, want_s in wants:
+        torch.testing.assert_close(o, want_o, rtol=tol, atol=tol)
+        torch.testing.assert_close(s, want_s, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_rwkv_forward_and_decode_launch_the_kernel_once_per_layer(cuda):
+    """The reduced rwkv6-3b on the card: forward and each decode_step make
+    one WKV6 launch per layer, the plain path none; their logits agree."""
+    cfg = dataclasses.replace(reduced(get_config("rwkv6-3b")),
+                              dtype="float32")
+    params = tmodel.init_leaves(torch.Generator(device=cuda).manual_seed(0),
+                                cfg)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 100)), device=cuda)
+    before = trwkv.rwkv6_chunk.launches
+    logits, _ = tmodel.forward(params, cfg, toks)
+    assert trwkv.rwkv6_chunk.launches - before == cfg.num_layers
+    before = trwkv.rwkv6_chunk.launches
+    plain, _ = tmodel.forward(params, cfg, toks, backend="torch")
+    assert trwkv.rwkv6_chunk.launches == before
+    torch.testing.assert_close(logits, plain, rtol=1e-4, atol=1e-4)
+    cache = tmodel.make_cache(cfg, 2, 3, device=cuda)
+    for t in range(3):
+        before = trwkv.rwkv6_chunk.launches
+        step, cache = tmodel.decode_step(params, cfg, toks[:, t:t + 1],
+                                         cache, t)
+        assert trwkv.rwkv6_chunk.launches - before == cfg.num_layers
+        torch.testing.assert_close(step[:, 0], logits[:, t], rtol=1e-4,
+                                   atol=1e-4)
