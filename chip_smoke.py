@@ -27,15 +27,20 @@ bar. Phase 3 runs the same cell for 5 rounds down the kernel and the plain
 branch path from the same generators; the server params must agree to 1e-5.
 
 Phase 4 builds the CUDA flash-attention kernels (``nvcc`` into
-``build/cuda/``) and holds forward and dq/dk/dv against the plain version
-and its autograd at the reference's kernel-test shapes and at the LM
-path's shape ``[144, 2048, 64]`` bf16 causal (``FLASH_TOL``: fp32 atol
-and rtol 2e-3, the reference's; bf16 atol 1e-2 with the reference's rtol
-3e-2, set from the measured errors); it times the three kernels and the
-forward of ``scaled_dot_product_attention`` (the yardstick; the port never
-calls it) with CUDA-graph replays, the plain version and the yardstick's
-backward (which allocate) with CUDA events around eager calls, and
-computes each kernel's bound from its flops at the card's bf16 dense peak. Phase 5
+``build/cuda/``), prints each kernel's registers and spills from the
+``-Xptxas -v`` report, and holds forward and dq/dk/dv against the plain
+version and its autograd at the reference's kernel-test shapes, at bf16
+shapes of the tensor-core backward (D = 128, a ragged T at D = 32, not
+causal) and at the LM path's shape ``[144, 2048, 64]`` bf16 causal
+(``FLASH_TOL``: fp32 atol and rtol 2e-3, the reference's; bf16 atol 1e-2
+with the reference's rtol 3e-2, set from the measured errors), naming the
+backward design each shape took (bf16: tensor cores; fp32: CUDA cores) and
+the atol each output needs; it times the three kernels and the forward of
+``scaled_dot_product_attention`` (the yardstick; the port never calls it)
+with CUDA-graph replays, the plain version and the yardstick's backward
+(which allocate) with CUDA events around eager calls, prints the backward
+total (dq + dkdv) against SDPA's backward, and computes each kernel's
+bound from its flops at the card's bf16 dense peak. Phase 5
 drives the LM slice: ``repro_torch.launch.train --full`` (SmolLM-135M,
 30 layers, 8 clients, 2 local steps, batch 2, 2048 tokens, 10 rounds,
 fedpbc over bernoulli links, the fused aggregation on); every loss must be
@@ -74,7 +79,9 @@ operator calls per step, and the device's idle share.
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
-Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
+Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
+backward kernels with their registers and spills at D = 64 and by head
+dim), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
 result line. Without CUDA, or without the repository beside it, it exits
@@ -84,6 +91,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -109,15 +117,24 @@ FP32_TOL, BF16_TOL = 1e-5, 2e-2
 LM_N = 134_515_008
 LM_ROUNDS, LM_CLIENTS, LM_STEPS, LM_BATCH, LM_SEQ, LM_LAYERS = \
     10, 8, 2, 2, 2048, 30
-# flash attention: the reference's kernel-test shapes, then the LM path's
-# (b, h, t, d, window, softcap, dtype); the LM's [B*m*b*H, T, D] is
-# [1 * 8 * 2 * 9, 2048, 64]
-FLASH_SHAPES = [(2, 2, 256, 64, 0, 0.0, "float32"),
-                (1, 3, 256, 128, 0, 0.0, "float32"),
-                (1, 2, 256, 64, 128, 0.0, "float32"),
-                (1, 2, 128, 64, 0, 50.0, "float32"),
-                (1, 2, 256, 64, 0, 0.0, "bfloat16")]
+# flash attention: the reference's kernel-test shapes, then bf16 shapes of
+# the tensor-core backward (D = 128, a ragged T at D = 32, not causal),
+# (b, h, t, d, window, softcap, dtype, causal); then the LM path's
+# (b, h, t, d, window, softcap, dtype), causal: the LM's [B*m*b*H, T, D]
+# is [1 * 8 * 2 * 9, 2048, 64]
+FLASH_SHAPES = [(2, 2, 256, 64, 0, 0.0, "float32", True),
+                (1, 3, 256, 128, 0, 0.0, "float32", True),
+                (1, 2, 256, 64, 128, 0.0, "float32", True),
+                (1, 2, 128, 64, 0, 50.0, "float32", True),
+                (1, 2, 256, 64, 0, 0.0, "bfloat16", True),
+                (1, 3, 256, 128, 0, 0.0, "bfloat16", True),
+                (2, 3, 200, 32, 0, 0.0, "bfloat16", True),
+                (2, 2, 200, 64, 0, 0.0, "bfloat16", False)]
 FLASH_MAIN = (1, LM_CLIENTS * LM_BATCH * 9, LM_SEQ, 64, 0, 0.0, "bfloat16")
+# the backward's kernels by input dtype (the C interface's BY_D switches)
+FLASH_BWD_DESIGN = {
+    "bfloat16": "tensor-core bf16 (flash_bwd_dq_tc, flash_bwd_dkdv_tc)",
+    "float32": "CUDA-core fp32 (flash_bwd_dq, flash_bwd_dkdv)"}
 # (atol, rtol) of the kernel against the plain version: fp32 the
 # reference's 2e-3; bf16 the reference's rtol 3e-2 with an atol of 1e-2,
 # above the 7.7e-3 that dq needs at the LM's shape (the largest measured)
@@ -452,24 +469,56 @@ def print_ptxas(phase, log):
             print(f"{phase} ptxas {entry}: {line.strip()}", flush=True)
 
 
+def ptxas_table(log):
+    """{(kernel, dtype, head dim): {registers, spill_stores, spill_loads}}
+    from an ``nvcc -Xptxas -v`` report; dtype is "fp32", "bf16" or "" for
+    a kernel that is not a template on it (the tensor-core ones)."""
+    table, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d(flash_[a-z_]+)I(f|13__nv_bfloat16)?Li(\d+)E",
+                          line)
+            key = None if m is None else (
+                m.group(1), {"f": "fp32", None: ""}.get(m.group(2), "bf16"),
+                int(m.group(3)))
+            if key:
+                table[key] = {}
+        elif key and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            table[key].update({f"spill_{kind}": int(n) for n, kind in nums})
+        elif key and "Used" in line and "registers" in line:
+            table[key]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return table
+
+
 def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
     import torch.nn.functional as F
 
     print_ptxas("phase4", build_log)
+    ptxas = ptxas_table(build_log)
+    for name in ("flash_bwd_dq_tc", "flash_bwd_dkdv_tc"):
+        got = {kk[2]: vv for kk, vv in ptxas.items() if kk[0] == name}
+        print(f"phase4 ptxas {name} by head dim: " + "; ".join(
+            f"D={dd}: {vv.get('registers')} registers, spill stores "
+            f"{vv.get('spill_stores')} B, loads {vv.get('spill_loads')} B"
+            for dd, vv in sorted(got.items())), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     errs = {}
-    for shape in FLASH_SHAPES + [FLASH_MAIN]:
-        b, h, t, d, win, cap, dtype = shape
+    for shape in FLASH_SHAPES + [FLASH_MAIN + (True,)]:
+        b, h, t, d, win, cap, dtype, causal = shape
         dt = getattr(torch, dtype)
         q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=dev)
                       .to(dt) for _ in range(4))
         ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        out = fa.flash_attention(*ts, window=win, logit_softcap=cap)
+        out = fa.flash_attention(*ts, causal=causal, window=win,
+                                 logit_softcap=cap)
         grads = torch.autograd.grad(out, ts, g)
         rs = [x.float().requires_grad_(True) for x in (q, k, v)]
-        want = ref.flash_attention_ref(*rs, window=win, logit_softcap=cap)
+        want = ref.flash_attention_ref(*rs, causal=causal, window=win,
+                                       logit_softcap=cap)
         want_grads = torch.autograd.grad(want, rs, g.float())
         torch.cuda.synchronize()
         atol, rtol = FLASH_TOL[dtype]
@@ -490,8 +539,8 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
                 f"{n} {x[0]:.3e}" for n, x in need.items())
             + " | max|ref| " + " ".join(
                 f"{n} {x[1]:.3e}" for n, x in need.items())
-            + f" | atol {atol:g} rtol {rtol:g} {'ok' if ok else 'MISMATCH'}",
-            flush=True)
+            + f" | atol {atol:g} rtol {rtol:g} {'ok' if ok else 'MISMATCH'}"
+            + f" | backward: {FLASH_BWD_DESIGN[dtype]}", flush=True)
         if not ok:
             fail(f"flash attention disagrees with its plain version at "
                  f"{shape}")
@@ -559,13 +608,22 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
               f"({flops[kk]:.4e} flop at {bf16_peak / 1e12:g} TFLOP/s bf16; "
               f"{nbytes[kk]} bytes), {flops[kk] / ms[kk] / 1e9:.2f} "
               f"TFLOP/s achieved", flush=True)
+    bwd = ms["dq"] + ms["dkdv"]
+    print(f"phase4 backward total (dq + dkdv) vs SDPA backward, [{bh},{t},"
+          f"{d}] bf16 causal: {ms['dq']:.5f} + {ms['dkdv']:.5f} = "
+          f"{bwd:.5f} ms vs {lib_b:.5f} ms, {bwd / lib_b:.2f}x; "
+          f"{(flops['dq'] + flops['dkdv']) / bwd / 1e9:.2f} TFLOP/s vs "
+          f"{(flops['dq'] + flops['dkdv']) / lib_b / 1e9:.2f}", flush=True)
     print(f"phase4 scaled_dot_product_attention vs kernel forward: max "
           f"|diff| {sdpa_err.item():.3e}", flush=True)
     del q, k, v, do, o, lse, dq, delta, qr, kr, vr, q4, k4, v4
     torch.cuda.empty_cache()
+    # registers and spills of the tensor-core backward, by head dim
+    tc = {kk: {f"D={key[2]}": vv for key, vv in sorted(ptxas.items())
+               if key[0] == f"flash_bwd_{kk}_tc"} for kk in ms}
     return {kk: dict(ms=ms[kk], plain_ms=plain[kk], library_ms=library[kk],
                      bound_ms=bound[kk], bound_by=by[kk], flops=flops[kk],
-                     bytes=nbytes[kk],
+                     bytes=nbytes[kk], ptxas=tc[kk],
                      max_abs_err=(errs["o"] if kk == "fwd" else errs["dq"]
                                   if kk == "dq" else max(errs["dk"],
                                                          errs["dv"])))
@@ -1043,6 +1101,10 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "flops": r["flops"], "bytes": r["bytes"],
             "shape": list(FLASH_MAIN)})
+        if key != "fwd":   # registers and spills, at the LM's head dim first
+            kernels[-1].update(design=FLASH_BWD_DESIGN["bfloat16"],
+                               **r["ptxas"].get("D=64", {}),
+                               ptxas_by_head_dim=r["ptxas"])
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err

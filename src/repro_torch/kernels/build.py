@@ -2,8 +2,9 @@
 
 Each source has a plain C interface. At first use ``nvcc`` compiles it for
 the card (``sm_90a`` on an H100) into ``build/cuda/`` at the repository
-root, as a shared library whose file name carries a hash of the source and
-the target, so an edit rebuilds; ``ctypes`` loads it. ``compile_all``
+root, as a shared library whose file name carries a hash of the source,
+the headers of its directory that it includes (``csrc/*.cuh``) and the
+target, so an edit of any of them rebuilds; ``ctypes`` loads it. ``compile_all``
 starts one ``nvcc`` per source at once and waits for all of them (what
 ``chip_smoke.py`` does before its first launch); ``load`` builds one
 source if it is not built yet and binds its functions (each kernel module
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,6 +24,7 @@ from typing import Dict, Iterable, List, Mapping
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -43,11 +46,33 @@ def _arch() -> str:
     return f"{major}{minor}" + ("a" if (major, minor) == (9, 0) else "")
 
 
+def dependencies(source: Path) -> List[Path]:
+    """``source``, then every header it includes by ``#include "..."``
+    that lies beside the including file, directly or through another such
+    header."""
+    found: List[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            header = path.parent / name
+            if header.exists():
+                todo.append(header)
+    return found
+
+
 def library_path(source: Path) -> Path:
-    """Where the library of ``source`` for this card goes."""
+    """Where the library of ``source`` for this card goes: the name hashes
+    the source with its headers (``dependencies``) and the target."""
     arch = _arch()
-    tag = hashlib.sha256(source.read_bytes() + arch.encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_sm{arch}_{tag}.so"
+    digest = hashlib.sha256()
+    for path in dependencies(source):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(arch.encode())
+    return BUILD_DIR / f"{source.stem}_sm{arch}_{digest.hexdigest()[:16]}.so"
 
 
 def report_path(lib: Path) -> Path:

@@ -3,14 +3,16 @@
 // tests/test_torch_flash_emulated.py and tests/test_torch_rwkv_emulated.py
 // (built by tests/_cuda_emu.py): one std::thread per
 // CUDA thread, the blocks of a launch one after another, __syncthreads a
-// barrier of the block, warp shuffles through a per-warp buffer. It checks
-// the kernels' indexing and arithmetic, not their speed or their use of the
+// barrier of the block, warp shuffles through a per-warp buffer (the
+// tensor-core and async-copy instructions: warp_mma.cuh). It checks the
+// kernels' indexing and arithmetic, not their speed or their use of the
 // card's memory model.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <thread>
 #include <vector>
 using std::max;
@@ -46,6 +48,7 @@ inline float fmaxf(float a, float b) { return a > b ? a : b; }
 inline float __expf(float x) { return std::exp(x); }
 
 inline float* emu_smem = nullptr;
+inline int emu_threads = 0;       // threads per block of the last launch
 inline std::barrier<>* emu_block = nullptr;
 inline std::vector<std::barrier<>*> emu_warp;
 inline float emu_lanes[32][32];
@@ -62,15 +65,17 @@ inline float __shfl_xor_sync(unsigned, float x, int off) {
 }
 
 // kernel<<<grid, threads, bytes, stream>>>(args...) on the host; shared
-// memory starts as NaN so that a read before a write shows up
+// memory starts as all-ones bytes (NaN as fp32 and as bf16) so that a read
+// before a write shows up
 template <class F, class... A>
 void emu_launch(F kernel, dim3 grid, int threads, int bytes, cudaStream_t,
                 A... args) {
   gridDim = grid;
+  emu_threads = threads;
   std::vector<float> smem(bytes / 4 + 4);
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::fill(smem.begin(), smem.end(), std::nanf(""));
+      std::memset(smem.data(), 0xff, smem.size() * sizeof(float));
       emu_smem = smem.data();
       std::barrier<> block(threads);
       emu_block = &block;
@@ -89,3 +94,5 @@ void emu_launch(F kernel, dim3 grid, int threads, int bytes, cudaStream_t,
       for (auto* w : warps) delete w;
     }
 }
+
+extern "C" int emu_block_threads() { return emu_threads; }

@@ -7,10 +7,20 @@ masks and arithmetic on the CPU; whether they compile for ``sm_90a``, and
 their speed, only a card can show (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).
 
+bf16 inputs take the tensor-core backward (``flash_bwd_dq_tc``,
+``flash_bwd_dkdv_tc``: ``mma``, ``ldmatrix`` and ``cp.async`` through the
+warp-collective stand-ins of ``tests/cuda_emu/warp_mma.cuh``); fp32 inputs,
+and the forward in both dtypes, the CUDA-core kernels. Each case checks the
+route by the threads per block of the backward launches (128 against 256)
+and by the ``mma`` calls they made (some against none).
+
 Tolerance vs the plain ``flash_attention_ref`` and its autograd: fp32 1e-5
 (the same fp32 arithmetic, summed in tiles); bf16 3e-2 (the reference's
-kernel tolerance: bf16 outputs).
+kernel tolerance: bf16 outputs, and P and dS rounded to bf16 before their
+products).
 """
+import ctypes
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -29,13 +39,33 @@ CASES = [  # (bh, t, d, dtype, causal, window, softcap)
     (1, 96, 32, "float32", True, 0, 0.0),
     (1, 40, 64, "float32", False, 0, 0.0),        # not causal, T < tile
     (1, 192, 64, "float32", False, 70, 5.0),
+    # bf16: the tensor-core backward at every head dim
+    (2, 80, 16, "bfloat16", True, 0, 0.0),        # ragged T
+    (1, 200, 32, "bfloat16", True, 0, 0.0),       # ragged T
+    (1, 256, 64, "bfloat16", True, 100, 0.0),     # window: skipped tiles
+    (1, 128, 64, "bfloat16", True, 0, 50.0),      # softcap
+    (1, 40, 64, "bfloat16", False, 0, 0.0),       # not causal, T < tile
+    (1, 192, 64, "bfloat16", False, 70, 5.0),     # not causal, window, cap
+    (1, 128, 128, "bfloat16", True, 0, 0.0),
+    (1, 200, 128, "bfloat16", False, 0, 0.0),     # ragged T, not causal
+    (1, 256, 128, "bfloat16", True, 100, 5.0),    # window, softcap
 ]
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    return _cuda_emu.build(tflash.SOURCE, tflash._SIGNATURES,
-                           tmp_path_factory.mktemp("flash_emu"))
+    lib = _cuda_emu.build(tflash.SOURCE, tflash._SIGNATURES,
+                          tmp_path_factory.mktemp("flash_emu"))
+    lib.emu_mma_calls.restype = ctypes.c_long
+    lib.emu_block_threads.restype = ctypes.c_int
+    return lib
+
+
+def _route(lib, launch):
+    """(threads per block, mma calls) of what ``launch()`` ran."""
+    before = lib.emu_mma_calls()
+    assert launch() == 0
+    return lib.emu_block_threads(), lib.emu_mma_calls() - before
 
 
 @pytest.mark.parametrize("bh,t,d,dtype,causal,window,cap", CASES)
@@ -52,15 +82,20 @@ def test_emulated_kernels_match_plain_version(emulated, bh, t, d, dtype,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), *common) == 0
     dq, delta = torch.empty_like(q), torch.empty(bh, t)
-    assert emulated.flash_attention_bwd_dq(
+    routes = [_route(emulated, lambda: emulated.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *common) == 0
+        *common))]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    assert emulated.flash_attention_bwd_dkdv(
+    routes.append(_route(emulated, lambda: emulated.flash_attention_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *common) == 0
+        *common)))
+    for threads, mmas in routes:    # tensor cores for bf16 only
+        if dtype == "bfloat16":
+            assert threads == 128 and mmas > 0
+        else:
+            assert threads == 256 and mmas == 0
     rs = [x.float().requires_grad_(True) for x in (q, k, v)]
     want = flash_attention_ref(*rs, causal=causal, window=window,
                                logit_softcap=cap)

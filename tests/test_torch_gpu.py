@@ -11,7 +11,8 @@ Tolerances: the flash-attention kernels vs the plain version and its
 autograd, fp32 atol and rtol 2e-3 (the reference's kernel tolerance: an
 online softmax in tiles vs a full one), bf16 atol 1e-2 and rtol 3e-2 (the
 reference's rtol; the atol as in ``chip_smoke.py``, from the measured
-errors); the aggregation kernel 1e-5
+errors; bf16 takes the tensor-core backward, fp32 the CUDA-core one);
+the aggregation kernel 1e-5
 (fp32 sums over 3 terms in another order); the LM loss and its gradient
 through the kernel vs the plain attention, bf16 5e-2 relative to the
 largest gradient (bf16 activations rounded at other places); the WKV6
@@ -35,7 +36,8 @@ from repro_torch.kernels import rwkv6_chunk as trwkv  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 
 # the shapes of tests/test_kernels.py::test_flash_attention_sweep, then a
-# ragged T at D = 32 and a bf16 window with softcap
+# ragged T at D = 32 and a bf16 window with softcap, then the tensor-core
+# backward (bf16) at D = 128 and at D = 32 with a ragged T
 FLASH_CASES = [
     (2, 2, 256, 64, 0, 0.0, "float32"),
     (1, 3, 256, 128, 0, 0.0, "float32"),
@@ -45,6 +47,13 @@ FLASH_CASES = [
     (2, 3, 200, 32, 0, 0.0, "float32"),
     (1, 2, 192, 64, 70, 5.0, "bfloat16"),
     (3, 2, 80, 16, 0, 0.0, "float32"),
+    (1, 3, 256, 128, 0, 0.0, "bfloat16"),
+    (2, 3, 200, 32, 0, 0.0, "bfloat16"),
+]
+# not causal: (b, h, t, d, window, softcap, dtype)
+FLASH_CASES_NOT_CAUSAL = [
+    (2, 2, 200, 64, 0, 0.0, "bfloat16"),
+    (1, 2, 192, 128, 70, 5.0, "bfloat16"),
 ]
 
 
@@ -61,6 +70,17 @@ def test_flash_kernels_match_plain_version(cuda, b, h, t, d, win, cap,
                                            dtype):
     """Forward and dq/dk/dv of the CUDA kernels vs the plain version and
     its autograd; one forward and two backward launches."""
+    _check_flash(cuda, b, h, t, d, win, cap, dtype, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d,win,cap,dtype", FLASH_CASES_NOT_CAUSAL)
+def test_flash_kernels_match_plain_version_not_causal(cuda, b, h, t, d, win,
+                                                      cap, dtype):
+    _check_flash(cuda, b, h, t, d, win, cap, dtype, causal=False)
+
+
+def _check_flash(cuda, b, h, t, d, win, cap, dtype, causal):
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(t + d)
     q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=cuda).to(dt)
@@ -69,14 +89,16 @@ def test_flash_kernels_match_plain_version(cuda, b, h, t, d, win, cap,
                                    tflash.flash_attention_bwd_dq,
                                    tflash.flash_attention_bwd_dkdv)]
     ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    out = tflash.flash_attention(*ts, window=win, logit_softcap=cap)
+    out = tflash.flash_attention(*ts, causal=causal, window=win,
+                                 logit_softcap=cap)
     grads = torch.autograd.grad(out, ts, g)
     torch.cuda.synchronize()
     assert [f.launches - c for f, c in zip(
         (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
          tflash.flash_attention_bwd_dkdv), counts)] == [1, 1, 1]
     rs = [x.float().requires_grad_(True) for x in (q, k, v)]
-    ref = tref.flash_attention_ref(*rs, window=win, logit_softcap=cap)
+    ref = tref.flash_attention_ref(*rs, causal=causal, window=win,
+                                   logit_softcap=cap)
     ref_grads = torch.autograd.grad(ref, rs, g.float())
     atol, rtol = (2e-3, 2e-3) if dtype == "float32" else (1e-2, 3e-2)
     assert out.dtype == dt
