@@ -7,7 +7,8 @@ Phase 1 builds the port's Triton kernel (``fused_masked_agg``) and holds it
 against its plain PyTorch version on the card: the main path's shape, a
 ragged shape, every opcode, a zero-active trajectory, ``prev=None`` and
 bf16 input (fp32 atol/rtol 1e-5: summation order over <= 100 terms; bf16
-2e-2). It times the kernel, the plain version and one ``torch.bmm`` call
+2e-2), printing the block sizes (``masked_agg.block_sizes``) each shape
+launched at. It times the kernel, the plain version and one ``torch.bmm`` call
 computing the same weighted sum (the yardstick; the port never calls it)
 as device time (CUDA events around CUDA-graph replays, so no host launch
 cost), the kernel also with a cold L2 and eagerly from Python, and computes
@@ -28,14 +29,16 @@ branch path from the same generators; the server params must agree to 1e-5.
 
 Phase 4 builds the CUDA flash-attention kernels (``nvcc`` into
 ``build/cuda/``), prints each kernel's registers and spills from the
-``-Xptxas -v`` report, and holds forward and dq/dk/dv against the plain
+``-Xptxas -v`` report (and, for the tensor-core kernels of ``FLASH_TC``,
+by head dim), and holds forward and dq/dk/dv against the plain
 version and its autograd at the reference's kernel-test shapes, at bf16
 shapes of the tensor-core backward (D = 128, a ragged T at D = 32, not
 causal) and at the LM path's shape ``[144, 2048, 64]`` bf16 causal
 (``FLASH_TOL``: fp32 atol and rtol 2e-3, the reference's; bf16 atol 1e-2
 with the reference's rtol 3e-2, set from the measured errors), naming the
-backward design each shape took (bf16: tensor cores; fp32: CUDA cores) and
-the atol each output needs; it times the three kernels and the forward of
+kernels each shape took (``FLASH_DESIGN``: bf16 takes the tensor-core
+forward and backward, fp32 the CUDA-core ones) and the atol each output
+needs; it times the three kernels and the forward of
 ``scaled_dot_product_attention`` (the yardstick; the port never calls it)
 with CUDA-graph replays, the plain version and the yardstick's backward
 (which allocate) with CUDA events around eager calls, prints the backward
@@ -79,9 +82,9 @@ operator calls per step, and the device's idle share.
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
-Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
-backward kernels with their registers and spills at D = 64 and by head
-dim), the
+Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (each
+flash kernel with its design and its registers and spills at D = 64 and by
+head dim), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
 result line. Without CUDA, or without the repository beside it, it exits
@@ -131,10 +134,16 @@ FLASH_SHAPES = [(2, 2, 256, 64, 0, 0.0, "float32", True),
                 (2, 3, 200, 32, 0, 0.0, "bfloat16", True),
                 (2, 2, 200, 64, 0, 0.0, "bfloat16", False)]
 FLASH_MAIN = (1, LM_CLIENTS * LM_BATCH * 9, LM_SEQ, 64, 0, 0.0, "bfloat16")
-# the backward's kernels by input dtype (the C interface's BY_D switches)
-FLASH_BWD_DESIGN = {
-    "bfloat16": "tensor-core bf16 (flash_bwd_dq_tc, flash_bwd_dkdv_tc)",
-    "float32": "CUDA-core fp32 (flash_bwd_dq, flash_bwd_dkdv)"}
+# the kernels by input dtype and pass (the C interface's BY_D switches)
+FLASH_DESIGN = {
+    "bfloat16": {"fwd": "tensor-core bf16 (flash_fwd_tc)",
+                 "bwd": "tensor-core bf16 (flash_bwd_dq_tc, "
+                        "flash_bwd_dkdv_tc)"},
+    "float32": {"fwd": "CUDA-core fp32 (flash_fwd)",
+                "bwd": "CUDA-core fp32 (flash_bwd_dq, flash_bwd_dkdv)"}}
+# the tensor-core kernel of each pass, whose ptxas report phase 4 prints
+FLASH_TC = {"fwd": "flash_fwd_tc", "dq": "flash_bwd_dq_tc",
+            "dkdv": "flash_bwd_dkdv_tc"}
 # (atol, rtol) of the kernel against the plain version: fp32 the
 # reference's 2e-3; bf16 the reference's rtol 3e-2 with an atol of 1e-2,
 # above the 7.7e-3 that dq needs at the LM's shape (the largest measured)
@@ -303,11 +312,14 @@ def phase1_kernel(torch, masked, ref):
         op = torch.as_tensor(ops, dtype=torch.int32, device=dev)
         return x, mask, op, prev, p
 
-    def compare(label, got, want, tol):
+    def compare(label, x, got, want, tol):
         err = (got - want).abs().max().item()
         ok = torch.allclose(got, want, rtol=tol, atol=tol)
+        blocks = masked.block_sizes(x.shape[-2], x.dtype)
         print(f"phase1 {label}: shape {tuple(got.shape)} max_abs_err "
-              f"{err:.3e} tol {tol:g} {'ok' if ok else 'MISMATCH'}", flush=True)
+              f"{err:.3e} tol {tol:g} {'ok' if ok else 'MISMATCH'}; "
+              f"launched at (BLOCK_M, BLOCK_N, num_warps) {blocks}",
+              flush=True)
         if not ok or not torch.isfinite(got).all():
             fail(f"kernel disagrees with its plain version: {label}")
         return err
@@ -315,29 +327,30 @@ def phase1_kernel(torch, masked, ref):
     B, n = len(FAMILY) * len(SEEDS), 32 * 64 + 64 + 64 * 10 + 10
     main_ops = [op for op in (0, 0, 1, 2) for _ in SEEDS]
     main = inputs(B, CLIENTS, n, main_ops)
-    main_err = compare("main path [12,100,2762] fp32",
+    main_err = compare("main path [12,100,2762] fp32", main[0],
                        masked.fused_masked_agg(*main),
                        ref.fused_masked_agg_ref(*main), FP32_TOL)
     rag = inputs(3, 37, 1000, [0, 1, 2])
-    compare("ragged [3,37,1000] ops 0/1/2", masked.fused_masked_agg(*rag),
+    compare("ragged [3,37,1000] ops 0/1/2", rag[0],
+            masked.fused_masked_agg(*rag),
             ref.fused_masked_agg_ref(*rag), FP32_TOL)
     zero = inputs(3, 37, 1000, [0, 1, 2], active_frac=0.0)
     got = masked.fused_masked_agg(*zero)
-    compare("zero-active [3,37,1000]", got,
+    compare("zero-active [3,37,1000]", zero[0], got,
             ref.fused_masked_agg_ref(*zero), FP32_TOL)
     if not torch.equal(got[0], zero[3][0]):
         fail("zero-active OP_MEAN must return prev exactly")
     x2, mk2 = rag[0][0], rag[1][0]
-    compare("masked_agg prev=None [37,1000]", masked.masked_agg(x2, mk2),
+    compare("masked_agg prev=None [37,1000]", x2, masked.masked_agg(x2, mk2),
             ref.masked_agg_ref(x2, mk2), FP32_TOL)
     got = masked.masked_agg(zero[0][0], zero[1][0])
     if not torch.equal(got, torch.zeros_like(got)):
         fail("masked_agg(prev=None) on an empty set must return zeros")
-    compare("masked_agg prev [37,1000]",
+    compare("masked_agg prev [37,1000]", x2,
             masked.masked_agg(x2, mk2, rag[3][0]),
             ref.masked_agg_ref(x2, mk2, rag[3][0]), FP32_TOL)
     bf = (main[0].to(torch.bfloat16),) + main[1:]
-    compare("main path bf16 input", masked.fused_masked_agg(*bf),
+    compare("main path bf16 input", bf[0], masked.fused_masked_agg(*bf),
             ref.fused_masked_agg_ref(*bf), BF16_TOL)
     torch.cuda.synchronize()
 
@@ -379,7 +392,7 @@ def phase1_lm_shape(torch, masked, ref, inputs, compare, bw, flops):
     x, mask, op, prev, p = inputs(1, LM_CLIENTS, LM_N, [0],
                                   dtype=torch.bfloat16)
     mask[0, :2] = True
-    err = compare(f"LM shape [1,{LM_CLIENTS},{LM_N}] bf16",
+    err = compare(f"LM shape [1,{LM_CLIENTS},{LM_N}] bf16", x,
                   masked.fused_masked_agg(x, mask, op, prev, p),
                   ref.fused_masked_agg_ref(x, mask, op, prev, p), BF16_TOL)
     kernel_ms = time_ms(lambda: masked.fused_masked_agg(x, mask, op, prev, p),
@@ -470,17 +483,13 @@ def print_ptxas(phase, log):
 
 
 def ptxas_table(log):
-    """{(kernel, dtype, head dim): {registers, spill_stores, spill_loads}}
-    from an ``nvcc -Xptxas -v`` report; dtype is "fp32", "bf16" or "" for
-    a kernel that is not a template on it (the tensor-core ones)."""
+    """{(kernel, head dim): {registers, spill_stores, spill_loads}} from an
+    ``nvcc -Xptxas -v`` report."""
     table, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d(flash_[a-z_]+)I(f|13__nv_bfloat16)?Li(\d+)E",
-                          line)
-            key = None if m is None else (
-                m.group(1), {"f": "fp32", None: ""}.get(m.group(2), "bf16"),
-                int(m.group(3)))
+            m = re.search(r"\d(flash_[a-z_]+)ILi(\d+)E", line)
+            key = None if m is None else (m.group(1), int(m.group(2)))
             if key:
                 table[key] = {}
         elif key and "spill stores" in line:
@@ -497,8 +506,8 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
 
     print_ptxas("phase4", build_log)
     ptxas = ptxas_table(build_log)
-    for name in ("flash_bwd_dq_tc", "flash_bwd_dkdv_tc"):
-        got = {kk[2]: vv for kk, vv in ptxas.items() if kk[0] == name}
+    for name in FLASH_TC.values():
+        got = {kk[1]: vv for kk, vv in ptxas.items() if kk[0] == name}
         print(f"phase4 ptxas {name} by head dim: " + "; ".join(
             f"D={dd}: {vv.get('registers')} registers, spill stores "
             f"{vv.get('spill_stores')} B, loads {vv.get('spill_loads')} B"
@@ -540,7 +549,8 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
             + " | max|ref| " + " ".join(
                 f"{n} {x[1]:.3e}" for n, x in need.items())
             + f" | atol {atol:g} rtol {rtol:g} {'ok' if ok else 'MISMATCH'}"
-            + f" | backward: {FLASH_BWD_DESIGN[dtype]}", flush=True)
+            + f" | forward: {FLASH_DESIGN[dtype]['fwd']}; backward: "
+            + FLASH_DESIGN[dtype]["bwd"], flush=True)
         if not ok:
             fail(f"flash attention disagrees with its plain version at "
                  f"{shape}")
@@ -618,9 +628,9 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
           f"|diff| {sdpa_err.item():.3e}", flush=True)
     del q, k, v, do, o, lse, dq, delta, qr, kr, vr, q4, k4, v4
     torch.cuda.empty_cache()
-    # registers and spills of the tensor-core backward, by head dim
-    tc = {kk: {f"D={key[2]}": vv for key, vv in sorted(ptxas.items())
-               if key[0] == f"flash_bwd_{kk}_tc"} for kk in ms}
+    # registers and spills of the tensor-core kernels, by head dim
+    tc = {kk: {f"D={key[1]}": vv for key, vv in sorted(ptxas.items())
+               if key[0] == FLASH_TC[kk]} for kk in ms}
     return {kk: dict(ms=ms[kk], plain_ms=plain[kk], library_ms=library[kk],
                      bound_ms=bound[kk], bound_by=by[kk], flops=flops[kk],
                      bytes=nbytes[kk], ptxas=tc[kk],
@@ -1101,10 +1111,10 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "flops": r["flops"], "bytes": r["bytes"],
             "shape": list(FLASH_MAIN)})
-        if key != "fwd":   # registers and spills, at the LM's head dim first
-            kernels[-1].update(design=FLASH_BWD_DESIGN["bfloat16"],
-                               **r["ptxas"].get("D=64", {}),
-                               ptxas_by_head_dim=r["ptxas"])
+        # the design and registers and spills, at the LM's head dim first
+        kernels[-1].update(
+            design=FLASH_DESIGN["bfloat16"]["fwd" if key == "fwd" else "bwd"],
+            **r["ptxas"].get("D=64", {}), ptxas_by_head_dim=r["ptxas"])
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err

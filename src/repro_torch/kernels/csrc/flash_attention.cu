@@ -22,40 +22,52 @@
 // is 7.7e10 flops and the backward 2.7e11 against ~1e8 bytes of inputs and
 // outputs.
 //
-// fp32 inputs, and the forward in both dtypes: products as fp32 FMAs on the
-// CUDA cores from fp32 copies of the tiles in shared memory (tensor cores
-// would round fp32 operands to TF32 or bf16): 64-row tiles, 256 threads as
-// a 16 x 16 grid, each thread a 4 x 4 register micro-tile of the score tile
-// and a 4 x (D/16) micro-tile of the output, operands read as float4 from
-// shared memory laid out so the inner product's index runs along rows.
+// fp32 inputs (flash_fwd, flash_bwd_dq, flash_bwd_dkdv): products as fp32
+// FMAs on the CUDA cores from fp32 copies of the tiles in shared memory
+// (tensor cores would round fp32 operands to TF32 or bf16): 64-row tiles,
+// 256 threads as a 16 x 16 grid, each thread a 4 x 4 register micro-tile of
+// the score tile and a 4 x (D/16) micro-tile of the output, operands read as
+// float4 from shared memory laid out so the inner product's index runs along
+// rows.
 //
-// bf16 backward (flash_bwd_dq_tc, flash_bwd_dkdv_tc): tensor cores,
-// mma.sync m16n8k16 bf16 -> fp32 (warp_mma.cuh). 4 warps; a block owns 64
-// rows of its resident operand (16 a warp), kept in shared memory as bf16
-// for the whole loop: Q and dO in dq, K and V in dkdv. The loop operand
-// (K, V in dq; Q, dO, lse, delta in dkdv) streams through a ring of two
-// stages by cp.async, the next tile's copy in flight while the current one
-// is multiplied. Tiles are [rows][D + 8] bf16: the 16-byte pad puts the 8
-// rows of every ldmatrix 8 x 8 matrix on distinct bank groups. dkdv works
-// on transposed scores S^T = K Q^T (rows = keys), so P^T and dS^T come out
-// in the accumulator layout of a 16-row strip and become the A operand of
-// dV += P^T dO and dK += dS^T Q in registers, packed to bf16 pairs; dq does
-// the same with dS for dQ += dS K. Neither P nor dS touches shared memory,
-// and one __syncthreads a loop step guards the ring. P and dS are rounded
-// to bf16 before their products, as flash-attention-2 does. delta comes
-// from 16-byte loads of dO and O, D/8 lanes to a row.
+// bf16 inputs (flash_fwd_tc, flash_bwd_dq_tc, flash_bwd_dkdv_tc): tensor
+// cores, mma.sync m16n8k16 bf16 -> fp32 (warp_mma.cuh). 4 warps; a block
+// owns 64 rows of its resident operand (16 a warp), kept in shared memory as
+// bf16 for the whole loop: Q in the forward, Q and dO in dq, K and V in
+// dkdv. The loop operand (K, V in the forward and dq; Q, dO, lse, delta in
+// dkdv) streams through a ring of two stages by cp.async, the next tile's
+// copy in flight while the current one is multiplied. Tiles are
+// [rows][D + 8] bf16: the 16-byte pad puts the 8 rows of every ldmatrix
+// 8 x 8 matrix on distinct bank groups. The forward keeps its warp's Q
+// fragments in registers for the whole loop, computes S = Q K^T, and runs
+// the online softmax in the accumulator layout: a thread holds rows g and
+// g + 8 of its strip, and the 4 lanes of a quad reduce a row's max and sum
+// by two shuffles; m, l and the correction stay fp32. P then becomes the A
+// operand of O += P V in registers, packed to bf16 pairs; the epilogue
+// divides by max(l, 1e-30) and writes lse = m + log l. dkdv works on
+// transposed scores S^T = K Q^T (rows = keys), so P^T and dS^T come out in
+// the accumulator layout of a 16-row strip and become the A operand of
+// dV += P^T dO and dK += dS^T Q; dq does the same with dS for dQ += dS K.
+// Neither P nor dS touches shared memory, and one __syncthreads a loop step
+// guards the ring. P and dS are rounded to bf16 before their products, as
+// flash-attention-2 does. delta comes from 16-byte loads of dO and O, D/8
+// lanes to a row.
 //
-// Tiles: 64 resident rows (one m16 strip a warp) and loop tiles 64 wide at
-// D <= 32, 32 wide at D >= 64. Registers bound the design: a thread of
-// dkdv holds dK and dV (2 x D/2 fp32) plus S^T and dP^T (2 x BN/2 fp32).
-// On an H100 (sm_90a, `nvcc -Xptxas -v` as chip_smoke.py phase 4 prints
-// it), 64-wide tiles at D = 64 took dkdv to 200 registers, two blocks an
-// SM, and ran slower than 32-wide tiles at 160 registers, three blocks an
-// SM; dq ran alike at both widths (138 and 103 registers). Capping dkdv at
-// three 64-wide blocks an SM spilled. At D = 128 dkdv takes 240 registers,
-// dq 130; no instantiation spills. Dynamic shared memory: 2 resident tiles
-// and 2 x 2 ring tiles of [rows][D + 8] bf16 plus the fp32 row statistics,
-// 37,376 bytes at D = 64 and 70,144 at D = 128.
+// Tiles: 64 resident rows (one m16 strip a warp). Loop tiles: the forward
+// 64 keys wide at every D (a thread holds O, D/2 fp32, S, 32 fp32, and Q's
+// fragments, D/4 registers); the backward 64 wide at D <= 32, 32 wide at
+// D >= 64. Registers bound the design. On an H100 (sm_90a, `nvcc -Xptxas
+// -v` as chip_smoke.py phase 4 prints it) the forward takes 95 / 124 / 127
+// / 178 registers at D = 16 / 32 / 64 / 128. A thread of dkdv holds dK and
+// dV (2 x D/2 fp32) plus S^T and dP^T (2 x BN/2 fp32): 64-wide tiles at
+// D = 64 took dkdv to 200 registers, two blocks an SM, and ran slower than
+// 32-wide tiles at 160 registers, three blocks an SM; dq ran alike at both
+// widths (138 and 103 registers). Capping dkdv at three 64-wide blocks an
+// SM spilled. At D = 128 dkdv takes 240 registers, dq 130; no instantiation
+// spills. Dynamic shared memory: the forward 1 resident tile and 2 x 2 ring
+// tiles of [rows][D + 8] bf16, 46,080 bytes at D = 64 and 87,040 at
+// D = 128; the backward 2 resident and 2 x 2 ring tiles plus the fp32 row
+// statistics, 37,376 bytes at D = 64 and 70,144 at D = 128.
 //
 // Both designs skip tiles that the causal mask or the window masks
 // completely (a skipped tile adds exp(-1e30 - m) = 0 in the reference). A
@@ -75,18 +87,6 @@ constexpr int NT = 256;          // threads per block, a 16 x 16 grid
 constexpr int BT = 64;           // rows per tile (queries and keys alike)
 constexpr int PT = BT + 4;       // padded row stride of a [BT][BT] tile
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // N consecutive floats from shared memory (16-byte aligned for N % 4 == 0).
 template <int N>
@@ -108,10 +108,11 @@ __device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
 // One 16-byte global load per thread and step; consecutive threads take
 // consecutive rows, so the transposed stores hit consecutive banks. Rows
 // >= T are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0,
-                                          int t_len, float* rm, float* tr) {
-  constexpr int VEC = 16 / sizeof(T);
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
+                                          int row0, int t_len, float* rm,
+                                          float* tr) {
+  constexpr int VEC = 4;
   constexpr int GROUPS = D / VEC;
   for (int idx = threadIdx.x; idx < BT * GROUPS; idx += NT) {
     const int r = idx % BT, g = idx / BT, row = row0 + r;
@@ -119,9 +120,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0,
     if (row < t_len) {
       const uint4 raw = *reinterpret_cast<const uint4*>(
           src + (size_t)row * D + g * VEC);
-      const T* e = reinterpret_cast<const T*>(&raw);
+      const float* e = reinterpret_cast<const float*>(&raw);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) vals[j] = to_f(e[j]);
+      for (int j = 0; j < VEC; ++j) vals[j] = e[j];
     } else {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) vals[j] = 0.f;
@@ -240,11 +241,12 @@ __device__ __forceinline__ float score(float dot, float scale, float cap,
 template <int D>
 constexpr int fwd_smem_floats() { return 2 * D * BT + BT * (D + 4) + BT * PT; }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-          int t_len, Mask mask, float scale, float cap) {
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int t_len, Mask mask, float scale,
+          float cap) {
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                 // [D][BT]
@@ -259,7 +261,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int ra = ty * 4, cb = tx * 4;
   const size_t base = (size_t)bh * t_len * D;
 
-  load_tile<T, D>(q + base, q0, t_len, nullptr, qt);
+  load_tile<D>(q + base, q0, t_len, nullptr, qt);
   float m_i[4], l_i[4], acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -273,8 +275,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int ik = lo; ik <= hi; ++ik) {
     const int k0 = ik * BT;
     __syncthreads();
-    load_tile<T, D>(k + base, k0, t_len, nullptr, kt);
-    load_tile<T, D>(v + base, k0, t_len, vs, nullptr);
+    load_tile<D>(k + base, k0, t_len, nullptr, kt);
+    load_tile<D>(v + base, k0, t_len, vs, nullptr);
     __syncthreads();
     float s[4][4] = {};
     mm_kmajor<D>(s, qt, kt, ra, cb);
@@ -312,7 +314,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l_i[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      o[base + (size_t)r * D + tx * DC + j] = from_f<T>(acc[i][j] / den);
+      o[base + (size_t)r * D + tx * DC + j] = acc[i][j] / den;
     if (tx == 0) lse[(size_t)bh * t_len + r] = m_i[i] + logf(l_i[i]);
   }
 }
@@ -322,12 +324,12 @@ constexpr int dq_smem_floats() {
   return 4 * D * BT + BT * (D + 4) + BT * PT + 2 * BT;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ o,
-             const T* __restrict__ dout, const float* __restrict__ lse,
-             float* __restrict__ delta, T* __restrict__ dq, int t_len,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ o,
+             const float* __restrict__ dout, const float* __restrict__ lse,
+             float* __restrict__ delta, float* __restrict__ dq, int t_len,
              Mask mask, float scale, float cap) {
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -347,15 +349,15 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int ra = ty * 4, cb = tx * 4;
   const size_t base = (size_t)bh * t_len * D;
 
-  load_tile<T, D>(q + base, q0, t_len, nullptr, qt);
-  load_tile<T, D>(dout + base, q0, t_len, nullptr, dot_);
+  load_tile<D>(q + base, q0, t_len, nullptr, qt);
+  load_tile<D>(dout + base, q0, t_len, nullptr, dot_);
   {  // delta = rowsum(dO * O): 4 threads per row
     const int r = threadIdx.x / 4, part = threadIdx.x % 4, row = q0 + r;
     float acc = 0.f;
     if (row < t_len) {
       for (int d = part * (D / 4); d < (part + 1) * (D / 4); ++d)
-        acc += to_f(dout[base + (size_t)row * D + d]) *
-               to_f(o[base + (size_t)row * D + d]);
+        acc += dout[base + (size_t)row * D + d] *
+               o[base + (size_t)row * D + d];
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -371,8 +373,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int ik = lo; ik <= hi; ++ik) {
     const int k0 = ik * BT;
     __syncthreads();
-    load_tile<T, D>(k + base, k0, t_len, ks, kt);
-    load_tile<T, D>(v + base, k0, t_len, nullptr, vt);
+    load_tile<D>(k + base, k0, t_len, ks, kt);
+    load_tile<D>(v + base, k0, t_len, nullptr, vt);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     mm_kmajor<D>(s, qt, kt, ra, cb);
@@ -403,7 +405,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= t_len) continue;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      dq[base + (size_t)r * D + tx * DC + j] = from_f<T>(acc[i][j] * scale);
+      dq[base + (size_t)r * D + tx * DC + j] = acc[i][j] * scale;
   }
 }
 
@@ -412,13 +414,13 @@ constexpr int dkdv_smem_floats() {
   return 4 * D * BT + 2 * BT * (D + 4) + BT * PT + 2 * BT;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int t_len, Mask mask,
-               float scale, float cap) {
+               float* __restrict__ dk, float* __restrict__ dv, int t_len,
+               Mask mask, float scale, float cap) {
   constexpr int DC = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                  // [D][BT]
@@ -438,16 +440,16 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int ra = ty * 4, cb = tx * 4;   // ra: key rows, cb: query columns
   const size_t base = (size_t)bh * t_len * D;
 
-  load_tile<T, D>(k + base, k0, t_len, nullptr, kt);
-  load_tile<T, D>(v + base, k0, t_len, nullptr, vt);
+  load_tile<D>(k + base, k0, t_len, nullptr, kt);
+  load_tile<D>(v + base, k0, t_len, nullptr, vt);
   float acc_k[4][DC] = {}, acc_v[4][DC] = {};
   const int lo = mask.query_tile_lo(k0, BT);
   const int hi = mask.query_tile_hi(k0, BT, BT, n_tiles);
   for (int iq = lo; iq <= hi; ++iq) {
     const int q0 = iq * BT;
     __syncthreads();
-    load_tile<T, D>(q + base, q0, t_len, qs, qt);
-    load_tile<T, D>(dout + base, q0, t_len, dos, dot_);
+    load_tile<D>(q + base, q0, t_len, qs, qt);
+    load_tile<D>(dout + base, q0, t_len, dos, dot_);
     if (threadIdx.x < BT) {
       const int row = q0 + threadIdx.x;
       const bool in = row < t_len;
@@ -493,13 +495,13 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= t_len) continue;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
-      dk[base + (size_t)r * D + tx * DC + j] = from_f<T>(acc_k[i][j] * scale);
-      dv[base + (size_t)r * D + tx * DC + j] = from_f<T>(acc_v[i][j]);
+      dk[base + (size_t)r * D + tx * DC + j] = acc_k[i][j] * scale;
+      dv[base + (size_t)r * D + tx * DC + j] = acc_v[i][j];
     }
   }
 }
 
-// ---- bf16 backward on the tensor cores ----
+// ---- bf16 on the tensor cores ----
 
 typedef __nv_bfloat16 bf16;
 constexpr int TC_NT = 128;       // 4 warps
@@ -527,26 +529,57 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int row0,
   }
 }
 
-// acc (a 16 x N strip as N/8 n8 tiles) += A B^T over k < D: A the warp's 16
-// rows at `a`, B the N rows at `b`, both [rows][D + 8] in shared memory.
+// acc (a 16 x N strip as N/8 n8 tiles) += A B^T over k in [kk, kk + 16):
+// A the warp's fragment of that k step, B the N rows at `b`, [rows][D + 8]
+// in shared memory.
+template <int D, int N>
+__device__ __forceinline__ void mma_abt_k(float (&acc)[N / 8][4],
+                                          const uint32_t (&af)[4],
+                                          const bf16* b, int kk) {
+  constexpr int S = tc_stride<D>();
+  const int l = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) {
+    uint32_t bf[4];
+    ldsm_x4(bf, b + (j * 16 + (l / 16) * 8 + l % 8) * S + kk +
+                    ((l / 8) % 2) * 8);
+    mma_bf16(acc[2 * j], af, bf[0], bf[1]);
+    mma_bf16(acc[2 * j + 1], af, bf[2], bf[3]);
+  }
+}
+
+// A warp's 16 rows at `a` ([rows][D + 8] in shared memory) as the A
+// fragments of a product over k < D.
+template <int D>
+__device__ __forceinline__ void ldsm_a(uint32_t (&af)[D / 16][4],
+                                       const bf16* a) {
+  const int l = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(af[kk], a + (l % 16) * tc_stride<D>() + kk * 16 + (l / 16) * 8);
+}
+
+// acc += A B^T over k < D: A the warp's 16 rows at `a` in shared memory,
+// loaded one k step at a time ...
 template <int D, int N>
 __device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const bf16* a,
                                         const bf16* b) {
-  constexpr int S = tc_stride<D>();
   const int l = threadIdx.x % 32;
 #pragma unroll
   for (int kk = 0; kk < D; kk += 16) {
     uint32_t af[4];
-    ldsm_x4(af, a + (l % 16) * S + kk + (l / 16) * 8);
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (j * 16 + (l / 16) * 8 + l % 8) * S + kk +
-                      ((l / 8) % 2) * 8);
-      mma_bf16(acc[2 * j], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * j + 1], af, bf[2], bf[3]);
-    }
+    ldsm_x4(af, a + (l % 16) * tc_stride<D>() + kk + (l / 16) * 8);
+    mma_abt_k<D, N>(acc, af, b, kk);
   }
+}
+
+// ... or already in registers (ldsm_a).
+template <int D, int N>
+__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4],
+                                        const uint32_t (&af)[D / 16][4],
+                                        const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) mma_abt_k<D, N>(acc, af[kk], b, kk * 16);
 }
 
 // acc (a 16 x D strip) += P X over k < N: P in registers as N/16 A
@@ -599,6 +632,116 @@ __device__ __forceinline__ void store_strip(bf16* out,
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + (size_t)row * D + j * 8 + 2 * t4) =
           pack_bf16x2(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+  }
+}
+
+// The forward's loop tiles are 64 keys wide at every head dim: a thread
+// holds O (D/2 fp32), S (BN/2) and its Q fragments (D/4 registers).
+constexpr int TC_FWD_COLS = 64;
+
+template <int D>
+constexpr int fwd_tc_smem_bytes() {
+  return (TC_ROWS + 4 * TC_FWD_COLS) * tc_stride<D>() * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ lse, int t_len, Mask mask, float scale,
+             float cap) {
+  constexpr int BN = TC_FWD_COLS, S = tc_stride<D>();
+  extern __shared__ __align__(16) float smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // [TC_ROWS][S]
+  bf16* ks = qs + TC_ROWS * S;                // [2][BN][S]: the K ring
+  bf16* vs = ks + 2 * BN * S;                 // [2][BN][S]: the V ring
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+  const size_t base = (size_t)bh * t_len * D;
+  const int n_k = (t_len + BN - 1) / BN;
+  const int lo = mask.key_tile_lo(q0, BN);
+  const int hi = mask.key_tile_hi(q0, TC_ROWS, BN, n_k);
+
+  cp_tile<TC_ROWS, D>(qs, q + base, q0, t_len);
+  cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
+  cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
+  cp_async_commit();
+  uint32_t qf[D / 16][4];   // the warp's 16 query rows, for the whole loop
+  float acc[D / 8][4] = {};
+  // online softmax of the thread's rows g and g + 8 of its strip; the 4
+  // lanes of a quad hold one row's columns
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  for (int ik = lo; ik <= hi; ++ik) {
+    const int buf = (ik - lo) & 1, k0 = ik * BN;
+    cp_async_wait_all();
+    __syncthreads();   // tile ik landed; everyone is done with tile ik - 1
+    if (ik < hi) {
+      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + base, k0 + BN, t_len);
+      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + base, k0 + BN, t_len);
+    }
+    cp_async_commit();
+    if (ik == lo) ldsm_a<D>(qf, qs + w * 16 * S);
+    float s[BN / 8][4] = {};
+    mma_abt<D, BN>(s, qf, ks + buf * BN * S);       // S = Q K^T
+    const bool edge = mask.partial(q0, TC_ROWS, k0, BN);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = q0 + w * 16 + g + 8 * (i / 2);
+        const int c = k0 + j * 8 + 2 * t4 + i % 2;
+        float th;
+        const float x = score(s[j][i], scale, cap, &th);
+        s[j][i] = !edge || mask.allow(r, c) ? x : NEG_INF;
+        mx[i / 2] = fmaxf(mx[i / 2], s[j][i]);
+      }
+    }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_r[h], mx[h]);
+      corr[h] = __expf(m_r[h] - m_new);
+      m_r[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = __expf(s[j][i] - m_r[i / 2]);
+        rs[i / 2] += s[j][i];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+      l_r[h] = l_r[h] * corr[h] + rs[h];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] *= corr[i / 2];
+    }
+    uint32_t pf[BN / 16][4];
+    to_a_frags<BN>(pf, s);
+    mma_px<D, BN>(acc, pf, vs + buf * BN * S);      // O += P V
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] /= fmaxf(l_r[i / 2], 1e-30f);
+  }
+  store_strip<D>(o + base, acc, q0 + w * 16, t_len, 1.f);
+  if (t4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + w * 16 + g + 8 * h;
+      if (row < t_len) lse[(size_t)bh * t_len + row] = m_r[h] + logf(l_r[h]);
+    }
   }
 }
 
@@ -815,7 +958,7 @@ constexpr int UNSUPPORTED = -1;
 
 // C interface, loaded with ctypes. Pointers are device pointers of
 // contiguous [BH, T, D] tensors (lse and delta [BH, T] fp32); `bf16` selects
-// bfloat16 over float32, and with it the tensor-core backward. Each returns
+// bfloat16 over float32, and with it the tensor-core kernels. Each returns
 // the launch's cudaError_t, or -1 for a head dim without an instantiation.
 extern "C" {
 
@@ -826,10 +969,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.f / sqrtf((float)d);
   cudaStream_t st = (cudaStream_t)stream;
 #define FWD(T, D)                                                          \
-  return launch<flash_fwd<T, D>, NT, BT>(fwd_smem_floats<D>() * F32, bh,   \
+  return launch<flash_fwd<D>, NT, BT>(fwd_smem_floats<D>() * F32, bh,   \
                 t_len, st,                                                 \
                 (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, t_len,  \
                 mask, scale, cap)
+#define FWD_TC(T, D)                                                       \
+  return launch<flash_fwd_tc<D>, TC_NT, TC_ROWS>(fwd_tc_smem_bytes<D>(),   \
+                bh, t_len, st, (const T*)q, (const T*)k, (const T*)v,      \
+                (T*)o, lse, t_len, mask, scale, cap)
 #define BY_D(M, T)        \
   switch (d) {            \
     case 16: M(T, 16);    \
@@ -838,8 +985,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 128: M(T, 128);  \
     default: return UNSUPPORTED; \
   }
-  if (bf16) { BY_D(FWD, __nv_bfloat16) } else { BY_D(FWD, float) }
+  if (bf16) { BY_D(FWD_TC, __nv_bfloat16) } else { BY_D(FWD, float) }
 #undef FWD
+#undef FWD_TC
 }
 
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -851,7 +999,7 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   const float scale = 1.f / sqrtf((float)d);
   cudaStream_t st = (cudaStream_t)stream;
 #define DQ(T, D)                                                            \
-  return launch<flash_bwd_dq<T, D>, NT, BT>(dq_smem_floats<D>() * F32, bh,  \
+  return launch<flash_bwd_dq<D>, NT, BT>(dq_smem_floats<D>() * F32, bh,  \
                 t_len, st, (const T*)q, (const T*)k, (const T*)v,           \
                 (const T*)o, (const T*)dout, lse, delta, (T*)dq, t_len,     \
                 mask, scale, cap)
@@ -874,7 +1022,7 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
   const float scale = 1.f / sqrtf((float)d);
   cudaStream_t st = (cudaStream_t)stream;
 #define DKDV(T, D)                                                            \
-  return launch<flash_bwd_dkdv<T, D>, NT, BT>(dkdv_smem_floats<D>() * F32,    \
+  return launch<flash_bwd_dkdv<D>, NT, BT>(dkdv_smem_floats<D>() * F32,    \
                 bh, t_len, st, (const T*)q, (const T*)k, (const T*)v,         \
                 (const T*)dout, lse, delta, (T*)dk, (T*)dv, t_len, mask,      \
                 scale, cap)

@@ -17,23 +17,44 @@ with ``mask [B, m]``, ``p [B, m]``, ``prev [B, n]`` and opcode ``op [B]``
 
 Accumulation is fp32 and the output is fp32 ``[B, n]``.
 
-Bound: device-memory bandwidth. The kernel must read ``B * m * n``
-elements of ``x`` once (plus ``prev``, ``mask``, ``p``) and write
-``B * n``; it does no tensor-core work and ~3 flops per element read.
-Design: a single streamed read. The grid is ``(cdiv(n, BLOCK_N), B)``:
-the column blocks sit on grid axis 0 (CUDA's ``gridDim.x``, up to 2^31 - 1
-blocks) and the trajectory on axis 1 (``gridDim.y``, at most 65,535), so a
-134.5M-parameter LM buffer (525,450 column blocks) launches. Offsets are
-64-bit. Each program owns ``BLOCK_N`` columns of one trajectory and walks
-the client axis in ``BLOCK_M``-row tiles with coalesced masked loads, keeping one fp32
-accumulator row in registers. ``op[b]`` is uniform per program, so the
-branch only picks the weight of each row (``mask``, ``mask / m`` or
-``mask / max(p, 1e-3) / m``) and the delta base (0 or ``prev``): one sum is
-accumulated, never three. The masks of the loads cover the ragged ``n`` and
-``m`` edges, so nothing is padded or copied (the TPU wrapper pads with
-``jnp.pad``). The zero-active guard is folded into the epilogue: an empty
-active set returns ``prev``; ``masked_agg(prev=None)`` passes a zero
-``prev``, so there it returns zeros, as the TPU kernel does.
+Bound: device-memory bandwidth. The kernel must read the active clients'
+rows of ``x`` once (plus ``prev`` where the result reads it, ``mask``,
+``p``) and write ``B * n``; it does no tensor-core work and ~3 flops per
+element read. Design: a single streamed read. The grid is
+``(cdiv(n, BLOCK_N), B)``: the column blocks sit on grid axis 0 (CUDA's
+``gridDim.x``, up to 2^31 - 1 blocks) and the trajectory on axis 1
+(``gridDim.y``, at most 65,535), so a 134.5M-parameter LM buffer launches.
+Offsets are 64-bit. Each program owns ``BLOCK_N`` columns of one
+trajectory and walks the client axis in ``BLOCK_M``-row tiles with
+coalesced masked loads, keeping one fp32 accumulator row in registers.
+``op[b]`` is uniform per program, so the branch only picks the weight of
+each row (``mask``, ``mask / m`` or ``mask / max(p, 1e-3) / m``) and the
+delta base (0 or ``prev``): one sum is accumulated, never three. The
+program counts the active clients from the ``[m]`` mask before it reads
+``x``, and loads ``prev`` only where the result uses it (``OP_ALL``,
+``OP_KNOWN_P``, or no active client): under ``OP_MEAN`` with an active
+client it reads ``x`` and writes the output, nothing else of size ``n``.
+Every client row is read, inactive ones too: the plain version multiplies
+by the mask, so a non-finite value there reaches the result in both. The
+masks of the loads cover the ragged ``n`` and ``m`` edges, so nothing is
+padded or copied (the TPU wrapper pads with ``jnp.pad``). The zero-active
+guard is folded into the epilogue: an empty active set returns ``prev``;
+``masked_agg(prev=None)`` passes a zero ``prev``, so there it returns
+zeros, as the TPU kernel does.
+
+Block sizes (``block_sizes``, a pure function of ``m`` and the dtype):
+``BLOCK_M`` is ``m`` rounded up to a power of two, at most 16, so the LM's
+8 clients fill one 8-row tile with no masked lanes. Each of a program's 64
+threads (2 warps) loads 16 contiguous bytes of every row of a tile (8 bf16
+or 4 fp32 columns), so ``BLOCK_N`` is 512 bf16 or 256 fp32 columns, and a
+warp reads 512 contiguous bytes of a row. On an H100 (80GB HBM3, 700 W;
+``scripts/bench_masked_agg.py``) this was within 1 % of the fastest of
+twelve (warps, loads a thread) pairs at both shapes of ``chip_smoke.py``
+phase 1: the LM's ``[1, 8, 134.5M]`` bf16 at 0.881 ms, 3.05 TB/s of the
+20 bytes a column it reads and writes (the old 16 x 256 tiles of 4 warps
+took 5.30 ms), and ``[12, 100, 2762]`` fp32 at 0.0123 ms, where it is
+latency-bound. Wider tiles, more warps or more loads a thread did not
+help at either shape, so ``n`` does not enter the choice.
 
 The wrapper runs the plain version for CPU tensors only; a CUDA tensor
 always launches the kernel, and any other input raises.
@@ -41,7 +62,7 @@ always launches the kernel, and any other input raises.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,12 +75,22 @@ from repro_torch.kernels.ref import (
     masked_agg_ref,
 )
 
-BLOCK_M = 16
-BLOCK_N = 256
-NUM_WARPS = 4
+# warps of a program; each of its threads loads 16 bytes of every row of a
+# tile (scripts/bench_masked_agg.py: the fastest or within 1 % of it at both
+# of chip_smoke.py's shapes, PERF.md)
+NUM_WARPS = 2
 
-__all__ = ["OP_MEAN", "OP_ALL", "OP_KNOWN_P", "BLOCK_M", "BLOCK_N",
+__all__ = ["OP_MEAN", "OP_ALL", "OP_KNOWN_P", "block_sizes",
            "fused_masked_agg", "masked_agg"]
+
+
+def block_sizes(m: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``(BLOCK_M, BLOCK_N, num_warps)`` of a launch on ``x [B, m, n]`` of
+    ``dtype``: powers of two, ``BLOCK_M`` the least one ``>= m`` up to 16,
+    and ``BLOCK_N`` the columns of one 16-byte load for each of the
+    ``32 * num_warps`` threads (512 bf16, 256 fp32)."""
+    block_m = min(16, 1 << max(m - 1, 0).bit_length())
+    return block_m, 32 * NUM_WARPS * 16 // dtype.itemsize, NUM_WARPS
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,13 +107,21 @@ def _kernel():
         b = tl.program_id(1).to(tl.int64)
         offs_n = tl.program_id(0).to(tl.int64) * BLOCK_N + tl.arange(0, BLOCK_N)
         n_ok = offs_n < n
-        prev = tl.load(prev_ptr + b * n + offs_n, mask=n_ok, other=0.0)
         op = tl.load(op_ptr + b)
         is_mean = op == 0
+        cnt = tl.zeros([BLOCK_M], dtype=tl.float32)
+        for m0 in range(0, m, BLOCK_M):
+            offs_m = m0 + tl.arange(0, BLOCK_M)
+            cnt += tl.load(mask_ptr + b * m + offs_m, mask=offs_m < m,
+                           other=0).to(tl.float32)
+        n_active = tl.sum(cnt, axis=0)
+        # prev only where the result reads it: OP_ALL, OP_KNOWN_P, or no
+        # active client
+        prev = tl.load(prev_ptr + b * n + offs_n,
+                       mask=n_ok & ((op != 0) | (n_active == 0)), other=0.0)
         # delta base: 0 for the mean (x - 0 is exact), prev otherwise
         base = tl.where(is_mean, 0.0, prev)
         acc = tl.zeros([BLOCK_N], dtype=tl.float32)
-        cnt = tl.zeros([BLOCK_M], dtype=tl.float32)
         for m0 in range(0, m, BLOCK_M):
             offs_m = m0 + tl.arange(0, BLOCK_M)
             m_ok = offs_m < m
@@ -96,8 +135,6 @@ def _kernel():
             x = tl.load(x_ptr + rows, mask=m_ok[:, None] & n_ok[None, :],
                         other=0.0).to(tl.float32)
             acc += tl.sum((x - base[None, :]) * w[:, None], axis=0)
-            cnt += mk
-        n_active = tl.sum(cnt, axis=0)
         mean = tl.where(n_active > 0, acc / tl.maximum(n_active, 1.0), prev)
         out = tl.where(is_mean, mean, prev + acc)
         tl.store(out_ptr + b * n + offs_n, out, mask=n_ok)
@@ -132,11 +169,12 @@ def _launch(x, mask, op, prev, p) -> torch.Tensor:
     _check("op", op, (B,), (torch.int32,))
     _check("p", p, (B, m), (torch.float32,))
     out = torch.empty((B, n), dtype=torch.float32, device=x.device)
-    grid = (-(-n // BLOCK_N), B)
+    block_m, block_n, num_warps = block_sizes(m, x.dtype)
+    grid = (-(-n // block_n), B)
     with torch.cuda.device(x.device):
         _kernel()[grid](
             x, mask, p, prev, op, out, m, n, float(m),
-            BLOCK_M=BLOCK_M, BLOCK_N=BLOCK_N, num_warps=NUM_WARPS)
+            BLOCK_M=block_m, BLOCK_N=block_n, num_warps=num_warps)
     fused_masked_agg.launches += 1
     return out
 

@@ -7,17 +7,17 @@ masks and arithmetic on the CPU; whether they compile for ``sm_90a``, and
 their speed, only a card can show (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).
 
-bf16 inputs take the tensor-core backward (``flash_bwd_dq_tc``,
-``flash_bwd_dkdv_tc``: ``mma``, ``ldmatrix`` and ``cp.async`` through the
-warp-collective stand-ins of ``tests/cuda_emu/warp_mma.cuh``); fp32 inputs,
-and the forward in both dtypes, the CUDA-core kernels. Each case checks the
-route by the threads per block of the backward launches (128 against 256)
-and by the ``mma`` calls they made (some against none).
+bf16 inputs take the tensor-core kernels (``flash_fwd_tc``,
+``flash_bwd_dq_tc``, ``flash_bwd_dkdv_tc``: ``mma``, ``ldmatrix`` and
+``cp.async`` through the warp-collective stand-ins of
+``tests/cuda_emu/warp_mma.cuh``); fp32 inputs the CUDA-core kernels. Each
+case checks the route of all three launches by their threads per block
+(128 against 256) and by the ``mma`` calls they made (some against none).
 
 Tolerance vs the plain ``flash_attention_ref`` and its autograd: fp32 1e-5
 (the same fp32 arithmetic, summed in tiles); bf16 3e-2 (the reference's
 kernel tolerance: bf16 outputs, and P and dS rounded to bf16 before their
-products).
+products, in the forward as in the backward).
 """
 import ctypes
 
@@ -39,7 +39,7 @@ CASES = [  # (bh, t, d, dtype, causal, window, softcap)
     (1, 96, 32, "float32", True, 0, 0.0),
     (1, 40, 64, "float32", False, 0, 0.0),        # not causal, T < tile
     (1, 192, 64, "float32", False, 70, 5.0),
-    # bf16: the tensor-core backward at every head dim
+    # bf16: the tensor-core kernels at every head dim
     (2, 80, 16, "bfloat16", True, 0, 0.0),        # ragged T
     (1, 200, 32, "bfloat16", True, 0, 0.0),       # ragged T
     (1, 256, 64, "bfloat16", True, 100, 0.0),     # window: skipped tiles
@@ -49,6 +49,7 @@ CASES = [  # (bh, t, d, dtype, causal, window, softcap)
     (1, 128, 128, "bfloat16", True, 0, 0.0),
     (1, 200, 128, "bfloat16", False, 0, 0.0),     # ragged T, not causal
     (1, 256, 128, "bfloat16", True, 100, 5.0),    # window, softcap
+    (2, 40, 16, "bfloat16", True, 0, 0.0),        # T < one 64-row tile
 ]
 
 
@@ -78,14 +79,14 @@ def test_emulated_kernels_match_plain_version(emulated, bh, t, d, dtype,
     common = (bh, t, d, int(dt == torch.bfloat16), int(causal), window, cap,
               None)
     o, lse = torch.empty_like(q), torch.empty(bh, t)
-    assert emulated.flash_attention_fwd(
+    routes = [_route(emulated, lambda: emulated.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *common) == 0
+        lse.data_ptr(), *common))]
     dq, delta = torch.empty_like(q), torch.empty(bh, t)
-    routes = [_route(emulated, lambda: emulated.flash_attention_bwd_dq(
+    routes.append(_route(emulated, lambda: emulated.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *common))]
+        *common)))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     routes.append(_route(emulated, lambda: emulated.flash_attention_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

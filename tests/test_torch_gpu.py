@@ -11,9 +11,10 @@ Tolerances: the flash-attention kernels vs the plain version and its
 autograd, fp32 atol and rtol 2e-3 (the reference's kernel tolerance: an
 online softmax in tiles vs a full one), bf16 atol 1e-2 and rtol 3e-2 (the
 reference's rtol; the atol as in ``chip_smoke.py``, from the measured
-errors; bf16 takes the tensor-core backward, fp32 the CUDA-core one);
+errors; bf16 takes the tensor-core kernels, fp32 the CUDA-core ones);
 the aggregation kernel 1e-5
-(fp32 sums over 3 terms in another order); the LM loss and its gradient
+(fp32 sums over 3 terms in another order; bf16 input 2e-2, as
+``tests/test_torch_kernels.py``); the LM loss and its gradient
 through the kernel vs the plain attention, bf16 5e-2 relative to the
 largest gradient (bf16 activations rounded at other places); the WKV6
 kernel vs its plain chunked version and the step scan, fp32 atol and rtol
@@ -109,10 +110,11 @@ def _check_flash(cuda, b, h, t, d, win, cap, dtype, causal):
 
 @pytest.mark.gpu
 def test_masked_agg_launches_past_the_grid_y_limit(cuda):
-    """n > 65,535 * BLOCK_N columns: the column blocks must sit on grid
-    axis 0 (CUDA's gridDim.y stops at 65,535; the LM's n = 134.5M needs
-    525,450 blocks)."""
-    n = 65_535 * tmasked.BLOCK_N + 3 * tmasked.BLOCK_N + 7
+    """n > 65,535 * BLOCK_N columns at the width the wrapper picks: the
+    column blocks must sit on grid axis 0 (CUDA's gridDim.y stops at
+    65,535; the LM's n = 134.5M needs more)."""
+    block_n = tmasked.block_sizes(3, torch.float32)[1]
+    n = 65_535 * block_n + 3 * block_n + 7
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(1, 3, n, generator=gen, device=cuda)
     mask = torch.tensor([[True, False, True]], device=cuda)
@@ -123,6 +125,29 @@ def test_masked_agg_launches_past_the_grid_y_limit(cuda):
         got = tmasked.fused_masked_agg(x, mask, ops, prev, p)
         want = tref.fused_masked_agg_ref(x, mask, ops, prev, p)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("active", ["some", "none"])
+def test_masked_agg_at_the_lm_client_count_bf16(cuda, active):
+    """m = 8 bf16 clients (one 8-row tile), a ragged n, ops 0/1/2 in one
+    launch: within bf16's 2e-2 of the plain version; with no active client
+    OP_MEAN returns ``prev`` exactly."""
+    n = 2 ** 21 + 5
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(3, 8, n, generator=gen, device=cuda).to(torch.bfloat16)
+    mask = torch.rand(3, 8, generator=gen, device=cuda) < 0.5
+    mask[:, 0] = True
+    if active == "none":
+        mask[:] = False
+    prev = torch.randn(3, n, generator=gen, device=cuda)
+    p = torch.rand(3, 8, generator=gen, device=cuda)
+    ops = torch.arange(3, dtype=torch.int32, device=cuda)
+    got = tmasked.fused_masked_agg(x, mask, ops, prev, p)
+    want = tref.fused_masked_agg_ref(x, mask, ops, prev, p)
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    if active == "none":
+        assert torch.equal(got[0], prev[0])
 
 
 @pytest.mark.gpu

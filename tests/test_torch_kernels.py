@@ -136,6 +136,20 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     assert tmasked.fused_masked_agg.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 16, 37, 100, 1000])
+def test_block_sizes_are_powers_of_two_with_16_byte_rows(m, dtype):
+    """The launch's block sizes: powers of two, every client row of a tile
+    in use up to 16 rows (m = 8 takes one 8-row tile), and each thread of
+    the program loading 16 contiguous bytes of every row of a tile."""
+    block_m, block_n, num_warps = tmasked.block_sizes(m, dtype)
+    for size in (block_m, block_n, num_warps):
+        assert size > 0 and size & (size - 1) == 0
+    assert min(m, 16) <= block_m <= 16
+    assert block_m < 2 * m or m >= 16
+    assert block_n * dtype.itemsize == 32 * num_warps * 16
+
+
 def test_wrapper_and_dispatch_refuse_other_devices():
     """No quiet fallback: a tensor that is neither on the CPU nor on a card
     raises instead of running anything."""
