@@ -56,23 +56,29 @@ plain path must launch no flash kernel, and the two server updates must
 lie within a relative distance of ``PATHS_TOL`` of each other, over all
 parameters and on each attention projection.
 
-Phase 7 holds the CUDA WKV6 chunk kernel (``csrc/rwkv6_chunk.cu``)
-against its plain chunked version, and against the step scan where the
-sequence is short, at the reference's kernel-test shapes, at strong decay
-(w in [1e-3, 0.1]: the kernel must stay finite), at T = 1 and a ragged T,
-and at the serving shapes: prefill ``[4, 40, 4096, 64]`` (T = 4096, the
-context of the published RWKV-6 World 3B checkpoints) and one decode step
-``[8, 40, 1, 64]`` (``WKV_TOL``). It times the kernel with CUDA-graph
-replays and the plain version with CUDA events, and computes the bound
-from the bytes the call must move and the flops the recurrence needs
-(``wkv_work``; bytes bound it at both shapes). No single
-PyTorch call computes WKV6, so its library time is null. Phase 8 drives the
+Phase 7 prints the ptxas registers, spills and shared memory of the WKV6
+kernels (``csrc/rwkv6_chunk.cu``: the chunked route's ``wkv6_state`` and
+``wkv6_output``, the step route's ``wkv6_step``) at D = 64 and 128, and
+fails on a spill. It holds both routes, each forced, against the plain
+chunked version, and against the step scan where the sequence is short,
+at the reference's kernel-test shapes, at strong decay (w in [1e-3, 0.1],
+T up to 4096: the kernels must stay finite), at T = 1, 2, 63, 65 and a
+ragged T, and at the serving shapes: prefill ``[4, 40, 4096, 64]``
+(T = 4096, the context of the published RWKV-6 World 3B checkpoints) and
+one decode step ``[8, 40, 1, 64]`` (``WKV_TOL``; it prints the atol each
+needs at that rtol). It times the prefill shape on the chunked route and
+the decode shape on the step route with CUDA-graph replays (the other
+route beside each), the plain version with CUDA events, both routes at
+``[8, 40, T, 64]`` around ``rwkv6_chunk.STEP_MAX_T``, and computes the
+bound from the bytes the call must move and the flops the recurrence
+needs (``wkv_work``; bytes bound it at both shapes). No single PyTorch
+call computes WKV6, so its library time is null. Phase 8 drives the
 serving slice at full width (RWKV6-3B: 32 layers, d_model 2560, 40 heads of
 64, vocab 65,536, bf16): (a) ``forward`` on ``[4, 4096]`` tokens, finite
 logits, tokens/s and peak memory; (b) ``repro_torch.launch.serve --full
 --arch rwkv6-3b --batch 8 --prompt-len 128 --gen 64``, its ids, tokens/s
-and peak memory; the kernel must launch 32 times per forward and
-32 x (128 + 64) times per serve run; (c) ``forward`` at full width,
+and peak memory; the wrapper must run 32 times per forward, on the
+chunked route, and 32 x (128 + 64) times per serve run, on the step route; (c) ``forward`` at full width,
 2 layers, ``[4, 512]``, in bf16 and in fp32, through the kernel and with
 ``backend="torch"`` (0 launches), the logits within ``RWKV_PATHS_TOL``.
 Phase 8 also profiles one forward and a short serve run (16 + 16 steps)
@@ -84,7 +90,8 @@ together while phase 1 builds and checks the Triton kernel.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (each
 flash kernel with its design and its registers and spills at D = 64 and by
-head dim), the
+head dim; the WKV6 wrapper once per route, ``rwkv6_chunk_fwd`` and
+``rwkv6_step_fwd``, with their kernels' ptxas by head dim), the
 card's name and power limit from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
 result line. Without CUDA, or without the repository beside it, it exits
@@ -154,15 +161,20 @@ FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (1e-2, 3e-2)}
 # step, so a rounding flip decides whether an element moves); a zero dQ, dK
 # or dV reads 1.0 on wq, wk or wv.
 PATHS_TOL = 0.3
-# the WKV6 kernel (phase 7): (b, h, t, d, decay) at the reference's
+# the WKV6 kernels (phase 7): (b, h, t, d, decay) at the reference's
 # kernel-test shapes (tests/test_kernels.py), strong decay, ragged T, T = 1,
-# then the serving shapes, prefill and one decode step
+# T = 2, 63, 65, strong decay over 4096 steps, then the serving shapes,
+# prefill and one decode step
 WKV_SHAPES = [(1, 1, 64, 64, "ref"), (2, 2, 128, 64, "ref"),
               (1, 2, 256, 128, "ref"), (1, 1, 192, 64, "ref"),
               (2, 4, 256, 64, "strong"), (3, 2, 100, 64, "ref"),
-              (2, 4, 1, 128, "ref")]
+              (2, 4, 1, 128, "ref"), (2, 2, 2, 64, "ref"),
+              (1, 2, 63, 64, "ref"), (2, 1, 65, 64, "strong"),
+              (1, 4, 4096, 64, "strong")]
 WKV_PREFILL = (4, 40, 4096, 64, "ref")
 WKV_DECODE = (8, 40, 1, 64, "ref")
+# both routes timed at [8, 40, T, 64] around rwkv6_chunk.STEP_MAX_T
+WKV_CROSSOVER_T = (1, 2, 4, 8, 12, 16, 32, 64)
 # kernel vs plain chunked version (and the step scan): fp32 atol = rtol,
 # the reference's kernel tolerance 3e-3 cut to 1e-3 (7.6e-6 measured on the
 # card, 1.2e-5 by the emulated build of the same source)
@@ -778,8 +790,47 @@ def wkv_work(b, h, t, d):
     return nbytes, b * h * t * (5 * d * d + 5 * d)
 
 
+def wkv_ptxas(log, kernels):
+    """{kernel: {head dim: {registers, spill_stores, spill_loads, smem}}}
+    of the WKV6 kernels from an ``nvcc -Xptxas -v`` report (``smem``: the
+    static shared memory ptxas reports; the dynamic one is
+    ``rk.shared_bytes``)."""
+    table, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d(wkv6_[a-z]+)ILi(\d+)E", line)
+            key = None if m is None or m.group(1) not in kernels else (
+                m.group(1), int(m.group(2)))
+            if key:
+                table.setdefault(key[0], {})[key[1]] = {}
+        elif key and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            table[key[0]][key[1]].update(
+                {f"spill_{kind}": int(n) for n, kind in nums})
+        elif key and "Used" in line and "registers" in line:
+            entry = table[key[0]][key[1]]
+            entry["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(smem.group(1)) if smem else 0
+    return table
+
+
 def phase7_wkv(torch, rk, ref, bw, fp32_peak, build_log):
     print_ptxas("phase7", build_log)
+    ptxas = wkv_ptxas(build_log, rk.KERNELS)
+    for name in rk.KERNELS:
+        by_d = ptxas.get(name, {})
+        print(f"phase7 ptxas {name} by head dim: " + "; ".join(
+            f"D={dd}: {vv.get('registers')} registers, spill stores "
+            f"{vv.get('spill_stores')} B, loads {vv.get('spill_loads')} B, "
+            f"shared {vv.get('smem')} B static + "
+            f"{rk.shared_bytes(name, dd)} B dynamic"
+            for dd, vv in sorted(by_d.items())), flush=True)
+        if sorted(by_d) != list(rk.HEAD_DIMS) or any(
+                vv.get("spill_stores") or vv.get("spill_loads")
+                for vv in by_d.values()):
+            fail(f"ptxas reports spills in {name}, or misses a head dim")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -796,51 +847,85 @@ def phase7_wkv(torch, rk, ref, bw, fp32_peak, build_log):
                                                    device=dev)
         return r, k, v, w, 0.3 * rand(h, d), 0.1 * rand(b, h, d, d)
 
-    errs = {}
+    # every shape through both routes (the wrapper's pick is one of them);
+    # the largest error of each route
+    errs = dict.fromkeys(rk.ROUTES, 0.0)
     for shape in WKV_SHAPES + [WKV_DECODE, WKV_PREFILL]:
         ins = inputs(*shape)
-        o, s_t = rk.rwkv6_chunk(*ins)
-        torch.cuda.synchronize()
         wants = {"plain": ref.rwkv6_chunk_plain(*ins)}
         if shape[2] <= 256:
             wants["step scan"] = ref.rwkv6_chunk_ref(*ins)
-        finite = bool(torch.isfinite(o).all() and torch.isfinite(s_t).all())
-        line, ok = [], finite
-        for name, (wo, ws) in wants.items():
-            e = max((o - wo).abs().max().item(), (s_t - ws).abs().max().item())
-            ok = ok and torch.allclose(o, wo, rtol=WKV_TOL, atol=WKV_TOL) \
-                and torch.allclose(s_t, ws, rtol=WKV_TOL, atol=WKV_TOL)
-            line.append(f"{name} {e:.3e}")
-            errs[shape] = max(errs.get(shape, 0.0), e)
-        print(f"phase7 wkv6 {list(shape)}: max_abs_err (o, S_T) vs "
-              + ", ".join(line) + f"; max|o| {o.abs().max().item():.3e}; "
-              f"finite {finite}; tol {WKV_TOL:g} {'ok' if ok else 'MISMATCH'}",
-              flush=True)
-        if not ok:
-            fail(f"the WKV6 kernel disagrees with its plain version at "
-                 f"{shape}")
-        del ins, o, s_t, wants
+        for route in rk.ROUTES:
+            o, s_t = rk.rwkv6_chunk(*ins, route=route)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(o).all()
+                          and torch.isfinite(s_t).all())
+            line, need, ok = [], [], finite
+            for name, (wo, ws) in wants.items():
+                e = max((o - wo).abs().max().item(),
+                        (s_t - ws).abs().max().item())
+                # the smallest atol that passes at rtol WKV_TOL
+                need.append(max(
+                    ((o - wo).abs() - WKV_TOL * wo.abs()).max().item(),
+                    ((s_t - ws).abs() - WKV_TOL * ws.abs()).max().item()))
+                ok = ok and torch.allclose(o, wo, rtol=WKV_TOL,
+                                           atol=WKV_TOL) \
+                    and torch.allclose(s_t, ws, rtol=WKV_TOL, atol=WKV_TOL)
+                line.append(f"{name} {e:.3e}")
+                errs[route] = max(errs[route], e)
+            pick = " (the wrapper's route)" if route == rk.route_for(
+                shape[2]) else ""
+            print(f"phase7 wkv6 {route}{pick} {list(shape)}: max_abs_err "
+                  f"(o, S_T) vs " + ", ".join(line) + "; atol needed at "
+                  f"rtol {WKV_TOL:g}: " + ", ".join(f"{x:.3e}" for x in need)
+                  + f"; max|o| {o.abs().max().item():.3e}; finite {finite};"
+                  f" tol {WKV_TOL:g} {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok:
+                fail(f"the WKV6 {route} route disagrees with its plain "
+                     f"version at {shape}")
+            del o, s_t
+        del ins, wants
     torch.cuda.empty_cache()
 
     out = {}
-    for key, shape in (("prefill", WKV_PREFILL), ("decode", WKV_DECODE)):
+    for key, route, shape in (("prefill", "chunked", WKV_PREFILL),
+                              ("decode", "step", WKV_DECODE)):
         ins = inputs(*shape)
-        ms = time_ms(lambda: rk.rwkv6_chunk(*ins), iters=20)
+        ms = time_ms(lambda: rk.rwkv6_chunk(*ins, route=route), iters=20)
+        other = "step" if route == "chunked" else "chunked"
+        other_ms = time_ms(lambda: rk.rwkv6_chunk(*ins, route=other),
+                           iters=2 if other == "step" else 20)
         plain_ms = time_ms_events(lambda: ref.rwkv6_chunk_plain(*ins),
                                   iters=3)
         nbytes, flops = wkv_work(*shape[:4])
         bound_ms = max(nbytes / bw, flops / fp32_peak) * 1e3
         by = "operations" if flops / fp32_peak > nbytes / bw else "bytes"
-        print(f"phase7 timing wkv6 {key} {list(shape[:4])} fp32: kernel "
-              f"{ms:.5f} ms, plain {plain_ms:.5f} ms, library none (no "
+        print(f"phase7 timing wkv6 {key} {list(shape[:4])} fp32, {route} "
+              f"route: kernel {ms:.5f} ms ({other} route {other_ms:.5f} "
+              f"ms), plain {plain_ms:.5f} ms, library none (no "
               f"single PyTorch call computes WKV6), bound {bound_ms:.5f} ms "
               f"by {by} ({nbytes} bytes at {bw / 1e12:g} TB/s; {flops:.4e} "
               f"flop at {fp32_peak / 1e12:g} TFLOP/s fp32), "
               f"{nbytes / ms / 1e6:.1f} GB/s achieved", flush=True)
         out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=by, bytes=nbytes, flops=flops,
-                        max_abs_err=errs[shape], shape=list(shape[:4]))
+                        max_abs_err=errs[route], shape=list(shape[:4]),
+                        route=route, other_route_ms=other_ms)
         del ins
+    crossover = {}
+    for t in WKV_CROSSOVER_T:
+        ins = inputs(8, 40, t, 64, "ref")
+        crossover[t] = {route: time_ms(
+            lambda: rk.rwkv6_chunk(*ins, route=route), iters=20)
+            for route in rk.ROUTES}
+        del ins
+    print("phase7 timing wkv6 routes at [8, 40, T, 64] (ms, CUDA-graph "
+          f"replays; T <= {rk.STEP_MAX_T} takes the step route): " + "; ".join(
+              f"T={t}: " + ", ".join(f"{r} {x:.5f}" for r, x in c.items())
+              for t, c in crossover.items()), flush=True)
+    out["crossover_ms"] = crossover
+    out["ptxas"] = ptxas
     torch.cuda.empty_cache()
     return out
 
@@ -848,8 +933,10 @@ def phase7_wkv(torch, rk, ref, bw, fp32_peak, build_log):
 def _family(name):
     """A device kernel's family, for the profiles of phase 8."""
     n = name.lower()
-    if "wkv6_fwd" in n:
-        return "wkv6_fwd (CUDA)"
+    if "wkv6_state" in n or "wkv6_output" in n:
+        return "wkv6 chunked route (CUDA)"
+    if "wkv6_step" in n:
+        return "wkv6 step route (CUDA)"
     if "gemm" in n or "gemv" in n or "sm90" in n or "cutlass" in n \
             or "nvjet" in n:
         return "matrix products (cuBLAS)"
@@ -901,6 +988,12 @@ def profile_window(torch, label, fn, per, unit):
     return out
 
 
+def reset_wkv_counts(rk):
+    """The WKV6 wrapper's counts to 0: calls, and calls by route."""
+    rk.rwkv6_chunk.launches = 0
+    rk.rwkv6_chunk.launches_by_route = dict.fromkeys(rk.ROUTES, 0)
+
+
 def phase8_serving(torch, rk, card):
     """(a) forward of RWKV6-3B at full width on [4, 4096]; (b) the serving
     launcher; (c) the kernel vs the plain forward at 2 layers."""
@@ -920,7 +1013,7 @@ def phase8_serving(torch, rk, card):
                          ).to(dev)
     res = {"params": n_params}
     for run in ("first", "second"):
-        rk.rwkv6_chunk.launches = 0
+        reset_wkv_counts(rk)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -929,21 +1022,24 @@ def phase8_serving(torch, rk, card):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = rk.rwkv6_chunk.launches
+        chunked = rk.rwkv6_chunk.launches_by_route["chunked"]
         finite = bool(torch.isfinite(logits).all())
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"phase8a forward rwkv6-3b full width ({n_params} params, "
               f"bf16) on [{PREFILL_B}, {PREFILL_T}], {run} call: "
               f"{seconds:.4f} s = {PREFILL_B * PREFILL_T / seconds:.1f} "
               f"tokens/s; logits {tuple(logits.shape)} {logits.dtype} "
-              f"finite {finite}; wkv6 launches {launches} (want "
-              f"{RWKV_LAYERS}); peak memory {peak:.2f} GiB on {card}",
+              f"finite {finite}; wkv6 launches {launches}, chunked route "
+              f"{chunked} (want {RWKV_LAYERS}); peak memory {peak:.2f} GiB "
+              f"on {card}",
               flush=True)
         if not finite or tuple(logits.shape) != (PREFILL_B, PREFILL_T,
                                                  cfg.vocab_size):
             fail("the RWKV6 forward's logits are not finite or misshapen")
-        if launches != RWKV_LAYERS:
-            fail(f"forward launched the WKV6 kernel {launches} times, "
-                 f"expected {RWKV_LAYERS}")
+        if launches != RWKV_LAYERS or chunked != RWKV_LAYERS:
+            fail(f"forward launched the WKV6 kernels {launches} times, "
+                 f"{chunked} on the chunked route; expected {RWKV_LAYERS}")
+        res["forward_chunked_launches"] = chunked
         res[f"forward_{run}_s"] = seconds
         res["forward_tokens_per_s"] = PREFILL_B * PREFILL_T / seconds
         res["forward_peak_gib"] = peak
@@ -966,12 +1062,13 @@ def phase8_serving(torch, rk, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    rk.rwkv6_chunk.launches = 0
+    reset_wkv_counts(rk)
     torch.cuda.reset_peak_memory_stats()
     out = serve.main(["--full", "--arch", "rwkv6-3b", "--batch",
                       str(SERVE_B), "--prompt-len", str(SERVE_P), "--gen",
                       str(SERVE_G)])
     launches = rk.rwkv6_chunk.launches
+    steps = rk.rwkv6_chunk.launches_by_route["step"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = RWKV_LAYERS * (SERVE_P + SERVE_G)
     decode_s = out["seconds"] - out["prefill_seconds"]
@@ -982,16 +1079,18 @@ def phase8_serving(torch, rk, card):
           f"{SERVE_B * SERVE_G / decode_s:.1f} tokens/s, "
           f"{1e3 * out['seconds'] / (SERVE_P + SERVE_G):.3f} ms per step); "
           f"first ids {out['ids'][0][:12].tolist()}; wkv6 launches "
-          f"{launches} (want {want}); peak memory {peak:.2f} GiB", flush=True)
-    if launches != want:
-        fail(f"serving launched the WKV6 kernel {launches} times, expected "
-             f"{want}")
+          f"{launches}, step route {steps} (want {want}); peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    if launches != want or steps != want:
+        fail(f"serving launched the WKV6 kernels {launches} times, {steps} "
+             f"on the step route; expected {want}")
     if tuple(out["ids"].shape) != (SERVE_B, SERVE_G) or not (
             (out["ids"] >= 0) & (out["ids"] < cfg.vocab_size)).all():
         fail("the served ids are misshapen or out of the vocabulary")
     res.update(serve_s=out["seconds"], serve_tokens_per_s=out["tokens_per_s"],
                serve_prefill_s=out["prefill_seconds"], serve_peak_gib=peak,
-               serve_launches=launches, first_ids=out["ids"][0][:12].tolist())
+               serve_launches=launches, serve_step_launches=steps,
+               first_ids=out["ids"][0][:12].tolist())
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1003,7 +1102,7 @@ def phase8_serving(torch, rk, card):
             torch.Generator(device=dev).manual_seed(0), short)
         got = {}
         for path, backend in (("kernel", None), ("plain", "torch")):
-            rk.rwkv6_chunk.launches = 0
+            reset_wkv_counts(rk)
             with torch.no_grad():
                 got[path], _ = model.forward(params, short, toks,
                                              backend=backend)
@@ -1118,18 +1217,28 @@ def main():
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err
-    w = wkv["prefill"]
-    kernels.append({
-        "name": "rwkv6_chunk", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
-        "replaces": "src/repro/kernels/rwkv6_chunk.py:73 "
-                    "(rwkv6_chunk -> _kernel)",
-        "launches": rwkv["serve_launches"],
-        "max_abs_err": max(x["max_abs_err"] for x in wkv.values()),
-        "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
-        "bound_by": w["bound_by"], "library_ms": None,
-        "flops": w["flops"], "bytes": w["bytes"], "shape": w["shape"],
-        "decode": wkv["decode"], "rwkv_slice": rwkv})
+    source = "src/repro_torch/kernels/csrc/rwkv6_chunk.cu"
+    replaces = "src/repro/kernels/rwkv6_chunk.py:73 (rwkv6_chunk -> _kernel"
+    for key, name, what, launches in (
+            ("prefill", "rwkv6_chunk_fwd", "; the chunked route, two CUDA "
+             "launches a call: wkv6_state, wkv6_output)",
+             rwkv["forward_chunked_launches"]),
+            ("decode", "rwkv6_step_fwd", "; the step route, one CUDA launch "
+             "a call: wkv6_step)", rwkv["serve_step_launches"])):
+        r = wkv[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces + what, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "flops": r["flops"], "bytes": r["bytes"], "shape": r["shape"],
+            "other_route_ms": r["other_route_ms"],
+            "ptxas_by_head_dim": {
+                k2: v2 for k2, v2 in wkv["ptxas"].items()
+                if (k2 == "wkv6_step") == (key == "decode")}})
+    kernels[-2]["rwkv_slice"] = rwkv
+    kernels[-1]["crossover_ms"] = wkv["crossover_ms"]
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,6 +12,10 @@
 //     (row g + 8, cols 2t, 2t + 1).
 // So the C fragments of two neighbouring n8 tiles, packed to bf16 pairs,
 // are the A fragment of the next product over those 16 columns.
+// m16n8k8 with tf32 operands (one value a 32-bit register): A, 16 x 8,
+//   a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (row
+//   g + 8, k t + 4); B, 8 x 8, b0 (k t, col g), b1 (k t + 4, col g); C and
+//   D as above.
 //
 // The host build of the kernels' source (tests/_cuda_emu.py) takes its
 // stand-ins for these functions from tests/cuda_emu/warp_mma.cuh: keep the
@@ -85,4 +89,40 @@ __device__ __forceinline__ void cp_async_commit() {
 // makes every thread's visible to the block).
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until all but this thread's N most recent groups have landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = hi + lo for the tensor cores' tf32 operands: hi is x cut to tf32 (its
+// low 13 mantissa bits cleared: one integer op, where cvt.rna.tf32 is a
+// conversion that measured slower in the WKV6 kernels), lo = x - hi
+// exactly. An mma reads the top 19 bits of each 32-bit operand, so lo
+// enters cut to tf32 as well, and hi + lo keeps about 21 of x's 24 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b: m16n8k8, tf32 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: about 2 ulp; results
+// below fp32's normal range flush to zero).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }

@@ -25,6 +25,8 @@ using std::min;
 #define __restrict__
 struct float4 { float x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -46,6 +48,17 @@ inline float4 make_float4(float a, float b, float c, float d) {
 }
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
 inline float __expf(float x) { return std::exp(x); }
+inline float __log2f(float x) { return std::log2(x); }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
 
 inline float* emu_smem = nullptr;
 inline int emu_threads = 0;       // threads per block of the last launch
@@ -62,6 +75,30 @@ inline float __shfl_xor_sync(unsigned, float x, int off) {
   const float y = emu_lanes[w][l ^ off];
   emu_warp[w]->arrive_and_wait();
   return y;
+}
+
+// lane l gets lane l - off's x (its own below off)
+inline float __shfl_up_sync(unsigned, float x, int off) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_lanes[w][l] = x;
+  emu_warp[w]->arrive_and_wait();
+  const float y = emu_lanes[w][l >= off ? l - off : l];
+  emu_warp[w]->arrive_and_wait();
+  return y;
+}
+
+// lane l gets lane l + off's x (its own past the end)
+inline float __shfl_down_sync(unsigned, float x, int off) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_lanes[w][l] = x;
+  emu_warp[w]->arrive_and_wait();
+  const float y = emu_lanes[w][l + off < 32 ? l + off : l];
+  emu_warp[w]->arrive_and_wait();
+  return y;
+}
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp[threadIdx.x / 32]->arrive_and_wait();
 }
 
 // kernel<<<grid, threads, bytes, stream>>>(args...) on the host; shared

@@ -17,7 +17,7 @@
 
 inline uint32_t emu_frag[32][32][8];        // [warp][lane][register]
 inline const unsigned char* emu_addr[32][32];
-inline long emu_mma_count = 0;              // mma_bf16 calls, lane 0 only
+inline long emu_mma_count = 0;      // mma_bf16 and mma_tf32 calls of thread 0
 
 // lane: write n words, meet, then read what `get` picks, and meet again
 template <int N, class Get>
@@ -90,29 +90,70 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
   });
 }
 
+// hi: x with its low 13 mantissa bits cleared, lo = x - hi, as on the card
+inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// an operand as the tensor core reads it: its top 19 bits (sign, exponent,
+// 10 mantissa bits), the low 13 ignored, so the stand-in is no more exact
+// than the card
+inline float emu_tf32(uint32_t r) { return __uint_as_float(r & 0xffffe000u); }
+
+inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                     uint32_t b1) {
+  const uint32_t mine[6] = {a[0], a[1], a[2], a[3], b0, b1};
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  if (threadIdx.x == 0) ++emu_mma_count;
+  emu_exchange<6>(mine, [&](uint32_t (&f)[32][8]) {
+    for (int i = 0; i < 4; ++i) {
+      const int row = g + 8 * (i / 2), col = 2 * t + i % 2;
+      float acc = 0.f;
+      for (int k = 0; k < 8; ++k)
+        acc += emu_tf32(f[(row % 8) * 4 + k % 4][row / 8 + 2 * (k / 4)]) *
+               emu_tf32(f[col * 4 + k % 4][4 + k / 4]);
+      d[i] += acc;
+    }
+  });
+}
+
+inline float ex2(float x) { return std::exp2(x); }
+
 struct EmuCopy {
   void* dst;
   const void* src;
   int bytes;
   bool valid;
+  int group;
 };
 inline thread_local std::vector<EmuCopy> emu_pending;
+inline thread_local int emu_group = 0;     // groups committed by this thread
 
 inline void cp_async16(void* dst, const void* src, bool valid) {
-  emu_pending.push_back({dst, src, 16, valid});
+  emu_pending.push_back({dst, src, 16, valid, emu_group});
 }
 inline void cp_async4(void* dst, const void* src, bool valid) {
-  emu_pending.push_back({dst, src, 4, valid});
+  emu_pending.push_back({dst, src, 4, valid, emu_group});
 }
-inline void cp_async_commit() {}
-inline void cp_async_wait_all() {
+inline void cp_async_commit() { ++emu_group; }
+// land the copies of every committed group but the newest n ones (n < 0:
+// every copy issued)
+inline void emu_land(int n) {
+  std::vector<EmuCopy> keep;
   for (const EmuCopy& c : emu_pending) {
-    if (c.valid)
+    if (n >= 0 && c.group >= emu_group - n) {
+      keep.push_back(c);
+    } else if (c.valid) {
       std::memcpy(c.dst, c.src, c.bytes);
-    else
+    } else {
       std::memset(c.dst, 0, c.bytes);
+    }
   }
-  emu_pending.clear();
+  emu_pending.swap(keep);
 }
+inline void cp_async_wait_all() { emu_land(-1); }
+template <int N>
+inline void cp_async_wait() { emu_land(N); }
 
 extern "C" long emu_mma_calls() { return emu_mma_count; }

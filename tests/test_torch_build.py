@@ -39,4 +39,4 @@ def test_dependencies_of_the_port_sources():
     names = [p.name for p in build.dependencies(tflash.SOURCE)]
     assert names == ["flash_attention.cu", "warp_mma.cuh"]
     assert [p.name for p in build.dependencies(trwkv.SOURCE)] == [
-        "rwkv6_chunk.cu"]
+        "rwkv6_chunk.cu", "warp_mma.cuh"]

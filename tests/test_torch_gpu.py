@@ -17,10 +17,11 @@ the aggregation kernel 1e-5
 ``tests/test_torch_kernels.py``); the LM loss and its gradient
 through the kernel vs the plain attention, bf16 5e-2 relative to the
 largest gradient (bf16 activations rounded at other places); the WKV6
-kernel vs its plain chunked version and the step scan, fp32 atol and rtol
-1e-4 (as its emulated build; the reference's kernel tolerance is 3e-3),
-at the serving shapes 1e-3 (64 chunks of a 4096-step sequence, and
-``__expf`` on the card).
+kernels (both routes: the chunked one's products in 3xTF32) vs the plain
+chunked version and the step scan, fp32 atol and rtol 1e-4 (as their
+emulated build; the reference's kernel tolerance is 3e-3), at the
+serving shapes 1e-3 (64 chunks of a 4096-step sequence, and ``__expf``
+on the card).
 """
 import dataclasses
 
@@ -180,8 +181,8 @@ def test_lm_loss_through_the_kernel_matches_plain_attention(cuda):
 
 # (b, h, t, d, decay, atol = rtol): the shapes of
 # tests/test_kernels.py::test_rwkv6_chunk_sweep, strong decay, ragged T,
-# T = 1, then the serving shapes: prefill [4, 40, 4096, 64] and one decode
-# step [8, 40, 1, 64]
+# T = 1, the serving shapes: prefill [4, 40, 4096, 64] and one decode step
+# [8, 40, 1, 64], then T = 2, 63 and 65 and strong decay over 8 chunks
 WKV_CASES = [
     (1, 1, 64, 64, "ref", 1e-4),
     (2, 2, 128, 64, "ref", 1e-4),
@@ -192,6 +193,24 @@ WKV_CASES = [
     (2, 4, 1, 128, "ref", 1e-4),
     (4, 40, 4096, 64, "ref", 1e-3),
     (8, 40, 1, 64, "ref", 1e-4),
+    (2, 2, 2, 64, "ref", 1e-4),
+    (1, 2, 63, 64, "ref", 1e-4),
+    (2, 1, 65, 64, "strong", 1e-4),
+    (1, 2, 512, 64, "strong", 1e-4),
+]
+# each route forced, around its threshold and the chunk length, at strong
+# decay over 8 chunks and at D = 128: (b, h, t, d, decay, atol = rtol)
+WKV_ROUTE_CASES = [
+    (3, 2, 1, 64, "ref", 1e-4),
+    (2, 2, 2, 64, "ref", 1e-4),
+    (2, 2, 8, 64, "ref", 1e-4),
+    (2, 2, 9, 64, "ref", 1e-4),
+    (1, 2, 63, 64, "ref", 1e-4),
+    (1, 2, 64, 64, "strong", 1e-4),
+    (2, 1, 65, 64, "strong", 1e-4),
+    (1, 2, 512, 64, "strong", 1e-4),
+    (2, 3, 1, 128, "ref", 1e-4),
+    (1, 2, 200, 128, "ref", 1e-4),
 ]
 
 
@@ -213,16 +232,35 @@ def _wkv_inputs(b, h, t, d, decay, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t,d,decay,tol", WKV_CASES)
 def test_wkv6_kernel_matches_plain_version(cuda, b, h, t, d, decay, tol):
-    """One launch; finite, and within tolerance of the plain chunked
-    version (and of the step scan where it is short enough to run)."""
+    """One launch of the route T picks; finite, and within tolerance of the
+    plain chunked version (and of the step scan where it is short enough
+    to run)."""
+    _check_wkv(cuda, b, h, t, d, decay, tol, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["chunked", "step"])
+@pytest.mark.parametrize("b,h,t,d,decay,tol", WKV_ROUTE_CASES)
+def test_wkv6_each_route_matches_plain_version(cuda, b, h, t, d, decay, tol,
+                                               route):
+    """The same with the route forced: every T works on both."""
+    _check_wkv(cuda, b, h, t, d, decay, tol, route)
+
+
+def _check_wkv(cuda, b, h, t, d, decay, tol, route):
     ins = _wkv_inputs(b, h, t, d, decay, cuda)
+    want_route = route or trwkv.route_for(t)
     before = trwkv.rwkv6_chunk.launches
-    o, s = trwkv.rwkv6_chunk(*ins)
+    by_route = dict(trwkv.rwkv6_chunk.launches_by_route)
+    o, s = trwkv.rwkv6_chunk(*ins, route=route)
     torch.cuda.synchronize()
     assert trwkv.rwkv6_chunk.launches - before == 1
+    assert {k: n - by_route[k] for k, n in
+            trwkv.rwkv6_chunk.launches_by_route.items()} == {
+        k: int(k == want_route) for k in trwkv.ROUTES}
     assert torch.isfinite(o).all() and torch.isfinite(s).all()
     wants = [tref.rwkv6_chunk_plain(*ins)]
-    if t <= 256:
+    if t <= 512:
         wants.append(tref.rwkv6_chunk_ref(*ins))
     for want_o, want_s in wants:
         torch.testing.assert_close(o, want_o, rtol=tol, atol=tol)
@@ -240,8 +278,11 @@ def test_rwkv_forward_and_decode_launch_the_kernel_once_per_layer(cuda):
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(2, 100)), device=cuda)
     before = trwkv.rwkv6_chunk.launches
+    chunked = trwkv.rwkv6_chunk.launches_by_route["chunked"]
     logits, _ = tmodel.forward(params, cfg, toks)
     assert trwkv.rwkv6_chunk.launches - before == cfg.num_layers
+    assert trwkv.rwkv6_chunk.launches_by_route["chunked"] - chunked == \
+        cfg.num_layers
     before = trwkv.rwkv6_chunk.launches
     plain, _ = tmodel.forward(params, cfg, toks, backend="torch")
     assert trwkv.rwkv6_chunk.launches == before
@@ -249,8 +290,11 @@ def test_rwkv_forward_and_decode_launch_the_kernel_once_per_layer(cuda):
     cache = tmodel.make_cache(cfg, 2, 3, device=cuda)
     for t in range(3):
         before = trwkv.rwkv6_chunk.launches
+        steps = trwkv.rwkv6_chunk.launches_by_route["step"]
         step, cache = tmodel.decode_step(params, cfg, toks[:, t:t + 1],
                                          cache, t)
         assert trwkv.rwkv6_chunk.launches - before == cfg.num_layers
+        assert trwkv.rwkv6_chunk.launches_by_route["step"] - steps == \
+            cfg.num_layers
         torch.testing.assert_close(step[:, 0], logits[:, t], rtol=1e-4,
                                    atol=1e-4)

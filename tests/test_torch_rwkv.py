@@ -41,6 +41,7 @@ from repro.models import rwkv as jrwkv  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels import rwkv6_chunk as kwkv  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     rwkv6_chunk_plain,
     rwkv6_chunk_ref,
@@ -173,6 +174,23 @@ def test_wkv6_dispatch_backends_on_cpu():
         dispatch.wkv6(*ins, backend="kernel")
     with pytest.raises(ValueError, match="unknown"):
         dispatch.wkv6(*ins, backend="xla")
+
+
+
+def test_wkv6_routes_by_length_and_cpu_tensors_take_the_plain_version():
+    """``route_for`` sends T <= STEP_MAX_T to the step kernel and longer T
+    to the chunked one; on CPU tensors either route is the plain version,
+    and an unknown route raises."""
+    assert [kwkv.route_for(t) for t in (1, kwkv.STEP_MAX_T,
+                                        kwkv.STEP_MAX_T + 1, 4096)] == \
+        ["step", "step", "chunked", "chunked"]
+    ins = tuple(map(torch.as_tensor, wkv_inputs(1, 2, 16, 64)))
+    want = rwkv6_chunk_plain(*ins)
+    for route in kwkv.ROUTES:
+        got = kwkv.rwkv6_chunk(*ins, route=route)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="route"):
+        kwkv.rwkv6_chunk(*ins, route="scan")
 
 
 # ---------------------------------------------------------------------------
