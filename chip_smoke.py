@@ -85,15 +85,49 @@ Phase 8 also profiles one forward and a short serve run (16 + 16 steps)
 under ``torch.profiler``: device time by kernel family, kernels and
 operator calls per step, and the device's idle share.
 
+Phase 9 runs the paper on the card. First the aggregation against its
+plain version at the suites' own shapes (Fig. 3's ``[1, 50, 50]`` and its
+2-D route, Table 2's ``[4, 100, 2762]``, Fig. 8's ``[6, 100, 2762]``; every
+op, with half the clients active and with none) within ``FP32_TOL``, and
+Fig. 3's ``run_one`` through the kernel and through the plain path on the
+same seeds (FedPBC and FedAvg at (0.9, 0.1), ``FIG3_AGREE_ROUNDS`` rounds),
+the distance trajectories within ``FP32_TOL``; one such run is profiled
+(kernels, device time and idle share a round). Then the port's
+``repro_torch.paper`` suites with ``use_kernel=True`` into a fresh results
+store in a temporary directory. Table 1 at the reference's protocol with
+seeds 0-2 (all seven algorithms on bernoulli_ti and bernoulli_tv, 250
+rounds, m = 100) and at the reference's Eq.-9 probabilities of those seeds
+(``REFERENCE_P_BASE``): the aggregation launches once a round for each
+scheme's quartet batch (500) and never for the fedau, f3ast and mifa
+batches; every parameter and accuracy is finite; each of the 14 (algorithm,
+scheme) seed-mean final test accuracies clears the JAX reference's mean
+less 0.05 (``TABLE1_REFERENCE_MEAN``, the table phase 2's bars come from).
+Table 2 (bernoulli_tv, 300 rounds, evals every 10): its ``BENCH`` JSON has
+the reference's keys, a rounds-to-target row for all 7 algorithms, the 1.0
+target reached, 300 launches. Fig. 8: 20 finite rows, 4 x 200 launches.
+Fig. 3 (m = 50, d = 50, s = 20, seeds 0-2, cut from the module's 800
+rounds to ``FIG3_ROUNDS`` = 400): FedPBC's final distance at (0.9, 0.1)
+below FedAvg's, each seed-mean final distance within ``FIG3_TOL_STDS``
+standard deviations of the difference of two 3-seed means of the
+reference's (``FIG3_REFERENCE``), 18 x 400 launches. Fig. 2: its own
+checks of Eq. 3's series against both closed forms. The store holds 14 + 7
++ 20 records, ``ResultsStore.merge`` into a second directory keeps them
+all and ``export_curves`` writes one ``_acc.csv`` and one ``_loss.csv`` per
+curve. It prints each suite's wall seconds, rounds/s of every family batch
+and the suites' total, held to ``PHASE9_LIMIT_S`` (the checks before the
+suites are timed apart); the suites' CSV goes to ``build/paper/smoke.csv``.
+
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
-Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (each
-flash kernel with its design and its registers and spills at D = 64 and by
-head dim; the WKV6 wrapper once per route, ``rwkv6_chunk_fwd`` and
-``rwkv6_step_fwd``, with their kernels' ptxas by head dim), the
-card's name and power limit from nvidia-smi, and as the last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
+Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
+seconds, launches, family batches and results), then a ``{"kernels":
+[...]}`` JSON line (the aggregation with phase 9's launches by suite as
+``paper_launches``; each flash kernel with its design and its registers and
+spills at D = 64 and by head dim; the WKV6 wrapper once per route,
+``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels' ptxas by
+head dim), the card's name and power limit from nvidia-smi, and as the last
+line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
 result line. Without CUDA, or without the repository beside it, it exits
 non-zero at once.
 """
@@ -115,13 +149,71 @@ os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build",
 
 FAMILY = ("fedpbc", "fedavg", "fedavg_all", "fedavg_known_p")
 ROUNDS, EVAL_EVERY, SEEDS, CLIENTS = 250, 25, (0, 1, 2), 100
-# Final test accuracy bars: the JAX reference's mean over seeds 0-2 at this
-# protocol (scripts/table1_reference_bars.py, run on the CPU) less 0.05.
-REFERENCE_MEAN = {"fedpbc": 0.7043333649635315,
-                  "fedavg": 0.8031111558278402,
-                  "fedavg_all": 0.3702222406864166,
-                  "fedavg_known_p": 0.8238889575004578}
-BARS = {k: v - 0.05 for k, v in REFERENCE_MEAN.items()}
+# Final test accuracy bars, phases 2 and 9: the JAX reference's mean final
+# test accuracy over seeds 0-2 at the Table-1 protocol, by scheme and
+# algorithm, less 0.05; run on the CPU:
+#   PYTHONPATH=src python scripts/table1_reference_bars.py \
+#       --algos fedpbc,fedavg,fedavg_all,fedau,f3ast,fedavg_known_p,mifa \
+#       --schemes bernoulli_ti,bernoulli_tv
+# (its default run prints the bernoulli_tv quartet that phase 2 reads)
+TABLE1_REFERENCE_MEAN = {
+    "bernoulli_ti": {"fedpbc": 0.7688889106114706,
+                     "fedavg": 0.8175556063652039,
+                     "fedavg_all": 0.5086666941642761,
+                     "fedau": 0.8172222574551901,
+                     "f3ast": 0.8275555968284607,
+                     "fedavg_known_p": 0.8397778471310934,
+                     "mifa": 0.8458889325459799},
+    "bernoulli_tv": {"fedpbc": 0.7043333649635315,
+                     "fedavg": 0.8031111558278402,
+                     "fedavg_all": 0.3702222406864166,
+                     "fedau": 0.7892222801844279,
+                     "f3ast": 0.8083333571751913,
+                     "fedavg_known_p": 0.8238889575004578,
+                     "mifa": 0.8195556004842123}}
+ACC_MARGIN = 0.05
+BARS = {k: TABLE1_REFERENCE_MEAN["bernoulli_tv"][k] - ACC_MARGIN
+        for k in FAMILY}
+# The Eq.-9 probabilities p_base that the reference's sweep draws for seeds
+# 0-2 (jax.random; the port draws its own with numpy): phase 9's Table 1
+# runs at these, as the bars above were measured at them. Written by
+#   PYTHONPATH=src python scripts/table1_reference_bars.py --p-base \
+#       > scripts/table1_reference_p_base.json
+REFERENCE_P_BASE = os.path.join(ROOT, "scripts",
+                                "table1_reference_p_base.json")
+# Fig. 3 (phase 9; the module's protocol m = 50, d = 50, s = 20, eta =
+# 5e-4, cut here to 400 rounds to keep phase 9 within its limit): the JAX
+# reference's final ||x_PS - x*|| for seeds 0, 1, 2 by (algorithm, p0, p1),
+# run on the CPU:
+#   PYTHONPATH=src python scripts/table1_reference_bars.py --fig3 \
+#       --fig3-rounds 400
+FIG3_ROUNDS = 400
+FIG3_REFERENCE = {
+    ("fedpbc", 0.5, 0.5): (0.006818769499659538, 0.007657024543732405,
+                           0.004917568061500788),
+    ("fedavg", 0.5, 0.5): (0.008902176283299923, 0.010392524302005768,
+                           0.009168844670057297),
+    ("fedpbc", 0.9, 0.1): (0.019130822271108627, 0.0186185110360384,
+                           0.010473073460161686),
+    ("fedavg", 0.9, 0.1): (0.16158367693424225, 0.1646115630865097,
+                           0.16867224872112274),
+    ("fedpbc", 0.5, 0.1): (0.02052866667509079, 0.018328601494431496,
+                           0.009502017870545387),
+    ("fedavg", 0.5, 0.1): (0.1397787183523178, 0.14204280078411102,
+                           0.1390153169631958)}
+# the port draws another u and other links than the reference, so its
+# seed mean is another sample of the same quantity: the two 3-seed means
+# may differ by FIG3_TOL_STDS standard deviations of their difference,
+# sqrt(s_ref^2 / 3 + s_port^2 / 3), each s the seeds' std (ddof 1)
+FIG3_TOL_STDS = 4.0
+# Fig. 3's trajectory through the kernel against the plain path (phase 9)
+FIG3_AGREE_ROUNDS = 100
+# Table 2's BENCH JSON keys (benchmarks/table2_rounds_to_target.py)
+TABLE2_KEYS = {"bench", "m", "rounds", "seeds", "scheme", "eval_every",
+               "algos", "best_acc", "fractions", "targets",
+               "rounds_to_target"}
+# the five suites of phase 9 (not the kernel checks before them)
+PHASE9_LIMIT_S = 240.0
 FP32_TOL, BF16_TOL = 1e-5, 2e-2
 # the LM slice (phase 5): SmolLM-135M at its published widths
 LM_N = 134_515_008
@@ -931,8 +1023,10 @@ def phase7_wkv(torch, rk, ref, bw, fp32_peak, build_log):
 
 
 def _family(name):
-    """A device kernel's family, for the profiles of phase 8."""
+    """A device kernel's family, for the profiles of phases 8 and 9."""
     n = name.lower()
+    if "fused_agg" in n:
+        return "fused_masked_agg (Triton)"
     if "wkv6_state" in n or "wkv6_output" in n:
         return "wkv6 chunked route (CUDA)"
     if "wkv6_step" in n:
@@ -1128,6 +1222,304 @@ def phase8_serving(torch, rk, card):
     return res
 
 
+class _Recorded:
+    """Inside ``with``: ``mod.<name>`` wrapped so that each call's arguments,
+    result and wall seconds are appended to ``calls``."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.calls = mod, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.mod, self.name)
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.real(*args, **kw)
+            self.calls.append((args, out, time.perf_counter() - t0))
+            return out
+
+        setattr(self.mod, self.name, wrapper)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def phase9_kernel(torch, masked, ref, fig3_quadratic):
+    """The aggregation against its plain version at the shapes the paper's
+    suites give it: Fig. 3's ``[1, 50, 50]`` (and its 2-D route), Table 2's
+    ``[4, 100, 2762]`` and Fig. 8's ``[6, 100, 2762]``, every op, with half
+    the clients active and with none; then Fig. 3's ``run_one`` through the
+    kernel and through the plain path on the same seeds, its distance
+    trajectories within ``FP32_TOL``; then one ``run_one`` profiled. Made
+    before the suites and timed apart from them (``seconds``); the suites
+    set the counts to 0 each."""
+    t0 = time.perf_counter()
+    seconds = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    n_mlp = 32 * 64 + 64 + 64 * 10 + 10
+    errs = {}
+    cases = [((1, 50, 50), [op]) for op in (0, 1, 2)] + [
+        ((4, CLIENTS, n_mlp), [0, 0, 1, 2]),
+        ((6, CLIENTS, n_mlp), [0, 1, 2, 0, 1, 2])]
+    for (B, m, n), ops in cases:
+        for frac in (0.5, 0.0):
+            x = torch.randn(B, m, n, generator=gen, device=dev)
+            mask = torch.rand(B, m, generator=gen, device=dev) < frac
+            p = torch.rand(B, m, generator=gen, device=dev)
+            prev = torch.randn(B, n, generator=gen, device=dev)
+            op = torch.as_tensor(ops, dtype=torch.int32, device=dev)
+            args = (x, mask, op, prev, p)
+            runs = [(f"[{B},{m},{n}] ops {ops}", masked.fused_masked_agg(
+                *args), ref.fused_masked_agg_ref(*args))]
+            if B == 1:
+                two = (x[0], mask[0], op[0], prev[0], p[0])
+                runs.append((f"[{m},{n}] op {ops[0]} (2-D route)",
+                             masked.fused_masked_agg(*two),
+                             ref.fused_masked_agg_ref(*two)))
+            for label, got, want in runs:
+                label += f", {frac:.0%} active"
+                err = (got - want).abs().max().item()
+                ok = (torch.allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+                      and torch.isfinite(got).all().item())
+                if frac == 0.0:
+                    # no active client: OP_MEAN returns prev exactly
+                    mean_rows = (op.reshape(-1) == 0).nonzero().flatten()
+                    ok = ok and torch.equal(got.reshape(-1, n)[mean_rows],
+                                            prev[mean_rows])
+                errs[label] = err
+                print(f"phase9 kernel {label}: max_abs_err {err:.3e} tol "
+                      f"{FP32_TOL:g} {'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    fail(f"kernel disagrees with its plain version at the "
+                         f"paper's shape {label}")
+    torch.cuda.synchronize()
+    seconds["kernel_vs_plain"] = time.perf_counter() - t0
+    protocol = dict(m=50, d=50, s=20, eta=5e-4, rounds=FIG3_AGREE_ROUNDS)
+    for algo in ("fedpbc", "fedavg"):
+        paths = [fig3_quadratic.run_one(algo, 0.9, 0.1, seed=0,
+                                        use_kernel=k, **protocol)
+                 for k in (False, True)]
+        err = max(abs(a[1] - b[1]) for a, b in zip(*paths))
+        ok = [a[0] for a in paths[0]] == [b[0] for b in paths[1]] \
+            and err <= FP32_TOL
+        errs[f"fig3 {algo} (0.9, 0.1)"] = err
+        print(f"phase9 fig3 {algo} (0.9, 0.1) seed 0, {FIG3_AGREE_ROUNDS} "
+              f"rounds: kernel vs plain path, max |distance diff| {err:.3e} "
+              f"over {len(paths[0])} points (final {paths[1][-1][1]:.6f}) "
+              f"tol {FP32_TOL:g} {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"Fig. 3 {algo}: the kernel path's trajectory leaves the "
+                 f"plain path's")
+    seconds["fig3_kernel_vs_plain_path"] = \
+        time.perf_counter() - t0 - sum(seconds.values())
+    prof = profile_window(
+        torch, f"phase9 fig3 run_one fedpbc (0.9, 0.1), {FIG3_AGREE_ROUNDS} "
+        f"rounds", lambda: fig3_quadratic.run_one(
+            "fedpbc", 0.9, 0.1, seed=0, use_kernel=True, **protocol),
+        FIG3_AGREE_ROUNDS, "round")
+    seconds["fig3_profile"] = time.perf_counter() - t0 - sum(seconds.values())
+    print(f"phase9 checks before the suites: {json.dumps(seconds)} s, not in "
+          f"the suites' limit", flush=True)
+    return {"max_abs_err": errs, "fig3_profile": prof, "seconds": seconds}
+
+
+def _reference_p_base(spec, point):
+    """``grid.point_base_probs`` with the reference's draws of seeds 0-2 at
+    the default point (``REFERENCE_P_BASE``)."""
+    with open(REFERENCE_P_BASE) as f:
+        data = json.load(f)
+    keys = ("alpha", "sigma0", "delta")
+    if any(point[k] != data["protocol"][k] for k in keys) \
+            or spec.num_clients != data["protocol"]["num_clients"]:
+        fail(f"no reference p_base for {point}, m = {spec.num_clients}")
+    return np.asarray([data["p_base"][str(s)] for s in spec.seeds],
+                      np.float32)
+
+
+def phase9_paper(torch, masked, ref, grid):
+    """The paper's suites on the card into a fresh results store."""
+    import contextlib
+    import io
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.experiments import ResultsStore
+    from repro_torch.experiments.plots import export_curves
+    from repro_torch.paper import (
+        fig2_bias,
+        fig3_quadratic,
+        fig8_ablations,
+        table1_accuracy,
+        table2_rounds_to_target,
+    )
+
+    csv = io.StringIO()
+    res = {"seconds": {}, "launches": {}, "batches": []}
+
+    def suite(name, fn):
+        """Run one suite with its CSV captured, the launch counter set to 0
+        just before and read just after, and every family batch timed."""
+        masked.fused_masked_agg.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _Recorded(grid, "_run_batch") as batches, \
+                contextlib.redirect_stdout(csv):
+            out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = masked.fused_masked_agg.launches
+        res["seconds"][name] = seconds
+        res["launches"][name] = launches
+        for (spec, algos, scheme), _, sec in batches:
+            b = len(algos) * len(spec.hparam_points()) * len(spec.seeds)
+            res["batches"].append({
+                "suite": name, "scheme": scheme, "algos": list(algos),
+                "trajectories": b, "rounds": spec.rounds, "seconds": sec,
+                "rounds_per_s": spec.rounds / sec})
+            print(f"phase9 {name} {scheme} {'+'.join(algos)}: {spec.rounds} "
+                  f"rounds x {b} trajectories in {sec:.3f} s = "
+                  f"{spec.rounds / sec:.2f} rounds/s", flush=True)
+        print(f"phase9 {name}: {seconds:.3f} s, fused_masked_agg launches "
+              f"{launches}", flush=True)
+        return out, launches
+
+    def cells_finite(cells, what):
+        for c in cells:
+            if not (np.isfinite(c.server).all()
+                    and np.isfinite(c.test_acc).all()
+                    and np.isfinite(c.train_acc).all()):
+                fail(f"{what} {c.scheme} {c.algo} {c.hparams}: non-finite "
+                     f"parameters or accuracy")
+
+    res["kernel"] = phase9_kernel(torch, masked, ref, fig3_quadratic)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ResultsStore(os.path.join(tmp, "sweeps"))
+
+        # Table 1 at the reference's p_base, as its bars were measured
+        with _Recorded(table1_accuracy, "run_sweep") as sweeps, \
+                mock.patch.object(grid, "point_base_probs",
+                                  _reference_p_base):
+            table1, launches = suite("table1", lambda: table1_accuracy.run(
+                seeds=SEEDS, store=store, use_kernel=True))
+        if launches != 2 * ROUNDS:
+            fail(f"Table 1 launched the aggregation {launches} times, "
+                 f"expected {2 * ROUNDS} (one a round for each scheme's "
+                 f"quartet batch)")
+        cells_finite(sweeps[0][1], "Table 1")
+        for scheme, means in TABLE1_REFERENCE_MEAN.items():
+            for algo, ref_mean in means.items():
+                acc = table1[(scheme, algo)][0]
+                bar = ref_mean - ACC_MARGIN
+                ok = acc >= bar
+                print(f"phase9 table1 {scheme} {algo}: final test acc "
+                      f"{acc:.4f}, reference {ref_mean:.4f}, bar {bar:.4f} "
+                      f"{'ok' if ok else 'BELOW'}", flush=True)
+                if not ok:
+                    fail(f"Table 1 {scheme} {algo} below its accuracy bar")
+        res["table1"] = {f"{s},{a}": v[0] for (s, a), v in table1.items()}
+
+        with _Recorded(table2_rounds_to_target, "run_sweep") as sweeps:
+            table2, launches = suite("table2",
+                                     lambda: table2_rounds_to_target.run(
+                                         store=store, use_kernel=True,
+                                         out_path=os.path.join(
+                                             tmp, "table2.json")))
+        cells_finite(sweeps[0][1], "Table 2")
+        bench = [json.loads(ln[6:]) for ln in csv.getvalue().splitlines()
+                 if ln.startswith("BENCH ")]
+        rtt = table2["rounds_to_target"]
+        print(f"phase9 table2: best acc {table2['best_acc']:.4f}, rounds to "
+              f"target {rtt}", flush=True)
+        if len(bench) != 1 or set(bench[0]) != TABLE2_KEYS \
+                or bench[0] != table2:
+            fail("Table 2's BENCH JSON lacks the reference's keys")
+        if set(rtt) != set(TABLE1_REFERENCE_MEAN["bernoulli_tv"]):
+            fail("Table 2 lacks rounds to target for some algorithm")
+        if not any(r[3] > 0 for r in rtt.values()):
+            fail("no algorithm reached Table 2's 1.0 target")
+        if launches != 300:
+            fail(f"Table 2 launched the aggregation {launches} times, "
+                 f"expected 300")
+        res["table2"] = table2
+
+        with _Recorded(fig8_ablations, "run_sweep") as sweeps:
+            fig8, launches = suite("fig8", lambda: fig8_ablations.run(
+                store=store, use_kernel=True))
+        for _, cells, _ in sweeps:
+            cells_finite(cells, "Fig. 8")
+        if len(fig8) != 20 or not all(np.isfinite(v) for v in fig8.values()):
+            fail(f"Fig. 8 has {len(fig8)} rows (expected 20) or a "
+                 f"non-finite one")
+        if launches != 4 * 200:
+            fail(f"Fig. 8 launched the aggregation {launches} times, "
+                 f"expected {4 * 200}")
+        res["fig8"] = {f"{p},{v},{a}": acc for (p, v, a), acc in fig8.items()}
+
+        with _Recorded(fig3_quadratic, "run_one") as runs:
+            fig3, launches = suite("fig3", lambda: fig3_quadratic.run(
+                rounds=FIG3_ROUNDS, use_kernel=True))
+        for key, ref in FIG3_REFERENCE.items():
+            port = [out[-1][1] for args, out, _ in runs if args[:3] == key]
+            tol = FIG3_TOL_STDS * np.sqrt(np.var(ref, ddof=1) / len(ref)
+                                          + np.var(port, ddof=1) / len(port))
+            diff = abs(np.mean(port) - np.mean(ref))
+            ok = len(port) == len(ref) and diff <= tol
+            print(f"phase9 fig3 {key}: final distance {fig3[key]:.6f} (per "
+                  f"seed {[round(v, 6) for v in port]}), reference "
+                  f"{np.mean(ref):.6f}, |diff| {diff:.6f} tol {tol:.6f} "
+                  f"{'ok' if ok else 'OUTSIDE'}", flush=True)
+            if not ok:
+                fail(f"Fig. 3 {key} outside its tolerance of the reference")
+        if not fig3[("fedpbc", 0.9, 0.1)] < fig3[("fedavg", 0.9, 0.1)]:
+            fail("Fig. 3: FedPBC's final distance at (0.9, 0.1) is not "
+                 "below FedAvg's")
+        if launches != 18 * FIG3_ROUNDS:
+            fail(f"Fig. 3 launched the aggregation {launches} times, "
+                 f"expected {18 * FIG3_ROUNDS}")
+        res["batches"].append({
+            "suite": "fig3", "scheme": "bernoulli_ti (p0, p1)",
+            "algos": ["fedpbc", "fedavg"], "trajectories": 1,
+            "runs": 18, "rounds": FIG3_ROUNDS,
+            "seconds": res["seconds"]["fig3"],
+            "rounds_per_s": 18 * FIG3_ROUNDS / res["seconds"]["fig3"]})
+        res["fig3"] = {",".join(map(str, k)): v for k, v in fig3.items()}
+
+        rows, _ = suite("fig2", fig2_bias.run)
+        if len(rows) != 20:
+            fail("Fig. 2 did not produce its 20 rows")
+
+        counts = {s: len(store.records(suite=s)) for s in
+                  ("table1", "table2", "fig8_alpha", "fig8_gamma",
+                   "fig8_delta", "fig8_sigma0")}
+        n = len(store.records())
+        merged = ResultsStore.merge(os.path.join(tmp, "merged"), store)
+        written = export_curves(merged, os.path.join(tmp, "curves"))
+        n_acc = sum(p.endswith("_acc.csv") for p in written)
+        n_loss = sum(p.endswith("_loss.csv") for p in written)
+        print(f"phase9 store: {n} records {counts}; merged {len(merged.records())}"
+              f"; export_curves wrote {n_acc} _acc.csv and {n_loss} _loss.csv",
+              flush=True)
+        if n != 41 or counts["table1"] != 14 or counts["table2"] != 7 \
+                or len(merged.records()) != 41 or not n_acc == n_loss == 41:
+            fail("the results store, its merge or its curve export is "
+                 "incomplete")
+    res["total_s"] = time.perf_counter() - t_phase
+    print(f"phase9 suites total {res['total_s']:.1f} s (limit "
+          f"{PHASE9_LIMIT_S:g} s)", flush=True)
+    out_dir = os.path.join(ROOT, "build", "paper")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "smoke.csv"), "w") as f:
+        f.write(csv.getvalue())
+    if res["total_s"] > PHASE9_LIMIT_S:
+        fail(f"phase 9's suites took {res['total_s']:.1f} s, over their "
+             f"{PHASE9_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1178,6 +1570,7 @@ def main():
     paths_err = phase6_paths_agree(torch, train, fa)
     wkv = phase7_wkv(torch, rk, ref, bw, fp32_peak, logs[rk.SOURCE.name])
     rwkv = phase8_serving(torch, rk, card)
+    paper = phase9_paper(torch, masked, ref, grid)
     kernel = {"name": "fused_masked_agg", "route": "triton",
               "source": "src/repro_torch/kernels/masked_agg.py",
               "replaces": "src/repro/kernels/masked_agg.py:180 "
@@ -1191,6 +1584,7 @@ def main():
               "host_ms": k["host_ms"],
               "bytes": k["bytes"], "main_path_rounds_per_s": rounds_per_s,
               "lm_path_launches": lm["launches"][3],
+              "paper_launches": paper["launches"],
               "lm_shape": k["lm"]}
     kernels = [kernel]
     source = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -1239,6 +1633,7 @@ def main():
                 if (k2 == "wkv6_step") == (key == "decode")}})
     kernels[-2]["rwkv_slice"] = rwkv
     kernels[-1]["crossover_ms"] = wkv["crossover_ms"]
+    print(json.dumps({"paper": paper}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -3,7 +3,9 @@
 - ``sweep``   — ``make_batched_run_rounds``: all (algorithm x point x seed)
   trajectories of one (family, scheme) cell as one batch; the sweep CLI.
 - ``grid``    — ``SweepSpec`` grids and the executor (``run_sweep``).
-- ``results`` — ``summarize`` (mean/std/CI95 over seeds).
+- ``results`` — the append-only JSONL/npz results store (the reference's
+  format) with mean/CI summaries and cross-store ``merge`` + CLI.
+- ``plots``   — figure-style curve CSV exports straight from a store.
 - ``tasks``   — the shared synthetic task and the flat-buffer MLP.
 """
 from repro_torch.experiments.grid import (
@@ -16,7 +18,7 @@ from repro_torch.experiments.grid import (
     run_cell_batch,
     run_sweep,
 )
-from repro_torch.experiments.results import summarize
+from repro_torch.experiments.results import ResultsStore, git_sha, summarize
 from repro_torch.experiments.sweep import (
     CellBatch,
     eval_rounds,
@@ -39,6 +41,8 @@ __all__ = [
     "run_cell",
     "run_cell_batch",
     "run_sweep",
+    "ResultsStore",
+    "git_sha",
     "summarize",
     "CellBatch",
     "eval_rounds",

@@ -8,12 +8,14 @@ trajectories (``repro_torch.experiments.sweep.make_batched_run_rounds``):
 state-compatible algorithms (``algo_family``: fedpbc / fedavg / fedavg_all /
 fedavg_known_p) share one batch through a per-trajectory ``algo_id``, and
 the ``lrs x gammas x alphas x sigma0s x deltas`` product is flattened with
-the seeds into the same leading axis.
+the seeds into the same leading axis. ``run_sweep(store=...)`` appends one
+row per (cell, point) to a ``ResultsStore`` in the reference's layout.
 
 Entry points run on the card (``device=None``) and raise without CUDA.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -29,7 +31,7 @@ from repro_torch.core.algorithms import (
 )
 from repro_torch.core.connectivity import build_base_probs, make_link_process
 from repro_torch.device import resolve_device
-from repro_torch.experiments.results import summarize
+from repro_torch.experiments.results import ResultsStore, summarize
 from repro_torch.experiments.sweep import (
     CellBatch,
     eval_rounds,
@@ -61,6 +63,10 @@ SCHEMES = {
 HPARAM_FIELDS = ("lr", "gamma", "alpha", "sigma0", "delta")
 
 SYNC = "sync"   # the synchronous engine: the only strategy of this slice
+# the reference's ``dataclasses.asdict`` of its ``SYNC`` strategy, as store
+# rows record it in ``spec["strategies"]``
+_SYNC_RECORD = {"name": SYNC, "wait_for_full": False, "buffer_size": 1,
+                "deadline_rounds": 1, "staleness_discount": 0.0}
 
 
 @dataclass(frozen=True)
@@ -226,8 +232,14 @@ class CellResult:
         return self.test_acc[:, -w:].mean(axis=1)
 
     def summary(self) -> Dict[str, Dict[str, float]]:
-        return {"test_acc": summarize(self.final_test()),
-                "train_acc": summarize(self.train_acc)}
+        out = {"test_acc": summarize(self.final_test()),
+               "train_acc": summarize(self.train_acc)}
+        if self.num_clients and self.num_active.size:
+            # mean per-round participation rate; dense sync cells leave
+            # num_clients at 0 and keep the two-key summary
+            out["participation"] = summarize(
+                self.num_active.mean(axis=1) / self.num_clients)
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -382,6 +394,8 @@ def _run_batch(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
                                       task.shared).cpu().numpy()[:, None]
         rounds_at = [spec.rounds]
     mets = {k: v.cpu().numpy() for k, v in out["metrics"].items()}
+    if "num_active" in mets:            # the reference's dtype
+        mets["num_active"] = mets["num_active"].astype(np.int32)
     server = states.server.cpu().numpy()
     points = spec.hparam_points()
     S = len(spec.seeds)
@@ -405,10 +419,7 @@ def _run_batch(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
         for pi, pt in enumerate(points)]
 
 
-def _later_slice_args(store, mesh, devices):
-    if store is not None:
-        raise NotImplementedError(
-            "the results store is not ported yet (ROADMAP Queue 1 item 2)")
+def _later_slice_args(mesh, devices):
     if mesh is not None or devices is not None:
         raise NotImplementedError(
             "mesh/devices placement is not ported yet (ROADMAP Queue 1 "
@@ -420,7 +431,7 @@ def run_cell_batch(spec: SweepSpec, algo: str, scheme: str, *,
                    devices=None, device=None) -> List[CellResult]:
     """Run one (algo, scheme) cell: all hyperparameter points x seeds as one
     batch; one ``CellResult`` per point. ``device=None`` is the card."""
-    _later_slice_args(None, mesh, devices)
+    _later_slice_args(mesh, devices)
     return _run_batch(spec, (algo,), scheme, metric_keys=metric_keys,
                       device=device)
 
@@ -438,14 +449,28 @@ def run_cell(spec: SweepSpec, algo: str, scheme: str, *,
                           mesh=mesh, devices=devices, device=device)[0]
 
 
-def run_sweep(spec: SweepSpec, *, store=None, suite: str = "sweep",
-              metric_keys=("loss", "num_active"), mesh=None, devices=None,
-              device=None) -> List[CellResult]:
-    """Execute the full grid. Within each scheme, algorithms are grouped
+def _spec_record(spec: SweepSpec) -> Dict[str, Any]:
+    """``dataclasses.asdict(spec)`` as the reference's store rows hold it:
+    its ``strategies`` are ``Strategy`` dataclasses, the port's their names
+    (only ``"sync"`` in this slice)."""
+    out = dataclasses.asdict(spec)
+    out["strategies"] = [dict(_SYNC_RECORD) for _ in spec.strategies]
+    return out
+
+
+def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
+              suite: str = "sweep", metric_keys=("loss", "num_active"),
+              mesh=None, devices=None, device=None) -> List[CellResult]:
+    """Execute the full grid; with ``store``, append every (cell, point)
+    row to it under ``suite``. Within each scheme, algorithms are grouped
     into state-compatible families and each group runs as ONE batch over
-    the joint (algo x point x seed) axis. Results keep the
-    ``scheme -> algorithm -> point`` order. ``device=None`` is the card."""
-    _later_slice_args(store, mesh, devices)
+    the joint (algo x point x seed) axis. Results and rows keep the
+    ``scheme -> algorithm -> point`` order. ``device=None`` is the card.
+
+    Rows are written as soon as spec order allows, and on a crash every
+    row a finished group computed is still written before the error
+    propagates, as in the reference."""
+    _later_slice_args(mesh, devices)
     dev = resolve_device(device)
     for scheme in spec.schemes:            # validate every cell upfront
         for algo in spec.algorithms:
@@ -457,13 +482,38 @@ def run_sweep(spec: SweepSpec, *, store=None, suite: str = "sweep",
         for algo in spec.algorithms:
             groups.setdefault(algo_family(algo), []).append(algo)
         by_algo: Dict[str, List[CellResult]] = {}
-        for group in groups.values():
-            results = _run_batch(spec, tuple(group), scheme,
-                                 metric_keys=metric_keys, device=dev)
-            for ai, algo in enumerate(group):
-                by_algo[algo] = results[ai * n_points:(ai + 1) * n_points]
-        for algo in spec.algorithms:
-            cells.extend(by_algo[algo])
+        pending = list(spec.algorithms)     # emission order
+
+        def emit(algo):
+            for cell in by_algo[algo]:
+                cells.append(cell)
+                if store is not None:       # the reference's keys and arrays
+                    store.append(
+                        {"suite": suite, "algo": algo, "scheme": scheme,
+                         "strategy": cell.strategy, "seeds": list(spec.seeds),
+                         "rounds": spec.rounds, "eval_every": spec.eval_every,
+                         "hparams": dict(cell.hparams),
+                         "spec": _spec_record(spec),
+                         "eval_rounds": cell.eval_rounds,
+                         "summary": cell.summary()},
+                        arrays={"test_acc": cell.test_acc,
+                                "train_acc": cell.train_acc, "loss": cell.loss,
+                                "num_active": cell.num_active})
+
+        try:
+            for group in groups.values():
+                results = _run_batch(spec, tuple(group), scheme,
+                                     metric_keys=metric_keys, device=dev)
+                for ai, algo in enumerate(group):
+                    by_algo[algo] = results[ai * n_points:(ai + 1) * n_points]
+                while pending and pending[0] in by_algo:
+                    emit(pending.pop(0))
+        finally:
+            # no-op on success; after a crash, the rows of every finished
+            # group, including those held behind the failed family
+            for algo in pending:
+                if algo in by_algo:
+                    emit(algo)
     return cells
 
 

@@ -24,7 +24,9 @@ CLI::
 
     python -m repro_torch.experiments.sweep --device cuda \\
         --algos fedpbc,fedavg --schemes bernoulli_tv --seeds 0,1,2 \\
-        --rounds 100 --clients 100
+        --rounds 100 --clients 100 --lrs 0.05,0.1 --out build/sweeps
+
+(``python -m repro_torch.experiments`` is the same CLI.)
 """
 from __future__ import annotations
 
@@ -178,17 +180,25 @@ def eval_rounds(num_rounds: int, eval_every: int):
     return out
 
 
+def _float_list(text: str):
+    return tuple(float(v) for v in text.split(",")) if text else ()
+
+
 def main(argv=None) -> None:
     import argparse
     import time
 
     # lazy: grid imports this module
     from repro_torch.experiments.grid import ALGOS, SCHEMES, SweepSpec, run_sweep
+    from repro_torch.experiments.results import ResultsStore
 
     ap = argparse.ArgumentParser(
-        description="Run a (algorithm x scheme x seed) sweep on the PyTorch "
-                    "port; every state-compatible group of --algos runs as "
-                    "one batch of trajectories per scheme.")
+        description="Run a (algorithm x scheme x hyperparameter x seed) "
+                    "sweep on the PyTorch port; every state-compatible "
+                    "group of --algos, with every point of the "
+                    "--lrs/--gammas/--alphas/--sigma0s/--deltas axes, runs "
+                    "as one batch of trajectories per scheme. With --out "
+                    "the rows are appended to a JSONL/npz results store.")
     ap.add_argument("--algos", default="fedpbc,fedavg",
                     help=f"comma list from {','.join(ALGOS)}")
     ap.add_argument("--schemes", default="bernoulli_ti",
@@ -203,6 +213,16 @@ def main(argv=None) -> None:
     ap.add_argument("--gamma", type=float, default=0.5)
     ap.add_argument("--delta", type=float, default=0.02)
     ap.add_argument("--sigma0", type=float, default=10.0)
+    ap.add_argument("--lrs", default="", help="comma list; hyperparameter "
+                    "axis overriding --lr (one batch, no rebuild)")
+    ap.add_argument("--gammas", default="", help="axis overriding --gamma")
+    ap.add_argument("--alphas", default="", help="axis overriding --alpha")
+    ap.add_argument("--sigma0s", default="", help="axis overriding --sigma0")
+    ap.add_argument("--deltas", default="", help="axis overriding --delta")
+    ap.add_argument("--out", default=None,
+                    help="results-store directory (JSONL + npz) to append "
+                    "the rows to (default: print only)")
+    ap.add_argument("--suite", default="cli", help="suite tag on the records")
     ap.add_argument("--use-kernel", action="store_true",
                     help="server update through the fused Triton kernel")
     ap.add_argument("--device", default=None,
@@ -216,16 +236,26 @@ def main(argv=None) -> None:
         rounds=args.rounds, eval_every=args.eval_every,
         num_clients=args.clients, local_steps=args.local_steps,
         lr=args.lr, alpha=args.alpha, gamma=args.gamma, delta=args.delta,
-        sigma0=args.sigma0, use_kernel=args.use_kernel or None)
-    print("sweep,scheme,algo,seeds,test_acc_mean,test_acc_ci95,"
-          "train_acc_mean", flush=True)
+        sigma0=args.sigma0,
+        lrs=_float_list(args.lrs), gammas=_float_list(args.gammas),
+        alphas=_float_list(args.alphas), sigma0s=_float_list(args.sigma0s),
+        deltas=_float_list(args.deltas),
+        use_kernel=args.use_kernel or None)
+    store = ResultsStore(args.out) if args.out else None
+    print("sweep,scheme,algo,strategy,hparams,seeds,test_acc_mean,"
+          "test_acc_ci95,train_acc_mean", flush=True)
     t0 = time.perf_counter()
-    for cell in run_sweep(spec, device=args.device):
+    for cell in run_sweep(spec, store=store, suite=args.suite,
+                          device=args.device):
         s = cell.summary()
-        print(f"sweep,{cell.scheme},{cell.algo},{len(cell.seeds)},"
+        hp = ";".join(f"{k}={v:g}" for k, v in sorted(cell.hparams.items()))
+        print(f"sweep,{cell.scheme},{cell.algo},{cell.strategy},{hp},"
+              f"{len(cell.seeds)},"
               f"{s['test_acc']['mean']:.4f},{s['test_acc']['ci95']:.4f},"
               f"{s['train_acc']['mean']:.4f}", flush=True)
     print(f"# {time.perf_counter() - t0:.3f} s", flush=True)
+    if store is not None:
+        print(f"# results appended to {store.path}", flush=True)
 
 
 if __name__ == "__main__":

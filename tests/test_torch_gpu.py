@@ -298,3 +298,30 @@ def test_rwkv_forward_and_decode_launch_the_kernel_once_per_layer(cuda):
             cfg.num_layers
         torch.testing.assert_close(step[:, 0], logits[:, t], rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_run_sweep_with_a_store_on_the_card(cuda, tmp_path):
+    """All seven algorithms (the quartet batch through the fused kernel,
+    fedau / f3ast / mifa on their branch path) at m = 8, 6 rounds, 2 seeds,
+    into a results store: 7 rows with finite arrays, and the kernel launched
+    once a round for the quartet batch only."""
+    from repro_torch.experiments import grid as tgrid
+    from repro_torch.experiments import results as tres
+
+    algos = ("fedpbc", "fedavg", "fedavg_all", "fedau", "f3ast",
+             "fedavg_known_p", "mifa")
+    spec = tgrid.SweepSpec(algorithms=algos, schemes=("bernoulli_tv",),
+                           seeds=(0, 1), rounds=6, eval_every=3,
+                           num_clients=8, use_kernel=True)
+    store = tres.ResultsStore(str(tmp_path / "store"))
+    tmasked.fused_masked_agg.launches = 0
+    cells = tgrid.run_sweep(spec, store=store, suite="gpu")
+    assert tmasked.fused_masked_agg.launches == 6
+    rows = store.records(suite="gpu")
+    assert [r["algo"] for r in rows] == [c.algo for c in cells] == list(algos)
+    for rec, cell in zip(rows, cells):
+        arrays = store.load_arrays(rec)
+        assert set(arrays) == {"test_acc", "train_acc", "loss", "num_active"}
+        assert all(np.isfinite(a).all() for a in arrays.values())
+        assert np.isfinite(cell.server).all()

@@ -172,9 +172,12 @@ def test_later_slice_spec_knobs_raise_not_implemented(kw):
 
 
 def test_later_slice_entry_arguments_raise_not_implemented():
+    """``store=`` works since the results store was ported
+    (tests/test_torch_results.py); placement and the scale/search runner
+    knobs still raise, naming their ROADMAP item."""
     spec = _spec(tgrid, algorithms=("fedpbc",), seeds=(0,), rounds=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgrid.run_sweep(spec, store=object(), device="cpu")
+        tgrid.run_sweep(spec, devices=[object()], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgrid.run_sweep(spec, mesh=object(), device="cpu")
     for kw in (dict(carry_out=True), dict(cohort_size=2),
