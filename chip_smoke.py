@@ -88,10 +88,13 @@ operator calls per step, and the device's idle share.
 Phase 9 runs the paper on the card. First the aggregation against its
 plain version at the suites' own shapes (Fig. 3's ``[1, 50, 50]`` and its
 2-D route, Table 2's ``[4, 100, 2762]``, Fig. 8's ``[6, 100, 2762]``; every
-op, with half the clients active and with none) within ``FP32_TOL``, and
-Fig. 3's ``run_one`` through the kernel and through the plain path on the
-same seeds (FedPBC and FedAvg at (0.9, 0.1), ``FIG3_AGREE_ROUNDS`` rounds),
-the distance trajectories within ``FP32_TOL``; one such run is profiled
+op, with half the clients active and with none) within ``FP32_TOL``; the
+kernel at Fig. 3's shape (2-D route, OP_MEAN, half active) timed as phase 1
+times the main path's, beside its bound, its plain version and
+``torch.bmm``; and Fig. 3's ``run_one`` through the kernel and through
+the plain path on the same seeds (FedPBC and FedAvg at (0.9, 0.1),
+``FIG3_AGREE_ROUNDS`` rounds), the distance trajectories within
+``FP32_TOL``; one such run is profiled
 (kernels, device time and idle share a round). Then the port's
 ``repro_torch.paper`` suites with ``use_kernel=True`` into a fresh results
 store in a temporary directory. Table 1 at the reference's protocol with
@@ -117,16 +120,39 @@ curve. It prints each suite's wall seconds, rounds/s of every family batch
 and the suites' total, held to ``PHASE9_LIMIT_S`` (the checks before the
 suites are timed apart); the suites' CSV goes to ``build/paper/smoke.csv``.
 
+Phase 10 runs cross-device scale (``repro_torch.scale``) on the card:
+``benchmarks/scale.py``'s protocol through ``run_cell_batch`` with
+``use_kernel=True`` (fedpbc over bernoulli_ti, m = 1,000, 10,000 and
+50,000, a C = 256 cohort, the arms ``sync_cohort`` and ``buffered``
+(buffer 128, deadline 4) as one batch of 6 trajectories over seeds 0-2, 30
+rounds, one eval at the end). Each arm's seed-mean final test accuracy must
+lie within ``FIG3_TOL_STDS`` standard deviations of the difference of two
+3-seed means of the JAX reference's (``SCALE_REFERENCE``), the buffered
+arm's gap below sync at least half the reference's, each buffered seed's
+commits within the reference's range and its mean commit staleness within
+the deadline. It prints cold and warm seconds, warm rounds/s of the
+two-arm batch and of each arm alone, and at m = 50,000 the peak device
+memory after a ``reset_peak_memory_stats``, which must stay under one
+dense ``[B, m, n]`` fp32 client tensor; then one m = 50,000 round under
+``torch.profiler``. A stateful cohort cell (fedau, mifa, f3ast at m =
+10,000, seed 0) checks on round ``SPARSE_CHECK_ROUND`` that the per-client
+rows outside the cohort are bitwise unchanged, and that every parameter is
+finite. The aggregation kernel must launch 0 times in phase 10 (a scale
+round aggregates by the buffer fold or the sparse branches, as the
+reference's does), and the phase is held to ``PHASE10_LIMIT_S``.
+
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
 Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
-seconds, launches, family batches and results), then a ``{"kernels":
+seconds, launches, family batches and results), a ``{"scale": {...}}``
+line (phase 10's), then a ``{"kernels":
 [...]}`` JSON line (the aggregation with phase 9's launches by suite as
-``paper_launches``; each flash kernel with its design and its registers and
-spills at D = 64 and by head dim; the WKV6 wrapper once per route,
-``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels' ptxas by
-head dim), the card's name and power limit from nvidia-smi, and as the last
+``paper_launches``, phase 10's as ``scale_launches``, its Fig. 3 shape
+timing as ``fig3_shape``; each flash kernel with its design and its
+registers and spills at D = 64 and by head dim; the WKV6 wrapper once per
+route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
+ptxas by head dim), the card's name and power limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
 result line. Without CUDA, or without the repository beside it, it exits
 non-zero at once.
@@ -214,6 +240,39 @@ TABLE2_KEYS = {"bench", "m", "rounds", "seeds", "scheme", "eval_every",
                "rounds_to_target"}
 # the five suites of phase 9 (not the kernel checks before them)
 PHASE9_LIMIT_S = 240.0
+# Phase 10, cross-device scale: benchmarks/scale.py's protocol (fedpbc over
+# bernoulli_ti, a C = 256 cohort, the arms sync_cohort and buffered, 30
+# rounds with one eval at the end) at seeds 0-2. The JAX reference's final
+# test accuracy of each seed by m and arm, and its buffered commits per
+# seed, run on the CPU:
+#   PYTHONPATH=src python scripts/scale_reference_bars.py
+# The port draws other p_base, cohorts and batches, so its 3-seed mean is
+# held to the reference's as Fig. 3's are (FIG3_TOL_STDS standard
+# deviations of the difference of two 3-seed means).
+SCALE_MS, SCALE_C, SCALE_ROUNDS, SCALE_SCHEME = \
+    (1_000, 10_000, 50_000), 256, 30, "bernoulli_ti"
+SCALE_BUFFER, SCALE_DEADLINE = 128, 4
+SCALE_REFERENCE = {
+    1_000: {"sync_cohort": (0.7224999666213989, 0.7224999666213989,
+                            0.762499988079071),
+            "buffered": (0.2549999952316284, 0.2549999952316284,
+                         0.4074999988079071),
+            "commits": (7, 7, 7)},
+    10_000: {"sync_cohort": (0.7199999690055847, 0.7224999666213989,
+                             0.7599999904632568),
+             "buffered": (0.26749998331069946, 0.2549999952316284,
+                          0.3774999976158142),
+             "commits": (7, 7, 7)},
+    50_000: {"sync_cohort": (0.7249999642372131, 0.699999988079071,
+                             0.7799999713897705),
+             "buffered": (0.2574999928474426, 0.24249999225139618,
+                          0.3999999761581421),
+             "commits": (7, 7, 7)}}
+# the stateful cohort cell (sparse per-client state on the card) and the
+# round whose untouched rows are checked
+SCALE_STATEFUL, SCALE_STATEFUL_M, SPARSE_CHECK_ROUND = \
+    ("fedau", "mifa", "f3ast"), 10_000, 10
+PHASE10_LIMIT_S = 120.0
 FP32_TOL, BF16_TOL = 1e-5, 2e-2
 # the LM slice (phase 5): SmolLM-135M at its published widths
 LM_N = 134_515_008
@@ -1297,6 +1356,9 @@ def phase9_kernel(torch, masked, ref, fig3_quadratic):
                          f"paper's shape {label}")
     torch.cuda.synchronize()
     seconds["kernel_vs_plain"] = time.perf_counter() - t0
+    fig3_timing = fig3_shape_timing(torch, masked, ref, gen)
+    seconds["fig3_shape_timing"] = \
+        time.perf_counter() - t0 - sum(seconds.values())
     protocol = dict(m=50, d=50, s=20, eta=5e-4, rounds=FIG3_AGREE_ROUNDS)
     for algo in ("fedpbc", "fedavg"):
         paths = [fig3_quadratic.run_one(algo, 0.9, 0.1, seed=0,
@@ -1323,7 +1385,41 @@ def phase9_kernel(torch, masked, ref, fig3_quadratic):
     seconds["fig3_profile"] = time.perf_counter() - t0 - sum(seconds.values())
     print(f"phase9 checks before the suites: {json.dumps(seconds)} s, not in "
           f"the suites' limit", flush=True)
-    return {"max_abs_err": errs, "fig3_profile": prof, "seconds": seconds}
+    return {"max_abs_err": errs, "fig3_profile": prof,
+            "fig3_timing": fig3_timing, "seconds": seconds}
+
+
+def fig3_shape_timing(torch, masked, ref, gen):
+    """The aggregation at Fig. 3's ``[1, 50, 50]`` fp32, the 2-D route
+    (``_fused_call_2d``'s counterpart), OP_MEAN with half the clients
+    active, timed as phase 1 times the main path's shape: the kernel, the
+    plain version and the ``torch.bmm`` yardstick as CUDA-graph replays, the
+    bound from the bytes these inputs need at the card's memory rate."""
+    dev = torch.device("cuda")
+    m, n = 50, 50
+    x = torch.randn(1, m, n, generator=gen, device=dev)
+    mask = torch.rand(1, m, generator=gen, device=dev) < 0.5
+    p = torch.rand(1, m, generator=gen, device=dev)
+    prev = torch.randn(1, n, generator=gen, device=dev)
+    op = torch.zeros(1, dtype=torch.int32, device=dev)
+    two = (x[0], mask[0], op[0], prev[0], p[0])
+    kernel_ms = time_ms(lambda: masked.fused_masked_agg(*two))
+    plain_ms = time_ms(lambda: ref.fused_masked_agg_ref(*two))
+    w = mask.float()[:, None, :]
+    library_ms = time_ms(lambda: torch.bmm(w, x))
+    bw, flops, _ = peak_rates(torch.cuda.get_device_name(0))
+    nbytes, nops = agg_work(x, mask, op)
+    bound_ms = max(nbytes / bw, nops / flops) * 1e3
+    out = dict(shape=[m, n], ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes,
+               bound_by="bytes" if nbytes / bw >= nops / flops
+               else "operations")
+    print(f"phase9 timing Fig. 3 shape [1,{m},{n}] fp32, 2-D route, OP_MEAN, "
+          f"{int(mask.sum())} of {m} active (device time per call, CUDA "
+          f"graph replay): kernel {kernel_ms:.5f} ms, plain {plain_ms:.5f} "
+          f"ms, torch.bmm {library_ms:.5f} ms, bound {bound_ms:.7f} ms "
+          f"({nbytes} bytes at {bw / 1e12:g} TB/s)", flush=True)
+    return out
 
 
 def _reference_p_base(spec, point):
@@ -1520,6 +1616,202 @@ def phase9_paper(torch, masked, ref, grid):
     return res
 
 
+def _scale_spec(grid, m, strategies, **kw):
+    """``benchmarks/scale.py``'s ``_spec`` on the port, seeds 0-2."""
+    base = dict(algorithms=("fedpbc",), schemes=(SCALE_SCHEME,),
+                seeds=SEEDS, rounds=SCALE_ROUNDS, eval_every=SCALE_ROUNDS,
+                num_clients=m, cohort_size=SCALE_C, strategies=strategies,
+                local_steps=2, batch_size=16, dim=32, hidden=32,
+                n_per_class=200, n_train=1600, per_client=32,
+                use_kernel=True)
+    base.update(kw)
+    return grid.SweepSpec(**base)
+
+
+def phase10_scale(torch, masked, grid):
+    """Cross-device scale on the card: the m ladder, one stateful cohort
+    cell, the O(C) memory check and one profiled m = 50,000 round."""
+    from unittest import mock
+
+    from repro_torch.core.algorithms import AlgorithmSpec
+    from repro_torch.experiments import sweep
+    from repro_torch.scale import BUFFER_METRIC_KEYS, SYNC, Strategy
+
+    keys = ("loss", "num_active") + BUFFER_METRIC_KEYS
+    arms = (Strategy("sync_cohort"),
+            Strategy("buffered", buffer_size=SCALE_BUFFER,
+                     deadline_rounds=SCALE_DEADLINE))
+    n = 32 * 32 + 32 + 32 * 10 + 10
+    dense_bytes = 2 * len(SEEDS) * SCALE_MS[-1] * n * 4
+    res = {"ladder": {}, "stateful": {}}
+    masked.fused_masked_agg.launches = 0
+    t_phase = time.perf_counter()
+
+    def run(spec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cells = grid.run_cell_batch(spec, "fedpbc", SCALE_SCHEME,
+                                    metric_keys=keys)
+        torch.cuda.synchronize()
+        return cells, time.perf_counter() - t0
+
+    for m in SCALE_MS:
+        spec = _scale_spec(grid, m, arms)
+        _, cold_s = run(spec)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        captured = {}
+        real_loop = sweep.run_rounds_loop
+
+        def capture(st, ds, draws, num_rounds, **kw):
+            out = real_loop(st, ds, draws, num_rounds, **kw)
+            captured.update(st=out[0], ds=out[1], draws=draws,
+                            step=kw["step"])
+            return out
+
+        with mock.patch.object(sweep, "run_rounds_loop", capture):
+            cells, warm_s = run(spec)
+        peak = torch.cuda.max_memory_allocated()
+        row = {"cold_s": cold_s, "warm_s": warm_s,
+               "rounds_per_s": SCALE_ROUNDS / warm_s,
+               "peak_bytes": peak, "bytes_at_reset": base_bytes}
+        for arm in arms:
+            _, arm_s = run(_scale_spec(grid, m, (arm,)))
+            row[f"rounds_per_s_{arm.name}_alone"] = SCALE_ROUNDS / arm_s
+        ref = SCALE_REFERENCE[m]
+        accs = {}
+        for cell in cells:
+            acc = cell.test_acc[:, -1].astype(np.float64)
+            accs[cell.strategy] = acc
+            r = np.asarray(ref[cell.strategy], np.float64)
+            tol = FIG3_TOL_STDS * np.sqrt(np.var(r, ddof=1) / len(r)
+                                          + np.var(acc, ddof=1) / len(acc))
+            diff = abs(acc.mean() - r.mean())
+            ok = (diff <= tol and np.isfinite(cell.server).all()
+                  and np.isfinite(cell.test_acc).all())
+            row[cell.strategy] = {"per_seed": acc.tolist(),
+                                  "mean": acc.mean(), "reference": r.mean(),
+                                  "tol": tol}
+            print(f"phase10 m={m} {cell.strategy}: final test acc "
+                  f"{acc.mean():.4f} (per seed {acc.round(4).tolist()}), "
+                  f"reference {r.mean():.4f}, |diff| {diff:.4f} tol "
+                  f"{tol:.4f} {'ok' if ok else 'OUTSIDE'}", flush=True)
+            if not ok:
+                fail(f"scale m={m} {cell.strategy}: accuracy outside the "
+                     f"reference's bar, or non-finite parameters")
+        gap = accs["sync_cohort"].mean() - accs["buffered"].mean()
+        ref_gap = np.mean(ref["sync_cohort"]) - np.mean(ref["buffered"])
+        buf = cells[1]
+        commits = buf.commit.sum(axis=1)
+        stale = (buf.commit_staleness * buf.commit).sum(axis=1) \
+            / np.maximum(commits, 1.0)
+        row.update(gap=gap, reference_gap=ref_gap,
+                   commits=commits.tolist(), commit_staleness=stale.tolist())
+        print(f"phase10 m={m}: buffered gap {gap:.4f} (reference "
+              f"{ref_gap:.4f}); commits per seed {commits.tolist()} "
+              f"(reference {list(ref['commits'])}), mean commit staleness "
+              f"{stale.round(4).tolist()} (deadline {SCALE_DEADLINE}); "
+              f"cold {cold_s:.3f} s, warm {warm_s:.3f} s = "
+              f"{row['rounds_per_s']:.2f} rounds/s for both arms "
+              f"({2 * len(SEEDS)} trajectories), alone: sync_cohort "
+              f"{row['rounds_per_s_sync_cohort_alone']:.2f}, buffered "
+              f"{row['rounds_per_s_buffered_alone']:.2f}; peak "
+              f"{peak} bytes ({base_bytes} at the reset)", flush=True)
+        if gap < 0.5 * ref_gap:
+            fail(f"scale m={m}: the buffered arm's gap {gap:.4f} is under "
+                 f"half the reference's {ref_gap:.4f}")
+        if not (min(ref["commits"]) <= commits.min()
+                and commits.max() <= max(ref["commits"])) \
+                or stale.max() > SCALE_DEADLINE:
+            fail(f"scale m={m}: commits {commits.tolist()} outside the "
+                 f"reference's range or staleness over the deadline")
+        res["ladder"][m] = row
+    if res["ladder"][SCALE_MS[-1]]["peak_bytes"] >= dense_bytes:
+        fail(f"the m = {SCALE_MS[-1]} cohort rounds peaked at "
+             f"{res['ladder'][SCALE_MS[-1]]['peak_bytes']} bytes, not under "
+             f"one dense [B, m, n] fp32 client tensor ({dense_bytes})")
+    # one round of the m = 50,000 cell under the profiler, from the state the
+    # warm run ended in
+    st, ds, draws, step = (captured[k] for k in ("st", "ds", "draws",
+                                                  "step"))
+
+    def one_round():
+        with torch.no_grad():
+            step(st, ds, draws(st.round))
+
+    res["profile"] = profile_window(
+        torch, f"phase10 one round at m={SCALE_MS[-1]}, C={SCALE_C}, B="
+        f"{2 * len(SEEDS)} (both arms)", one_round, 1, "round")
+    del captured, st, ds, draws, step
+
+    # sparse per-client state on the card: rows outside the cohort of one
+    # round are bitwise unchanged by it
+    real_agg = AlgorithmSpec.aggregate_cohort
+    sparse = {}
+
+    def checked(self, algo_id, algo_state, server, x_star, cohort, c_active,
+                c_p, t):
+        if t != SPARSE_CHECK_ROUND:
+            return real_agg(self, algo_id, algo_state, server, x_star,
+                            cohort, c_active, c_p, t)
+        fields = ("gap", "sum_gaps", "n_gaps", "lam", "mem")
+        before = {f: getattr(algo_state, f).clone() for f in fields
+                  if getattr(algo_state, f).shape[1]}
+        out = real_agg(self, algo_id, algo_state, server, x_star, cohort,
+                       c_active, c_p, t)
+        outside = torch.ones(before[next(iter(before))].shape[:2],
+                             dtype=torch.bool, device=cohort.device)
+        outside.scatter_(1, cohort, False)
+        sparse[self.names[0]] = {
+            f: {"outside_unchanged": torch.equal(
+                getattr(out[0], f)[outside], old[outside]),
+                "cohort_rows_changed": int(
+                    (getattr(out[0], f) != old).reshape(
+                        *old.shape[:2], -1).any(-1).sum())}
+            for f, old in before.items()}
+        return out
+
+    spec = _scale_spec(grid, SCALE_STATEFUL_M, (SYNC,),
+                       algorithms=SCALE_STATEFUL, seeds=(0,))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(AlgorithmSpec, "aggregate_cohort", checked), \
+            _Recorded(grid, "_run_batch") as batches:
+        cells = grid.run_sweep(spec, metric_keys=keys)
+    torch.cuda.synchronize()
+    for cell, (_, _, sec) in zip(cells, batches):
+        check = sparse.get(cell.algo, {})
+        ok = (bool(check) and all(c["outside_unchanged"]
+                                  for c in check.values())
+              and np.isfinite(cell.server).all()
+              and np.isfinite(cell.test_acc).all())
+        res["stateful"][cell.algo] = {
+            "test_acc": float(cell.test_acc[0, -1]),
+            "rounds_per_s": SCALE_ROUNDS / sec, "sparse_check": check}
+        print(f"phase10 stateful {cell.algo} m={SCALE_STATEFUL_M} "
+              f"C={SCALE_C}: final test acc {cell.test_acc[0, -1]:.4f}, "
+              f"{SCALE_ROUNDS / sec:.2f} rounds/s; round "
+              f"{SPARSE_CHECK_ROUND}: {json.dumps(check)} "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            fail(f"stateful cohort {cell.algo}: a row outside the cohort "
+                 f"changed, or non-finite parameters")
+    res["stateful_s"] = time.perf_counter() - t0
+    res["launches"] = masked.fused_masked_agg.launches
+    res["total_s"] = time.perf_counter() - t_phase
+    print(f"phase10 fused_masked_agg launches {res['launches']} (expected "
+          f"0); total {res['total_s']:.1f} s (limit {PHASE10_LIMIT_S:g} s)",
+          flush=True)
+    if res["launches"] != 0:
+        fail("a scale round launched the aggregation kernel")
+    if res["total_s"] > PHASE10_LIMIT_S:
+        fail(f"phase 10 took {res['total_s']:.1f} s, over its "
+             f"{PHASE10_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1571,6 +1863,7 @@ def main():
     wkv = phase7_wkv(torch, rk, ref, bw, fp32_peak, logs[rk.SOURCE.name])
     rwkv = phase8_serving(torch, rk, card)
     paper = phase9_paper(torch, masked, ref, grid)
+    scale = phase10_scale(torch, masked, grid)
     kernel = {"name": "fused_masked_agg", "route": "triton",
               "source": "src/repro_torch/kernels/masked_agg.py",
               "replaces": "src/repro/kernels/masked_agg.py:180 "
@@ -1585,7 +1878,9 @@ def main():
               "bytes": k["bytes"], "main_path_rounds_per_s": rounds_per_s,
               "lm_path_launches": lm["launches"][3],
               "paper_launches": paper["launches"],
-              "lm_shape": k["lm"]}
+              "scale_launches": scale["launches"],
+              "lm_shape": k["lm"],
+              "fig3_shape": paper["kernel"]["fig3_timing"]}
     kernels = [kernel]
     source = "src/repro_torch/kernels/csrc/flash_attention.cu"
     replaces = "src/repro/kernels/flash_attention.py:76 (flash_attention -> _kernel"
@@ -1634,6 +1929,7 @@ def main():
     kernels[-2]["rwkv_slice"] = rwkv
     kernels[-1]["crossover_ms"] = wkv["crossover_ms"]
     print(json.dumps({"paper": paper}), flush=True)
+    print(json.dumps({"scale": scale}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -338,6 +338,24 @@ class AlgorithmSpec:
                               device=dev)[algo_id]
         return op.contiguous(), is_pbc
 
+    def aggregate_cohort(self, algo_id: AlgoId, algo_state, server, x_star,
+                         cohort, c_active, c_p, t) -> tuple:
+        """Sparse cohort aggregation of a stateful rule: its per-client rows
+        are gathered and written back at ``cohort [B, C]`` only
+        (``repro_torch.scale.sparse_state``), so the round touches O(C)
+        state. Stateful families are singletons, so dispatch is static.
+        Returns ``(algo_state', server')``."""
+        from repro_torch.scale.sparse_state import cohort_branch
+
+        if not (_is_static(algo_id) or len(self.names) == 1):
+            raise ValueError(
+                "cohort aggregation needs a static algo_id (stateful "
+                f"families are singletons; got a per-trajectory id over "
+                f"{self.names})")
+        idx = int(algo_id) if _is_static(algo_id) else 0
+        branch = cohort_branch(self.names[idx], self)
+        return branch(algo_state, server, x_star, cohort, c_active, c_p, t)
+
     def aggregate(self, algo_id: AlgoId, algo_state, server, clients, x_star,
                   active, p_t, t, use_kernel: bool = False,
                   fused=None) -> tuple:

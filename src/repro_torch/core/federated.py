@@ -26,6 +26,13 @@ over rounds is a Python loop here (``run_rounds_loop``).
 
 The model is the caller's: ``loss_fn(params [B, m, n], batch) -> [B, m]``
 per-client mean losses over a batch pytree with leading ``[B, m, ...]`` axes.
+
+Cross-device scale (``repro_torch.scale``; ``make_round_fn(strategy=...,
+cohort_size=...)``): a buffered round folds arrivals into a
+``BufferState`` and commits when the buffer fills or a deadline passes; a
+cohort round trains only a drawn ``[B, C]`` cohort of stateless clients
+(the draw's ``cohort``, from the ``"cohort"`` stream), so no ``[B, m, n]``
+client tensor exists.
 """
 from __future__ import annotations
 
@@ -35,53 +42,75 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs import FederationConfig
-from repro_torch.core.algorithms import AlgoState, as_algorithm
+from repro_torch.core.algorithms import (
+    AlgoState,
+    AlgorithmSpec,
+    _tile,
+    as_algorithm,
+    bcast_where,
+)
 from repro_torch.core.connectivity import LinkProcess
 from repro_torch.device import resolve_device, set_fp32_matmul_precision
+from repro_torch.scale.buffer import (
+    BufferState,
+    buffered_aggregate,
+    init_buffer_state,
+    knobs_of,
+)
+from repro_torch.scale.participation import cohort_arrivals, sample_cohort
 
 
 @dataclass
 class FedState:
     server: torch.Tensor          # [B, n]
-    clients: torch.Tensor         # [B, m, n]
-    opt_state: Dict[str, torch.Tensor]   # per client: step [B, m], moments
+    # [B, m, n]; stateless cohort clients hold none: [B, 0, n]
+    clients: torch.Tensor
+    # per client: step [B, m], moments; stateless cohort clients: {}
+    opt_state: Dict[str, torch.Tensor]
     algo_state: AlgoState
     link_state: Any
     round: int                    # rounds run so far (same for every b)
     # staleness bookkeeping (Prop. 2): last round each uplink was active
     last_active: torch.Tensor     # [B, m] int32
+    # buffered semi-async aggregation (repro_torch.scale.buffer): a
+    # BufferState in the buffered and cohort modes, None for the sync engine
+    buffer: Optional[BufferState] = None
 
 
 @dataclass
 class RoundDraws:
-    """One round's randomness: the link uniforms and the data index draw."""
+    """One round's randomness: the link uniforms, the data index draw and,
+    in cohort mode, the cohort (``pick`` then has ``C`` in place of ``m``)."""
 
     u: torch.Tensor                       # [B, m] float32 in [0, 1)
-    pick: Optional[torch.Tensor] = None   # [B, m, *shape] int64 (pick_spec)
+    pick: Optional[torch.Tensor] = None   # [B, m or C, *shape] int64
+    cohort: Optional[torch.Tensor] = None  # [B, C] int64, unique per row
 
 
 class GeneratorDraws:
     """The engine's drawer: per-seed ``torch.Generator`` bundles
-    (``{"params", "state", "ds", "data"}``, see
+    (``{"params", "state", "ds", "data", "cohort"}``, see
     ``repro_torch.experiments.sweep.seed_generators``); trajectory ``b``
     uses bundle ``index[b]``, so trajectories of one seed see the same
     numbers, as they see the same keys in the reference.
 
     Streams: ``params`` gives the initial model, ``state`` the link process's
     initial draw and then every round's ``u``, ``ds`` the data source's
-    init draw, ``data`` every round's ``pick``. A round's draw is the next
-    one on the stream, so rounds must be drawn in order (the reference folds
-    the round into its data key). ``pick_spec`` is the source's
-    ``(*per-client draw shape, high)``: each client draws integers in
-    ``[0, high)``.
+    init draw, ``data`` every round's ``pick``, ``cohort`` (with
+    ``cohort_size=C`` only) every round's cohort. A round's draw is the
+    next one on each stream, so rounds must be drawn in order (the
+    reference folds the round into its data key). ``pick_spec`` is the
+    source's ``(*per-client draw shape, high)``: each client (each cohort
+    member in cohort mode) draws integers in ``[0, high)``.
     """
 
     def __init__(self, bundles: Sequence[Dict[str, torch.Generator]],
                  index: Optional[Sequence[int]] = None, *, num_clients: int,
-                 pick_spec=None):
+                 pick_spec=None, cohort_size: Optional[int] = None):
         self.bundles = list(bundles)
         self.m = num_clients
         self.pick_spec = pick_spec
+        self.cohort_size = cohort_size
         dev = self.bundles[0]["state"].device
         self.index = None if index is None or list(index) == list(
             range(len(self.bundles))) else torch.as_tensor(
@@ -112,14 +141,20 @@ class GeneratorDraws:
         u = self._stack([torch.rand(self.m, generator=g["state"],
                                     device=g["state"].device)
                          for g in self.bundles])
+        cohort = None
+        rows = self.m
+        if self.cohort_size is not None:
+            rows = self.cohort_size
+            cohort = self._stack([sample_cohort(g["cohort"], self.m, rows)
+                                  for g in self.bundles])
         pick = None
         if self.pick_spec is not None:
             *shape, high = self.pick_spec
             pick = self._stack([
-                torch.randint(0, high, (self.m, *shape),
+                torch.randint(0, high, (rows, *shape),
                               generator=g["data"], device=g["data"].device)
                 for g in self.bundles])
-        return RoundDraws(u, pick)
+        return RoundDraws(u, pick, cohort)
 
 
 def init_fed_state(link_u: torch.Tensor, server_params: torch.Tensor,
@@ -128,24 +163,33 @@ def init_fed_state(link_u: torch.Tensor, server_params: torch.Tensor,
                    buffered: bool = False) -> FedState:
     """``server_params [B, n]``; ``link_u [B, m]`` the link process's initial
     draw (the reference's ``k_link`` split). Every client starts from the
-    server model in its own copy of the buffer."""
-    if stateless_clients or buffered:
-        raise NotImplementedError(
-            "cohort/buffered client state is not ported yet (ROADMAP "
-            "Queue 1 item 3: cross-device scale)")
+    server model in its own copy of the buffer.
+
+    ``stateless_clients``: cohort (cross-device) mode. No per-client model
+    or optimizer state exists: ``clients`` is the empty ``[B, 0, n]`` and
+    ``opt_state`` is ``{}``; every sampled client trains from the server
+    model with a fresh optimizer, so a round's client memory is O(C).
+    ``buffered``: carry a ``BufferState`` (``repro_torch.scale.buffer``)
+    for the semi-async engine."""
     algorithm = as_algorithm(algorithm)
     m = fed_cfg.num_clients
-    B = server_params.shape[0]
-    clients = server_params.unsqueeze(1).expand(B, m, -1).clone()
+    B, n = server_params.shape
+    if stateless_clients:
+        clients = server_params.new_empty((B, 0, n))
+        opt_state = {}
+    else:
+        clients = server_params.unsqueeze(1).expand(B, m, -1).clone()
+        opt_state = optimizer.init(clients)
     return FedState(
         server=server_params,
         clients=clients,
-        opt_state=optimizer.init(clients),
+        opt_state=opt_state,
         algo_state=algorithm.init(server_params, m),
         link_state=link.init(link_u),
         round=0,
         last_active=torch.full((B, m), -1, dtype=torch.int32,
                                device=server_params.device),
+        buffer=init_buffer_state(server_params, m) if buffered else None,
     )
 
 
@@ -182,13 +226,17 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
     trajectory's member). ``use_kernel`` routes a fusable family's server
     aggregation through the fused kernel (``repro_torch.kernels.dispatch``):
     one launch per round over the whole ``[B, m, n]`` buffer.
+
+    ``strategy`` / ``cohort_size``: the cross-device scale engines
+    (``_make_scale_round_fn``); both need an ``AlgorithmSpec`` and ignore
+    ``use_kernel``, as the reference's do: their aggregation is the buffer
+    fold or the sparse cohort branches, never the fused kernel.
     """
-    if strategy is not None or cohort_size is not None:
-        raise NotImplementedError(
-            "buffered/cohort rounds are not ported yet (ROADMAP Queue 1 "
-            "item 3: cross-device scale)")
     # full fp32 products on the card (no TF32), set explicitly
     set_fp32_matmul_precision()
+    if strategy is not None or cohort_size is not None:
+        return _make_scale_round_fn(loss_fn, optimizer, algorithm, link,
+                                    fed_cfg, algo_id, strategy, cohort_size)
     algorithm = as_algorithm(algorithm, algo_id, use_kernel=use_kernel)
     s = fed_cfg.local_steps
 
@@ -217,6 +265,139 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
     return round_fn
 
 
+def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
+                         algo_id, strategy, cohort_size):
+    """The cross-device scale round engines (``repro_torch.scale``).
+
+    Dense buffered (``cohort_size is None``): the synchronous round's data
+    and mask protocol, ``round_fn(state, batches, u)``, with the server
+    aggregation routed through the buffered fold. In the degenerate
+    commit-every-round configuration it computes the synchronous branches
+    term for term (the bit-for-bit pin in ``tests/test_torch_scale.py``).
+
+    Cohort (``cohort_size=C``): ``round_fn(state, ds_state, draws, source)
+    -> (state, ds_state, metrics)`` (it carries ``needs_source``). Clients
+    are stateless: the draw's ``[B, C]`` cohort trains from the server
+    model with a fresh optimizer on its own batches only
+    (``source.sample_cohort``), and the aggregation is the buffer engine
+    (fusable family) or the sparse gather/scatter branches (stateful
+    rules). No ``[B, m, n]`` client tensor exists in the round; the link
+    process still advances over the full ``[B, m]`` population.
+    """
+    if not isinstance(algorithm, AlgorithmSpec):
+        raise ValueError(
+            "the buffered/cohort round engine needs an AlgorithmSpec (got "
+            f"{type(algorithm).__name__}; bind algo_id via the algo_id "
+            "argument instead)")
+    spec = algorithm
+    m = fed_cfg.num_clients
+    buffered = spec.fusable   # stateful rules take the sparse cohort path
+    if strategy is not None and not buffered:
+        raise ValueError(
+            f"buffered strategies cover the empty-state family only; "
+            f"{spec.names} keeps per-client state (use the synchronous or "
+            "cohort path)")
+    knobs = knobs_of(strategy)
+    if buffered:
+        op, is_pbc = spec.fused_op(algo_id)
+    bound = as_algorithm(spec, algo_id)
+    s = fed_cfg.local_steps
+
+    def commit_clients(commit, in_buffer, server, x_star):
+        """Postponed broadcast at commit time: fedpbc's new global model
+        reaches exactly the buffered contributors; other members broadcast
+        to every client. Between commits nobody moves."""
+        if isinstance(is_pbc, bool):
+            bcast = in_buffer if is_pbc else torch.ones_like(in_buffer)
+        else:
+            bcast = in_buffer | ~is_pbc.unsqueeze(-1)
+        committed = bcast_where(bcast, server, x_star)
+        return torch.where(commit.reshape(-1, 1, 1), committed, x_star)
+
+    if cohort_size is None:
+        def round_fn(state: FedState, batches, u: torch.Tensor) -> tuple:
+            active, p_t, link_state = link.sample(state.link_state,
+                                                  state.round, u)
+            starts = bound.client_start(state.algo_state, state.server,
+                                        state.clients)
+            x_star, opt_state, losses = local_steps(
+                loss_fn, optimizer, starts, state.opt_state, batches, s)
+            in_buffer = state.buffer.in_buffer | active
+            buf, server, commit, bmets = buffered_aggregate(
+                state.buffer, state.server, x_star, active, p_t, knobs,
+                op=op, m_total=m, in_buffer_new=in_buffer)
+            clients = commit_clients(commit, in_buffer, server, x_star)
+            last_active = torch.where(active, state.round, state.last_active)
+            new_state = FedState(
+                server=server, clients=clients, opt_state=opt_state,
+                algo_state=state.algo_state, link_state=link_state,
+                round=state.round + 1, last_active=last_active, buffer=buf)
+            metrics = {
+                "loss": losses.mean(-1),
+                "num_active": active.sum(-1),
+                "active": active,
+                "staleness": (state.round - state.last_active).float(),
+                **bmets,
+            }
+            return new_state, metrics
+
+        return round_fn
+
+    C = cohort_size
+
+    def round_fn(state: FedState, ds_state, draws: RoundDraws,
+                 source) -> tuple:
+        # the link advances over the FULL population (Markov chains etc.
+        # keep their dense-time semantics); the cohort sees its gather
+        active_m, p_t_m, link_state = link.sample(state.link_state,
+                                                  state.round, draws.u)
+        cohort = draws.cohort
+        if cohort is None or cohort.shape[-1] != C:
+            raise ValueError(f"the cohort round needs a [B, {C}] cohort in "
+                             f"its draws (GeneratorDraws(cohort_size={C}))")
+        c_active, c_p = cohort_arrivals(cohort, active_m, p_t_m)
+        batches, ds_state = source.sample_cohort(ds_state, state.round,
+                                                 cohort, draws.pick)
+        starts = _tile(state.server, C)
+        x_star, _, losses = local_steps(loss_fn, optimizer, starts,
+                                        optimizer.init(starts), batches, s)
+        if buffered:
+            prev = state.buffer.in_buffer
+            in_buffer = prev.scatter(1, cohort, prev.gather(1, cohort)
+                                     | c_active)
+            buf, server, commit, bmets = buffered_aggregate(
+                state.buffer, state.server, x_star, c_active, c_p, knobs,
+                op=op, m_total=C, in_buffer_new=in_buffer)
+            algo_state = state.algo_state
+        else:
+            algo_state, server = spec.aggregate_cohort(
+                algo_id, state.algo_state, state.server, x_star, cohort,
+                c_active, c_p, state.round)
+            buf = state.buffer
+            ones = torch.ones(c_active.shape[0], device=server.device)
+            bmets = {"commit": ones,
+                     "buffer_fill": c_active.sum(-1).float(),
+                     "commit_staleness": torch.zeros_like(ones)}
+        last_active = state.last_active.scatter(
+            1, cohort, torch.where(c_active, state.round,
+                                   state.last_active.gather(1, cohort)))
+        new_state = FedState(
+            server=server, clients=state.clients, opt_state={},
+            algo_state=algo_state, link_state=link_state,
+            round=state.round + 1, last_active=last_active, buffer=buf)
+        metrics = {
+            "loss": losses.mean(-1),
+            "num_active": c_active.sum(-1),
+            "active": c_active,
+            "staleness": (state.round - state.last_active).float(),
+            **bmets,
+        }
+        return new_state, ds_state, metrics
+
+    round_fn.needs_source = True
+    return round_fn
+
+
 # Metrics stacked per round by run_rounds. "active" ([B, K, m] bool) is
 # cheap but redundant with staleness for most consumers.
 DEFAULT_METRIC_KEYS = ("loss", "num_active", "staleness")
@@ -224,7 +405,20 @@ DEFAULT_METRIC_KEYS = ("loss", "num_active", "staleness")
 
 def make_round_step(round_fn, source):
     """One (sample batch -> run round) step over a ``DataSource``:
-    ``step(state, ds_state, draws: RoundDraws) -> (state, ds_state, metrics)``."""
+    ``step(state, ds_state, draws: RoundDraws) -> (state, ds_state, metrics)``.
+    A cohort round (``needs_source``) samples its own cohort's batches."""
+
+    if getattr(round_fn, "needs_source", False):
+        # the source's capability is checked here, when the step is built
+        if source.sample_cohort is None:
+            raise ValueError(
+                f"cohort mode needs a DataSource with sample_cohort "
+                f"(source {source.name!r} has none)")
+
+        def step(state: FedState, ds_state, draws: RoundDraws):
+            return round_fn(state, ds_state, draws, source)
+
+        return step
 
     def step(state: FedState, ds_state, draws: RoundDraws):
         batches, ds_state = source.sample(ds_state, state.round, draws.pick)
@@ -240,7 +434,10 @@ def _empty_metrics(state: FedState, metric_keys) -> Dict[str, torch.Tensor]:
     shapes = {"loss": ((B, 0), torch.float32),
               "num_active": ((B, 0), torch.int64),
               "active": ((B, 0, m), torch.bool),
-              "staleness": ((B, 0, m), torch.float32)}
+              "staleness": ((B, 0, m), torch.float32),
+              "commit": ((B, 0), torch.float32),
+              "buffer_fill": ((B, 0), torch.float32),
+              "commit_staleness": ((B, 0), torch.float32)}
     return {k: torch.zeros(shapes[k][0], dtype=shapes[k][1], device=dev)
             for k in metric_keys}
 
@@ -276,7 +473,10 @@ def make_run_rounds(loss_fn: Callable, optimizer, algorithm,
 
     ``device=None`` means the card (raises without CUDA); the state must lie
     on the resolved device. ``draw`` is a ``GeneratorDraws`` (or any
-    ``round -> RoundDraws`` callable).
+    ``round -> RoundDraws`` callable). ``strategy``/``cohort_size`` select
+    the scale engines (``make_round_fn``); the state then comes from
+    ``init_fed_state`` with the matching ``buffered``/``stateless_clients``
+    and the draws carry the cohort.
     """
     dev = resolve_device(device)
     round_fn = make_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,

@@ -15,6 +15,13 @@ handed in by a test. ``pick_spec`` tells the drawer the draw,
 ``(*per-client shape, high)`` (integers in ``[0, high)``), or is ``None``
 for a source that needs no draw; ``init_high`` likewise the per-client
 draw that ``init`` takes (the LM source's offsets), or ``None``.
+
+Cohort mode (``repro_torch.scale``): ``sample_cohort(ds_state, round,
+cohort, pick)`` takes the round's cohort ``[B, C]`` and a draw with ``C`` in
+place of ``m`` (``[B, C, s, b]``) and returns ``[B, C, s, ...]`` batches of
+the sampled clients only, so a round's data is O(C), not O(m). With the
+full-population cohort ``arange(m)`` it is bit for bit the dense
+``sample``. A source without it (``None``) cannot run the cohort engine.
 """
 from __future__ import annotations
 
@@ -33,6 +40,17 @@ class DataSource:
     name: str = ""
     pick_spec: Optional[Tuple[int, ...]] = None   # (*per-client shape, high)
     init_high: Optional[int] = None               # init's per-client draw
+    # (ds_state, round, cohort [B, C], pick [B, C, ...]) -> (batches, ds_state)
+    sample_cohort: Optional[Callable[..., Any]] = None
+
+
+def _cohort_rows(idx: torch.Tensor, cohort: torch.Tensor) -> torch.Tensor:
+    """The cohort's shards ``[B, C, per_client]`` of the client shards
+    ``idx`` (``[m, per_client]`` shared, or ``[B, m, per_client]``)."""
+    if idx.dim() == 2:
+        return idx[cohort]
+    return torch.gather(idx, 1, cohort.unsqueeze(-1).expand(
+        -1, -1, idx.shape[-1]))
 
 
 def _gather(idx: torch.Tensor, pick: torch.Tensor) -> torch.Tensor:
@@ -60,8 +78,13 @@ def classification_source(x, y, client_idx, *, local_steps: int,
         sel = _gather(client_idx, pick)
         return {"x": x[sel], "y": y[sel]}, ds_state
 
+    def sample_cohort(ds_state, t, cohort, pick):
+        sel = _gather(_cohort_rows(client_idx, cohort), pick)
+        return {"x": x[sel], "y": y[sel]}, ds_state
+
     return DataSource(init, sample, "classification",
-                      (local_steps, batch_size, per_client))
+                      (local_steps, batch_size, per_client),
+                      sample_cohort=sample_cohort)
 
 
 def traced_classification_source(shared, *, local_steps: int, batch_size: int,
@@ -79,8 +102,13 @@ def traced_classification_source(shared, *, local_steps: int, batch_size: int,
         sel = _gather(ds_state["idx"], pick)
         return {"x": shared["x"][sel], "y": shared["y"][sel]}, ds_state
 
+    def sample_cohort(ds_state, t, cohort, pick):
+        sel = _gather(_cohort_rows(ds_state["idx"], cohort), pick)
+        return {"x": shared["x"][sel], "y": shared["y"][sel]}, ds_state
+
     return DataSource(init, sample, "classification_traced",
-                      (local_steps, batch_size, per_client))
+                      (local_steps, batch_size, per_client),
+                      sample_cohort=sample_cohort)
 
 
 def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
@@ -95,7 +123,8 @@ def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
     ``pick [B, m, s, b, T]`` in ``[0, vocab // 2)`` and returns ``tokens =
     lo + pick`` with ``labels = roll(tokens, -1)`` along the sequence.
     ``num_clients`` is the reference's signature; the shapes come with the
-    draws.
+    draws. Its ``sample_cohort`` comes with the LM sweep (ROADMAP Queue 1
+    item 5).
     """
     if memory_shape is not None:
         raise NotImplementedError(
@@ -118,8 +147,10 @@ def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
 def fixed_source(batches: Batches) -> DataSource:
     """Every round sees the same ``[m, s, ...]`` batch leaves (the quadratic
     counterexample setups, where each client's objective is deterministic),
-    served as ``[1, m, s, ...]`` so they broadcast over every trajectory."""
-    batches = {k: v.unsqueeze(0) for k, v in batches.items()}
+    served as ``[1, m, s, ...]`` so they broadcast over every trajectory;
+    a cohort ``[B, C]`` gets its clients' rows, ``[B, C, s, ...]``."""
+    full = batches
+    batches = {k: v.unsqueeze(0) for k, v in full.items()}
 
     def init(data=None):
         return ()
@@ -127,4 +158,8 @@ def fixed_source(batches: Batches) -> DataSource:
     def sample(ds_state, t, pick=None):
         return batches, ds_state
 
-    return DataSource(init, sample, "fixed", None)
+    def sample_cohort(ds_state, t, cohort, pick=None):
+        return {k: v[cohort] for k, v in full.items()}, ds_state
+
+    return DataSource(init, sample, "fixed", None,
+                      sample_cohort=sample_cohort)

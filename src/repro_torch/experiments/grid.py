@@ -8,8 +8,10 @@ trajectories (``repro_torch.experiments.sweep.make_batched_run_rounds``):
 state-compatible algorithms (``algo_family``: fedpbc / fedavg / fedavg_all /
 fedavg_known_p) share one batch through a per-trajectory ``algo_id``, and
 the ``lrs x gammas x alphas x sigma0s x deltas`` product is flattened with
-the seeds into the same leading axis. ``run_sweep(store=...)`` appends one
-row per (cell, point) to a ``ResultsStore`` in the reference's layout.
+the seeds (and the buffered ``strategies`` axis) into the same leading
+axis. ``cohort_size`` runs the cross-device cohort engine
+(``repro_torch.scale``). ``run_sweep(store=...)`` appends one row per
+(cell, strategy, point) to a ``ResultsStore`` in the reference's layout.
 
 Entry points run on the card (``device=None``) and raise without CUDA.
 """
@@ -31,7 +33,11 @@ from repro_torch.core.algorithms import (
 )
 from repro_torch.core.connectivity import build_base_probs, make_link_process
 from repro_torch.device import resolve_device
-from repro_torch.experiments.results import ResultsStore, summarize
+from repro_torch.experiments.results import (
+    ResultsStore,
+    buffered_summary,
+    summarize,
+)
 from repro_torch.experiments.sweep import (
     CellBatch,
     eval_rounds,
@@ -42,8 +48,14 @@ from repro_torch.experiments.tasks import (
     TracedClassificationTask,
     make_traced_classification_task,
 )
-from repro_torch.kernels.dispatch import resolve_use_kernel
+from repro_torch.kernels.dispatch import FUSED_OPS, resolve_use_kernel
 from repro_torch.optim import paper_decay, sgd
+from repro_torch.scale.buffer import (
+    BUFFER_METRIC_KEYS,
+    SYNC,
+    Strategy,
+    strategy_knob_columns,
+)
 
 # The paper's evaluation grid (§7.2): 7 algorithms x 6 link schemes.
 ALGOS = ("fedpbc", "fedavg", "fedavg_all", "fedau", "f3ast",
@@ -62,12 +74,6 @@ SCHEMES = {
 # (lr, gamma, alpha, sigma0, delta) combination.
 HPARAM_FIELDS = ("lr", "gamma", "alpha", "sigma0", "delta")
 
-SYNC = "sync"   # the synchronous engine: the only strategy of this slice
-# the reference's ``dataclasses.asdict`` of its ``SYNC`` strategy, as store
-# rows record it in ``spec["strategies"]``
-_SYNC_RECORD = {"name": SYNC, "wait_for_full": False, "buffer_size": 1,
-                "deadline_rounds": 1, "staleness_discount": 0.0}
-
 
 @dataclass(frozen=True)
 class SweepSpec:
@@ -77,9 +83,10 @@ class SweepSpec:
     family) ``algorithms``, into one batch axis.
 
     Validated at construction: empty or duplicated ``algorithms``/
-    ``schemes``/``seeds`` and unknown names raise ``ValueError`` naming the
-    field. Knobs of later slices (buffered ``strategies``, ``cohort_size``,
-    ``task="lm"``) raise ``NotImplementedError`` naming their ROADMAP item.
+    ``schemes``/``seeds``/``strategies``, unknown names, malformed strategy
+    knobs and a ``cohort_size`` outside ``[1, num_clients]`` raise
+    ``ValueError`` naming the field. ``task="lm"`` raises
+    ``NotImplementedError`` naming its ROADMAP item.
     """
 
     algorithms: Tuple[str, ...] = ("fedpbc", "fedavg")
@@ -115,8 +122,9 @@ class SweepSpec:
     # fused kernel (one launch per round), False keeps the branch path,
     # None defers to the REPRO_USE_KERNEL env default
     use_kernel: Optional[bool] = None
-    # cross-device scale axes (ROADMAP Queue 1 item 3)
-    strategies: Tuple[str, ...] = (SYNC,)
+    # cross-device scale axes (repro_torch.scale): buffered strategies
+    # (SYNC alone is the synchronous engine) and the per-round cohort size
+    strategies: Tuple[Strategy, ...] = (SYNC,)
     cohort_size: Optional[int] = None
     # extra FederationConfig field overrides, applied last
     fed_overrides: Tuple[Tuple[str, Any], ...] = ()
@@ -161,21 +169,51 @@ class SweepSpec:
                 f"available: {sorted(SCHEMES)}")
         if not self.strategies:
             raise ValueError(
-                "SweepSpec.strategies is empty; give at least one strategy "
-                f"({SYNC!r} is the synchronous default)")
-        if tuple(self.strategies) != (SYNC,):
-            raise NotImplementedError(
-                "SweepSpec.strategies beyond ('sync',) (buffered semi-async "
-                "aggregation) are not ported yet (ROADMAP Queue 1 item 3: "
-                "cross-device scale)")
-        if self.cohort_size is not None:
-            if not 1 <= self.cohort_size <= self.num_clients:
+                "SweepSpec.strategies is empty; give at least one Strategy "
+                "(repro_torch.scale.SYNC is the synchronous default)")
+        bad = [s for s in self.strategies if not isinstance(s, Strategy)]
+        if bad:
+            raise ValueError(
+                f"SweepSpec.strategies entries must be "
+                f"repro_torch.scale.Strategy, got "
+                f"{[type(s).__name__ for s in bad]}")
+        names = [s.name for s in self.strategies]
+        if len(set(names)) != len(names):
+            dupes = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(
+                f"SweepSpec.strategies contains duplicate names {dupes}: "
+                f"each strategy is one independent grid coordinate")
+        if self.cohort_size is not None \
+                and not 1 <= self.cohort_size <= self.num_clients:
+            raise ValueError(
+                f"SweepSpec.cohort_size={self.cohort_size} must be in "
+                f"[1, num_clients={self.num_clients}]")
+        pop = self.cohort_size if self.cohort_size is not None \
+            else self.num_clients
+        for s in self.strategies:
+            if not 1 <= s.buffer_size <= pop:
                 raise ValueError(
-                    f"SweepSpec.cohort_size={self.cohort_size} must be in "
-                    f"[1, num_clients={self.num_clients}]")
-            raise NotImplementedError(
-                "SweepSpec.cohort_size is not ported yet (ROADMAP Queue 1 "
-                "item 3: cross-device scale)")
+                    f"SweepSpec.strategies[{s.name!r}].buffer_size="
+                    f"{s.buffer_size} must be in [1, {pop}] (at most the "
+                    f"{'cohort size' if self.cohort_size else 'client count'}"
+                    f" — a larger buffer could never fill)")
+            if s.deadline_rounds < 1:
+                raise ValueError(
+                    f"SweepSpec.strategies[{s.name!r}].deadline_rounds="
+                    f"{s.deadline_rounds} must be >= 1 (the buffer commits "
+                    f"at a round boundary at the earliest)")
+            if not 0.0 <= s.staleness_discount < 1.0:
+                raise ValueError(
+                    f"SweepSpec.strategies[{s.name!r}].staleness_discount="
+                    f"{s.staleness_discount} must be in [0, 1)")
+        if self.strategies != (SYNC,):
+            stateful = [a for a in self.algorithms if a not in FUSED_OPS]
+            if stateful:
+                raise ValueError(
+                    f"SweepSpec.strategies has buffered entries but "
+                    f"algorithms {stateful} keep per-client state; buffered "
+                    f"semi-async aggregation covers the empty-state family "
+                    f"{sorted(FUSED_OPS)} only")
 
     def hparam_points(self) -> List[Dict[str, float]]:
         """One dict per hyperparameter point, in ``itertools.product``
@@ -220,8 +258,13 @@ class CellResult:
     loss: np.ndarray                # [S, K] per-round mean train loss
     num_active: np.ndarray          # [S, K] active-client counts
     hparams: Dict[str, float] = field(default_factory=dict)
-    strategy: str = SYNC
+    # the row's strategy-axis coordinate ("sync" = the synchronous engine)
+    strategy: str = "sync"
+    # population the participation summary normalizes by (0: dense sync)
     num_clients: int = 0
+    # buffered-mode per-round traces (None for synchronous cells)
+    commit: Optional[np.ndarray] = None             # [S, K] commit indicator
+    commit_staleness: Optional[np.ndarray] = None   # [S, K] mean buffer age
     # the final server params [S, n] (flat layout; the port keeps them so
     # a caller can check or reuse the trained models)
     server: Optional[np.ndarray] = None
@@ -235,10 +278,13 @@ class CellResult:
         out = {"test_acc": summarize(self.final_test()),
                "train_acc": summarize(self.train_acc)}
         if self.num_clients and self.num_active.size:
-            # mean per-round participation rate; dense sync cells leave
+            # mean per-round participation rate (of the materialized
+            # population: m dense, C in cohort mode); dense sync cells leave
             # num_clients at 0 and keep the two-key summary
             out["participation"] = summarize(
                 self.num_active.mean(axis=1) / self.num_clients)
+        if self.commit is not None and self.commit.size:
+            out.update(buffered_summary(self.commit, self.commit_staleness))
         return out
 
 
@@ -288,15 +334,26 @@ def point_base_probs(spec: SweepSpec, point: Dict[str, float]) -> np.ndarray:
         for s in spec.seeds])
 
 
+def _has_strategy_axis(spec: SweepSpec) -> bool:
+    """Whether the spec runs the buffered engine: any strategy besides the
+    bare synchronous default. (SYNC,) keeps the synchronous round; a single
+    non-sync strategy, or (SYNC, buffered), puts the WHOLE cell on the
+    buffered round, where SYNC's degenerate knobs reproduce the synchronous
+    results bit for bit (``tests/test_torch_scale.py``)."""
+    return spec.strategies != (SYNC,)
+
+
 def make_cell_batch(spec: SweepSpec, fed: FederationConfig,
                     task: TracedClassificationTask,
                     algos: Optional[Tuple[str, ...]] = None,
                     device=None) -> CellBatch:
-    """Flatten (algorithm x hyperparameter point x seed) into one leading
-    batch, algo-major then point-major:
-    ``b = (algo_index * n_points + point_index) * len(seeds) + seed_index``.
-    ``algos`` (default ``fed.algorithm``) must share one family; the
-    ``algo_id`` column indexes that family's table."""
+    """Flatten (algorithm x strategy x hyperparameter point x seed) into one
+    leading batch, algo-major, then strategy-major, then point-major:
+    ``b = ((algo_index * n_strategies + strategy_index) * n_points
+    + point_index) * len(seeds) + seed_index`` (without a strategy axis
+    n_strategies is 1). ``algos`` (default ``fed.algorithm``) must share one
+    family; the ``algo_id`` column indexes that family's table. With a
+    strategy axis the buffer knobs travel as four more hparam columns."""
     dev = resolve_device(device)
     if algos is None:
         algos = (fed.algorithm,)
@@ -316,26 +373,31 @@ def make_cell_batch(spec: SweepSpec, fed: FederationConfig,
             probs_memo[k] = point_base_probs(spec, pt)
         return probs_memo[k]
 
-    rows = [(a, pt) for a in algos for pt in points]
-    p_base = np.concatenate([probs(pt) for _, pt in rows])
+    rows = [(a, st, pt) for a in algos for st in spec.strategies
+            for pt in points]
+    p_base = np.concatenate([probs(pt) for _, _, pt in rows])
     idx = np.stack([get_partition(spec, task, pt["alpha"])
-                    for _, pt in rows for _ in range(S)])
+                    for _, _, pt in rows for _ in range(S)])
 
     def col(f):
-        return torch.tensor([pt[f] for _, pt in rows for _ in range(S)],
+        return torch.tensor([pt[f] for _, _, pt in rows for _ in range(S)],
                             dtype=torch.float32, device=dev)
 
     B = len(rows) * S
+    hparams = {"lr": col("lr"), "gamma": col("gamma"),
+               "period": torch.full((B,), float(fed.period),
+                                    dtype=torch.float32, device=dev)}
+    if _has_strategy_axis(spec):
+        hparams.update(strategy_knob_columns([st for _, st, _ in rows], S,
+                                             device=dev))
     return CellBatch(
         gens=[seed_generators(s, dev) for s in spec.seeds],
         gen_index=[i for _ in rows for i in range(S)],
         p_base=torch.as_tensor(p_base, device=dev),
-        hparams={"lr": col("lr"), "gamma": col("gamma"),
-                 "period": torch.full((B,), float(fed.period),
-                                      dtype=torch.float32, device=dev)},
+        hparams=hparams,
         data={"idx": torch.as_tensor(idx, device=dev)},
         shared=task.shared,
-        algo_id=torch.tensor([family.index(a) for a, _ in rows
+        algo_id=torch.tensor([family.index(a) for a, _, _ in rows
                               for _ in range(S)], device=dev))
 
 
@@ -356,6 +418,8 @@ def make_runner(spec: SweepSpec, fed: FederationConfig, task, *,
         eval_fn=task.eval_test,
         metric_keys=metric_keys,
         use_kernel=resolve_use_kernel(spec.use_kernel),
+        cohort_size=spec.cohort_size,
+        buffered=_has_strategy_axis(spec),
         device=device)
 
 
@@ -368,6 +432,9 @@ def run_batch_states(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
     dev = resolve_device(device)
     task = get_traced_task(spec, dev)
     fed = spec.cell_config(algos[0], scheme)
+    if _has_strategy_axis(spec):
+        metric_keys = tuple(metric_keys) + tuple(
+            k for k in BUFFER_METRIC_KEYS if k not in metric_keys)
     runner = make_runner(spec, fed, task, metric_keys=metric_keys,
                          device=dev)
     states, out = runner(make_cell_batch(spec, fed, task, algos=algos,
@@ -378,8 +445,8 @@ def run_batch_states(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
 def _run_batch(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
                metric_keys=("loss", "num_active"),
                device=None) -> List[CellResult]:
-    """One (algorithm group, scheme) cell as ``CellResult`` rows, algo-major
-    then point-major."""
+    """One (algorithm group, scheme) cell as ``CellResult`` rows, algo-major,
+    then strategy-major, then point-major."""
     task, states, out = run_batch_states(spec, algos, scheme,
                                          metric_keys=metric_keys,
                                          device=device)
@@ -399,23 +466,40 @@ def _run_batch(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
     server = states.server.cpu().numpy()
     points = spec.hparam_points()
     S = len(spec.seeds)
-    B = len(algos) * len(points) * S
+    buffered = _has_strategy_axis(spec)
+    strategies = spec.strategies
+    n_str = len(strategies)
+    B = len(algos) * n_str * len(points) * S
+    # the per-round population the participation summary normalizes by
+    pop = spec.cohort_size if spec.cohort_size is not None \
+        else spec.num_clients
 
-    def rows(a, ai, pi):
-        lo = (ai * len(points) + pi) * S
+    def rows(a, ai, si, pi):
+        lo = ((ai * n_str + si) * len(points) + pi) * S
         return a[lo:lo + S]
 
     return [
         CellResult(
             algo=algo, scheme=scheme, seeds=tuple(spec.seeds),
             rounds=spec.rounds, eval_rounds=rounds_at,
-            test_acc=rows(test_acc, ai, pi),
-            train_acc=rows(train_acc, ai, pi),
-            loss=rows(mets.get("loss", np.zeros((B, 0))), ai, pi),
-            num_active=rows(mets.get("num_active", np.zeros((B, 0))), ai, pi),
+            test_acc=rows(test_acc, ai, si, pi),
+            train_acc=rows(train_acc, ai, si, pi),
+            loss=rows(mets.get("loss", np.zeros((B, 0))), ai, si, pi),
+            num_active=rows(mets.get("num_active", np.zeros((B, 0))),
+                            ai, si, pi),
             hparams=dict(pt),
-            server=rows(server, ai, pi))
+            strategy=strat.name,
+            # dense synchronous cells keep the two-key summary;
+            # participation appears where it is informative (cohort mode
+            # normalizes by C, buffered rows by the buffer's pool)
+            num_clients=(pop if (strat.name != "sync"
+                                 or spec.cohort_size is not None) else 0),
+            commit=(rows(mets["commit"], ai, si, pi) if buffered else None),
+            commit_staleness=(rows(mets["commit_staleness"], ai, si, pi)
+                              if buffered else None),
+            server=rows(server, ai, si, pi))
         for ai, algo in enumerate(algos)
+        for si, strat in enumerate(strategies)
         for pi, pt in enumerate(points)]
 
 
@@ -449,23 +533,15 @@ def run_cell(spec: SweepSpec, algo: str, scheme: str, *,
                           mesh=mesh, devices=devices, device=device)[0]
 
 
-def _spec_record(spec: SweepSpec) -> Dict[str, Any]:
-    """``dataclasses.asdict(spec)`` as the reference's store rows hold it:
-    its ``strategies`` are ``Strategy`` dataclasses, the port's their names
-    (only ``"sync"`` in this slice)."""
-    out = dataclasses.asdict(spec)
-    out["strategies"] = [dict(_SYNC_RECORD) for _ in spec.strategies]
-    return out
-
-
 def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
               suite: str = "sweep", metric_keys=("loss", "num_active"),
               mesh=None, devices=None, device=None) -> List[CellResult]:
-    """Execute the full grid; with ``store``, append every (cell, point)
-    row to it under ``suite``. Within each scheme, algorithms are grouped
-    into state-compatible families and each group runs as ONE batch over
-    the joint (algo x point x seed) axis. Results and rows keep the
-    ``scheme -> algorithm -> point`` order. ``device=None`` is the card.
+    """Execute the full grid; with ``store``, append every (cell, strategy,
+    point) row to it under ``suite``. Within each scheme, algorithms are
+    grouped into state-compatible families and each group runs as ONE batch
+    over the joint (algo x strategy x point x seed) axis. Results and rows
+    keep the ``scheme -> algorithm -> strategy -> point`` order.
+    ``device=None`` is the card.
 
     Rows are written as soon as spec order allows, and on a crash every
     row a finished group computed is still written before the error
@@ -475,7 +551,7 @@ def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
     for scheme in spec.schemes:            # validate every cell upfront
         for algo in spec.algorithms:
             spec.cell_config(algo, scheme)
-    n_points = len(spec.hparam_points())
+    n_points = len(spec.hparam_points()) * len(spec.strategies)
     cells: List[CellResult] = []
     for scheme in spec.schemes:
         groups: Dict[Tuple[str, ...], List[str]] = {}
@@ -488,17 +564,21 @@ def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
             for cell in by_algo[algo]:
                 cells.append(cell)
                 if store is not None:       # the reference's keys and arrays
+                    arrays = {"test_acc": cell.test_acc,
+                              "train_acc": cell.train_acc, "loss": cell.loss,
+                              "num_active": cell.num_active}
+                    if cell.commit is not None:
+                        arrays["commit"] = cell.commit
+                        arrays["commit_staleness"] = cell.commit_staleness
                     store.append(
                         {"suite": suite, "algo": algo, "scheme": scheme,
                          "strategy": cell.strategy, "seeds": list(spec.seeds),
                          "rounds": spec.rounds, "eval_every": spec.eval_every,
                          "hparams": dict(cell.hparams),
-                         "spec": _spec_record(spec),
+                         "spec": dataclasses.asdict(spec),
                          "eval_rounds": cell.eval_rounds,
                          "summary": cell.summary()},
-                        arrays={"test_acc": cell.test_acc,
-                                "train_acc": cell.train_acc, "loss": cell.loss,
-                                "num_active": cell.num_active})
+                        arrays=arrays)
 
         try:
             for group in groups.values():

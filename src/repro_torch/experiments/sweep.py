@@ -14,7 +14,8 @@ is one pass of batched kernels for all B trajectories (the reference's
   reference's per-seed key bundles) and the trajectory -> bundle map;
 - ``p_base``  per-trajectory Eq.-9 connection probabilities ``[B, m]``;
 - ``hparams`` per-trajectory ``[B]`` tensors (``lr``, ``gamma``,
-  ``period``) that the factories consume;
+  ``period``) that the factories consume, and with a strategy axis the
+  buffer knobs (``repro_torch.scale.STRATEGY_KNOB_FIELDS``);
 - ``data``    per-trajectory ``ds_state`` (the partition ``idx [B, m, pc]``);
 - ``shared``  the dataset, one copy for every trajectory;
 - ``algo_id`` per-trajectory algorithm index ``[B]`` into an
@@ -26,7 +27,13 @@ CLI::
         --algos fedpbc,fedavg --schemes bernoulli_tv --seeds 0,1,2 \\
         --rounds 100 --clients 100 --lrs 0.05,0.1 --out build/sweeps
 
-(``python -m repro_torch.experiments`` is the same CLI.)
+    python -m repro_torch.experiments.sweep --device cpu --algos fedpbc \
+        --schemes bernoulli_ti --seeds 0 --rounds 6 --eval-every 3 \
+        --clients 10000 --cohort 256 --buffer-size 128 --deadline-rounds 3
+
+(the second: cross-device scale, a sync and a buffered arm over a C = 256
+cohort of m = 10,000 clients, as one batch; ``python -m
+repro_torch.experiments`` is the same CLI.)
 """
 from __future__ import annotations
 
@@ -46,15 +53,18 @@ from repro_torch.core.federated import (
     run_rounds_loop,
 )
 from repro_torch.device import resolve_device
+from repro_torch.scale.buffer import STRATEGY_KNOB_FIELDS
 
 
 def seed_generators(seed: int, device=None) -> Dict[str, torch.Generator]:
     """The per-seed generator bundle, seeded like the reference's key bundle
-    (params=seed+1, state=seed+2, ds=seed+3, data=seed+4). Same seed, same
-    streams; the numbers differ from ``jax.random``'s."""
+    (params=seed+1, state=seed+2, ds=seed+3, data=seed+4), plus the cohort
+    stream (seed+5; the reference splits its cohort key off the state key).
+    Same seed, same streams; the numbers differ from ``jax.random``'s."""
     dev = torch.device("cpu" if device is None else device)
     out = {}
-    for i, name in enumerate(("params", "state", "ds", "data"), start=1):
+    for i, name in enumerate(("params", "state", "ds", "data", "cohort"),
+                             start=1):
         g = torch.Generator(device=dev)
         g.manual_seed(seed + i)
         out[name] = g
@@ -105,15 +115,28 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
     routes a fusable family's server aggregation through the fused kernel:
     one launch per round for the whole batch. ``device=None`` is the card.
 
+    ``cohort_size`` / ``buffered``: the cross-device scale engines (they need
+    an ``AlgorithmSpec``). ``cohort_size=C`` runs stateless clients over a
+    drawn ``[B, C]`` cohort; ``buffered`` runs the buffered fold with each
+    trajectory's knobs read from the batch's hparam columns
+    (``STRATEGY_KNOB_FIELDS``), so a (SYNC, buffered) grid is one batch
+    through one round function. A fusable family carries a ``BufferState``
+    in either mode; ``use_kernel`` launches nothing there, as in the
+    reference.
+
     Returns ``run(batch, draws=None) -> (states, out)``: ``states`` the final
     ``FedState`` (leading ``[B]``), ``out["metrics"]`` each key ``[B, K,
     ...]``, ``out["evals"]`` ``[B, E]``. ``draws`` replaces the batch's
     ``GeneratorDraws`` (anything with its ``params``/``link_init``/call).
     """
-    if cohort_size is not None or buffered:
-        raise NotImplementedError(
-            "cohort/buffered sweeps are not ported yet (ROADMAP Queue 1 "
-            "item 3: cross-device scale)")
+    scale_mode = buffered or cohort_size is not None
+    if scale_mode and not isinstance(algorithm, AlgorithmSpec):
+        raise ValueError(
+            "cohort_size/buffered need an AlgorithmSpec runner (got "
+            f"{type(algorithm).__name__})")
+    # stateful rules take the sparse cohort path; only fusable families
+    # carry a BufferState
+    has_buffer = scale_mode and algorithm.fusable
     if shard_mesh is not None:
         raise NotImplementedError(
             "meshes are not ported yet (ROADMAP Queue 1 item 6: "
@@ -143,14 +166,26 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
         if draws is None:
             draws = GeneratorDraws(batch.gens, batch.gen_index,
                                    num_clients=fed_cfg.num_clients,
-                                   pick_spec=source.pick_spec)
+                                   pick_spec=source.pick_spec,
+                                   cohort_size=cohort_size)
+        if scale_mode:
+            # the scale engines dispatch the spec themselves (they need the
+            # family table, not a bound Algorithm)
+            strat = ({k: batch.hparams[k] for k in STRATEGY_KNOB_FIELDS}
+                     if buffered else None)
+            round_fn = make_round_fn(loss_fn, optimizer, algorithm, link,
+                                     fed_cfg, algo_id=algo_id,
+                                     strategy=strat, cohort_size=cohort_size)
+        else:
+            round_fn = make_round_fn(loss_fn, optimizer, algo, link, fed_cfg)
         with torch.no_grad():
             server = draws.params(init_params)
             st = init_fed_state(draws.link_init(), server, fed_cfg, algo,
-                                link, optimizer)
+                                link, optimizer,
+                                stateless_clients=cohort_size is not None,
+                                buffered=has_buffer)
             ds = source.init(batch.data)
-            step = make_round_step(
-                make_round_fn(loss_fn, optimizer, algo, link, fed_cfg), source)
+            step = make_round_step(round_fn, source)
             parts, evals = [], []
             for span in spans:
                 st, ds, mets = run_rounds_loop(st, ds, draws, span, step=step,
@@ -191,6 +226,7 @@ def main(argv=None) -> None:
     # lazy: grid imports this module
     from repro_torch.experiments.grid import ALGOS, SCHEMES, SweepSpec, run_sweep
     from repro_torch.experiments.results import ResultsStore
+    from repro_torch.scale import SYNC, Strategy
 
     ap = argparse.ArgumentParser(
         description="Run a (algorithm x scheme x hyperparameter x seed) "
@@ -219,6 +255,23 @@ def main(argv=None) -> None:
     ap.add_argument("--alphas", default="", help="axis overriding --alpha")
     ap.add_argument("--sigma0s", default="", help="axis overriding --sigma0")
     ap.add_argument("--deltas", default="", help="axis overriding --delta")
+    ap.add_argument("--cohort", type=int, default=None,
+                    help="per-round cohort size C (cross-device scale mode: "
+                    "stateless clients, O(C) round memory)")
+    ap.add_argument("--buffer-size", type=int, default=0,
+                    help="add a buffered semi-async strategy arm committing "
+                    "when this many updates have arrived (0: sync only)")
+    ap.add_argument("--deadline-rounds", type=int, default=4,
+                    help="buffered arm: commit after this many rounds even "
+                    "if the buffer has not filled")
+    ap.add_argument("--staleness-discount", type=float, default=0.0,
+                    help="buffered arm: per-round decay of the standing "
+                    "buffer, in [0, 1)")
+    ap.add_argument("--wait-for-full", action="store_true",
+                    help="buffered arm: commit ONLY when the buffer fills "
+                    "(ignore the deadline)")
+    ap.add_argument("--buffered-only", action="store_true",
+                    help="drop the sync arm when --buffer-size is set")
     ap.add_argument("--out", default=None,
                     help="results-store directory (JSONL + npz) to append "
                     "the rows to (default: print only)")
@@ -229,6 +282,13 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda; raises without it)")
     args = ap.parse_args(argv)
 
+    strategies = (SYNC,)
+    if args.buffer_size:
+        arm = Strategy("buffered", wait_for_full=args.wait_for_full,
+                       buffer_size=args.buffer_size,
+                       deadline_rounds=args.deadline_rounds,
+                       staleness_discount=args.staleness_discount)
+        strategies = (arm,) if args.buffered_only else (SYNC, arm)
     spec = SweepSpec(
         algorithms=tuple(args.algos.split(",")),
         schemes=tuple(args.schemes.split(",")),
@@ -240,6 +300,7 @@ def main(argv=None) -> None:
         lrs=_float_list(args.lrs), gammas=_float_list(args.gammas),
         alphas=_float_list(args.alphas), sigma0s=_float_list(args.sigma0s),
         deltas=_float_list(args.deltas),
+        strategies=strategies, cohort_size=args.cohort,
         use_kernel=args.use_kernel or None)
     store = ResultsStore(args.out) if args.out else None
     print("sweep,scheme,algo,strategy,hparams,seeds,test_acc_mean,"

@@ -325,3 +325,41 @@ def test_run_sweep_with_a_store_on_the_card(cuda, tmp_path):
         assert set(arrays) == {"test_acc", "train_acc", "loss", "num_active"}
         assert all(np.isfinite(a).all() for a in arrays.values())
         assert np.isfinite(cell.server).all()
+
+
+@pytest.mark.gpu
+def test_cohort_round_at_fifty_thousand_clients_on_the_card(cuda):
+    """The cross-device cohort engine at m = 50,000, C = 256 (fedpbc over
+    bernoulli_ti, a sync and a buffered arm as one batch of 4, the MLP
+    32 / 32 / 10, 3 rounds) with ``use_kernel=True``: the state holds no
+    ``[B, m, n]`` tensor, every parameter is finite, and the aggregation
+    kernel never launches (the scale round aggregates by the buffer fold,
+    as the reference's does)."""
+    from repro_torch.experiments import grid as tgrid
+    from repro_torch.scale import BUFFER_METRIC_KEYS, Strategy
+
+    m, C = 50_000, 256
+    spec = tgrid.SweepSpec(
+        algorithms=("fedpbc",), schemes=("bernoulli_ti",), seeds=(0, 1),
+        rounds=3, eval_every=3, num_clients=m, cohort_size=C,
+        strategies=(Strategy("sync_cohort"),
+                    Strategy("buffered", buffer_size=128,
+                             deadline_rounds=4)),
+        local_steps=2, batch_size=16, dim=32, hidden=32, n_per_class=200,
+        n_train=1600, per_client=32, use_kernel=True)
+    tmasked.fused_masked_agg.launches = 0
+    _, states, out = tgrid.run_batch_states(
+        spec, ("fedpbc",), "bernoulli_ti",
+        metric_keys=("loss", "num_active") + BUFFER_METRIC_KEYS)
+    assert tmasked.fused_masked_agg.launches == 0
+    B, n = states.server.shape
+    assert (B, n) == (4, 1386)
+    tensors = [states.server, states.clients, states.last_active,
+               *dataclasses.asdict(states.algo_state).values(),
+               *dataclasses.asdict(states.buffer).values(),
+               *states.opt_state.values()]
+    assert states.clients.shape == (B, 0, n) and states.opt_state == {}
+    assert all(t.numel() < B * m * n for t in tensors)
+    assert torch.isfinite(states.server).all()
+    assert int(out["metrics"]["num_active"].max()) <= C
+    assert torch.isfinite(out["evals"]).all()

@@ -25,6 +25,9 @@ def _modules():
 def test_importing_every_port_module_loads_no_jax_and_no_reference():
     mods = list(_modules())
     assert "repro_torch.kernels.masked_agg" in mods
+    assert {"repro_torch.scale", "repro_torch.scale.buffer",
+            "repro_torch.scale.participation",
+            "repro_torch.scale.sparse_state"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -167,8 +167,17 @@ def test_sweep_spec_validation_matches_reference(kw, match):
 @pytest.mark.parametrize("kw", [dict(task="lm"), dict(cohort_size=4),
                                 dict(strategies=("buffered",))])
 def test_later_slice_spec_knobs_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgrid.SweepSpec(**kw)
+    """``task="lm"`` still waits for its ROADMAP item. The scale knobs are
+    ported (tests/test_torch_scale.py): a cohort constructs, and a strategy
+    must be a ``repro_torch.scale.Strategy``, as in the reference."""
+    if "task" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tgrid.SweepSpec(**kw)
+    elif "cohort_size" in kw:
+        assert tgrid.SweepSpec(**kw).cohort_size == 4
+    else:
+        with pytest.raises(ValueError, match="entries must be"):
+            tgrid.SweepSpec(**kw)
 
 
 def test_later_slice_entry_arguments_raise_not_implemented():
@@ -180,21 +189,33 @@ def test_later_slice_entry_arguments_raise_not_implemented():
         tgrid.run_sweep(spec, devices=[object()], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgrid.run_sweep(spec, mesh=object(), device="cpu")
-    for kw in (dict(carry_out=True), dict(cohort_size=2),
-               dict(shard_mesh=object())):
+    for kw in (dict(carry_out=True), dict(shard_mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsweep.make_batched_run_rounds(
                 None, None, None, optimizer_factory=None, link_factory=None,
                 source_factory=None, init_params=None, num_rounds=1,
                 device="cpu", **kw)
+    # the scale runner is ported; like the reference's it needs a spec
+    with pytest.raises(ValueError, match="AlgorithmSpec"):
+        tsweep.make_batched_run_rounds(
+            None, None, None, optimizer_factory=None, link_factory=None,
+            source_factory=None, init_params=None, num_rounds=1,
+            device="cpu", cohort_size=2)
 
 
 def test_seed_generators_are_reproducible_streams():
     a, b = tsweep.seed_generators(3), tsweep.seed_generators(3)
-    assert set(a) == {"params", "state", "ds", "data"}
+    assert list(a) == ["params", "state", "ds", "data", "cohort"]
     for k in a:
         assert torch.equal(torch.rand(5, generator=a[k]),
                            torch.rand(5, generator=b[k]))
+    # stream i is seeded seed + i: the four streams of the sync paths draw
+    # what they drew before the cohort stream was added
+    fresh = tsweep.seed_generators(3)
+    for i, k in enumerate(fresh, start=1):
+        g = torch.Generator().manual_seed(3 + i)
+        assert torch.equal(torch.rand(5, generator=g),
+                           torch.rand(5, generator=fresh[k]))
     c = tsweep.seed_generators(4)
     assert not torch.equal(torch.rand(5, generator=a["state"]),
                            torch.rand(5, generator=c["state"]))
