@@ -141,14 +141,52 @@ finite. The aggregation kernel must launch 0 times in phase 10 (a scale
 round aggregates by the buffer fold or the sparse branches, as the
 reference's does), and the phase is held to ``PHASE10_LIMIT_S``.
 
+Phase 11 runs adaptive search (``repro_torch.experiments.search``) on the
+card, every batch through the fused aggregation. First the aggregation
+against its plain version at the shapes this path gives it, asha's
+``[8, 16, 2762]`` and the refill search's ``[24, 100, 2762]`` (every op,
+half and no clients active, ``FP32_TOL``, ``prev`` exact when none is
+active), before the counts are set to 0. (a) At the asha
+protocol's batch (fedpbc over bernoulli_tv, m = 16, seeds 0-1, the first
+``ASHA_W`` lrs): two chained 8-round segments of the segment runner equal
+one uninterrupted 16-round run (evals, losses, every final-state tensor),
+a re-packed survivor subset with a duplicate continues as unsliced, and a
+batch of level-1 and level-0 slots (a ``[B]`` round) continues each row as
+its own unmixed run: max |d| 0 each. (b) ``paper.asha.run()`` at the
+reference suite's defaults (64 rounds, m = 16, seeds 0-1, 8 lrs, rung 8,
+eta 2, 4 points a batch) at the reference's Eq.-9 ``p_base``
+(``ASHA_REFERENCE``): the suite's own bars (ASHA's device rounds below the
+grid's, its best within 0.02 of the grid's and at or above Table 2's q75
+target, resume 0.0, one segment runner, ``agg_kernel`` at most 1); the
+aggregation launches by arm (the Table-2 baseline's rounds, the grid's
+rounds, each search batch's 8, the resume probe's 32); the grid at
+seeds 0-9, each lr's mean final accuracy within ``FIG3_TOL_STDS``
+standard deviations of the difference of two 10-seed means of the
+reference's; the lr each arm picks at the top of the reference's 10
+seeds (its per-seed deficit to the best lr within ``FIG3_TOL_STDS``
+standard errors), the reference's best lr at the top of the port's, and
+each arm's best accuracy within ``FIG3_TOL_STDS`` 2-seed standard
+deviations of the port's 10-seed mean at its lr. (c) A refill search
+at the main path's width (the Table-1 protocol, m = 100, seeds 0-2, a
+250-round cap in rungs of 25, lr log-uniform in [0.01, 0.5], 16
+candidates, 8 points a batch, refill to 24)
+into a temporary store: at least one batch mixing budget levels, the best
+finished candidate at or above phase 2's fedpbc bar, one launch a round
+per batch, fewer device rounds than the grid of its candidates, one row
+per candidate with distinct cell keys and two curves each; it prints
+batch rounds/s per wave and profiles one wave of a level-0 batch (an int
+round) and one of a batch mixing levels 1 and 0 (a ``[B]`` round). Phase
+11 is held to ``PHASE11_LIMIT_S``.
+
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
 Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
 seconds, launches, family batches and results), a ``{"scale": {...}}``
-line (phase 10's), then a ``{"kernels":
-[...]}`` JSON line (the aggregation with phase 9's launches by suite as
-``paper_launches``, phase 10's as ``scale_launches``, its Fig. 3 shape
+line (phase 10's), a ``{"search": {...}}`` line (phase 11's), then a
+``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
+by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
+11's as ``search_launches``, its Fig. 3 shape
 timing as ``fig3_shape``; each flash kernel with its design and its
 registers and spills at D = 64 and by head dim; the WKV6 wrapper once per
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
@@ -273,6 +311,72 @@ SCALE_REFERENCE = {
 SCALE_STATEFUL, SCALE_STATEFUL_M, SPARSE_CHECK_ROUND = \
     ("fedau", "mifa", "f3ast"), 10_000, 10
 PHASE10_LIMIT_S = 120.0
+# Phase 11, adaptive search: benchmarks/asha.py's protocol at its own
+# defaults (fedpbc over bernoulli_tv, 64 rounds, m = 16, seeds 0-1, the 8
+# lrs, rung 8, eta 2, 4 points a batch). The JAX reference's results at its
+# Eq.-9 p_base of seeds 0 and 1 (which phase 11 runs at): each grid lr's
+# per-seed final accuracy (mean of its last 3 evals), ASHA's best, device
+# rounds and statuses, the q75 target, run on the CPU:
+#   PYTHONPATH=src python scripts/asha_reference_bars.py
+ASHA_SEEDS, ASHA_M, ASHA_ROUNDS, ASHA_RUNG, ASHA_W = (0, 1), 16, 64, 8, 4
+ASHA_LRS = (0.005, 0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5)
+ASHA_REFERENCE = {
+    "grid_best": 0.40783336758613586, "asha_best": 0.4300000071525574,
+    "grid_device_rounds": 1024, "asha_device_rounds": 576,
+    "target_q75": 0.28725001215934753, "asha_best_lr": 0.5,
+    "asha_statuses": {"pruned": 7, "finished": 1, "stopped": 0},
+    "grid_per_seed": {
+        0.005: (0.16566668450832367, 0.18533332645893097),
+        0.01: (0.21066667139530182, 0.20666666328907013),
+        0.02: (0.2343333512544632, 0.23966668546199799),
+        0.05: (0.2756666839122772, 0.29233333468437195),
+        0.1: (0.3240000009536743, 0.320000022649765),
+        0.2: (0.3763333559036255, 0.3583333492279053),
+        0.3: (0.39800000190734863, 0.3800000250339508),
+        0.5: (0.4203333556652069, 0.3953333795070648)},
+    "asha_best_per_seed": (0.3840000033378601, 0.47600001096725464),
+    "p_base": {
+        0: (0.6649820804595947, 0.029178211465477943, 0.8133296370506287,
+            0.019999999552965164, 0.019999999552965164,
+            0.019999999552965164, 0.019999999552965164, 0.10501556843519211,
+            0.019999999552965164, 0.6620943546295166, 0.05078743398189545,
+            0.019999999552965164, 0.4429805278778076, 0.26526084542274475,
+            0.06704121828079224, 0.019999999552965164),
+        1: (0.10359897464513779, 0.639293909072876, 0.019999999552965164,
+            0.019999999552965164, 0.019999999552965164,
+            0.019999999552965164, 0.075253926217556, 0.1179795041680336,
+            0.019999999552965164, 0.019999999552965164,
+            0.019999999552965164, 0.0648050308227539, 0.27938205003738403,
+            0.019999999552965164, 0.019999999552965164,
+            0.019999999552965164)}}
+# Two seeds cannot show this protocol's seed spread (their accuracies move
+# together over the 8 lrs, which share each seed's draws), so phase 11
+# also runs the grid at seeds 0-9, as the reference did (the lrs' per-seed
+# final accuracies, their stds, and the reference's p_base of seeds 0-9):
+#   PYTHONPATH=src python scripts/asha_reference_bars.py --spread \
+#       > scripts/asha_reference_spread.json
+# The port draws other links, batches and initial models, so its results
+# are other samples of the same quantities: each lr's 10-seed mean may
+# differ from the reference's by FIG3_TOL_STDS standard deviations of the
+# difference of two 10-seed means, sqrt(s_ref^2 / 10 + s_port^2 / 10).
+# The lrs of one seed share its draws, so which lr is best is read from
+# the per-seed differences to the best lr, whose spread is far below the
+# seeds' own: an lr is at the top where its mean deficit is within
+# FIG3_TOL_STDS standard errors of those differences (the reference's 10
+# seeds put only lr 0.5 there). Each arm's pick must be at the top of the
+# reference's, and its best accuracy (2 seeds) within FIG3_TOL_STDS * s /
+# sqrt(2) of the port's 10-seed mean at its lr, s the port's 10-seed std
+# there: of the 3-eval final for the grid, of the last eval for ASHA (what
+# it ranks on)
+ASHA_SPREAD = os.path.join(ROOT, "scripts", "asha_reference_spread.json")
+# the refill search at the main path's width: the Table-1 protocol (m =
+# 100, the MLP 32 / 64 / 10, fedpbc over bernoulli_tv, seeds 0-2) with a
+# 250-round cap in rungs of 25, lr log-uniform in [0.01, 0.5], 16
+# candidates, 8 points a batch ([24, 100, 2762] batches), refill up to 24
+REFILL_ROUNDS, REFILL_RUNG, REFILL_W = 250, 25, 8
+REFILL_CANDIDATES, REFILL_MAX, REFILL_SPACE = \
+    16, 24, (("lr", ("log", 0.01, 0.5)),)
+PHASE11_LIMIT_S = 120.0
 FP32_TOL, BF16_TOL = 1e-5, 2e-2
 # the LM slice (phase 5): SmolLM-135M at its published widths
 LM_N = 134_515_008
@@ -1304,25 +1408,14 @@ class _Recorded:
         setattr(self.mod, self.name, self.real)
 
 
-def phase9_kernel(torch, masked, ref, fig3_quadratic):
-    """The aggregation against its plain version at the shapes the paper's
-    suites give it: Fig. 3's ``[1, 50, 50]`` (and its 2-D route), Table 2's
-    ``[4, 100, 2762]`` and Fig. 8's ``[6, 100, 2762]``, every op, with half
-    the clients active and with none; then Fig. 3's ``run_one`` through the
-    kernel and through the plain path on the same seeds, its distance
-    trajectories within ``FP32_TOL``; then one ``run_one`` profiled. Made
-    before the suites and timed apart from them (``seconds``); the suites
-    set the counts to 0 each."""
-    t0 = time.perf_counter()
-    seconds = {}
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(9)
-    n_mlp = 32 * 64 + 64 + 64 * 10 + 10
+def check_agg_shapes(torch, masked, ref, gen, cases, tag, whose):
+    """The aggregation against its plain version at each ``((B, m, n),
+    ops)`` of ``cases`` (a 2-D route call too where B = 1), with half the
+    clients active and with none, within ``FP32_TOL``; with none active,
+    OP_MEAN's rows must be ``prev`` exactly. Fails on a mismatch; returns
+    the max |err| by case. The inputs lie on ``gen``'s device."""
+    dev = gen.device
     errs = {}
-    cases = [((1, 50, 50), [op]) for op in (0, 1, 2)] + [
-        ((4, CLIENTS, n_mlp), [0, 0, 1, 2]),
-        ((6, CLIENTS, n_mlp), [0, 1, 2, 0, 1, 2])]
     for (B, m, n), ops in cases:
         for frac in (0.5, 0.0):
             x = torch.randn(B, m, n, generator=gen, device=dev)
@@ -1349,11 +1442,34 @@ def phase9_kernel(torch, masked, ref, fig3_quadratic):
                     ok = ok and torch.equal(got.reshape(-1, n)[mean_rows],
                                             prev[mean_rows])
                 errs[label] = err
-                print(f"phase9 kernel {label}: max_abs_err {err:.3e} tol "
+                print(f"{tag} kernel {label}: max_abs_err {err:.3e} tol "
                       f"{FP32_TOL:g} {'ok' if ok else 'MISMATCH'}", flush=True)
                 if not ok:
-                    fail(f"kernel disagrees with its plain version at the "
-                         f"paper's shape {label}")
+                    fail(f"kernel disagrees with its plain version at "
+                         f"{whose} shape {label}")
+    return errs
+
+
+def phase9_kernel(torch, masked, ref, fig3_quadratic):
+    """The aggregation against its plain version at the shapes the paper's
+    suites give it: Fig. 3's ``[1, 50, 50]`` (and its 2-D route), Table 2's
+    ``[4, 100, 2762]`` and Fig. 8's ``[6, 100, 2762]``, every op, with half
+    the clients active and with none; then Fig. 3's ``run_one`` through the
+    kernel and through the plain path on the same seeds, its distance
+    trajectories within ``FP32_TOL``; then one ``run_one`` profiled. Made
+    before the suites and timed apart from them (``seconds``); the suites
+    set the counts to 0 each."""
+    t0 = time.perf_counter()
+    seconds = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    n_mlp = 32 * 64 + 64 + 64 * 10 + 10
+    cases = [((1, 50, 50), [op]) for op in (0, 1, 2)] + [
+        ((4, CLIENTS, n_mlp), [0, 0, 1, 2]),
+        ((6, CLIENTS, n_mlp), [0, 1, 2, 0, 1, 2])]
+    errs = check_agg_shapes(torch, masked, ref, gen, cases, "phase9",
+                            "the paper's")
     torch.cuda.synchronize()
     seconds["kernel_vs_plain"] = time.perf_counter() - t0
     fig3_timing = fig3_shape_timing(torch, masked, ref, gen)
@@ -1442,7 +1558,7 @@ def phase9_paper(torch, masked, ref, grid):
     import tempfile
     from unittest import mock
 
-    from repro_torch.experiments import ResultsStore
+    from repro_torch.experiments import ResultsStore, sweep
     from repro_torch.experiments.plots import export_curves
     from repro_torch.paper import (
         fig2_bias,
@@ -1812,6 +1928,470 @@ def phase10_scale(torch, masked, grid):
     return res
 
 
+def _max_diff(torch, sweep, a, b):
+    """max |a - b| over every leaf of two carry parts of one structure
+    (``sweep.map_carry``'s walk); unequal ints, integer or bool tensors,
+    shapes or types count as inf."""
+    diffs = [0.0]
+
+    def leaf(x, y):
+        if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)):
+            diffs.append(0.0 if type(x) is type(y) and x == y
+                         else float("inf"))
+        elif x.shape != y.shape or x.dtype != y.dtype:
+            diffs.append(float("inf"))
+        elif not x.is_floating_point():
+            diffs.append(0.0 if torch.equal(x, y) else float("inf"))
+        elif x.numel():
+            diffs.append(float((x - y).abs().max()))
+        return x
+    sweep.map_carry(leaf, a, b)
+    return max(diffs)
+
+
+def _rows_batch(batch, rows):
+    """The batch's columns at ``rows`` (a re-packed batch)."""
+    return dataclasses.replace(
+        batch, gen_index=[batch.gen_index[i] for i in rows],
+        p_base=batch.p_base[rows],
+        hparams={k: v[rows] for k, v in batch.hparams.items()},
+        data={k: v[rows] for k, v in batch.data.items()},
+        algo_id=batch.algo_id[rows])
+
+
+def phase11_resume(torch, grid, sweep):
+    """(a) The segment runner on the card at the asha protocol's batch
+    (the first ``ASHA_W`` lrs x seeds 0-1, m = 16, the fused aggregation):
+    two chained 8-round segments against one 16-round run; a re-packed
+    survivor subset with duplicates against the unsliced continuation; a
+    batch of level-1 and level-0 slots (a ``[B]`` round) against each
+    row's unmixed run. Returns the max |d| of each (all must be 0)."""
+    spec = grid.SweepSpec(algorithms=("fedpbc",), schemes=("bernoulli_tv",),
+                          seeds=ASHA_SEEDS, rounds=2 * ASHA_RUNG,
+                          eval_every=ASHA_RUNG, num_clients=ASHA_M,
+                          lrs=ASHA_LRS[:ASHA_W], use_kernel=True)
+    task = grid.get_traced_task(spec)
+    fed = spec.cell_config("fedpbc", "bernoulli_tv")
+    batch = grid.make_cell_batch(spec, fed, task)
+    rseg = grid.segment_runner_for(spec, "fedpbc", "bernoulli_tv",
+                                   segment_rounds=ASHA_RUNG)
+    S = len(ASHA_SEEDS)
+    carry, outs = rseg.init(batch), []
+    for _ in range(2):
+        carry, out = rseg.step(carry, batch)
+        outs.append(out)
+    st_full, out_full = grid.make_runner(spec, fed, task)(batch)
+    chained = {"evals": torch.cat([o["evals"] for o in outs], 1),
+               "metrics": {k: torch.cat([o["metrics"][k] for o in outs], 1)
+                           for k in out_full["metrics"]}}
+    d = {"resume": max(_max_diff(torch, sweep, chained, out_full),
+                       _max_diff(torch, sweep, carry[0], st_full))}
+
+    level1, _ = rseg.step(rseg.init(batch), batch)
+    order = [2, 1, 2, 2]                    # survivors, one duplicated
+    rows = [p * S + i for p in order for i in range(S)]
+    (st_r, _, _), out_r = rseg.step(sweep.gather_carry(level1, rows),
+                                    _rows_batch(batch, rows))
+    (st_u, _, _), out_u = rseg.step(level1, batch)
+    d["repack"] = max(
+        _max_diff(torch, sweep, out_r["evals"], out_u["evals"][rows]),
+        _max_diff(torch, sweep, out_r["metrics"], {k: v[rows] for k, v in
+                                            out_u["metrics"].items()}),
+        _max_diff(torch, sweep, st_r.server, st_u.server[rows]),
+        _max_diff(torch, sweep, st_r.clients, st_u.clients[rows]),
+        _max_diff(torch, sweep, st_r.last_active, st_u.last_active[rows]))
+
+    fresh = rseg.init(batch)
+    keep = [j < ASHA_W // 2 for j in range(ASHA_W) for _ in range(S)]
+    mixed = sweep.select_carry(keep, level1, fresh)
+    if not isinstance(mixed[0].round, torch.Tensor):
+        fail("a batch of level-1 and level-0 slots has an int round")
+    (st_m, _, _), out_m = rseg.step(mixed, batch)
+    (st_0, _, _), out_0 = rseg.step(fresh, batch)
+    own = torch.tensor(keep, device=st_m.server.device)
+    d["mixed"] = 0.0
+    for name, a, b0, b1 in (
+            ("evals", out_m["evals"], out_0["evals"], out_u["evals"]),
+            ("server", st_m.server, st_0.server, st_u.server),
+            ("clients", st_m.clients, st_0.clients, st_u.clients),
+            ("last_active", st_m.last_active, st_0.last_active,
+             st_u.last_active),
+            *((k, out_m["metrics"][k], out_0["metrics"][k],
+               out_u["metrics"][k]) for k in out_m["metrics"])):
+        sel = own.reshape((-1,) + (1,) * (a.dim() - 1))
+        d["mixed"] = max(d["mixed"],
+                         _max_diff(torch, sweep, a, torch.where(sel, b1, b0)))
+    print(f"phase11a resume: two chained {ASHA_RUNG}-round segments vs one "
+          f"{2 * ASHA_RUNG}-round run max |d| {d['resume']}; re-packed "
+          f"points {order} vs unsliced {d['repack']}; mixed levels "
+          f"(rounds {sorted(set(mixed[0].round.tolist()))}) vs each row's "
+          f"unmixed run {d['mixed']}", flush=True)
+    if any(v != 0.0 for v in d.values()):
+        fail(f"resumable segments are not bitwise on the card: {d}")
+    return d
+
+
+def _paired_top(per_seed):
+    """The lrs whose per-seed accuracies (``{lr: [n]}``, seeds in one
+    order) lie below the best lr's by no more than ``FIG3_TOL_STDS``
+    standard errors of their per-seed differences."""
+    best = max(per_seed, key=lambda lr: per_seed[lr].mean())
+    n = len(per_seed[best])
+    out = set()
+    for lr, acc in per_seed.items():
+        d = np.asarray(per_seed[best], np.float64) - acc
+        if d.mean() <= FIG3_TOL_STDS * d.std(ddof=1) / np.sqrt(n):
+            out.add(lr)
+    return out
+
+
+def phase11_asha(torch, masked, grid, search):
+    """(b) ``paper.asha.run()`` at the reference suite's defaults, with the
+    fused aggregation and at the reference's p_base: the suite's own bars
+    and the launch identity by arm; then the grid at seeds 0-9 against the
+    reference's, each arm's lr against the reference's 10-seed ranking and
+    its best accuracy against the port's 10-seed band at that lr."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    from repro_torch.paper import asha
+
+    with open(ASHA_SPREAD) as f:
+        spread = json.load(f)
+    p_ref = {int(k): v for k, v in spread["p_base"].items()}
+    p_ref.update(ASHA_REFERENCE["p_base"])
+
+    def p_base(spec, point):
+        if spec.num_clients != ASHA_M or any(
+                point[k] != spread["protocol"][k]
+                for k in ("alpha", "sigma0", "delta")):
+            fail(f"no reference p_base for {point}, m = {spec.num_clients}")
+        return np.asarray([p_ref[s] for s in spec.seeds], np.float32)
+
+    arms = {}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            before = masked.fused_masked_agg.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            arms[name] = {"launches": masked.fused_masked_agg.launches
+                          - before, "seconds": time.perf_counter() - t0,
+                          "out": out}
+            return out
+        return wrapper
+
+    csv = io.StringIO()
+    before = masked.fused_masked_agg.launches
+    t0 = time.perf_counter()
+    with mock.patch.object(grid, "point_base_probs", p_base), \
+            mock.patch.object(search, "point_base_probs", p_base), \
+            mock.patch.object(asha.table2_rounds_to_target, "run", counted(
+                "baseline", asha.table2_rounds_to_target.run)), \
+            mock.patch.object(asha, "run_cell_batch", counted(
+                "grid", asha.run_cell_batch)), \
+            mock.patch.object(asha, "run_search", counted(
+                "search", asha.run_search)), \
+            mock.patch.object(asha, "_resume_probe", counted(
+                "probe", asha._resume_probe)), \
+            contextlib.redirect_stdout(csv):
+        try:
+            result = asha.run(use_kernel=True)
+        except RuntimeError as e:
+            fail(f"paper.asha's bars: {e}")
+    seconds = time.perf_counter() - t0
+    launches = masked.fused_masked_agg.launches - before
+    outcome = arms["search"]["out"]
+    n_batches = sum(len(w) for w in outcome.wave_batches)
+    expect = {"baseline": ASHA_ROUNDS, "grid": ASHA_ROUNDS,
+              "search": n_batches * ASHA_RUNG, "probe": 4 * ASHA_RUNG}
+    got = {k: arms[k]["launches"] for k in expect}
+    res = {"seconds": seconds, "launches": got, "launches_total": launches,
+           "batches": n_batches, "waves": outcome.waves,
+           "arm_seconds": {k: v["seconds"] for k, v in arms.items()},
+           "compile_entries": result["compile_entries"],
+           "grid": result["grid"], "asha": {
+               k: v for k, v in result["asha"].items() if k != "wave_log"},
+           "target_q75": result["baseline"]["target_q75"],
+           "resume_max_abs_diff": result["resume_max_abs_diff"]}
+    print(f"phase11b paper.asha.run(): {seconds:.3f} s; aggregation "
+          f"launches {json.dumps(got)} = {launches} (expected "
+          f"{json.dumps(expect)}: table-2 baseline rounds, grid rounds, "
+          f"{n_batches} search batches x {ASHA_RUNG} rounds, the resume "
+          f"probe's 2 segments + one {2 * ASHA_RUNG}-round run); "
+          f"compile entries {json.dumps(result['compile_entries'])}",
+          flush=True)
+    if got != expect or launches != sum(expect.values()):
+        fail(f"asha's aggregation launches {got} ({launches}), expected "
+             f"{expect}")
+    # the suite's enforced bars, read back from its result
+    if not (result["asha"]["device_rounds"] < result["grid"]["device_rounds"]
+            and result["asha"]["best_acc"] >= result["grid"]["best_acc"]
+            - 0.02
+            and result["asha"]["best_acc"] >= res["target_q75"] - 1e-9
+            and result["resume_max_abs_diff"] == 0.0):
+        fail(f"asha's bars: {json.dumps(res)}")
+
+    # the protocol's seed spread: the grid at seeds 0-9 beside the
+    # reference's
+    seeds10 = tuple(spread["protocol"]["seeds"])
+    spec10 = grid.SweepSpec(algorithms=("fedpbc",), schemes=("bernoulli_tv",),
+                            seeds=seeds10, rounds=ASHA_ROUNDS,
+                            eval_every=ASHA_RUNG, num_clients=ASHA_M,
+                            lrs=ASHA_LRS, use_kernel=True)
+    before = masked.fused_masked_agg.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(grid, "point_base_probs", p_base):
+        cells10 = grid.run_cell_batch(spec10, "fedpbc", "bernoulli_tv")
+    torch.cuda.synchronize()
+    res["spread"] = {"seconds": time.perf_counter() - t0,
+                     "launches": masked.fused_masked_agg.launches - before,
+                     "lrs": {}}
+    n10 = len(seeds10)
+    port10 = {}
+    for c in cells10:
+        lr = c.hparams["lr"]
+        acc = c.test_acc[:, -3:].mean(axis=1).astype(np.float64)
+        last = c.test_acc[:, -1].astype(np.float64)
+        ref = spread["final_test_acc"][str(lr)]
+        port10[lr] = {"mean": acc.mean(), "std": acc.std(ddof=1),
+                      "last_mean": last.mean(),
+                      "last_eval_std": last.std(ddof=1), "per_seed": acc}
+        tol = FIG3_TOL_STDS * np.sqrt(ref["std"] ** 2 / n10
+                                      + port10[lr]["std"] ** 2 / n10)
+        diff = abs(acc.mean() - ref["mean"])
+        ok = diff <= tol and np.isfinite(c.server).all()
+        res["spread"]["lrs"][lr] = dict(
+            {k: v for k, v in port10[lr].items() if k != "per_seed"},
+            reference=ref["mean"], reference_std=ref["std"], tol=tol)
+        print(f"phase11b seeds 0-{n10 - 1} lr {lr:g}: final test acc "
+              f"{acc.mean():.4f} (std {acc.std(ddof=1):.4f}), reference "
+              f"{ref['mean']:.4f} (std {ref['std']:.4f}), |diff| "
+              f"{diff:.4f} tol {tol:.4f} {'ok' if ok else 'OUTSIDE'}",
+              flush=True)
+        if not ok:
+            fail(f"asha grid at seeds 0-{n10 - 1}, lr {lr}: outside the "
+                 f"reference's bar")
+    if res["spread"]["launches"] != ASHA_ROUNDS:
+        fail(f"the seeds 0-{n10 - 1} grid launched the aggregation "
+             f"{res['spread']['launches']} times")
+
+    # the lr each arm picks: one the reference's 10 seeds rank at the top.
+    # The lrs of a seed share its draws, so the ranking is read from the
+    # per-seed differences to the top lr (their spread is far below the
+    # seeds' spread); then each arm's best accuracy (2 seeds) against the
+    # port's 10-seed band at its lr
+    S = len(ASHA_SEEDS)
+    grid_cells = arms["grid"]["out"]
+    port_best_lr = {
+        "grid": max(grid_cells, key=lambda c: c.test_acc[:, -3:].mean(
+            axis=1).mean()).hparams["lr"],
+        "asha": outcome.best.point["lr"]}
+    ref10 = {float(lr): np.asarray(v["per_seed"], np.float64)
+             for lr, v in spread["final_test_acc"].items()}
+    tops = {"reference": _paired_top(ref10),
+            "port": _paired_top({lr: v["per_seed"]
+                                 for lr, v in port10.items()})}
+    ref_top = max(ref10, key=lambda lr: ref10[lr].mean())
+    res["top_lrs"] = {k: sorted(v) for k, v in tops.items()}
+    print(f"phase11b lrs at the top of 10 seeds (per-seed differences to "
+          f"the best lr within {FIG3_TOL_STDS:g} standard errors): "
+          f"reference {sorted(tops['reference'])}, port "
+          f"{sorted(tops['port'])}", flush=True)
+    if ref_top not in tops["port"]:
+        fail(f"the reference's best lr {ref_top} is not at the top of the "
+             f"port's 10 seeds {sorted(tops['port'])}")
+    for arm, key, col in (("grid", "mean", "std"),
+                          ("asha", "last_mean", "last_eval_std")):
+        lr = port_best_lr[arm]
+        got_acc = result[arm]["best_acc"]
+        band = FIG3_TOL_STDS * port10[lr][col] / np.sqrt(S)
+        diff = abs(got_acc - port10[lr][key])
+        ok = (lr in tops["reference"] and diff <= band
+              and np.isfinite(got_acc))
+        res[arm].update(best_lr=lr, reference_best_acc=ASHA_REFERENCE[
+            f"{arm}_best"], band_center=port10[lr][key], band=band)
+        print(f"phase11b {arm}: best acc {got_acc:.4f} at lr {lr:g} "
+              f"({'at' if lr in tops['reference'] else 'NOT at'} the "
+              f"reference's top); the port's 10 seeds there {key} "
+              f"{port10[lr][key]:.4f}, |diff| {diff:.4f} band {band:.4f} "
+              f"({FIG3_TOL_STDS:g} x {col} {port10[lr][col]:.4f} / "
+              f"sqrt({S})); reference best {ASHA_REFERENCE[arm + '_best']:.4f}"
+              f"; device rounds {result[arm]['device_rounds']} (reference "
+              f"{ASHA_REFERENCE[arm + '_device_rounds']}) "
+              f"{'ok' if ok else 'OUTSIDE'}", flush=True)
+        if not ok:
+            fail(f"asha {arm}: best lr {lr} or its accuracy {got_acc:.4f} "
+                 f"outside the 10-seed bars")
+    print(f"phase11b statuses {json.dumps(result['asha']['statuses'])} "
+          f"(reference {json.dumps(ASHA_REFERENCE['asha_statuses'])}), "
+          f"{outcome.waves} waves, {n_batches} batches, target q75 "
+          f"{res['target_q75']:.4f} (reference "
+          f"{ASHA_REFERENCE['target_q75']:.4f}), ASHA reached it at "
+          f"{result['asha']['device_rounds_to_target']} device rounds",
+          flush=True)
+    return res
+
+
+def phase11_refill(torch, masked, grid, search):
+    """(c) A refill search at the main path's width into a temporary
+    store: waves timed, mixed-level batches counted, the best finished
+    candidate against phase 2's bar, store rows and curves; then one wave
+    of one batch under ``torch.profiler``."""
+    import tempfile
+
+    from repro_torch.experiments import ResultsStore, sweep
+    from repro_torch.experiments.plots import export_curves
+    from repro_torch.experiments.results import cell_key
+
+    base = grid.SweepSpec(algorithms=("fedpbc",), schemes=("bernoulli_tv",),
+                          seeds=SEEDS, rounds=REFILL_ROUNDS,
+                          eval_every=REFILL_RUNG, num_clients=CLIENTS,
+                          use_kernel=True)
+    spec = search.SearchSpec(base=base, rung_rounds=REFILL_RUNG, eta=2,
+                             num_candidates=REFILL_CANDIDATES,
+                             batch_points=REFILL_W, space=REFILL_SPACE,
+                             refill=True, max_candidates=REFILL_MAX,
+                             search_seed=0)
+    runner = grid.segment_runner_for(base, "fedpbc", "bernoulli_tv",
+                                     segment_rounds=REFILL_RUNG)
+    stamps, real_step = [], runner.step
+
+    def timed_step(carry, batch):
+        stamps.append(time.perf_counter())
+        return real_step(carry, batch)
+
+    before = masked.fused_masked_agg.launches
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ResultsStore(os.path.join(tmp, "search"))
+        runner.step = timed_step
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = search.run_search(spec, store=store, suite="refill")
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        finally:
+            runner.step = real_step
+        launches = masked.fused_masked_agg.launches - before
+        rows = store.records(suite="refill")
+        keys = {cell_key(r) for r in rows}
+        curves = export_curves(store, os.path.join(tmp, "curves"),
+                               suite="refill")
+    n_batches = [len(w) for w in out.wave_batches]
+    starts = np.cumsum([0] + n_batches[:-1])
+    waves = []
+    for i, (first, n) in enumerate(zip(starts, n_batches)):
+        end = stamps[starts[i + 1]] if i + 1 < len(n_batches) else t_end
+        sec = end - stamps[first]
+        waves.append({"batches": n, "seconds": sec,
+                      "rounds_per_s": n * REFILL_RUNG / sec,
+                      "levels": [list(b) for b in out.wave_batches[i]]})
+    finished = [c for c in out.candidates if c.status == "finished"]
+    best = max(finished, key=lambda c: c.last_eval)
+    grid_rounds = len(out.candidates) * len(SEEDS) * REFILL_ROUNDS
+    res.update(
+        seconds=t_end - t0, launches=launches, waves=waves,
+        mixed_batches=out.mixed_batches, candidates=len(out.candidates),
+        statuses={s: sum(c.status == s for c in out.candidates)
+                  for s in ("pruned", "finished", "stopped")},
+        total_device_rounds=out.total_device_rounds,
+        grid_device_rounds=grid_rounds,
+        best={"cid": best.cid, "lr": best.point["lr"],
+              "last_eval": best.last_eval, "level": best.level},
+        compile_entries=out.compile_entries, store_rows=len(rows),
+        distinct_cell_keys=len(keys), curves=len(curves))
+    rates = [w["rounds_per_s"] for w in waves]
+    print(f"phase11c refill search [{REFILL_W * len(SEEDS)}, {CLIENTS}, "
+          f"2762]: {res['seconds']:.3f} s, {out.waves} waves, "
+          f"{sum(n_batches)} batches ({out.mixed_batches} mixing budget "
+          f"levels), {len(out.candidates)} candidates "
+          f"{json.dumps(res['statuses'])}; device rounds "
+          f"{out.total_device_rounds} vs the grid's {grid_rounds}; batch "
+          f"rounds/s per wave {min(rates):.2f}-{max(rates):.2f} (median "
+          f"{float(np.median(rates)):.2f}); best finished cid {best.cid} lr "
+          f"{best.point['lr']:.4f} eval {best.last_eval:.4f} (bar "
+          f"{BARS['fedpbc']:.4f}); aggregation launches {launches} (expected "
+          f"{sum(n_batches) * REFILL_RUNG}); store {len(rows)} rows, "
+          f"{len(keys)} cell keys, {len(curves)} curves; compile entries "
+          f"{json.dumps(out.compile_entries)}", flush=True)
+    if out.mixed_batches < 1:
+        fail("the refill search dispatched no batch mixing budget levels")
+    if best.last_eval < BARS["fedpbc"] or not np.isfinite(best.last_eval):
+        fail(f"the refill search's best finished candidate {best.last_eval}"
+             f" is under phase 2's bar {BARS['fedpbc']:.4f}")
+    if launches != sum(n_batches) * REFILL_RUNG:
+        fail(f"refill search launched the aggregation {launches} times")
+    if not (len(rows) == len(keys) == len(out.candidates)
+            and len(curves) == 2 * len(out.candidates)):
+        fail("the refill search's store rows, cell keys or curves are off")
+    if out.total_device_rounds >= grid_rounds:
+        fail("the refill search spent no fewer device rounds than its grid")
+    # one wave of one full-width batch under the profiler
+    pts = dataclasses.replace(base, lrs=tuple(
+        c.point["lr"] for c in out.candidates[:REFILL_W]))
+    task = grid.get_traced_task(pts)
+    fed = pts.cell_config("fedpbc", "bernoulli_tv")
+    batch = grid.make_cell_batch(pts, fed, task)
+    carry = runner.init(batch)
+    shape = f"[{REFILL_W * len(SEEDS)}, {CLIENTS}, 2762]"
+    res["profile"] = profile_window(
+        torch, f"phase11c one wave ({REFILL_RUNG} rounds of one level-0 "
+        f"{shape} batch, an int round)",
+        lambda: runner.step(carry, batch), REFILL_RUNG, "round")
+    # and a batch mixing levels as refill packs it: the first half of the
+    # points survivors at level 1, the rest fresh, a [B] round
+    level1, _ = runner.step(carry, batch)
+    keep = [j < REFILL_W // 2 for j in range(REFILL_W) for _ in SEEDS]
+    mixed = sweep.select_carry(keep, level1, carry)
+    res["profile_mixed"] = profile_window(
+        torch, f"phase11c one wave ({REFILL_RUNG} rounds of one {shape} "
+        f"batch mixing levels 1 and 0, a [B] round)",
+        lambda: runner.step(mixed, batch), REFILL_RUNG, "round")
+    return res
+
+
+def phase11_search(torch, masked, ref, grid):
+    """Adaptive search on the card: the aggregation against its plain
+    version at the search's shapes; (a) resume, re-pack and a mixed batch
+    bitwise; (b) the ASHA-vs-grid suite; (c) a refill search at the main
+    path's width. Held to ``PHASE11_LIMIT_S``."""
+    from repro_torch.experiments import search, sweep
+
+    # the aggregation against its plain version at this path's shapes,
+    # before the counts are reset: asha's [8, 16, 2762] (m = 16) and the
+    # refill search's [24, 100, 2762]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    t_phase = time.perf_counter()
+    n_mlp = 32 * 64 + 64 + 64 * 10 + 10
+    errs = check_agg_shapes(
+        torch, masked, ref, gen,
+        [((ASHA_W * len(ASHA_SEEDS), ASHA_M, n_mlp), [0, 1, 2] * 2 + [0, 1]),
+         ((REFILL_W * len(SEEDS), CLIENTS, n_mlp), [0, 1, 2] * 8)],
+        "phase11", "the search's")
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t_phase
+    masked.fused_masked_agg.launches = 0
+    res = {"kernel_max_abs_err": errs, "kernel_check_s": check_s,
+           "resume": phase11_resume(torch, grid, sweep)}
+    res["resume_launches"] = masked.fused_masked_agg.launches
+    res["asha"] = phase11_asha(torch, masked, grid, search)
+    res["refill"] = phase11_refill(torch, masked, grid, search)
+    res["total_s"] = time.perf_counter() - t_phase
+    print(f"phase11 total {res['total_s']:.1f} s (limit "
+          f"{PHASE11_LIMIT_S:g} s)", flush=True)
+    if res["total_s"] > PHASE11_LIMIT_S:
+        fail(f"phase 11 took {res['total_s']:.1f} s, over its "
+             f"{PHASE11_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1864,6 +2444,7 @@ def main():
     rwkv = phase8_serving(torch, rk, card)
     paper = phase9_paper(torch, masked, ref, grid)
     scale = phase10_scale(torch, masked, grid)
+    found = phase11_search(torch, masked, ref, grid)
     kernel = {"name": "fused_masked_agg", "route": "triton",
               "source": "src/repro_torch/kernels/masked_agg.py",
               "replaces": "src/repro/kernels/masked_agg.py:180 "
@@ -1879,6 +2460,11 @@ def main():
               "lm_path_launches": lm["launches"][3],
               "paper_launches": paper["launches"],
               "scale_launches": scale["launches"],
+              "search_launches": {
+                  "resume_checks": found["resume_launches"],
+                  "asha": found["asha"]["launches"],
+                  "asha_seeds_0_9": found["asha"]["spread"]["launches"],
+                  "refill": found["refill"]["launches"]},
               "lm_shape": k["lm"],
               "fig3_shape": paper["kernel"]["fig3_timing"]}
     kernels = [kernel]
@@ -1930,6 +2516,7 @@ def main():
     kernels[-1]["crossover_ms"] = wkv["crossover_ms"]
     print(json.dumps({"paper": paper}), flush=True)
     print(json.dumps({"scale": scale}), flush=True)
+    print(json.dumps({"search": found}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -101,9 +101,10 @@ def fed_state_from_jax(np_state, layout: ParamLayout, scheme: str,
                        device=None, dtype=torch.float32) -> FedState:
     """A reference ``FedState`` with a leading ``[B]`` axis on every leaf ->
     the port's (server, clients, optimizer state incl. the per-client step,
-    algorithm state, link state, round, ``last_active``); the parameter
-    buffers in ``dtype`` (the model's). The reference's ``key`` has no
-    counterpart: the port's randomness is drawn outside."""
+    algorithm state, link state, round — an int, or a ``[B]`` tensor where
+    the trajectories stand at different rounds — ``last_active``); the
+    parameter buffers in ``dtype`` (the model's). The reference's ``key``
+    has no counterpart: the port's randomness is drawn outside."""
     server = params_from_jax(np_state.server, layout, device, dtype)
     clients = params_from_jax(np_state.clients, layout, device, dtype)
     opt = {"step": _t(np_state.opt_state["step"], device, torch.int32)}
@@ -128,11 +129,13 @@ def fed_state_from_jax(np_state, layout: ParamLayout, scheme: str,
         lam=_t(a.lam, device, torch.float32),
         mem=tree("mem", m, dtype),
         mom=tree("mom", 1, torch.float32))
-    rounds = np.unique(np.asarray(np_state.round))
-    if rounds.size != 1:
-        raise ValueError(f"trajectories are at different rounds: {rounds}")
+    rounds = np.asarray(np_state.round).reshape(-1)
+    # one round for the batch: an int; trajectories at different rounds
+    # (a mixed batch of the adaptive search): a [B] tensor
+    rnd = int(rounds[0]) if np.unique(rounds).size == 1 else torch.as_tensor(
+        rounds, dtype=torch.long, device=device)
     return FedState(
         server=server, clients=clients, opt_state=opt, algo_state=algo,
         link_state=_link_state(np_state.link_state, scheme, device),
-        round=int(rounds[0]),
+        round=rnd,
         last_active=_t(np_state.last_active, device, torch.int32))

@@ -8,7 +8,10 @@ variants, over a leading trajectory axis: ``p_base [B, m]``.
 Randomness is injected. ``init(u)`` and ``sample(state, t, u)`` take the
 uniforms ``u [B, m]`` the engine drew for them (``repro_torch.core.federated
 .draw_round``) and return ``(active [B, m] bool, p_t [B, m], new_state)``.
-``t`` is the round index, a Python int shared by every trajectory.
+``t`` is the round index: a Python int shared by every trajectory, or a
+``[B]`` int tensor when the trajectories of a batch stand at different
+rounds (the adaptive search's mixed batches); each row then computes what
+an int round would give it, bit for bit.
 
 The Eq.-9 knobs ``gamma`` and ``period`` default to the config's values;
 the sweep passes per-trajectory ``[B]`` tensors instead, so a gamma
@@ -56,18 +59,33 @@ def _col(v: Scalar) -> Scalar:
     return v.reshape(-1, 1) if isinstance(v, torch.Tensor) else v
 
 
-def p_of_t(p_base: torch.Tensor, t: int, *, gamma: Scalar,
+# the angle's factor, rounded to float32 as the reference rounds it
+_TWO_PI_F32 = float(np.float32(2.0 * math.pi))
+
+
+def p_of_t(p_base: torch.Tensor, t, *, gamma: Scalar,
            period: Scalar) -> torch.Tensor:
     """Eq. (9): p_i^t = p_i * [(1-gamma) + gamma * sin(2 pi t / P)], in
     float32 as the reference computes it: ``float32(2 pi) * float32(t)``,
     divided by ``P``, then ``sin``. ``gamma``/``period`` are numbers or
-    ``[B]`` tensors."""
-    ang = float(np.float32(2.0 * math.pi) * np.float32(t))   # f32 product
-    if isinstance(period, torch.Tensor):
-        eps = torch.sin(ang / _col(period).to(p_base.device, torch.float32))
+    ``[B]`` tensors; ``t`` an int or a ``[B]`` tensor, whose float32
+    product per row has the bits of the int path's numpy product."""
+    if isinstance(t, torch.Tensor):
+        ang = _TWO_PI_F32 * t.reshape(-1, 1).to(p_base.device, torch.float32)
+        if isinstance(period, torch.Tensor):
+            # the int path's ``float / tensor`` is ``reciprocal() * float``
+            per = _col(period).to(p_base.device, torch.float32)
+            eps = torch.sin(per.reciprocal() * ang)
+        else:
+            eps = torch.sin(ang / period)
     else:
-        eps = torch.sin(torch.full((), ang, dtype=torch.float32,
-                                   device=p_base.device) / period)
+        ang = float(np.float32(2.0 * math.pi) * np.float32(t))  # f32 product
+        if isinstance(period, torch.Tensor):
+            eps = torch.sin(ang / _col(period).to(p_base.device,
+                                                  torch.float32))
+        else:
+            eps = torch.sin(torch.full((), ang, dtype=torch.float32,
+                                       device=p_base.device) / period)
     gamma = _col(gamma)
     return torch.clamp(p_base * ((1.0 - gamma) + gamma * eps), 0.0, 1.0)
 
@@ -162,10 +180,17 @@ def cyclic_process(p_base, cfg: FederationConfig, *, gamma=None,
         return {"offset": offsets(u)}
 
     def sample(state, t, u):
-        if reset and t % L == 0:
-            state = {"offset": offsets(u)}
+        if isinstance(t, torch.Tensor):     # per-row rounds
+            col = t.reshape(-1, 1).to(p_base.device)
+            if reset:
+                state = {"offset": torch.where(col % L == 0, offsets(u),
+                                               state["offset"])}
+            phase = (col % L).to(torch.float32)
+        else:
+            if reset and t % L == 0:
+                state = {"offset": offsets(u)}
+            phase = float(t % L)
         off = state["offset"]
-        phase = float(t % L)
         active = (phase >= off) & (phase < off + p_base * L)
         p_t = p_of_t(p_base, t, gamma=gamma, period=period) if tv else p_base
         return active, p_t, state

@@ -37,7 +37,7 @@ client tensor exists.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -69,7 +69,10 @@ class FedState:
     opt_state: Dict[str, torch.Tensor]
     algo_state: AlgoState
     link_state: Any
-    round: int                    # rounds run so far (same for every b)
+    # rounds run so far: an int shared by every trajectory, or a [B] int64
+    # tensor for a batch whose trajectories stand at different rounds (the
+    # adaptive search packs level-0 candidates beside level-k survivors)
+    round: Union[int, torch.Tensor]
     # staleness bookkeeping (Prop. 2): last round each uplink was active
     last_active: torch.Tensor     # [B, m] int32
     # buffered semi-async aggregation (repro_torch.scale.buffer): a
@@ -87,6 +90,23 @@ class RoundDraws:
     cohort: Optional[torch.Tensor] = None  # [B, C] int64, unique per row
 
 
+def round_column(t, like: torch.Tensor):
+    """The round as an operand beside ``like [B, ...]``: an ``int`` as it
+    is, a ``[B]`` round as a ``[B, 1]`` column of ``like``'s dtype (so
+    ``torch.where(active, t, last_active)`` keeps ``last_active``'s int32
+    and the int path stays the program it was)."""
+    if isinstance(t, torch.Tensor):
+        return t.reshape(-1, 1).to(like.dtype)
+    return t
+
+
+def clone_generator(g: torch.Generator) -> torch.Generator:
+    """A generator on ``g``'s device at ``g``'s position."""
+    out = torch.Generator(device=g.device)
+    out.set_state(g.get_state())
+    return out
+
+
 class GeneratorDraws:
     """The engine's drawer: per-seed ``torch.Generator`` bundles
     (``{"params", "state", "ds", "data", "cohort"}``, see
@@ -98,33 +118,57 @@ class GeneratorDraws:
     initial draw and then every round's ``u``, ``ds`` the data source's
     init draw, ``data`` every round's ``pick``, ``cohort`` (with
     ``cohort_size=C`` only) every round's cohort. A round's draw is the
-    next one on each stream, so rounds must be drawn in order (the
-    reference folds the round into its data key). ``pick_spec`` is the
+    next one on each stream, so each bundle's rounds are drawn in order
+    (the reference folds the round into its data key). ``pick_spec`` is the
     source's ``(*per-client draw shape, high)``: each client (each cohort
     member in cohort mode) draws integers in ``[0, high)``.
+
+    Resumable segments (``make_batched_run_rounds(carry_out=True)``): the
+    drawer rides the carry. ``tags`` names each bundle's origin (the seed);
+    a bundle also counts the draws it has made, so ``(tag, draws made)`` —
+    the seed and the budget level — identifies its state, and ``take`` /
+    ``select`` build a drawer for re-packed rows whose bundles are copies
+    (``get_state``/``set_state``) of the ones those rows used, one per
+    ``(tag, draws made)``. ``copy`` gives a drawer that can advance while
+    this one stays where it is. The call's round ``t`` (an ``int`` or a
+    ``[B]`` tensor) is not read here: a bundle's next draw is its round's.
     """
 
     def __init__(self, bundles: Sequence[Dict[str, torch.Generator]],
                  index: Optional[Sequence[int]] = None, *, num_clients: int,
-                 pick_spec=None, cohort_size: Optional[int] = None):
+                 pick_spec=None, cohort_size: Optional[int] = None,
+                 tags: Optional[Sequence[Any]] = None,
+                 made: Optional[Sequence[int]] = None):
         self.bundles = list(bundles)
         self.m = num_clients
         self.pick_spec = pick_spec
         self.cohort_size = cohort_size
+        self.tags = list(tags) if tags is not None else [None] * len(
+            self.bundles)
+        self.made = list(made) if made is not None else [0] * len(
+            self.bundles)
+        self.rows = (list(range(len(self.bundles))) if index is None
+                     else [int(i) for i in index])
         dev = self.bundles[0]["state"].device
-        self.index = None if index is None or list(index) == list(
+        self.index = None if self.rows == list(
             range(len(self.bundles))) else torch.as_tensor(
-                list(index), dtype=torch.long, device=dev)
+                self.rows, dtype=torch.long, device=dev)
 
     def _stack(self, parts: List[torch.Tensor]) -> torch.Tensor:
         out = torch.stack(parts)
         return out if self.index is None else out[self.index]
 
+    def _drew(self):
+        """Count one draw (an init draw or a round) on every bundle."""
+        self.made = [k + 1 for k in self.made]
+
     def params(self, init_params: Callable) -> torch.Tensor:
         """``[B, n]`` initial server params, ``init_params(generator)``."""
+        self._drew()
         return self._stack([init_params(g["params"]) for g in self.bundles])
 
     def link_init(self) -> torch.Tensor:
+        self._drew()
         return self._stack([torch.rand(self.m, generator=g["state"],
                                        device=g["state"].device)
                             for g in self.bundles])
@@ -132,12 +176,14 @@ class GeneratorDraws:
     def source_init(self, high: int) -> torch.Tensor:
         """``[B, m]`` per-client integers in ``[0, high)`` from the ``ds``
         stream (the LM source's vocabulary offsets)."""
+        self._drew()
         return self._stack([torch.randint(0, high, (self.m,),
                                           generator=g["ds"],
                                           device=g["ds"].device)
                             for g in self.bundles])
 
-    def __call__(self, t: int) -> RoundDraws:
+    def __call__(self, t) -> RoundDraws:
+        self._drew()
         u = self._stack([torch.rand(self.m, generator=g["state"],
                                     device=g["state"].device)
                          for g in self.bundles])
@@ -155,6 +201,57 @@ class GeneratorDraws:
                               generator=g["data"], device=g["data"].device)
                 for g in self.bundles])
         return RoundDraws(u, pick, cohort)
+
+    # -- re-packing (the adaptive search) -----------------------------------
+
+    def _key(self, i: int):
+        tag = self.tags[i]
+        return (tag, self.made[i]) if tag is not None else (
+            "bundle", id(self.bundles[i]))
+
+    @staticmethod
+    def _compose(sources) -> "GeneratorDraws":
+        """A drawer whose row ``b`` draws as bundle ``i`` of drawer ``d``
+        did, ``sources[b] = (d, i)``; bundles copied, one per key."""
+        first = sources[0][0]
+        keys, bundles, tags, made, index = {}, [], [], [], []
+        for d, i in sources:
+            if (d.m, d.pick_spec, d.cohort_size) != (
+                    first.m, first.pick_spec, first.cohort_size):
+                raise ValueError("drawers of different round shapes")
+            k = d._key(i)
+            if k not in keys:
+                keys[k] = len(bundles)
+                bundles.append({name: clone_generator(g)
+                                for name, g in d.bundles[i].items()})
+                tags.append(d.tags[i])
+                made.append(d.made[i])
+            index.append(keys[k])
+        return GeneratorDraws(bundles, index, num_clients=first.m,
+                              pick_spec=first.pick_spec,
+                              cohort_size=first.cohort_size, tags=tags,
+                              made=made)
+
+    def copy(self) -> "GeneratorDraws":
+        return self._compose([(self, i) for i in self.rows])
+
+    def take(self, rows: Sequence[int]) -> "GeneratorDraws":
+        """The drawer of rows ``rows`` (repeats allowed)."""
+        return self._compose([(self, self.rows[int(r)]) for r in rows])
+
+    def select(self, mask: Sequence[bool],
+               other: "GeneratorDraws") -> "GeneratorDraws":
+        """Row ``b`` from this drawer where ``mask[b]``, else from
+        ``other`` (same number of rows)."""
+        return self._compose([(self, i) if keep else (other, j)
+                              for keep, i, j in zip(mask, self.rows,
+                                                    other.rows)])
+
+    @staticmethod
+    def concat(drawers: Sequence["GeneratorDraws"]) -> "GeneratorDraws":
+        """The rows of every drawer, one after another."""
+        return GeneratorDraws._compose([(d, i) for d in drawers
+                                        for i in d.rows])
 
 
 def init_fed_state(link_u: torch.Tensor, server_params: torch.Tensor,
@@ -249,7 +346,9 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
         algo_state, server, clients = algorithm.aggregate(
             state.algo_state, state.server, state.clients, x_star, active,
             p_t, state.round)
-        last_active = torch.where(active, state.round, state.last_active)
+        last_active = torch.where(
+            active, round_column(state.round, state.last_active),
+            state.last_active)
         new_state = FedState(
             server=server, clients=clients, opt_state=opt_state,
             algo_state=algo_state, link_state=link_state,
@@ -258,7 +357,8 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
             "loss": losses.mean(-1),
             "num_active": active.sum(-1),
             "active": active,
-            "staleness": (state.round - state.last_active).float(),
+            "staleness": (round_column(state.round, state.last_active)
+                          - state.last_active).float(),
         }
         return new_state, metrics
 
@@ -327,7 +427,9 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
                 state.buffer, state.server, x_star, active, p_t, knobs,
                 op=op, m_total=m, in_buffer_new=in_buffer)
             clients = commit_clients(commit, in_buffer, server, x_star)
-            last_active = torch.where(active, state.round, state.last_active)
+            last_active = torch.where(
+                active, round_column(state.round, state.last_active),
+                state.last_active)
             new_state = FedState(
                 server=server, clients=clients, opt_state=opt_state,
                 algo_state=state.algo_state, link_state=link_state,
@@ -336,7 +438,8 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
                 "loss": losses.mean(-1),
                 "num_active": active.sum(-1),
                 "active": active,
-                "staleness": (state.round - state.last_active).float(),
+                "staleness": (round_column(state.round, state.last_active)
+                              - state.last_active).float(),
                 **bmets,
             }
             return new_state, metrics
@@ -379,8 +482,9 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
                      "buffer_fill": c_active.sum(-1).float(),
                      "commit_staleness": torch.zeros_like(ones)}
         last_active = state.last_active.scatter(
-            1, cohort, torch.where(c_active, state.round,
-                                   state.last_active.gather(1, cohort)))
+            1, cohort, torch.where(
+                c_active, round_column(state.round, state.last_active),
+                state.last_active.gather(1, cohort)))
         new_state = FedState(
             server=server, clients=state.clients, opt_state={},
             algo_state=algo_state, link_state=link_state,
@@ -389,7 +493,8 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
             "loss": losses.mean(-1),
             "num_active": c_active.sum(-1),
             "active": c_active,
-            "staleness": (state.round - state.last_active).float(),
+            "staleness": (round_column(state.round, state.last_active)
+                          - state.last_active).float(),
             **bmets,
         }
         return new_state, ds_state, metrics

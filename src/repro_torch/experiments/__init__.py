@@ -6,6 +6,8 @@
 - ``results`` — the append-only JSONL/npz results store (the reference's
   format) with mean/CI summaries and cross-store ``merge`` + CLI.
 - ``plots``   — figure-style curve CSV exports straight from a store.
+- ``search``  — adaptive hyperparameter search (successive halving on
+  resumable rung segments, elastic re-packing) and its CLI.
 - ``tasks``   — the shared synthetic task and the flat-buffer MLP.
 """
 from repro_torch.experiments.grid import (
@@ -19,6 +21,12 @@ from repro_torch.experiments.grid import (
     run_sweep,
 )
 from repro_torch.experiments.results import ResultsStore, git_sha, summarize
+from repro_torch.experiments.search import (
+    SearchOutcome,
+    SearchSpec,
+    run_search,
+    sample_point,
+)
 from repro_torch.experiments.sweep import (
     CellBatch,
     eval_rounds,
@@ -44,6 +52,10 @@ __all__ = [
     "ResultsStore",
     "git_sha",
     "summarize",
+    "SearchOutcome",
+    "SearchSpec",
+    "run_search",
+    "sample_point",
     "CellBatch",
     "eval_rounds",
     "make_batched_run_rounds",

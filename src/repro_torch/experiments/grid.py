@@ -393,6 +393,7 @@ def make_cell_batch(spec: SweepSpec, fed: FederationConfig,
     return CellBatch(
         gens=[seed_generators(s, dev) for s in spec.seeds],
         gen_index=[i for _ in rows for i in range(S)],
+        gen_tags=list(spec.seeds),
         p_base=torch.as_tensor(p_base, device=dev),
         hparams=hparams,
         data={"idx": torch.as_tensor(idx, device=dev)},
@@ -402,9 +403,11 @@ def make_cell_batch(spec: SweepSpec, fed: FederationConfig,
 
 
 def make_runner(spec: SweepSpec, fed: FederationConfig, task, *,
-                metric_keys=("loss", "num_active"), device=None):
+                metric_keys=("loss", "num_active"), device=None,
+                carry_out: bool = False):
     """The batched runner of one (family, scheme) cell: the family's table,
-    ``sgd(paper_decay(lr))`` and the configured link process."""
+    ``sgd(paper_decay(lr))`` and the configured link process
+    (``carry_out``: the resumable segment runner)."""
     algo = make_algorithm_spec(algo_family(fed.algorithm), fed)
     return make_batched_run_rounds(
         task.loss_fn, algo, fed,
@@ -420,7 +423,48 @@ def make_runner(spec: SweepSpec, fed: FederationConfig, task, *,
         use_kernel=resolve_use_kernel(spec.use_kernel),
         cohort_size=spec.cohort_size,
         buffered=_has_strategy_axis(spec),
+        carry_out=carry_out,
         device=device)
+
+
+_SEGMENT_RUNNERS: Dict[tuple, Any] = {}
+
+
+def segment_runner_for(spec: SweepSpec, algo: str, scheme: str, *,
+                       segment_rounds: int,
+                       metric_keys=("loss", "num_active"), device=None):
+    """The adaptive search's runner (``repro_torch.experiments.search``): a
+    resumable ``carry_out`` runner of exactly ``segment_rounds`` rounds a
+    ``step``, with ``eval_every == segment_rounds``, so each segment evals
+    once, at its last round (the controller's prune signal).
+
+    Cached under a structure-only key, as the reference's: the task's
+    shape, the cell's config with its hyperparameter knobs zeroed and its
+    algorithm made its family's first, the segment length, the metric
+    keys, the kernel and scale modes and the device. So every candidate a
+    search packs (unseen lr or gamma values, re-packed survivors, refilled
+    fresh points) and the suite's resume probe use ONE runner object;
+    ``segment_runner_for.built`` counts the runners made."""
+    dev = resolve_device(device)
+    task = get_traced_task(spec, dev)
+    fed = spec.cell_config(algo, scheme)
+    family = algo_family(fed.algorithm)
+    canon = dataclasses.replace(fed, alpha=0.0, sigma0=0.0, delta=0.0,
+                                gamma=0.0, period=0, algorithm=family[0])
+    key = ("segment", _task_key(spec), canon, segment_rounds,
+           tuple(metric_keys), resolve_use_kernel(spec.use_kernel),
+           spec.cohort_size, _has_strategy_axis(spec), str(dev))
+    if key not in _SEGMENT_RUNNERS:
+        seg = dataclasses.replace(spec, rounds=segment_rounds,
+                                  eval_every=segment_rounds)
+        _SEGMENT_RUNNERS[key] = make_runner(seg, fed, task,
+                                            metric_keys=metric_keys,
+                                            device=dev, carry_out=True)
+        segment_runner_for.built += 1
+    return _SEGMENT_RUNNERS[key]
+
+
+segment_runner_for.built = 0
 
 
 def run_batch_states(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
@@ -600,4 +644,4 @@ def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
 __all__ = ["ALGOS", "SCHEMES", "HPARAM_FIELDS", "SYNC", "SweepSpec",
            "CellResult", "make_cell_batch", "make_runner", "run_batch_states",
            "run_cell", "run_cell_batch", "run_sweep", "get_traced_task",
-           "point_base_probs"]
+           "point_base_probs", "segment_runner_for"]

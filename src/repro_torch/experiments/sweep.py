@@ -37,8 +37,9 @@ repro_torch.experiments`` is the same CLI.)
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -47,6 +48,7 @@ from repro_torch.core.algorithms import AlgorithmSpec, as_algorithm
 from repro_torch.core.federated import (
     DEFAULT_METRIC_KEYS,
     GeneratorDraws,
+    clone_generator,
     init_fed_state,
     make_round_fn,
     make_round_step,
@@ -83,6 +85,9 @@ class CellBatch:
     data: Any                                 # per-trajectory ds_state
     shared: Any                               # the dataset, unbatched
     algo_id: Optional[torch.Tensor] = None    # [B] int64, or None (no axis)
+    # each bundle's seed (GeneratorDraws' tags: re-packed carries share a
+    # bundle per (seed, draws made)); None: bundles are never shared
+    gen_tags: Optional[List[Any]] = None
 
     @property
     def batch_size(self) -> int:
@@ -127,7 +132,22 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
     Returns ``run(batch, draws=None) -> (states, out)``: ``states`` the final
     ``FedState`` (leading ``[B]``), ``out["metrics"]`` each key ``[B, K,
     ...]``, ``out["evals"]`` ``[B, E]``. ``draws`` replaces the batch's
-    ``GeneratorDraws`` (anything with its ``params``/``link_init``/call).
+    ``GeneratorDraws`` (anything with its ``params``/``link_init``/call;
+    ``step`` below also needs its ``copy``). ``run`` draws from copies of
+    the batch's generators, so a batch gives the same run each time.
+
+    ``run.init(batch, draws=None) -> carry`` and ``run.step(carry, batch)
+    -> (carry, out)`` are its two halves, ``run(batch) == step(init(batch),
+    batch)``: the carry is ``(FedState, ds_state, drawer)``, the drawer
+    holding the position of every random stream, so segments chained with
+    ``step`` equal one uninterrupted run bit for bit, with the same eval
+    cadence. ``carry_out=True`` makes ``run`` itself return ``(carry,
+    out)`` (the reference's resumable segment; the adaptive search's
+    building block). ``step`` advances a copy of the carry's drawer and
+    leaves the passed carry valid: the reference's donation of the carry
+    buffers has no counterpart in eager PyTorch, whose round makes new
+    tensors anyway. Re-pack carries with ``gather_carry`` and
+    ``select_carry``; a carry's ``FedState.round`` may be a ``[B]`` tensor.
     """
     scale_mode = buffered or cohort_size is not None
     if scale_mode and not isinstance(algorithm, AlgorithmSpec):
@@ -141,10 +161,6 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
         raise NotImplementedError(
             "meshes are not ported yet (ROADMAP Queue 1 item 6: "
             "multi-device batch split)")
-    if carry_out:
-        raise NotImplementedError(
-            "carry_out segments are not ported yet (ROADMAP Queue 1 item 4: "
-            "adaptive search)")
     dev = resolve_device(device)
     do_eval = eval_fn is not None and eval_every > 0
     # round spans between evals: the eval_rounds contract (>= 1 eval, the
@@ -154,7 +170,7 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
         at = eval_rounds(num_rounds, eval_every)
         spans = [b - a for a, b in zip([0] + at[:-1], at)]
 
-    def run(batch: CellBatch, draws=None):
+    def parts(batch: CellBatch):
         if batch.p_base.device.type != dev.type:
             raise ValueError(f"batch is on {batch.p_base.device}, the runner "
                              f"on {dev}")
@@ -163,11 +179,32 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
         optimizer = optimizer_factory(batch.hparams)
         link = link_factory(batch.p_base, batch.hparams)
         source = source_factory(batch.shared)
+        return algo_id, algo, optimizer, link, source
+
+    def init(batch: CellBatch, draws=None):
+        """The batch's initial carry ``(FedState, ds_state, drawer)``."""
+        _, algo, optimizer, link, source = parts(batch)
         if draws is None:
-            draws = GeneratorDraws(batch.gens, batch.gen_index,
-                                   num_clients=fed_cfg.num_clients,
-                                   pick_spec=source.pick_spec,
-                                   cohort_size=cohort_size)
+            draws = GeneratorDraws(
+                [{k: clone_generator(g) for k, g in b.items()}
+                 for b in batch.gens],
+                batch.gen_index, num_clients=fed_cfg.num_clients,
+                pick_spec=source.pick_spec, cohort_size=cohort_size,
+                tags=batch.gen_tags)
+        with torch.no_grad():
+            server = draws.params(init_params)
+            st = init_fed_state(draws.link_init(), server, fed_cfg, algo,
+                                link, optimizer,
+                                stateless_clients=cohort_size is not None,
+                                buffered=has_buffer)
+            ds = source.init(batch.data)
+        return st, ds, draws
+
+    def advance(carry, batch: CellBatch):
+        """``num_rounds`` rounds from ``carry`` with the eval cadence:
+        ``(carry', out)``; the carry's drawer advances."""
+        st, ds, draws = carry
+        algo_id, algo, optimizer, link, source = parts(batch)
         if scale_mode:
             # the scale engines dispatch the spec themselves (they need the
             # family table, not a bound Algorithm)
@@ -179,27 +216,120 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
         else:
             round_fn = make_round_fn(loss_fn, optimizer, algo, link, fed_cfg)
         with torch.no_grad():
-            server = draws.params(init_params)
-            st = init_fed_state(draws.link_init(), server, fed_cfg, algo,
-                                link, optimizer,
-                                stateless_clients=cohort_size is not None,
-                                buffered=has_buffer)
-            ds = source.init(batch.data)
-            step = make_round_step(round_fn, source)
-            parts, evals = [], []
+            round_step = make_round_step(round_fn, source)
+            pieces, evals = [], []
             for span in spans:
-                st, ds, mets = run_rounds_loop(st, ds, draws, span, step=step,
+                st, ds, mets = run_rounds_loop(st, ds, draws, span,
+                                               step=round_step,
                                                metric_keys=metric_keys)
-                parts.append(mets)
+                pieces.append(mets)
                 if do_eval:
                     evals.append(eval_fn(st.server, batch.shared))
-        out = {"metrics": {k: torch.cat([m[k] for m in parts], 1)
+        out = {"metrics": {k: torch.cat([m[k] for m in pieces], 1)
                            for k in metric_keys}}
         if do_eval:
             out["evals"] = torch.stack(evals, 1)
-        return st, out
+        return (st, ds, draws), out
 
+    def step(carry, batch: CellBatch):
+        """``advance`` from a copy of the carry's drawer: ``carry`` stays
+        valid."""
+        st, ds, draws = carry
+        return advance((st, ds, draws.copy()), batch)
+
+    def run(batch: CellBatch, draws=None):
+        carry, out = advance(init(batch, draws), batch)
+        return (carry if carry_out else carry[0]), out
+
+    run.init = init
+    run.step = step
+    run.carry_out = carry_out
     return run
+
+
+def map_carry(fn, *parts):
+    """``fn`` over the leaves of carry parts of one structure (dicts,
+    tuples, lists, dataclasses; ``None`` stays ``None``): the leaves are
+    ``[B]``-leading tensors and the round, an ``int`` or a ``[B]`` tensor.
+    The carry helpers below are this walk with a leaf each."""
+    x = parts[0]
+    if x is None:
+        return None
+    if isinstance(x, (torch.Tensor, int)):
+        return fn(*parts)
+    if isinstance(x, dict):
+        return {k: map_carry(fn, *(p[k] for p in parts)) for k in x}
+    if isinstance(x, (tuple, list)):
+        return type(x)(map_carry(fn, *v) for v in zip(*parts))
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: map_carry(fn, *(getattr(p, f.name) for p in parts))
+            for f in dataclasses.fields(x)})
+    raise TypeError(f"cannot walk a carry part of type {type(x).__name__}")
+
+
+def _round_rows(xs, sizes, dev) -> torch.Tensor:
+    """Rounds of carries of ``sizes`` rows (ints or ``[B]`` tensors) as one
+    ``[sum(sizes)]`` int64 tensor."""
+    return torch.cat([torch.full((n,), v, dtype=torch.long, device=dev)
+                      if isinstance(v, int) else v.to(dev, torch.long)
+                      for v, n in zip(xs, sizes)])
+
+
+def gather_carry(carry, rows: Sequence[int]):
+    """The carry of rows ``rows`` (repeats allowed): every ``[B]`` leaf of
+    the ``FedState`` and ``ds_state`` gathered, the drawer re-packed with
+    copies of those rows' bundles (the reference's
+    ``jax.tree.map(lambda x: x[rows], carry)``)."""
+    st, ds, draws = carry
+    idx = torch.as_tensor(list(rows), dtype=torch.long,
+                          device=st.server.device)
+
+    def take(x):
+        return x if isinstance(x, int) else x[idx.to(x.device)]
+    return map_carry(take, st), map_carry(take, ds), draws.take(rows)
+
+
+def select_carry(mask: Sequence[bool], survivors, fresh):
+    """Row ``b`` of ``survivors`` where ``mask[b]``, else of ``fresh`` (the
+    reference's ``jnp.where`` pick for a batch mixing carried survivors and
+    freshly initialised candidates). The rounds differ, so the result's
+    ``FedState.round`` is a ``[B]`` tensor."""
+    st_s, ds_s, dr_s = survivors
+    st_f, ds_f, dr_f = fresh
+    dev = st_s.server.device
+    mask_t = torch.as_tensor(list(mask), dtype=torch.bool, device=dev)
+
+    def pick(a, b):
+        if isinstance(a, int) or isinstance(b, int):      # the round
+            if isinstance(a, int) and isinstance(b, int) and a == b:
+                return a
+            n = len(mask_t)
+            return torch.where(mask_t, _round_rows([a], [n], dev),
+                               _round_rows([b], [n], dev))
+        sel = mask_t.to(a.device).reshape((-1,) + (1,) * (a.dim() - 1))
+        return torch.where(sel, a, b)
+    return (map_carry(pick, st_s, st_f), map_carry(pick, ds_s, ds_f),
+            dr_s.select(list(mask), dr_f))
+
+
+def concat_carries(carries):
+    """The rows of every carry, one after another (a wave's batches as one
+    gather pool); an int round stays one where every carry has it."""
+    if len(carries) == 1:
+        return carries[0]
+    sizes = [c[0].server.shape[0] for c in carries]
+    dev = carries[0][0].server.device
+
+    def cat(*xs):
+        if all(isinstance(v, int) for v in xs) and len(set(xs)) == 1:
+            return xs[0]
+        if any(isinstance(v, int) for v in xs):           # the round
+            return _round_rows(xs, sizes, dev)
+        return torch.cat(xs)
+    return (map_carry(cat, *(c[0] for c in carries)),
+            map_carry(cat, *(c[1] for c in carries)),
+            type(carries[0][2]).concat([c[2] for c in carries]))
 
 
 def eval_rounds(num_rounds: int, eval_every: int):

@@ -142,6 +142,24 @@ def _kernel():
     return fused_agg_kernel
 
 
+def compiled_specializations() -> Optional[int]:
+    """How many specialisations of the Triton kernel this process has
+    compiled: 0 before its first launch; ``None`` where the installed
+    Triton keeps its JIT cache under another name than ``device_caches``
+    (``{device: (kernel_cache, ...)}``) or ``cache`` (``{device:
+    kernel_cache}``)."""
+    if _kernel.cache_info().currsize == 0:
+        return 0
+    fn = _kernel()
+    caches = getattr(fn, "device_caches", None)
+    if isinstance(caches, dict):
+        return sum(len(c[0]) for c in caches.values())
+    cache = getattr(fn, "cache", None)
+    if isinstance(cache, dict):
+        return sum(len(c) for c in cache.values())
+    return None
+
+
 def _check(name, t, shape, dtypes):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "

@@ -19,6 +19,7 @@ SUITE_INFO = {
     "table2": "rounds-to-target-accuracy grid (writes the machine-readable "
               "baseline JSON)",
     "fig8": "alpha/gamma/delta/sigma0 ablations on one batched axis",
+    "asha": "adaptive search (successive halving) vs the exhaustive lr grid",
 }
 
 
@@ -43,6 +44,7 @@ def main(argv=None) -> None:
         return
 
     from repro_torch.paper import (
+        asha,
         fig2_bias,
         fig3_quadratic,
         fig8_ablations,
@@ -60,6 +62,7 @@ def main(argv=None) -> None:
                                                       **kw),
         "fig8": lambda: fig8_ablations.run(rounds=max(args.rounds // 2, 100),
                                            **kw),
+        "asha": lambda: asha.run(**kw),
     }
     if args.only:
         names = [n.strip() for n in args.only.split(",") if n.strip()]

@@ -62,14 +62,17 @@ def tasks(device="cpu"):
 
 class JaxFamily:
     """B trajectories of the reference family (member ``algo_id[b]``, seed
-    ``seeds[b]``) as one jitted, vmapped round, plus the round's draws
-    computed from the reference's own keys."""
+    ``seeds[b]``; ``family`` the quartet by default) as one jitted, vmapped
+    round, plus the round's draws computed from the reference's own keys
+    (each trajectory's at its own round)."""
 
-    def __init__(self, scheme: str, seeds, algo_ids, alpha=0.1):
+    def __init__(self, scheme: str, seeds, algo_ids, alpha=0.1,
+                 family=FAMILY):
         self.scheme = scheme
-        self.jfed_cfg, self.tfed_cfg = fed_configs(scheme)
+        self.family = family
+        self.jfed_cfg, self.tfed_cfg = fed_configs(scheme, family[0])
         self.jtask, self.ttask = tasks()
-        self.spec = jalg.make_algorithm_spec(FAMILY, self.jfed_cfg)
+        self.spec = jalg.make_algorithm_spec(family, self.jfed_cfg)
         self.idx = self.jtask.partition(alpha)
         B = len(seeds)
         self.B = B
@@ -149,7 +152,7 @@ class JaxFamily:
               for k, v in self.hp.items()}
         link = tconn.make_link_process(p, self.tfed_cfg, gamma=hp["gamma"],
                                        period=hp["period"])
-        spec = talg.make_algorithm_spec(FAMILY, self.tfed_cfg)
+        spec = talg.make_algorithm_spec(self.family, self.tfed_cfg)
         aid = torch.as_tensor(np.asarray(self.algo_id), dtype=torch.long,
                               device=device)
         rf = tfed.make_round_fn(self.ttask.loss_fn, tsgd(tdecay(hp["lr"])),
@@ -185,14 +188,22 @@ def assert_state_close(port, ref_np, layout, *, atol, rtol):
                                   ref_np.opt_state["step"])
     np.testing.assert_array_equal(port.last_active.numpy(),
                                   ref_np.last_active)
-    assert port.round == int(np.unique(ref_np.round)[0])
+    if isinstance(port.round, torch.Tensor):    # trajectories' own rounds
+        np.testing.assert_array_equal(port.round.numpy(), ref_np.round)
+    else:
+        assert port.round == int(np.unique(ref_np.round)[0])
 
 
 class JaxKeyDraws:
-    """The port's drawer interface (``params`` / ``link_init`` / call) fed
-    from the reference's per-seed keys: trajectory ``b`` with seed
-    ``seeds[b]`` gets the initial model, link uniforms and batch indices
-    the reference's own per-trajectory run draws."""
+    """The port's drawer interface (``params`` / ``link_init`` / call, and
+    the re-packing ``copy`` / ``take`` / ``select`` / ``concat``) fed from
+    the reference's per-seed keys: trajectory ``b`` with seed ``seeds[b]``
+    gets the initial model, link uniforms and batch indices the
+    reference's own per-trajectory run draws. The call takes the round as
+    an int or as a ``[B]`` tensor (row ``b`` gets round ``t[b]``'s draws,
+    as the reference's vmapped round folds each trajectory's own round
+    into its key); the draws are a function of (seed, round), so re-packed
+    rows need no state."""
 
     def __init__(self, seeds, jfed_cfg, jtask, layout, num_rounds):
         m, s, b = (SMALL["num_clients"], SMALL["local_steps"],
@@ -204,11 +215,11 @@ class JaxKeyDraws:
         self._params = convert.params_from_jax(
             np_tree(jax.vmap(jtask.init_params)(
                 jnp.stack([k["params"] for k in keys]))), layout)
-        init_u, rounds = [], []
+        init_u, us, picks = [], [], []
         for k in keys:
             k_link, key = jax.random.split(k["state"])
             init_u.append(np.asarray(jax.random.uniform(k_link, (m,))))
-            traj = []
+            traj_u, traj_pick = [], []
             for t in range(num_rounds):
                 key, k_round = jax.random.split(key)
                 u = jax.random.uniform(k_round, (m,))
@@ -217,13 +228,13 @@ class JaxKeyDraws:
                                            (m,))
                 pick = jax.random.randint(jax.random.fold_in(k["data"], t),
                                           (m, s, b), 0, pc)
-                traj.append((np.asarray(u), np.asarray(pick)))
-            rounds.append(traj)
+                traj_u.append(np.asarray(u))
+                traj_pick.append(np.asarray(pick))
+            us.append(np.stack(traj_u))
+            picks.append(np.stack(traj_pick))
         self._init_u = torch.as_tensor(np.stack(init_u))
-        self._rounds = [
-            tfed.RoundDraws(torch.as_tensor(np.stack([r[t][0] for r in rounds])),
-                            torch.as_tensor(np.stack([r[t][1] for r in rounds])))
-            for t in range(num_rounds)]
+        self._u = torch.as_tensor(np.stack(us))          # [B, R, m]
+        self._pick = torch.as_tensor(np.stack(picks))    # [B, R, m, s, b]
 
     def params(self, init_params):
         return self._params
@@ -232,4 +243,39 @@ class JaxKeyDraws:
         return self._init_u
 
     def __call__(self, t):
-        return self._rounds[t]
+        if isinstance(t, torch.Tensor):
+            rows = torch.arange(self._u.shape[0])
+            return tfed.RoundDraws(self._u[rows, t.cpu()],
+                                   self._pick[rows, t.cpu()])
+        return tfed.RoundDraws(self._u[:, t], self._pick[:, t])
+
+    def _of(self, params, init_u, u, pick):
+        out = object.__new__(JaxKeyDraws)
+        out._params, out._init_u, out._u, out._pick = params, init_u, u, pick
+        return out
+
+    def copy(self):
+        return self
+
+    def take(self, rows):
+        r = torch.as_tensor(np.asarray(rows, np.int64))
+        return self._of(self._params[r], self._init_u[r], self._u[r],
+                        self._pick[r])
+
+    def select(self, mask, other):
+        keep = torch.as_tensor(np.asarray(mask, bool))
+
+        def pick(a, b):
+            return torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)),
+                               a, b)
+
+        return self._of(pick(self._params, other._params),
+                        pick(self._init_u, other._init_u),
+                        pick(self._u, other._u),
+                        pick(self._pick, other._pick))
+
+    @staticmethod
+    def concat(drawers):
+        return drawers[0]._of(*(torch.cat([getattr(d, a) for d in drawers])
+                                for a in ("_params", "_init_u", "_u",
+                                          "_pick")))

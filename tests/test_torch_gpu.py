@@ -363,3 +363,49 @@ def test_cohort_round_at_fifty_thousand_clients_on_the_card(cuda):
     assert torch.isfinite(states.server).all()
     assert int(out["metrics"]["num_active"].max()) <= C
     assert torch.isfinite(out["evals"]).all()
+
+
+@pytest.mark.gpu
+def test_segment_resume_is_bitwise_on_the_card(cuda):
+    """The adaptive search's runner on the card with the fused aggregation:
+    two chained 4-round segments equal one uninterrupted 8-round run bit
+    for bit (evals, losses, every final-state tensor), and a re-packed
+    subset with a duplicate continues each row exactly as unsliced."""
+    from repro_torch.experiments import grid as tgrid
+    from repro_torch.experiments import sweep as tsweep
+
+    spec = tgrid.SweepSpec(algorithms=("fedpbc",), schemes=("bernoulli_tv",),
+                           seeds=(0, 1), rounds=8, eval_every=4,
+                           num_clients=16, lrs=(0.05, 0.1), use_kernel=True)
+    task = tgrid.get_traced_task(spec)
+    fed = spec.cell_config("fedpbc", "bernoulli_tv")
+    batch = tgrid.make_cell_batch(spec, fed, task)
+    rseg = tgrid.segment_runner_for(spec, "fedpbc", "bernoulli_tv",
+                                    segment_rounds=4)
+    tmasked.fused_masked_agg.launches = 0
+    carry = rseg.init(batch)
+    evals, losses = [], []
+    for _ in range(2):
+        carry, out = rseg.step(carry, batch)
+        evals.append(out["evals"])
+        losses.append(out["metrics"]["loss"])
+    assert tmasked.fused_masked_agg.launches == 8
+    st_full, out_full = tgrid.make_runner(spec, fed, task)(batch)
+    assert torch.equal(torch.cat(evals, 1), out_full["evals"])
+    assert torch.equal(torch.cat(losses, 1), out_full["metrics"]["loss"])
+    st = carry[0]
+    for name in ("server", "clients", "last_active"):
+        assert torch.equal(getattr(st, name), getattr(st_full, name))
+    for k, v in st.opt_state.items():
+        assert torch.equal(v, st_full.opt_state[k])
+    rows = [2, 3, 0, 1, 2, 3]                 # point 1, point 0, point 1
+    half, _ = rseg.step(rseg.init(batch), batch)
+    part = dataclasses.replace(
+        batch, gen_index=[batch.gen_index[i] for i in rows],
+        p_base=batch.p_base[rows],
+        hparams={k: v[rows] for k, v in batch.hparams.items()},
+        data={"idx": batch.data["idx"][rows]}, algo_id=batch.algo_id[rows])
+    (st2, _, _), out2 = rseg.step(tsweep.gather_carry(half, rows), part)
+    (st1, _, _), out1 = rseg.step(half, batch)
+    assert torch.equal(out2["evals"], out1["evals"][rows])
+    assert torch.equal(st2.server, st1.server[rows])

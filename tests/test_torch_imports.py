@@ -28,6 +28,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     assert {"repro_torch.scale", "repro_torch.scale.buffer",
             "repro_torch.scale.participation",
             "repro_torch.scale.sparse_state"} <= set(mods)
+    assert {"repro_torch.experiments.search",
+            "repro_torch.paper.asha"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

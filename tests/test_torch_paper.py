@@ -194,7 +194,8 @@ def test_suite_runs_on_the_cpu_with_the_reference_header(
 def test_run_lists_exactly_the_five_paper_suites(capsys):
     trun.main(["--list"])
     names = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
-    assert names == ["fig2", "fig3", "table1", "table2", "fig8"]
+    # the paper's five, then the reference's ASHA-vs-grid suite
+    assert names == ["fig2", "fig3", "table1", "table2", "fig8", "asha"]
     with pytest.raises(SystemExit):
         trun.main(["--only", "fig2,throughput"])
     trun.main(["--only", "fig2"])

@@ -182,19 +182,24 @@ def test_later_slice_spec_knobs_raise_not_implemented(kw):
 
 def test_later_slice_entry_arguments_raise_not_implemented():
     """``store=`` works since the results store was ported
-    (tests/test_torch_results.py); placement and the scale/search runner
-    knobs still raise, naming their ROADMAP item."""
+    (tests/test_torch_results.py) and ``carry_out`` since adaptive search
+    was (tests/test_torch_search.py); placement still raises, naming its
+    ROADMAP item."""
     spec = _spec(tgrid, algorithms=("fedpbc",), seeds=(0,), rounds=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgrid.run_sweep(spec, devices=[object()], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgrid.run_sweep(spec, mesh=object(), device="cpu")
-    for kw in (dict(carry_out=True), dict(shard_mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsweep.make_batched_run_rounds(
-                None, None, None, optimizer_factory=None, link_factory=None,
-                source_factory=None, init_params=None, num_rounds=1,
-                device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsweep.make_batched_run_rounds(
+            None, None, None, optimizer_factory=None, link_factory=None,
+            source_factory=None, init_params=None, num_rounds=1,
+            device="cpu", shard_mesh=object())
+    run = tsweep.make_batched_run_rounds(
+        None, None, None, optimizer_factory=None, link_factory=None,
+        source_factory=None, init_params=None, num_rounds=1, device="cpu",
+        carry_out=True)
+    assert run.carry_out and callable(run.init) and callable(run.step)
     # the scale runner is ported; like the reference's it needs a spec
     with pytest.raises(ValueError, match="AlgorithmSpec"):
         tsweep.make_batched_run_rounds(
