@@ -178,17 +178,64 @@ batch rounds/s per wave and profiles one wave of a level-0 batch (an int
 round) and one of a batch mixing levels 1 and 0 (a ``[B]`` round). Phase
 11 is held to ``PHASE11_LIMIT_S``.
 
+Phase 12 runs the LM sweep task (``SweepSpec(task="lm")``) on the card,
+the arms of ``benchmarks/lm_sweep.py``'s full mode. (a) The aggregation
+against its plain version at the sweep's shapes, lm-family's ``[8, 4,
+106816]`` and lm-wide's ``[4, 8, 9.70M]`` (every op, half and no clients
+active, ``FP32_TOL``, ``prev`` exact when none is active), and the fp32
+CUDA-core flash kernels forward and backward at the LM's ``[G*b*H, T,
+D]``, ``[256, 32, 16]`` and ``[256, 256, 128]`` (``FLASH_TOL``), each
+timed beside its plain version, its library call and its bound (fp32
+peak). (b) lm-family (``LM_SWEEP``: the quartet over bernoulli_ti, lrs
+0.05 and 0.1, m = 4, reduced(smollm-135m) at d_model 64 and 2 layers,
+sequences of 32, 10 rounds): cold and warm through ``make_runner``, the
+warm run counted and timed (trajectory rounds/s, training tokens/s,
+peak memory); the same cell through the plain attention and the branch
+aggregation from the same generators (no launch; the largest |server
+difference| of a trajectory within ``LM_PATHS_TOL``); then seeds 0-2
+through ``run_sweep``, each member's 3-seed mean final test accuracy
+within ``FIG3_TOL_STDS`` standard deviations of the difference of two
+3-seed means of the reference's (``LM_SWEEP_REFERENCE``), the last-round
+losses printed beside. (c) lm-cohort (``LM_COHORT``: fedpbc and fedavg, m
+= 10,000, C = 256, 5 rounds): rounds/s, peak memory, 0 aggregation
+launches. (d) lm-wide (``LM_WIDE``: d_model 512, 4 layers, T = 256, m = 8,
+the quartet at lr 0.1, 5 rounds): rounds/s, tokens/s, peak memory, and one
+round under ``torch.profiler``. Every cell's launches are counted on its
+timed run against ``_want_launches`` (flash forward per layer per local
+step and per eval forward, dq and dkdv per layer per local step, the
+aggregation once a round), every loss and parameter must be finite, and
+the phase is held to ``PHASE12_LIMIT_S``.
+
+Phase 13 serves SmolLM-135M at its published widths (30 layers, d_model
+576, 9 heads of 64, 3 KV heads, 134,515,008 parameters, bf16): the
+forward's flash kernel at ``[9, 256, 64]`` bf16 against its plain
+version; (a) ``repro_torch.launch.serve --full --arch smollm-135m
+--batch 8 --prompt-len 128 --gen 64`` (ids ``[8, 64]`` inside the
+vocabulary, tokens/s incl. prefill, decode tokens/s, ms a step, peak
+memory, 0 flash launches: ``decode_step`` attends its KV cache with the
+plain ``decode_attention``, as the reference calls no kernel there), and
+a short serve run (8 + 8 steps) under ``torch.profiler``; (b) teacher
+forcing at full width: ``forward`` on ``[1, TF_T]`` through the flash
+kernel and through the plain attention against ``TF_T`` ``decode_step``
+calls, max |logit difference| / max |logit| within ``TF_CASES``' limits
+at 2 layers (bf16 and fp32), measured at the full 30 layers in bf16. The phase is held to ``PHASE13_LIMIT_S``.
+
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
 Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
 seconds, launches, family batches and results), a ``{"scale": {...}}``
-line (phase 10's), a ``{"search": {...}}`` line (phase 11's), then a
+line (phase 10's), a ``{"search": {...}}`` line (phase 11's), a
+``{"lm_sweep": {...}}`` line (phase 12's cells), a ``{"serve": {...}}``
+line (phase 13's), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
-11's as ``search_launches``, its Fig. 3 shape
-timing as ``fig3_shape``; each flash kernel with its design and its
-registers and spills at D = 64 and by head dim; the WKV6 wrapper once per
+11's as ``search_launches``, phase 12's by cell as ``lm_sweep_launches``
+and its timings at the sweep's shapes as ``lm_sweep_shapes``, its Fig. 3
+shape timing as ``fig3_shape``; each flash kernel with its design and its
+registers and spills at D = 64 and by head dim, its phase-12 launches by
+cell and timings at D = 16 and 128 (fp32), and its launches in phase 13's
+serve run as ``serve_launches``; the WKV6 wrapper once per
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
 ptxas by head dim), the card's name and power limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -443,6 +490,82 @@ PROFILE_P, PROFILE_G = 16, 16       # the profiled serve window's steps
 # the fp32 WKV output rounds to bf16 differently (7.7e-3 measured); fp32:
 # the WKV outputs' ~1e-6 relative differences carried through 2 layers
 RWKV_PATHS_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Phase 12, the LM sweep task (SweepSpec(task="lm")): the arms of
+# benchmarks/lm_sweep.py's full mode on one device. lm-family: the quartet
+# over bernoulli_ti, lrs 0.05 and 0.1, m = 4, 2 local steps of batch 2, 16
+# sequences a client, reduced(smollm-135m) at d_model 64 (head dim 16) and 2
+# layers, sequences of 32, 4 styles, 256 / 64 sequences, 10 rounds, evals
+# every 5, seed 0 (the timed cell) and seeds 0-2 (the accuracy bars)
+LM_SWEEP = dict(algorithms=FAMILY, schemes=("bernoulli_ti",), seeds=(0,),
+                rounds=10, eval_every=5, num_clients=4, local_steps=2,
+                batch_size=2, per_client=16, lrs=(0.05, 0.1), task="lm",
+                lm_d_model=64, lm_layers=2, lm_seq=32, classes=4,
+                lm_n_seqs=256, lm_n_test=64, use_kernel=True)
+# lm-cohort: the benchmark's cohort arm (fedpbc and fedavg, m = 10,000, a
+# C = 256 cohort, 4 sequences a client, 1 local step, 512 sequences, 5
+# rounds); lm-wide: the widest model reduced() gives at a head dim the flash
+# kernel takes (d_model 512: 4 heads of 128; 4 layers, sequences of 256),
+# m = 8, the quartet at lr 0.1, 5 rounds
+LM_COHORT = dict(algorithms=FAMILY[:2], rounds=5, eval_every=5,
+                 num_clients=10_000, cohort_size=256, per_client=4,
+                 local_steps=1, lm_n_seqs=512)
+LM_WIDE = dict(lm_d_model=512, lm_layers=4, lm_seq=256, num_clients=8,
+               lrs=(0.1,), rounds=5, eval_every=5)
+# lm-family's final test accuracy (CellResult.final_test) of seeds 0, 1, 2
+# on the JAX reference by member and lr, and each seed's mean training loss
+# in the last round, run on the CPU:
+#   PYTHONPATH=src python scripts/lm_sweep_reference_bars.py
+# The port draws other initial models, links and batches, so each member's
+# 3-seed mean (each seed's accuracy averaged over the two lrs) may differ
+# from the reference's by FIG3_TOL_STDS standard deviations of the
+# difference of two 3-seed means, sqrt(s_ref^2 / 3 + s_port^2 / 3). At 10
+# rounds both lie near chance (1/512): the losses are printed beside them.
+LM_SWEEP_REFERENCE = {
+    "fedpbc": {
+        0.05: ([0.003173828125, 0.00244140625, 0.00244140625],
+               [5.993766, 6.017055, 6.064603]),
+        0.1: ([0.002197265625, 0.001708984375, 0.001953125],
+              [5.929684, 5.965669, 6.009222]),
+    },
+    "fedavg": {
+        0.05: ([0.002197265625, 0.001953125, 0.002197265625],
+               [6.178049, 6.23173, 6.150668]),
+        0.1: ([0.003173828125, 0.001953125, 0.00244140625],
+              [6.184205, 6.223831, 6.112601]),
+    },
+    "fedavg_all": {
+        0.05: ([0.000732421875, 0.00244140625, 0.00341796875],
+               [6.203969, 6.23094, 6.195037]),
+        0.1: ([0.001220703125, 0.00244140625, 0.003662109375],
+              [6.184601, 6.224051, 6.161757]),
+    },
+    "fedavg_known_p": {
+        0.05: ([0.001708984375, 0.001953125, 0.002197265625],
+               [6.199668, 6.234973, 6.161659]),
+        0.1: ([0.002197265625, 0.001708984375, 0.001953125],
+              [6.199608, 6.228038, 6.1285]),
+    },
+}
+# the lm-family cell through the kernels (fp32 flash, fused aggregation)
+# against the plain attention and the branch aggregation from the same
+# generators: the largest |server difference| of any trajectory after 10
+# rounds (fp32: the flash kernels' online softmax in tiles, ~1e-6 a step,
+# carried through 20 local steps of SGD)
+LM_PATHS_TOL = 1e-3
+PHASE12_LIMIT_S = 120.0
+# Phase 13, dense serving: SmolLM-135M at its published widths (bf16)
+# through the serve launcher at phase 8b's traffic; teacher forcing at full
+# width, forward on [1, TF_T] against TF_T decode_step calls, max |logit
+# diff| / max |logit|, as (dtype, layers, limit): at depth 2 as phase 8c,
+# bf16 a few bf16 steps (phase 8c's bar), fp32 products in another order;
+# at the full 30 layers in bf16 measured with no limit: there two forwards
+# (flash kernel, plain attention) already differ by ~2e-2 on an H100, the
+# bf16 rounding of 30 layers of random weights (PERF.md)
+SMOLLM_LAYERS, TF_T = 30, 256
+SERVE_PROFILE_P = SERVE_PROFILE_G = 8   # the profiled serve window's steps
+TF_CASES = (("bfloat16", 2, 2e-2), ("float32", 2, 1e-4),
+            ("bfloat16", SMOLLM_LAYERS, None))
+PHASE13_LIMIT_S = 120.0
 
 
 def fail(msg):
@@ -566,6 +689,32 @@ def agg_work(x, mask, op):
     return nbytes, nops
 
 
+def time_agg(torch, masked, ref, args, bw, flops, iters=100):
+    """The aggregation at ``args`` (x, mask, op, prev, p), device time per
+    call: the kernel, the plain version and the yardstick, one
+    ``torch.bmm`` over per-branch weights made outside (the port never
+    calls it), each as CUDA-graph replays (the plain version with CUDA
+    events around eager calls where ``x`` exceeds 256 MiB); the bound from
+    the bytes and flops these inputs need (``agg_work``)."""
+    x, mask, op, prev, p = args
+    kernel_ms = time_ms(lambda: masked.fused_masked_agg(*args), iters=iters)
+
+    def plain():
+        return ref.fused_masked_agg_ref(*args)
+
+    plain_ms = (time_ms_events(plain, iters=3)
+                if x.numel() * x.element_size() > 2 ** 28
+                else time_ms(plain, iters=iters))
+    m = x.shape[1]
+    mk = mask.float()
+    w = torch.where((op == 2)[:, None], mk / p.clamp_min(1e-3) / m,
+                    torch.where((op == 1)[:, None], mk / m, mk)).to(x.dtype)
+    library_ms = time_ms(lambda: torch.bmm(w[:, None, :], x), iters=iters)
+    nbytes, nops = agg_work(x, mask, op)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(nbytes / bw, nops / flops) * 1e3, bytes=nbytes)
+
+
 def phase1_kernel(torch, masked, ref):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -622,35 +771,24 @@ def phase1_kernel(torch, masked, ref):
     torch.cuda.synchronize()
 
     # timing at the main path's shape
-    x, mask, op, prev, p = main
-
-    def kernel():
-        return masked.fused_masked_agg(x, mask, op, prev, p)
-
-    kernel_ms = time_ms(kernel)
-    kernel_cold_ms = time_ms_cold(kernel)
-    kernel_host_ms = time_ms_host(kernel)
-    plain_ms = time_ms(lambda: ref.fused_masked_agg_ref(x, mask, op, prev, p))
-    # the yardstick: per-branch weights made outside, then one bmm
-    m = x.shape[1]
-    mk = mask.float()
-    w = torch.where((op == 2)[:, None], mk / p.clamp_min(1e-3) / m,
-                    torch.where((op == 1)[:, None], mk / m, mk))
-    library_ms = time_ms(lambda: torch.bmm(w[:, None, :], x))
     name = torch.cuda.get_device_name(0)
     bw, flops, _ = peak_rates(name)
-    nbytes, nops = agg_work(x, mask, op)
-    bound_ms = max(nbytes / bw, nops / flops) * 1e3
+    t = time_agg(torch, masked, ref, main, bw, flops)
+
+    def kernel():
+        return masked.fused_masked_agg(*main)
+
+    kernel_cold_ms = time_ms_cold(kernel)
+    kernel_host_ms = time_ms_host(kernel)
     print(f"phase1 timing [12,100,2762] fp32 (device time per call, CUDA "
-          f"graph replay): kernel {kernel_ms:.5f} ms (L2 cold "
+          f"graph replay): kernel {t['ms']:.5f} ms (L2 cold "
           f"{kernel_cold_ms:.5f} ms; eager from Python {kernel_host_ms:.5f} "
-          f"ms wall), plain {plain_ms:.5f} ms, "
-          f"torch.bmm {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
-          f"({nbytes} bytes at {bw / 1e12:g} TB/s)", flush=True)
+          f"ms wall), plain {t['plain_ms']:.5f} ms, "
+          f"torch.bmm {t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
+          f"({t['bytes']} bytes at {bw / 1e12:g} TB/s)", flush=True)
     lm = phase1_lm_shape(torch, masked, ref, inputs, compare, bw, flops)
-    return dict(max_abs_err=main_err, ms=kernel_ms, ms_l2_cold=kernel_cold_ms,
-                host_ms=kernel_host_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bytes=nbytes, lm=lm)
+    return dict(t, max_abs_err=main_err, ms_l2_cold=kernel_cold_ms,
+                host_ms=kernel_host_ms, lm=lm)
 
 
 def phase1_lm_shape(torch, masked, ref, inputs, compare, bw, flops):
@@ -768,68 +906,63 @@ def ptxas_table(log):
     return table
 
 
-def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
+def check_flash_shape(torch, fa, ref, gen, shape, tag):
+    """Forward and dq/dk/dv of the kernels against the plain version and
+    its autograd at ``shape`` (b, h, t, d, window, softcap, dtype, causal)
+    within ``FLASH_TOL``; fails on a mismatch, returns the max |err| of
+    each output."""
+    b, h, t, d, win, cap, dtype, causal = shape
+    dt = getattr(torch, dtype)
+    dev = gen.device
+    q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=dev)
+                  .to(dt) for _ in range(4))
+    ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*ts, causal=causal, window=win,
+                             logit_softcap=cap)
+    grads = torch.autograd.grad(out, ts, g)
+    rs = [x.float().requires_grad_(True) for x in (q, k, v)]
+    want = ref.flash_attention_ref(*rs, causal=causal, window=win,
+                                   logit_softcap=cap)
+    want_grads = torch.autograd.grad(want, rs, g.float())
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL[dtype]
+    e, need = {}, {}
+    for n, a, w in zip(("o", "dq", "dk", "dv"), (out,) + grads,
+                       (want,) + want_grads):
+        diff = (a.float() - w).abs()
+        e[n] = diff.max().item()
+        # the smallest atol that passes at this rtol, and |w|'s scale
+        need[n] = ((diff - rtol * w.abs()).max().item(),
+                   w.abs().max().item())
+    ok = all(torch.allclose(a.float(), w, rtol=rtol, atol=atol)
+             and torch.isfinite(a).all()
+             for a, w in zip((out,) + grads, (want,) + want_grads))
+    print(f"{tag} flash {list(shape)}: max_abs_err " + " ".join(
+        f"{n} {x:.3e}" for n, x in e.items())
+        + " | atol needed at rtol " + f"{rtol:g}: " + " ".join(
+            f"{n} {x[0]:.3e}" for n, x in need.items())
+        + " | max|ref| " + " ".join(
+            f"{n} {x[1]:.3e}" for n, x in need.items())
+        + f" | atol {atol:g} rtol {rtol:g} {'ok' if ok else 'MISMATCH'}"
+        + f" | forward: {FLASH_DESIGN[dtype]['fwd']}; backward: "
+        + FLASH_DESIGN[dtype]["bwd"], flush=True)
+    if not ok:
+        fail(f"flash attention disagrees with its plain version at {shape}")
+    return e
+
+
+def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag):
+    """The three kernels at ``[bh, t, d]`` causal (CUDA-graph replays),
+    the plain version and its autograd (CUDA events around eager calls)
+    and one ``scaled_dot_product_attention`` call forward and backward
+    (the yardstick; the port never calls it); each pass's bound from its
+    bytes at ``bw`` and its flops at ``peak`` (the dtype's rate)."""
     import torch.nn.functional as F
 
-    print_ptxas("phase4", build_log)
-    ptxas = ptxas_table(build_log)
-    for name in FLASH_TC.values():
-        got = {kk[1]: vv for kk, vv in ptxas.items() if kk[0] == name}
-        print(f"phase4 ptxas {name} by head dim: " + "; ".join(
-            f"D={dd}: {vv.get('registers')} registers, spill stores "
-            f"{vv.get('spill_stores')} B, loads {vv.get('spill_loads')} B"
-            for dd, vv in sorted(got.items())), flush=True)
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    errs = {}
-    for shape in FLASH_SHAPES + [FLASH_MAIN + (True,)]:
-        b, h, t, d, win, cap, dtype, causal = shape
-        dt = getattr(torch, dtype)
-        q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=dev)
-                      .to(dt) for _ in range(4))
-        ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        out = fa.flash_attention(*ts, causal=causal, window=win,
-                                 logit_softcap=cap)
-        grads = torch.autograd.grad(out, ts, g)
-        rs = [x.float().requires_grad_(True) for x in (q, k, v)]
-        want = ref.flash_attention_ref(*rs, causal=causal, window=win,
-                                       logit_softcap=cap)
-        want_grads = torch.autograd.grad(want, rs, g.float())
-        torch.cuda.synchronize()
-        atol, rtol = FLASH_TOL[dtype]
-        e, need = {}, {}
-        for n, a, w in zip(("o", "dq", "dk", "dv"), (out,) + grads,
-                           (want,) + want_grads):
-            diff = (a.float() - w).abs()
-            e[n] = diff.max().item()
-            # the smallest atol that passes at this rtol, and |w|'s scale
-            need[n] = ((diff - rtol * w.abs()).max().item(),
-                       w.abs().max().item())
-        ok = all(torch.allclose(a.float(), w, rtol=rtol, atol=atol)
-                 and torch.isfinite(a).all()
-                 for a, w in zip((out,) + grads, (want,) + want_grads))
-        print(f"phase4 flash {list(shape)}: max_abs_err " + " ".join(
-            f"{n} {x:.3e}" for n, x in e.items())
-            + " | atol needed at rtol " + f"{rtol:g}: " + " ".join(
-                f"{n} {x[0]:.3e}" for n, x in need.items())
-            + " | max|ref| " + " ".join(
-                f"{n} {x[1]:.3e}" for n, x in need.items())
-            + f" | atol {atol:g} rtol {rtol:g} {'ok' if ok else 'MISMATCH'}"
-            + f" | forward: {FLASH_DESIGN[dtype]['fwd']}; backward: "
-            + FLASH_DESIGN[dtype]["bwd"], flush=True)
-        if not ok:
-            fail(f"flash attention disagrees with its plain version at "
-                 f"{shape}")
-        errs = e
-        del q, k, v, g, ts, out, grads, rs, want, want_grads
-    torch.cuda.empty_cache()
-
-    # timing at the LM path's shape, [B*m*b*H, T, D] bf16 causal
-    b, h, t, d, win, cap, dtype = FLASH_MAIN
-    bh = b * h
-    q, k, v, do = (torch.randn(bh, t, d, generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(4))
+    dev = gen.device
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(bh, t, d, generator=gen, device=dev).to(dt)
+                   for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v)
     dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
     ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=20),
@@ -865,46 +998,73 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
         sdpa(), [q4, k4, v4], do.view(1, bh, t, d)), iters=10) \
         - time_ms_events(sdpa, iters=10)
     library = {"fwd": lib_f, "dq": lib_b, "dkdv": lib_b}
-    pairs = bh * _attention_pairs(t, win)
+    pairs = bh * _attention_pairs(t, 0)
     flops = {"fwd": 4 * pairs * d, "dq": 6 * pairs * d,
              "dkdv": 8 * pairs * d}
-    row, mat = bh * t * 4, bh * t * d * 2
+    row, mat = bh * t * 4, bh * t * d * q.element_size()
     nbytes = {"fwd": 3 * mat + mat + row,                # q,k,v -> o, lse
               "dq": 5 * mat + row + mat + row,           # +o,do,lse -> dq,delta
               "dkdv": 4 * mat + 2 * row + 2 * mat}       # -> dk, dv
-    bound = {kk: max(nbytes[kk] / bw, flops[kk] / bf16_peak) * 1e3
-             for kk in ms}
-    by = {kk: "operations" if flops[kk] / bf16_peak > nbytes[kk] / bw
+    bound = {kk: max(nbytes[kk] / bw, flops[kk] / peak) * 1e3 for kk in ms}
+    by = {kk: "operations" if flops[kk] / peak > nbytes[kk] / bw
           else "bytes" for kk in ms}
+    short = "bf16" if dtype == "bfloat16" else "fp32"
     for kk in ms:
-        print(f"phase4 timing flash_attention_{'fwd' if kk == 'fwd' else 'bwd_' + kk} "
-              f"[{bh},{t},{d}] bf16 causal: kernel {ms[kk]:.5f} ms, plain "
+        print(f"{tag} timing flash_attention_"
+              f"{'fwd' if kk == 'fwd' else 'bwd_' + kk} "
+              f"[{bh},{t},{d}] {short} causal: kernel {ms[kk]:.5f} ms, plain "
               f"{plain[kk]:.5f} ms, scaled_dot_product_attention "
               f"{'fwd' if kk == 'fwd' else 'bwd (dq+dk+dv)'} "
               f"{library[kk]:.5f} ms, bound {bound[kk]:.5f} ms "
-              f"({flops[kk]:.4e} flop at {bf16_peak / 1e12:g} TFLOP/s bf16; "
+              f"({flops[kk]:.4e} flop at {peak / 1e12:g} TFLOP/s {short}; "
               f"{nbytes[kk]} bytes), {flops[kk] / ms[kk] / 1e9:.2f} "
               f"TFLOP/s achieved", flush=True)
     bwd = ms["dq"] + ms["dkdv"]
-    print(f"phase4 backward total (dq + dkdv) vs SDPA backward, [{bh},{t},"
-          f"{d}] bf16 causal: {ms['dq']:.5f} + {ms['dkdv']:.5f} = "
+    print(f"{tag} backward total (dq + dkdv) vs SDPA backward, [{bh},{t},"
+          f"{d}] {short} causal: {ms['dq']:.5f} + {ms['dkdv']:.5f} = "
           f"{bwd:.5f} ms vs {lib_b:.5f} ms, {bwd / lib_b:.2f}x; "
           f"{(flops['dq'] + flops['dkdv']) / bwd / 1e9:.2f} TFLOP/s vs "
           f"{(flops['dq'] + flops['dkdv']) / lib_b / 1e9:.2f}", flush=True)
-    print(f"phase4 scaled_dot_product_attention vs kernel forward: max "
+    print(f"{tag} scaled_dot_product_attention vs kernel forward: max "
           f"|diff| {sdpa_err.item():.3e}", flush=True)
     del q, k, v, do, o, lse, dq, delta, qr, kr, vr, q4, k4, v4
     torch.cuda.empty_cache()
-    # registers and spills of the tensor-core kernels, by head dim
-    tc = {kk: {f"D={key[1]}": vv for key, vv in sorted(ptxas.items())
-               if key[0] == FLASH_TC[kk]} for kk in ms}
     return {kk: dict(ms=ms[kk], plain_ms=plain[kk], library_ms=library[kk],
                      bound_ms=bound[kk], bound_by=by[kk], flops=flops[kk],
-                     bytes=nbytes[kk], ptxas=tc[kk],
-                     max_abs_err=(errs["o"] if kk == "fwd" else errs["dq"]
-                                  if kk == "dq" else max(errs["dk"],
-                                                         errs["dv"])))
+                     bytes=nbytes[kk], shape=[bh, t, d], dtype=dtype)
             for kk in ms}
+
+
+def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
+    print_ptxas("phase4", build_log)
+    ptxas = ptxas_table(build_log)
+    for name in FLASH_TC.values():
+        got = {kk[1]: vv for kk, vv in ptxas.items() if kk[0] == name}
+        print(f"phase4 ptxas {name} by head dim: " + "; ".join(
+            f"D={dd}: {vv.get('registers')} registers, spill stores "
+            f"{vv.get('spill_stores')} B, loads {vv.get('spill_loads')} B"
+            for dd, vv in sorted(got.items())), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    errs = {}
+    for shape in FLASH_SHAPES + [FLASH_MAIN + (True,)]:
+        errs = check_flash_shape(torch, fa, ref, gen, shape, "phase4")
+    torch.cuda.empty_cache()
+
+    # timing at the LM path's shape, [B*m*b*H, T, D] bf16 causal
+    b, h, t, d, win, cap, dtype = FLASH_MAIN
+    timed = flash_timing(torch, fa, ref, gen, b * h, t, d, dtype, bw,
+                         bf16_peak, "phase4")
+    # registers and spills of the tensor-core kernels, by head dim
+    tc = {kk: {f"D={key[1]}": vv for key, vv in sorted(ptxas.items())
+               if key[0] == FLASH_TC[kk]} for kk in timed}
+    for kk, r in timed.items():
+        del r["shape"], r["dtype"]
+        r.update(ptxas=tc[kk], max_abs_err=(
+            errs["o"] if kk == "fwd" else errs["dq"] if kk == "dq"
+            else max(errs["dk"], errs["dv"])))
+    return timed
 
 
 def _lm_args(batch):
@@ -1190,6 +1350,8 @@ def _family(name):
     n = name.lower()
     if "fused_agg" in n:
         return "fused_masked_agg (Triton)"
+    if "flash_" in n:
+        return "flash attention (CUDA)"
     if "wkv6_state" in n or "wkv6_output" in n:
         return "wkv6 chunked route (CUDA)"
     if "wkv6_step" in n:
@@ -2392,6 +2554,372 @@ def phase11_search(torch, masked, ref, grid):
     return res
 
 
+def _counted(torch, counters, fn):
+    """``fn()`` with the counts set to 0 just before it and read just
+    after: ``(result, wall seconds, launches, peak device bytes)``."""
+    for c in counters:
+        c.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, [c.launches for c in counters],
+            torch.cuda.max_memory_allocated())
+
+
+def _lm_cell(torch, grid, spec, counters, label, task=None):
+    """One LM-sweep family batch through ``make_runner``: a cold run, then
+    a warm one counted and timed (the runner alone, as
+    ``benchmarks/lm_sweep.py`` times it). Fails on a non-finite loss or
+    parameter; returns ``(states, out, row)``."""
+    fed = spec.cell_config(spec.algorithms[0], spec.schemes[0])
+    task = task or grid.get_traced_task(spec)
+    batch = grid.make_cell_batch(spec, fed, task, algos=spec.algorithms)
+    runner = grid.make_runner(spec, fed, task)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner(batch)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    (st, out), sec, launches, peak = _counted(torch, counters,
+                                              lambda: runner(batch))
+    B = batch.batch_size
+    m = spec.cohort_size or spec.num_clients
+    tokens = B * m * spec.local_steps * spec.batch_size * spec.lm_seq
+    loss = out["metrics"]["loss"]
+    row = dict(B=B, n_params=task.layout.size, cold_s=cold, warm_s=sec,
+               trajectory_rounds_per_s=B * spec.rounds / sec,
+               batch_rounds_per_s=spec.rounds / sec,
+               tokens_per_round=tokens,
+               tokens_per_s=tokens * spec.rounds / sec,
+               peak_gib=peak / 2 ** 30, launches=launches,
+               final_loss=loss[:, -1].tolist())
+    print(f"{label}: B={B}, n={task.layout.size}, {spec.rounds} rounds: "
+          f"cold {cold:.3f} s, warm {sec:.3f} s = "
+          f"{row['trajectory_rounds_per_s']:.2f} trajectory rounds/s "
+          f"({row['batch_rounds_per_s']:.2f} batch rounds/s), "
+          f"{row['tokens_per_s']:.1f} training tokens/s ({tokens} a round); "
+          f"peak {row['peak_gib']:.3f} GiB; launches flash fwd "
+          f"{launches[0]}, bwd_dq {launches[1]}, bwd_dkdv {launches[2]}, "
+          f"fused_masked_agg {launches[3]}", flush=True)
+    if not (torch.isfinite(loss).all() and torch.isfinite(st.server).all()):
+        fail(f"{label}: a non-finite loss or parameter")
+    return st, out, row
+
+
+def _want_launches(spec, evals):
+    """(flash fwd, dq, dkdv, aggregation) launches of one LM-sweep batch
+    run: a forward per layer per local step and per eval forward, dq and
+    dkdv per layer per local step, the aggregation once a round (none in
+    cohort mode: the scale round aggregates by the buffer fold)."""
+    L, steps = spec.lm_layers, spec.local_steps * spec.rounds
+    return [L * (steps + evals), L * steps, L * steps,
+            0 if spec.cohort_size else spec.rounds]
+
+
+def phase12_lm_sweep(torch, fa, masked, ref, grid, bw, fp32_peak):
+    """The LM sweep task on the card: the kernels at its shapes against
+    their plain versions, then the lm-family, lm-cohort and lm-wide
+    cells."""
+    from unittest import mock
+
+    from repro_torch.experiments import sweep, tasks
+    from repro_torch.kernels.dispatch import FUSED_OPS
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    family = grid.SweepSpec(**LM_SWEEP)
+    wide = dataclasses.replace(family, **LM_WIDE)
+    cohort = dataclasses.replace(family, **LM_COHORT)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv, masked.fused_masked_agg)
+    res = {"kernels": {}}
+
+    # (a) the kernels at the sweep's shapes
+    n_family = grid.get_traced_task(family).layout.size
+    n_wide = grid.get_traced_task(wide).layout.size
+    agg_cases = []
+    for spec, n in ((family, n_family), (wide, n_wide)):
+        ops = [FUSED_OPS[a] for a in spec.algorithms for _ in spec.lrs]
+        agg_cases.append(((len(ops), spec.num_clients, n), ops))
+    res["kernels"]["fused_masked_agg_max_abs_err"] = check_agg_shapes(
+        torch, masked, ref, gen, agg_cases, "phase12a", "the LM sweep's")
+    res["kernels"]["fused_masked_agg"] = {}
+    for (B, m, n), ops in agg_cases:
+        args = (torch.randn(B, m, n, generator=gen, device=dev),
+                torch.rand(B, m, generator=gen, device=dev) < 0.5,
+                torch.as_tensor(ops, dtype=torch.int32, device=dev),
+                torch.randn(B, n, generator=gen, device=dev),
+                torch.rand(B, m, generator=gen, device=dev))
+        t = time_agg(torch, masked, ref, args, bw, fp32_peak, iters=20)
+        print(f"phase12a timing fused_masked_agg [{B},{m},{n}] fp32 ops "
+              f"{ops}: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} "
+              f"ms, torch.bmm {t['library_ms']:.5f} ms, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bytes']} bytes at "
+              f"{bw / 1e12:g} TB/s)", flush=True)
+        res["kernels"]["fused_masked_agg"][f"[{B},{m},{n}]"] = t
+        del args
+    torch.cuda.empty_cache()
+    res["kernels"]["flash"] = {}
+    for spec in (family, wide):
+        # the LM's [G * b * H, T, D]: G = B * m models, b sequences, 4 heads
+        d = spec.lm_d_model // 4
+        G = len(spec.algorithms) * len(spec.lrs) * spec.num_clients
+        bh = G * spec.batch_size * 4
+        errs = check_flash_shape(
+            torch, fa, ref, gen,
+            (G * spec.batch_size, 4, spec.lm_seq, d, 0, 0.0, "float32",
+             True), "phase12a")
+        timed = flash_timing(torch, fa, ref, gen, bh, spec.lm_seq, d,
+                             "float32", bw, fp32_peak, "phase12a")
+        for kk, r in timed.items():
+            r["max_abs_err"] = (errs["o"] if kk == "fwd" else errs["dq"]
+                                if kk == "dq" else max(errs["dk"],
+                                                       errs["dv"]))
+        res["kernels"]["flash"][f"D={d}"] = timed
+    print(f"phase12a kernel checks done at "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # (b) lm-family: the timed cell (seed 0), then the kernel path against
+    # the plain one, then seeds 0-2 against the reference's bars
+    E = len(sweep.eval_rounds(family.rounds, family.eval_every))
+    st_k, out_k, row = _lm_cell(torch, grid, family, counters,
+                                "phase12b lm-family (kernels)")
+    if row["launches"] != _want_launches(family, E):
+        fail(f"lm-family launches {row['launches']}, expected "
+             f"{_want_launches(family, E)}")
+    plain_spec = dataclasses.replace(family, use_kernel=False)
+    meta = grid.get_traced_task(family).meta
+    plain_task = tasks.make_traced_lm_task(
+        data_seed=family.data_seed, num_clients=family.num_clients,
+        arch=family.lm_arch, d_model=family.lm_d_model,
+        layers=family.lm_layers, seq_len=family.lm_seq,
+        classes=family.classes, n_seqs=family.lm_n_seqs,
+        n_test=family.lm_n_test, per_client=family.per_client,
+        local_steps=family.local_steps, batch_size=family.batch_size,
+        device=dev, backend="torch")
+    assert plain_task.meta == meta
+    st_p, out_p, row_p = _lm_cell(torch, grid, plain_spec, counters,
+                                  "phase12b lm-family (plain path)",
+                                  task=plain_task)
+    rows = (st_k.server - st_p.server).abs().amax(-1)
+    loss_d = (out_k["metrics"]["loss"] - out_p["metrics"]["loss"]).abs()
+    print(f"phase12b kernel vs plain path, 10 rounds: largest |server diff| "
+          f"of a trajectory {rows.max().item():.3e} (by row "
+          f"{[float(f'{x:.3e}') for x in rows.tolist()]}), loss "
+          f"{loss_d.max().item():.3e}; tol {LM_PATHS_TOL:g}; plain path "
+          f"launches {row_p['launches']}", flush=True)
+    if row_p["launches"] != [0, 0, 0, 0] or not rows.max() <= LM_PATHS_TOL:
+        fail("the LM sweep's kernel and plain paths diverge, or the plain "
+             "path launched a kernel")
+    res["family"] = dict(row, plain=row_p,
+                         paths_max_row_diff=rows.max().item(),
+                         paths_loss_diff=loss_d.max().item())
+    cells = grid.run_sweep(dataclasses.replace(family, seeds=(0, 1, 2)))
+    by = {}
+    for cell in cells:
+        if not (np.isfinite(cell.loss).all() and np.isfinite(cell.server).all()
+                and np.isfinite(cell.test_acc).all()):
+            fail(f"lm-family seeds 0-2 {cell.algo}: non-finite results")
+        by.setdefault(cell.algo, {})[cell.hparams["lr"]] = cell
+    res["family"]["bars"] = {}
+    for algo, lrs in by.items():
+        acc = np.mean([c.final_test() for c in lrs.values()],
+                      axis=0).astype(np.float64)
+        ref_acc = np.mean([LM_SWEEP_REFERENCE[algo][lr][0]
+                           for lr in lrs], axis=0)
+        tol = FIG3_TOL_STDS * np.sqrt(np.var(ref_acc, ddof=1) / 3
+                                      + np.var(acc, ddof=1) / 3)
+        diff = abs(acc.mean() - ref_acc.mean())
+        losses = {lr: c.loss[:, -1].astype(np.float64).round(4).tolist()
+                  for lr, c in lrs.items()}
+        ref_losses = {lr: LM_SWEEP_REFERENCE[algo][lr][1] for lr in lrs}
+        ok = diff <= tol
+        print(f"phase12b lm-family {algo}: final test acc (mean over lrs "
+              f"{sorted(lrs)}) {acc.mean():.6f} (per seed "
+              f"{acc.round(6).tolist()}), reference {ref_acc.mean():.6f}, "
+              f"|diff| {diff:.6f} tol {tol:.6f} {'ok' if ok else 'OUTSIDE'};"
+              f" last-round loss by lr {losses}, reference {ref_losses}",
+              flush=True)
+        res["family"]["bars"][algo] = dict(
+            per_seed=acc.tolist(), mean=acc.mean(),
+            reference=ref_acc.mean(), tol=tol, losses=losses)
+        if not ok:
+            fail(f"lm-family {algo}: accuracy outside the reference's bar")
+    del cells, by, st_k, st_p, out_k, out_p, plain_task
+
+    # (c) lm-cohort
+    E = len(sweep.eval_rounds(cohort.rounds, cohort.eval_every))
+    st, _, row = _lm_cell(torch, grid, cohort, counters,
+                          "phase12c lm-cohort (m=10,000, C=256)")
+    if row["launches"] != _want_launches(cohort, E):
+        fail(f"lm-cohort launches {row['launches']}, expected "
+             f"{_want_launches(cohort, E)}")
+    res["cohort"] = row
+    del st
+
+    # (d) lm-wide, and one of its rounds under the profiler
+    E = len(sweep.eval_rounds(wide.rounds, wide.eval_every))
+    captured = {}
+    real_loop = sweep.run_rounds_loop
+
+    def capture(st, ds, draws, num_rounds, **kw):
+        out = real_loop(st, ds, draws, num_rounds, **kw)
+        captured.update(st=out[0], ds=out[1], draws=draws, step=kw["step"])
+        return out
+
+    with mock.patch.object(sweep, "run_rounds_loop", capture):
+        _, _, row = _lm_cell(torch, grid, wide, counters,
+                             "phase12d lm-wide (d_model 512, 4 layers, "
+                             "T=256, m=8)")
+    if row["launches"] != _want_launches(wide, E):
+        fail(f"lm-wide launches {row['launches']}, expected "
+             f"{_want_launches(wide, E)}")
+    st, ds, draws, step = (captured[k] for k in ("st", "ds", "draws",
+                                                  "step"))
+
+    def one_round():
+        with torch.no_grad():
+            step(st, ds, draws(st.round))
+
+    row["profile"] = profile_window(
+        torch, f"phase12d one lm-wide round (B={row['B']})", one_round, 1,
+        "round")
+    res["wide"] = row
+    del captured, st, ds, draws, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase12 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE12_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE12_LIMIT_S:
+        fail(f"phase 12 took {res['seconds']:.1f} s, over its "
+             f"{PHASE12_LIMIT_S:g} s")
+    return res
+
+
+def phase13_dense_serving(torch, fa, ref, card):
+    """SmolLM-135M at full width through the serve launcher, and teacher
+    forcing: forward through the flash kernel and the plain attention
+    against TF_T decode_step calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv)
+    cfg = get_config("smollm-135m")
+    a = cfg.attention
+    res = {}
+    # the forward's flash kernel at the teacher-forcing shape [9, 256, 64]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    res["flash_tc_max_abs_err"] = check_flash_shape(
+        torch, fa, ref, gen, (1, a.num_heads, TF_T, cfg.head_dim, 0, 0.0,
+                              "bfloat16", True), "phase13")
+    args = ["--arch", "smollm-135m", "--full", "--batch", str(SERVE_B)]
+    params = model.init_leaves(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    res["profile"] = profile_window(
+        torch, f"phase13a serve smollm-135m (batch {SERVE_B}, prompt "
+        f"{SERVE_PROFILE_P}, gen {SERVE_PROFILE_G})", lambda: serve.main(
+            args + ["--prompt-len", str(SERVE_PROFILE_P), "--gen",
+                    str(SERVE_PROFILE_G)], params=params),
+        SERVE_PROFILE_P + SERVE_PROFILE_G, "step")
+    del params
+    print(f"phase13a profiled run done at {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+    out, _, launches, peak = _counted(torch, counters, lambda: serve.main(
+        args + ["--prompt-len", str(SERVE_P), "--gen", str(SERVE_G)]))
+    decode_s = out["seconds"] - out["prefill_seconds"]
+    steps = SERVE_P + SERVE_G
+    print(f"phase13a serve smollm-135m --full batch {SERVE_B} prompt "
+          f"{SERVE_P} gen {SERVE_G} on {card}: {out['seconds']:.4f} s = "
+          f"{out['tokens_per_s']:.1f} tokens/s incl. prefill (prefill "
+          f"{out['prefill_seconds']:.4f} s, decode "
+          f"{SERVE_B * SERVE_G / decode_s:.1f} tokens/s, "
+          f"{1e3 * out['seconds'] / steps:.3f} ms per step); first ids "
+          f"{out['ids'][0][:12].tolist()}; flash launches {launches} (want "
+          f"0: decode_step calls no kernel); peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; done at "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if tuple(out["ids"].shape) != (SERVE_B, SERVE_G) or not (
+            (out["ids"] >= 0) & (out["ids"] < cfg.vocab_size)).all():
+        fail("the served ids are misshapen or out of the vocabulary")
+    if launches != [0, 0, 0]:
+        fail(f"decode_step launched flash kernels {launches}")
+    res.update(serve_s=out["seconds"], tokens_per_s=out["tokens_per_s"],
+               prefill_s=out["prefill_seconds"],
+               decode_tokens_per_s=SERVE_B * SERVE_G / decode_s,
+               ms_per_step=1e3 * out["seconds"] / steps,
+               peak_gib=peak / 2 ** 30, serve_flash_launches=launches,
+               first_ids=out["ids"][0][:12].tolist())
+    del out
+    toks = torch.randint(0, cfg.vocab_size, (1, TF_T),
+                         generator=torch.Generator().manual_seed(3)).to(dev)
+    res["teacher_forcing"] = {}
+    for dtype, layers, tol in TF_CASES:
+        c = dataclasses.replace(cfg, dtype=dtype, num_layers=layers)
+        params = model.init_leaves(
+            torch.Generator(device=dev).manual_seed(0), c)
+        with torch.no_grad():
+            fwd = {}
+            for path, backend in (("kernel", None), ("plain", "torch")):
+                fa.flash_attention_fwd.launches = 0
+                fwd[path], _ = model.forward(params, c, toks,
+                                             backend=backend)
+                want = layers if path == "kernel" else 0
+                if fa.flash_attention_fwd.launches != want:
+                    fail(f"the {path} forward launched the flash kernel "
+                         f"{fa.flash_attention_fwd.launches} times, "
+                         f"expected {want}")
+            cache = model.make_cache(c, 1, TF_T, device=dev)
+            outs = []
+            fa.flash_attention_fwd.launches = 0
+            for t in range(TF_T):
+                lg, cache = model.decode_step(params, c, toks[:, t:t + 1],
+                                              cache, t)
+                outs.append(lg[:, 0])
+            dec = torch.stack(outs, 1)
+        if fa.flash_attention_fwd.launches != 0:
+            fail("decode_step launched the flash kernel")
+        rel = {}
+        for path, f in fwd.items():
+            rel[path] = ((dec - f).abs().max() / f.abs().max()).item()
+        rel["kernel_vs_plain"] = ((fwd["kernel"] - fwd["plain"]).abs().max()
+                                  / fwd["plain"].abs().max()).item()
+        ok = torch.isfinite(dec).all().item() and (
+            tol is None or (rel["kernel"] <= tol and rel["plain"] <= tol))
+        print(f"phase13b teacher forcing {dtype}, {layers} layers, [1, "
+              f"{TF_T}]: max |decode - forward| / max |forward|: through "
+              f"the flash kernel {rel['kernel']:.3e}, plain attention "
+              f"{rel['plain']:.3e} (limit "
+              f"{'none, measured' if tol is None else f'{tol:g}'}); kernel "
+              f"vs plain forward {rel['kernel_vs_plain']:.3e} "
+              f"{'ok' if ok else 'OUTSIDE'}; done at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        res["teacher_forcing"][f"{dtype}_{layers}_layers"] = dict(
+            rel, limit=tol, done_at_s=time.perf_counter() - t_phase)
+        if not ok:
+            fail(f"teacher forcing ({dtype}): decode and forward disagree")
+        del params, fwd, cache, outs, dec
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase13 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE13_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE13_LIMIT_S:
+        fail(f"phase 13 took {res['seconds']:.1f} s, over its "
+             f"{PHASE13_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2445,6 +2973,12 @@ def main():
     paper = phase9_paper(torch, masked, ref, grid)
     scale = phase10_scale(torch, masked, grid)
     found = phase11_search(torch, masked, ref, grid)
+    lm_sweep = phase12_lm_sweep(torch, fa, masked, ref, grid, bw, fp32_peak)
+    dense = phase13_dense_serving(torch, fa, ref, card)
+    # each flash kernel's launches by LM-sweep cell, counted on that cell's
+    # timed run (index 0-2: fwd, dq, dkdv; 3: the aggregation)
+    cell_launches = {c: lm_sweep[c]["launches"]
+                     for c in ("family", "cohort", "wide")}
     kernel = {"name": "fused_masked_agg", "route": "triton",
               "source": "src/repro_torch/kernels/masked_agg.py",
               "replaces": "src/repro/kernels/masked_agg.py:180 "
@@ -2466,7 +3000,10 @@ def main():
                   "asha_seeds_0_9": found["asha"]["spread"]["launches"],
                   "refill": found["refill"]["launches"]},
               "lm_shape": k["lm"],
-              "fig3_shape": paper["kernel"]["fig3_timing"]}
+              "fig3_shape": paper["kernel"]["fig3_timing"],
+              "lm_sweep_launches": {c: v[3] for c, v in
+                                    cell_launches.items()},
+              "lm_sweep_shapes": lm_sweep["kernels"]["fused_masked_agg"]}
     kernels = [kernel]
     source = "src/repro_torch/kernels/csrc/flash_attention.cu"
     replaces = "src/repro/kernels/flash_attention.py:76 (flash_attention -> _kernel"
@@ -2488,7 +3025,11 @@ def main():
         # the design and registers and spills, at the LM's head dim first
         kernels[-1].update(
             design=FLASH_DESIGN["bfloat16"]["fwd" if key == "fwd" else "bwd"],
-            **r["ptxas"].get("D=64", {}), ptxas_by_head_dim=r["ptxas"])
+            **r["ptxas"].get("D=64", {}), ptxas_by_head_dim=r["ptxas"],
+            lm_sweep_launches={c: v[i] for c, v in cell_launches.items()},
+            lm_sweep_shapes={dd: v[key] for dd, v in
+                             lm_sweep["kernels"]["flash"].items()},
+            serve_launches=dense["serve_flash_launches"][i])
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err
@@ -2517,6 +3058,9 @@ def main():
     print(json.dumps({"paper": paper}), flush=True)
     print(json.dumps({"scale": scale}), flush=True)
     print(json.dumps({"search": found}), flush=True)
+    print(json.dumps({"lm_sweep": {k2: v for k2, v in lm_sweep.items()
+                                   if k2 != "kernels"}}), flush=True)
+    print(json.dumps({"serve": dense}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

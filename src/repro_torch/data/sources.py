@@ -111,6 +111,37 @@ def traced_classification_source(shared, *, local_steps: int, batch_size: int,
                       sample_cohort=sample_cohort)
 
 
+def traced_lm_source(shared, *, local_steps: int, batch_size: int,
+                     per_client: int) -> DataSource:
+    """Next-token counterpart of ``traced_classification_source``: the
+    corpus is ``shared`` (``{"toks": [n, T + 1]}`` int sequences, each one
+    token longer than the context so tokens and labels come from one
+    slice), the partition ``ds_state`` (``{"idx": [B, m, per_client]}``
+    sequence indices). A round's ``pick [B, m, s, b]`` chooses sequences
+    with replacement from every client's shard, the classification
+    sources' protocol; the batches are ``tokens = seqs[..., :-1]`` and
+    ``labels = seqs[..., 1:]``.
+    """
+
+    def init(data):
+        return data
+
+    def _slice(seqs):
+        return {"tokens": seqs[..., :-1], "labels": seqs[..., 1:]}
+
+    def sample(ds_state, t, pick):
+        return _slice(shared["toks"][_gather(ds_state["idx"], pick)]), \
+            ds_state
+
+    def sample_cohort(ds_state, t, cohort, pick):
+        sel = _gather(_cohort_rows(ds_state["idx"], cohort), pick)
+        return _slice(shared["toks"][sel]), ds_state
+
+    return DataSource(init, sample, "lm_traced",
+                      (local_steps, batch_size, per_client),
+                      sample_cohort=sample_cohort)
+
+
 def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
               vocab: int, client_shift: bool = True,
               memory_shape: Optional[Tuple[int, ...]] = None) -> DataSource:
@@ -123,8 +154,8 @@ def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
     ``pick [B, m, s, b, T]`` in ``[0, vocab // 2)`` and returns ``tokens =
     lo + pick`` with ``labels = roll(tokens, -1)`` along the sequence.
     ``num_clients`` is the reference's signature; the shapes come with the
-    draws. Its ``sample_cohort`` comes with the LM sweep (ROADMAP Queue 1
-    item 5).
+    draws. ``sample_cohort(ds_state, t, cohort, pick)`` takes the cohort
+    ``[B, C]`` and its clients' token draw ``[B, C, s, b, T]``.
     """
     if memory_shape is not None:
         raise NotImplementedError(
@@ -140,8 +171,15 @@ def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
         toks = pick if lo is None else lo[:, :, None, None, None] + pick
         return {"tokens": toks, "labels": toks.roll(-1, -1)}, ds_state
 
+    def sample_cohort(ds_state, t, cohort, pick):
+        lo = ds_state["lo"]
+        toks = pick if lo is None else \
+            lo.gather(1, cohort)[:, :, None, None, None] + pick
+        return {"tokens": toks, "labels": toks.roll(-1, -1)}, ds_state
+
     return DataSource(init, sample, "lm", (local_steps, batch, seq, half),
-                      half if client_shift else None)
+                      half if client_shift else None,
+                      sample_cohort=sample_cohort)
 
 
 def fixed_source(batches: Batches) -> DataSource:

@@ -8,7 +8,8 @@
 - ``plots``   — figure-style curve CSV exports straight from a store.
 - ``search``  — adaptive hyperparameter search (successive halving on
   resumable rung segments, elastic re-packing) and its CLI.
-- ``tasks``   — the shared synthetic task and the flat-buffer MLP.
+- ``tasks``   — the shared synthetic task and the flat-buffer MLP; the
+  LM task (a reduced transformer over a styled corpus).
 """
 from repro_torch.experiments.grid import (
     ALGOS,
@@ -38,6 +39,9 @@ from repro_torch.experiments.tasks import (
     TracedClassificationTask,
     make_classification_task,
     make_traced_classification_task,
+    mlp_accuracy,
+    mlp_init,
+    mlp_loss,
 )
 
 __all__ = [
@@ -64,4 +68,7 @@ __all__ = [
     "TracedClassificationTask",
     "make_classification_task",
     "make_traced_classification_task",
+    "mlp_accuracy",
+    "mlp_init",
+    "mlp_loss",
 ]

@@ -45,8 +45,11 @@ from repro_torch.experiments.sweep import (
     seed_generators,
 )
 from repro_torch.experiments.tasks import (
+    ClassificationTask,
     TracedClassificationTask,
+    make_classification_task,
     make_traced_classification_task,
+    make_traced_lm_task,
 )
 from repro_torch.kernels.dispatch import FUSED_OPS, resolve_use_kernel
 from repro_torch.optim import paper_decay, sgd
@@ -85,8 +88,7 @@ class SweepSpec:
     Validated at construction: empty or duplicated ``algorithms``/
     ``schemes``/``seeds``/``strategies``, unknown names, malformed strategy
     knobs and a ``cohort_size`` outside ``[1, num_clients]`` raise
-    ``ValueError`` naming the field. ``task="lm"`` raises
-    ``NotImplementedError`` naming its ROADMAP item.
+    ``ValueError`` naming the field.
     """
 
     algorithms: Tuple[str, ...] = ("fedpbc", "fedavg")
@@ -128,24 +130,25 @@ class SweepSpec:
     cohort_size: Optional[int] = None
     # extra FederationConfig field overrides, applied last
     fed_overrides: Tuple[Tuple[str, Any], ...] = ()
-    # workload; "lm" is ROADMAP Queue 1 item 5
+    # workload: "classification" (the Gaussian task with the MLP) or "lm"
+    # (a reduced transformer over the styled corpus, tasks.
+    # make_traced_lm_task). For "lm" the lm_* knobs shape the model and the
+    # corpus, classes is the number of corpus styles, per_client /
+    # local_steps / batch_size keep their meaning, and dim / hidden /
+    # n_per_class / n_train are ignored
     task: str = "classification"
     lm_arch: str = "smollm-135m"
     lm_d_model: int = 64
     lm_layers: int = 2
-    lm_seq: int = 32
-    lm_n_seqs: int = 256
-    lm_n_test: int = 64
+    lm_seq: int = 32                # training context length
+    lm_n_seqs: int = 256            # corpus size (train sequences)
+    lm_n_test: int = 64             # held-out eval sequences
 
     def __post_init__(self):
         if self.task not in ("classification", "lm"):
             raise ValueError(
                 f"SweepSpec.task={self.task!r}; expected 'classification' "
                 f"or 'lm'")
-        if self.task == "lm":
-            raise NotImplementedError(
-                "SweepSpec.task='lm' is not ported yet (ROADMAP Queue 1 "
-                "item 5: LM slice)")
         for axis in ("algorithms", "schemes", "seeds"):
             vals = getattr(self, axis)
             if not vals:
@@ -292,7 +295,8 @@ class CellResult:
 # Executor
 # --------------------------------------------------------------------------
 
-_TASK_CACHE: Dict[tuple, TracedClassificationTask] = {}
+_TASK_CACHE: Dict[tuple, ClassificationTask] = {}
+_TRACED_TASK_CACHE: Dict[tuple, TracedClassificationTask] = {}
 _PARTITION_CACHE: Dict[tuple, np.ndarray] = {}
 
 
@@ -300,20 +304,52 @@ def _task_key(spec: SweepSpec) -> tuple:
     """Dataset/model identity — alpha-free (the partition is per point)."""
     return (spec.data_seed, spec.num_clients, spec.dim, spec.classes,
             spec.hidden, spec.n_per_class, spec.n_train,
-            spec.per_client, spec.local_steps, spec.batch_size)
+            spec.per_client, spec.local_steps, spec.batch_size,
+            spec.task, spec.lm_arch, spec.lm_d_model, spec.lm_layers,
+            spec.lm_seq, spec.lm_n_seqs, spec.lm_n_test)
+
+
+def get_task(spec: SweepSpec, device=None) -> ClassificationTask:
+    """The constant classification task at the spec's scalar alpha (the
+    sequential baselines' task; the executor runs ``get_traced_task``)."""
+    if spec.task != "classification":
+        raise ValueError(
+            f"get_task covers the constant classification baseline only; "
+            f"the {spec.task!r} workload is traced-only (get_traced_task)")
+    dev = resolve_device(device)
+    key = _task_key(spec) + (spec.alpha, str(dev))
+    if key not in _TASK_CACHE:
+        _TASK_CACHE[key] = make_classification_task(
+            data_seed=spec.data_seed, num_clients=spec.num_clients,
+            dim=spec.dim, classes=spec.classes, hidden=spec.hidden,
+            n_per_class=spec.n_per_class, n_train=spec.n_train,
+            alpha=spec.alpha, per_client=spec.per_client,
+            local_steps=spec.local_steps, batch_size=spec.batch_size,
+            device=dev)
+    return _TASK_CACHE[key]
 
 
 def get_traced_task(spec: SweepSpec, device=None) -> TracedClassificationTask:
     dev = resolve_device(device)
     key = _task_key(spec) + (str(dev),)
-    if key not in _TASK_CACHE:
-        _TASK_CACHE[key] = make_traced_classification_task(
-            data_seed=spec.data_seed, num_clients=spec.num_clients,
-            dim=spec.dim, classes=spec.classes, hidden=spec.hidden,
-            n_per_class=spec.n_per_class, n_train=spec.n_train,
-            per_client=spec.per_client, local_steps=spec.local_steps,
-            batch_size=spec.batch_size, device=dev)
-    return _TASK_CACHE[key]
+    if key not in _TRACED_TASK_CACHE:
+        if spec.task == "lm":
+            _TRACED_TASK_CACHE[key] = make_traced_lm_task(
+                data_seed=spec.data_seed, num_clients=spec.num_clients,
+                arch=spec.lm_arch, d_model=spec.lm_d_model,
+                layers=spec.lm_layers, seq_len=spec.lm_seq,
+                classes=spec.classes, n_seqs=spec.lm_n_seqs,
+                n_test=spec.lm_n_test, per_client=spec.per_client,
+                local_steps=spec.local_steps, batch_size=spec.batch_size,
+                device=dev)
+        else:
+            _TRACED_TASK_CACHE[key] = make_traced_classification_task(
+                data_seed=spec.data_seed, num_clients=spec.num_clients,
+                dim=spec.dim, classes=spec.classes, hidden=spec.hidden,
+                n_per_class=spec.n_per_class, n_train=spec.n_train,
+                per_client=spec.per_client, local_steps=spec.local_steps,
+                batch_size=spec.batch_size, device=dev)
+    return _TRACED_TASK_CACHE[key]
 
 
 def get_partition(spec: SweepSpec, task, alpha: float) -> np.ndarray:
@@ -643,5 +679,6 @@ def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
 
 __all__ = ["ALGOS", "SCHEMES", "HPARAM_FIELDS", "SYNC", "SweepSpec",
            "CellResult", "make_cell_batch", "make_runner", "run_batch_states",
-           "run_cell", "run_cell_batch", "run_sweep", "get_traced_task",
+           "run_cell", "run_cell_batch", "run_sweep", "get_task",
+           "get_traced_task",
            "point_base_probs", "segment_runner_for"]

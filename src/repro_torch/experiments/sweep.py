@@ -31,8 +31,14 @@ CLI::
         --schemes bernoulli_ti --seeds 0 --rounds 6 --eval-every 3 \
         --clients 10000 --cohort 256 --buffer-size 128 --deadline-rounds 3
 
+    python -m repro_torch.experiments.sweep --device cpu \
+        --algos fedpbc,fedavg,fedavg_all,fedavg_known_p --seeds 0 \
+        --rounds 4 --eval-every 2 --clients 4 --local-steps 2 --task lm \
+        --lm-d-model 32 --lm-layers 1 --lm-seq 16
+
 (the second: cross-device scale, a sync and a buffered arm over a C = 256
-cohort of m = 10,000 clients, as one batch; ``python -m
+cohort of m = 10,000 clients, as one batch; the third: the LM task, a
+reduced smollm-class transformer as every client's model; ``python -m
 repro_torch.experiments`` is the same CLI.)
 """
 from __future__ import annotations
@@ -385,6 +391,17 @@ def main(argv=None) -> None:
     ap.add_argument("--alphas", default="", help="axis overriding --alpha")
     ap.add_argument("--sigma0s", default="", help="axis overriding --sigma0")
     ap.add_argument("--deltas", default="", help="axis overriding --delta")
+    ap.add_argument("--task", default="classification",
+                    choices=("classification", "lm"),
+                    help="client workload: the paper's classification task "
+                    "or the smollm-class reduced LM (next-token loss over "
+                    "the styled byte-level corpus)")
+    ap.add_argument("--lm-d-model", type=int, default=64,
+                    help="LM task: reduced model width")
+    ap.add_argument("--lm-layers", type=int, default=2,
+                    help="LM task: reduced layer count")
+    ap.add_argument("--lm-seq", type=int, default=32,
+                    help="LM task: training sequence length")
     ap.add_argument("--cohort", type=int, default=None,
                     help="per-round cohort size C (cross-device scale mode: "
                     "stateless clients, O(C) round memory)")
@@ -431,6 +448,8 @@ def main(argv=None) -> None:
         alphas=_float_list(args.alphas), sigma0s=_float_list(args.sigma0s),
         deltas=_float_list(args.deltas),
         strategies=strategies, cohort_size=args.cohort,
+        task=args.task, lm_d_model=args.lm_d_model,
+        lm_layers=args.lm_layers, lm_seq=args.lm_seq,
         use_kernel=args.use_kernel or None)
     store = ResultsStore(args.out) if args.out else None
     print("sweep,scheme,algo,strategy,hparams,seeds,test_acc_mean,"

@@ -1,6 +1,8 @@
 """The synthetic stand-in task of the paper-table sweeps (port of
 ``repro.experiments.tasks``): the 10-class Gaussian task from
-``repro_torch.data.synthetic`` with a 2-layer MLP.
+``repro_torch.data.synthetic`` with a 2-layer MLP; and the LM task
+(``make_traced_lm_task``), a reduced smollm-class transformer over a styled
+synthetic corpus, which rides the same sweep engine.
 
 The MLP keeps the reference's layout, ``w1 [dim, hidden]``, ``b1``,
 ``w2 [hidden, classes]``, ``b2`` with ``x @ w1``, as named views into one
@@ -10,6 +12,7 @@ once (``[B, m, n]``), evaluation ``B`` server models (``[B, n]``).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict
 
@@ -23,7 +26,7 @@ from repro_torch.data import (
     make_classification_data,
     traced_classification_source,
 )
-from repro_torch.data.sources import DataSource
+from repro_torch.data.sources import DataSource, traced_lm_source
 
 
 def mlp_layout(dim=32, classes=10, hidden=64) -> ParamLayout:
@@ -179,4 +182,102 @@ def make_traced_classification_task(*, data_seed=0, num_clients=100, dim=32,
               "n_test": int(len(shared["xt"])), "num_clients": num_clients,
               "per_client": per_client, "local_steps": local_steps,
               "batch_size": batch_size},
+    )
+
+
+# Same fields as TracedClassificationTask: the sweep engine and grid.py
+# treat both alike; the alias names the workload a call site holds.
+LMTask = TracedClassificationTask
+
+# logits elements one eval forward may hold (2^27 fp32: 512 MiB); the
+# evals walk the sequences in chunks of this size
+EVAL_LOGITS = 1 << 27
+
+
+def _styled_corpus(rng, *, n, seq_len, vocab, classes):
+    """``n`` sequences of ``seq_len + 1`` tokens, each tagged with one of
+    ``classes`` styles; style ``c`` draws uniformly from the half-vocab
+    window ``[c*V//(2*classes), c*V//(2*classes) + V//2)``. The
+    reference's numpy calls in its order: the same generator state gives
+    the same bytes."""
+    styles = rng.integers(0, classes, size=n).astype(np.int32)
+    offsets = (styles * (vocab // 2)) // max(classes, 1)
+    toks = offsets[:, None] + rng.integers(
+        0, vocab // 2, size=(n, seq_len + 1))
+    return toks.astype(np.int32), styles
+
+
+def make_traced_lm_task(*, data_seed=0, num_clients=8, arch="smollm-135m",
+                        d_model=64, layers=2, seq_len=32, classes=4,
+                        n_seqs=256, n_test=64, per_client=16, local_steps=2,
+                        batch_size=2, device=None, backend=None) -> LMTask:
+    """A reduced transformer LM as a sweep workload (the reference's
+    ``make_traced_lm_task``).
+
+    The model is ``reduced(get_config(arch), d_model, layers)`` in fp32,
+    held as one flat buffer per model (``models.model.param_layout``); the
+    corpus is ``_styled_corpus`` on the device as ``shared`` (``{"toks"
+    [n, T+1], "toks_t" [n_test, T+1]}``), Dirichlet-partitioned over the
+    sequences' styles as the classification task is over its labels. The
+    loss is ``models.model.loss_fn`` on ``[B, m, n]`` (chunks of
+    ``min(512, seq_len)`` tokens, as the reference's); the evals are the next-token accuracy ``[B]`` of
+    the server models ``[B, n]``, over the sequences in chunks of at most
+    ``EVAL_LOGITS`` logits. ``backend="torch"`` runs the plain attention
+    on the card (to compare the paths); ``None`` launches the flash
+    kernels for CUDA tensors.
+    """
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as lm
+
+    cfg = dataclasses.replace(reduced(get_config(arch), d_model=d_model,
+                                      layers=layers), dtype="float32")
+    rng = np.random.default_rng(data_seed)
+    toks, styles = _styled_corpus(rng, n=n_seqs, seq_len=seq_len,
+                                  vocab=cfg.vocab_size, classes=classes)
+    toks_t, _ = _styled_corpus(rng, n=n_test, seq_len=seq_len,
+                               vocab=cfg.vocab_size, classes=classes)
+    shared = {k: torch.as_tensor(v.astype(np.int64), device=device)
+              for k, v in (("toks", toks), ("toks_t", toks_t))}
+    layout = lm.param_layout(cfg)
+
+    def partition(alpha: float) -> np.ndarray:
+        prng = np.random.default_rng(data_seed)
+        idx, _ = dirichlet_partition(prng, styles, num_clients, alpha=alpha,
+                                     per_client=per_client)
+        return idx
+
+    def next_token_accuracy(server, seqs):
+        params = layout.unflatten(server)
+        B, T = server.shape[0], seqs.shape[1] - 1
+        rows = max(1, EVAL_LOGITS // (B * T * cfg.vocab_size))
+        correct = 0
+        for s in range(0, seqs.shape[0], rows):
+            chunk = seqs[s:s + rows]
+            logits, _ = lm.forward(
+                params, cfg, chunk[:, :-1].expand(B, -1, -1),
+                backend=backend)
+            correct = correct + (logits.argmax(-1) == chunk[:, 1:]).sum(
+                (-1, -2))
+        return correct.float() / (seqs.shape[0] * T)
+
+    return LMTask(
+        # loss_fn's chunks: min(512, seq_len), the reference's ce_chunk
+        loss_fn=lm.make_loss(cfg, backend),
+        init_params=lambda gen: lm.init_params(gen, cfg),
+        source_factory=lambda sh: traced_lm_source(
+            sh, local_steps=local_steps, batch_size=batch_size,
+            per_client=per_client),
+        eval_test=lambda server, sh: next_token_accuracy(server,
+                                                         sh["toks_t"]),
+        eval_train=lambda server, sh: next_token_accuracy(server,
+                                                          sh["toks"]),
+        partition=partition,
+        shared=shared,
+        layout=layout,
+        meta={"dataset": "styled-lm", "data_seed": data_seed, "arch": arch,
+              "d_model": d_model, "layers": layers, "seq_len": seq_len,
+              "classes": classes, "vocab": cfg.vocab_size,
+              "n_train": n_seqs, "n_test": n_test,
+              "num_clients": num_clients, "per_client": per_client,
+              "local_steps": local_steps, "batch_size": batch_size},
     )

@@ -1,7 +1,9 @@
 """Serving launcher (port of ``repro.launch.serve``): batched greedy
-decoding with the RWKV cache.
+decoding with the KV cache (dense family) or the RWKV state.
 
-  python -m repro_torch.launch.serve --arch rwkv6-3b --full \\
+  python -m repro_torch.launch.serve --full --batch 8 --prompt-len 128 \
+      --gen 64                      # SmolLM-135M, the default --arch
+  python -m repro_torch.launch.serve --arch rwkv6-3b --full \
       --batch 8 --prompt-len 128 --gen 64
 
 Runs on the card (``main(..., device="cpu")`` for the CPU; without CUDA the
@@ -12,10 +14,11 @@ prompts from ``--seed + 1``, uniform over the vocabulary, unless
 ``main`` is given them. As in the reference, the prompt is prefilled
 through sequential ``decode_step`` calls, then ``--gen`` tokens are decoded
 greedily; the tokens/s printed counts prompt and generated tokens over the
-whole loop. Every ``decode_step`` runs each layer's WKV6 recurrence as one
-launch of the CUDA kernel at T = 1, the state carried in the cache. Only
-the rwkv family decodes so far: the dense family raises
-``NotImplementedError`` (its KV cache needs ``decode_attention``).
+whole loop. A dense model's ``decode_step`` writes each layer's k/v into
+its cache (a ring buffer for windowed layers) and attends it with the
+plain ``decode_attention``, which launches no kernel, as the reference
+calls none there; an RWKV6 model's runs each layer's WKV6 recurrence as
+one launch of the CUDA kernel at T = 1, the state carried in the cache.
 """
 from __future__ import annotations
 

@@ -9,9 +9,10 @@ sequence is built in one piece; autograd keeps each chunk's scores for the
 backward (the reference recomputes them under ``jax.checkpoint``).
 
 Masks: causal full, sliding-window (swa) and block-local (chunked); logit
-softcap; GQA by repeating KV heads. ``decode_attention`` and
-``cross_attention`` wait for the serve path and the model zoo (ROADMAP
-Queue 1 items 7-8).
+softcap; GQA by repeating KV heads. ``decode_attention`` is one query token
+against a KV cache, plain torch as in the reference (which has no kernel
+there). ``cross_attention`` waits for the model zoo (ROADMAP Queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -96,3 +97,61 @@ def attention_ref(q, k, v, *, kind="full", window=4096, logit_softcap=0.0,
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, kind="full",
+                     window=4096, logit_softcap=0.0, chunk=8192):
+    """Single-token decode: ``q [B, 1, H, D]``, cache ``[B, S, KV, D]``.
+
+    As in the reference: the new token's k/v are already in the cache and
+    ``cache_len`` (an int or a 0-d tensor) counts them, so the query sits at
+    position ``cache_len - 1``. Windowed kinds attend only the trailing
+    ``min(window, S)`` cache positions; the softmax runs online over cache
+    chunks in fp32, ``q`` scaled by ``D ** -0.5`` in its own dtype first,
+    the softcap before the valid mask (a ``where`` to ``NEG_INF``).
+    Returns ``[B, 1, H, D]`` in ``q.dtype``.
+    """
+    b, _, h, d = q.shape
+    s_max = k_cache.shape[1]
+    dev = q.device
+    cache_len = torch.as_tensor(cache_len, device=dev)
+    if kind in ("swa", "chunked"):
+        w = min(window, s_max)
+        start = (cache_len - w).clamp(0, s_max - w)
+        pos = start + torch.arange(w, device=dev)
+        k_cache = k_cache.index_select(1, pos)
+        v_cache = v_cache.index_select(1, pos)
+        if kind == "chunked":
+            valid = (pos < cache_len) & (
+                pos // window == (cache_len - 1).clamp_min(0) // window)
+        else:
+            valid = (pos < cache_len) & (cache_len - 1 - pos < window)
+    else:
+        pos = torch.arange(s_max, device=dev)
+        valid = pos < cache_len
+
+    n_rep = h // k_cache.shape[2]
+    kf = repeat_kv(k_cache, n_rep)
+    vf = repeat_kv(v_cache, n_rep)
+    tk = kf.shape[1]
+    chunk = min(chunk, tk)
+    qf = (q[:, 0] * d ** -0.5).float().unsqueeze(-2)       # [B, H, 1, D]
+    m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, d), dtype=torch.float32, device=dev)
+    for start in range(0, tk, chunk):
+        stop = min(start + chunk, tk)
+        kb = kf[:, start:stop].float().transpose(1, 2)        # [B, H, C, D]
+        vb = vf[:, start:stop].float().transpose(1, 2)
+        s = (qf @ kb.transpose(-1, -2)).squeeze(-2)           # [B, H, C]
+        if logit_softcap:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        s = torch.where(valid[start:stop], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + (p.unsqueeze(-2) @ vb).squeeze(-2)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out[:, None].to(q.dtype)

@@ -7,8 +7,9 @@ Design, as in the reference:
   each period position's parameters are stacked on a leading
   ``[n_periods]`` axis (the reference's ``blocks`` tuple);
 - ``forward``: train/prefill over the full sequence; ``loss_fn``: chunked
-  cross-entropy; ``decode_step``: one token against the cache (serve path,
-  RWKV6 only so far: the dense family's needs ``decode_attention``).
+  cross-entropy; ``decode_step``: one token against the cache (serve path:
+  the dense family's KV cache, ring buffers for windowed layers, through
+  the plain ``decode_attention``; RWKV6's state).
 
 What differs: the parameters are the named views of one flat buffer
 (``param_layout``; ``repro_torch.core.params``) with any leading model
@@ -41,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import ParamLayout
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.attention import attention
+from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import (
     apply_rope,
     dtype_of,
@@ -352,46 +353,114 @@ def make_loss(cfg: ModelConfig, backend=None):
 # ---------------------------------------------------------------------------
 
 
-def _decodable(cfg: ModelConfig):
-    _ported(cfg)
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"decoding the {cfg.family!r} family is not ported yet (ROADMAP "
-            "Queue 1 item 11: its KV cache needs decode_attention); the rwkv "
-            "family decodes")
-
-
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Tuple[Dict[str, torch.Tensor], ...]:
-    """Cache matching the period structure (leading axis ``n_periods``):
-    per period position, RWKV6's ``s [n_periods, batch, H, D, D]`` fp32
-    state and the token-shift carries ``last`` / ``clast [n_periods, batch,
-    1, d]`` in ``cfg.dtype``, zero. ``max_len`` is the reference's
-    (a KV cache's length); the RWKV state does not grow."""
-    _decodable(cfg)
+    """Cache matching the period structure (leading axis ``n_periods``),
+    zero, per period position: the dense family's ``k`` / ``v
+    [n_periods, batch, eff, KV, hd]`` in ``cfg.dtype``, ``eff = max_len``
+    or, for swa and chunked layers, the ring buffer's ``min(max_len,
+    window)``; RWKV6's ``s [n_periods, batch, H, D, D]`` fp32 state and the
+    token-shift carries ``last`` / ``clast [n_periods, batch, 1, d]`` in
+    ``cfg.dtype`` (its state does not grow with ``max_len``)."""
     P = period_length(cfg)
     n_periods = cfg.num_layers // P
-    hd = cfg.rwkv.head_dim
-    nh = cfg.d_model // hd
     dt = dtype_of(cfg)
+    if cfg.family == "ssm":
+        hd = cfg.rwkv.head_dim
+        nh = cfg.d_model // hd
 
-    def carry():
-        return torch.zeros(n_periods, batch, 1, cfg.d_model, dtype=dt,
-                           device=device)
+        def carry():
+            return torch.zeros(n_periods, batch, 1, cfg.d_model, dtype=dt,
+                               device=device)
 
-    return tuple({"s": torch.zeros(n_periods, batch, nh, hd, hd,
-                                   dtype=torch.float32, device=device),
-                  "last": carry(), "clast": carry()} for _ in range(P))
+        return tuple({"s": torch.zeros(n_periods, batch, nh, hd, hd,
+                                       dtype=torch.float32, device=device),
+                      "last": carry(), "clast": carry()} for _ in range(P))
+    a = cfg.attention
+
+    def kv(i):
+        eff = max_len
+        if attn_kind(cfg, i) in ("swa", "chunked"):
+            eff = min(max_len, a.window)
+        return torch.zeros(n_periods, batch, eff, a.num_kv_heads,
+                           cfg.head_dim, dtype=dt, device=device)
+
+    return tuple({"k": kv(i), "v": kv(i)} for i in range(P))
+
+
+def _decode_attn_layer(p: Params, x, cfg: ModelConfig, kind: str, k_cache,
+                       v_cache, pos):
+    """One token's self-attention against one layer's cache ``[b, S, KV,
+    hd]`` (``pos`` a 0-d int64 tensor, the tokens already in it) -> ``(x,
+    k_cache', v_cache')``, the caches given unchanged. Windowed layers
+    write slot ``pos % S`` of their ring and attend it rolled into
+    chronological order; full layers write ``min(pos, S - 1)``."""
+    a = cfg.attention
+    hd = cfg.head_dim
+    b = x.shape[0]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = (h @ p["attn.wq"]).reshape(b, 1, a.num_heads, hd)
+    k = (h @ p["attn.wk"]).reshape(b, 1, a.num_kv_heads, hd)
+    v = (h @ p["attn.wv"]).reshape(b, 1, a.num_kv_heads, hd)
+    cos, sin = rope_angles(pos[None], hd, a.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    s_max = k_cache.shape[1]
+    windowed = kind in ("swa", "chunked")
+    slot = pos % s_max if windowed else pos.clamp_max(s_max - 1)
+    ck = k_cache.index_copy(1, slot[None], k)
+    cv = v_cache.index_copy(1, slot[None], v)
+    if windowed:
+        # the ring, oldest first: once full, the oldest entry is at slot+1;
+        # chunked attends only the current block's (pos % window) + 1
+        eff_len = (pos + 1).clamp_max(s_max)
+        shift = torch.where(pos + 1 >= s_max, -(slot + 1),
+                            torch.zeros_like(slot))
+        keep = (pos % a.window) + 1 if kind == "chunked" else eff_len
+        keep = torch.minimum(keep, eff_len)
+        # torch.roll by (shift - drop): element i comes from i - that
+        order = (torch.arange(s_max, device=pos.device)
+                 - (shift - (eff_len - keep))) % s_max
+        o = decode_attention(q, ck.index_select(1, order),
+                             cv.index_select(1, order), keep, kind="full",
+                             logit_softcap=a.logit_softcap)
+    else:
+        o = decode_attention(q, ck, cv, pos + 1, kind=kind, window=a.window,
+                             logit_softcap=a.logit_softcap)
+    return x + o.reshape(b, 1, -1) @ p["attn.wo"], ck, cv
+
+
+def _decode_dense(params: Params, cfg: ModelConfig, x, cache, pos):
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    P = period_length(cfg)
+    new = [{"k": [], "v": []} for _ in range(P)]
+    for layer in range(cfg.num_layers // P):
+        for i in range(P):
+            lp = {name: params[f"blocks.{i}.{name}"][layer]
+                  for name, _ in _layer_leaves(cfg)}
+            x, ck, cv = _decode_attn_layer(
+                lp, x, cfg, attn_kind(cfg, i), cache[i]["k"][layer],
+                cache[i]["v"][layer], pos)
+            x = _ffn_block(lp, x, cfg)
+            new[i]["k"].append(ck)
+            new[i]["v"].append(cv)
+    return x, new
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache, pos, *, backend=None):
-    """``token [B, 1]`` int; ``cache`` from ``make_cache``; ``pos`` the
-    tokens already in the cache (the RWKV state carries it; kept for the
-    reference's signature). Returns ``(logits [B, 1, V] fp32, new_cache)``;
-    the cache given is not changed. One WKV6 launch per layer at T = 1."""
-    _decodable(cfg)
+    """``token [B, 1]`` int; ``cache`` from ``make_cache``; ``pos`` (an int
+    or a 0-d tensor) the tokens already in the cache (the RWKV state
+    carries it). Returns ``(logits [B, 1, V] fp32, new_cache)``; the cache
+    given is not changed. The dense family runs the plain
+    ``decode_attention`` (no kernel launch, as the reference calls none
+    there); RWKV6 one WKV6 launch per layer at T = 1 (``backend`` as in
+    ``forward``)."""
+    _ported(cfg)
     x = params["embed"][token.long()].to(dtype_of(cfg))
+    if cfg.family != "ssm":
+        x, new = _decode_dense(params, cfg, x, cache, pos)
+        return _decode_logits(params, cfg, x), _stacked(new)
     P = period_length(cfg)
     new = [{"s": [], "last": [], "clast": []} for _ in range(P)]
     for layer in range(cfg.num_layers // P):
@@ -409,7 +478,14 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
             new[i]["s"].append(st["s"])
             new[i]["last"].append(st["last"])
             new[i]["clast"].append(clast)
+    return _decode_logits(params, cfg, x), _stacked(new)
+
+
+def _decode_logits(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = softcap((x @ _head(params, cfg)).float(), cfg.final_softcap)
-    return logits, tuple({k: torch.stack(v) for k, v in c.items()}
-                         for c in new)
+    return softcap((x @ _head(params, cfg)).float(), cfg.final_softcap)
+
+
+def _stacked(new):
+    """Per-layer cache parts -> the cache, each leaf ``[n_periods, ...]``."""
+    return tuple({k: torch.stack(v) for k, v in c.items()} for c in new)

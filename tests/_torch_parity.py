@@ -35,6 +35,10 @@ FAMILY = ("fedpbc", "fedavg", "fedavg_all", "fedavg_known_p")
 # the small protocol every parity test runs at
 SMALL = dict(num_clients=8, dim=16, hidden=16, local_steps=2, batch_size=4,
              per_client=16, n_per_class=60, n_train=400)
+# the LM task's, tests/test_lm_sweep.py's LM spec (head dim 8)
+LM_SMALL = dict(num_clients=4, d_model=32, layers=1, seq_len=16, classes=4,
+                n_seqs=64, n_test=16, per_client=8, local_steps=2,
+                batch_size=1)
 LR, GAMMA, PERIOD, CYCLE = 0.1, 0.5, 6.0, 4
 
 
@@ -42,11 +46,13 @@ def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def fed_configs(scheme: str, algorithm="fedpbc"):
+def fed_configs(scheme: str, algorithm="fedpbc",
+                num_clients=SMALL["num_clients"],
+                local_steps=SMALL["local_steps"]):
     """Matching reference / port configs for a ``SCHEMES`` entry, with a
     short cyclic period so resets happen within a few rounds."""
-    kw = dict(algorithm=algorithm, num_clients=SMALL["num_clients"],
-              local_steps=SMALL["local_steps"], cyclic_length=CYCLE,
+    kw = dict(algorithm=algorithm, num_clients=num_clients,
+              local_steps=local_steps, cyclic_length=CYCLE,
               **jgrid.SCHEMES[scheme])
     return JFed(**kw), TFed(**kw)
 
@@ -60,25 +66,53 @@ def tasks(device="cpu"):
                                                    **kw))
 
 
+def lm_tasks(device="cpu", **kw):
+    """The reference's and the port's LM task at ``LM_SMALL`` (``kw``
+    overrides it)."""
+    kw = dict(LM_SMALL, **kw)
+    return (jtasks.make_traced_lm_task(data_seed=0, **kw),
+            ttasks.make_traced_lm_task(data_seed=0, device=device, **kw))
+
+
+def task_batches(jtask, idx, pick):
+    """The reference task's batches for ``pick [B, m, s, b]`` into the
+    client shards ``idx [m, pc]`` (numpy gather of its ``shared``)."""
+    sel = idx[np.arange(idx.shape[0])[None, :, None, None], pick]
+    sh = jtask.shared
+    if "toks" in sh:
+        seqs = np.asarray(sh["toks"])[sel]
+        return {"tokens": jnp.asarray(seqs[..., :-1]),
+                "labels": jnp.asarray(seqs[..., 1:])}
+    return {"x": jnp.asarray(np.asarray(sh["x"])[sel]),
+            "y": jnp.asarray(np.asarray(sh["y"])[sel])}
+
+
 class JaxFamily:
     """B trajectories of the reference family (member ``algo_id[b]``, seed
     ``seeds[b]``; ``family`` the quartet by default) as one jitted, vmapped
     round, plus the round's draws computed from the reference's own keys
-    (each trajectory's at its own round)."""
+    (each trajectory's at its own round). ``task``: ``"classification"``
+    (the MLP task at ``SMALL``) or ``"lm"`` (the LM task at
+    ``LM_SMALL``)."""
 
     def __init__(self, scheme: str, seeds, algo_ids, alpha=0.1,
-                 family=FAMILY):
+                 family=FAMILY, task="classification"):
         self.scheme = scheme
         self.family = family
-        self.jfed_cfg, self.tfed_cfg = fed_configs(scheme, family[0])
-        self.jtask, self.ttask = tasks()
+        self.jtask, self.ttask = tasks() if task == "classification" \
+            else lm_tasks()
+        meta = self.jtask.meta
+        m, s, b = (meta["num_clients"], meta["local_steps"],
+                   meta["batch_size"])
+        pc = meta["per_client"]
+        self.jfed_cfg, self.tfed_cfg = fed_configs(scheme, family[0], m, s)
         self.spec = jalg.make_algorithm_spec(family, self.jfed_cfg)
         self.idx = self.jtask.partition(alpha)
         B = len(seeds)
         self.B = B
         self.keys = jsweep.stack_seed_keys(seeds)
         self.p_base = jnp.stack([jconn.build_base_probs(
-            jax.random.PRNGKey(s), SMALL["num_clients"], 10)[0] for s in seeds])
+            jax.random.PRNGKey(s), m, 10)[0] for s in seeds])
         self.algo_id = jnp.asarray(algo_ids, jnp.int32)
         self.hp = {k: jnp.full((B,), v, jnp.float32)
                    for k, v in (("lr", LR), ("gamma", GAMMA),
@@ -99,9 +133,6 @@ class JaxFamily:
                                     link(p, hp), fed, algo_id=aid)
             return rf(st, batches)
 
-        m, s, b = (SMALL["num_clients"], SMALL["local_steps"],
-                   SMALL["batch_size"])
-        pc = SMALL["per_client"]
         reset = fed.scheme == "cyclic" and fed.cyclic_reset
 
         def draws_one(st, data_key):
@@ -134,10 +165,7 @@ class JaxFamily:
         return np.asarray(u), np.asarray(pick), np.asarray(off)
 
     def batches(self, pick):
-        sel = self.idx[np.arange(self.idx.shape[0])[None, :, None, None], pick]
-        sh = self.jtask.shared
-        return {"x": jnp.asarray(np.asarray(sh["x"])[sel]),
-                "y": jnp.asarray(np.asarray(sh["y"])[sel])}
+        return task_batches(self.jtask, self.idx, pick)
 
     def round(self, st, pick):
         return self._round(st, self.batches(pick), self.p_base, self.hp,
@@ -206,9 +234,10 @@ class JaxKeyDraws:
     rows need no state."""
 
     def __init__(self, seeds, jfed_cfg, jtask, layout, num_rounds):
-        m, s, b = (SMALL["num_clients"], SMALL["local_steps"],
-                   SMALL["batch_size"])
-        pc = SMALL["per_client"]
+        meta = jtask.meta
+        m, s, b = (meta["num_clients"], meta["local_steps"],
+                   meta["batch_size"])
+        pc = meta["per_client"]
         L = jfed_cfg.cyclic_length
         reset = jfed_cfg.scheme == "cyclic" and jfed_cfg.cyclic_reset
         keys = [jsweep.seed_keys(sd) for sd in seeds]

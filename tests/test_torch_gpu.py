@@ -409,3 +409,113 @@ def test_segment_resume_is_bitwise_on_the_card(cuda):
     (st1, _, _), out1 = rseg.step(half, batch)
     assert torch.equal(out2["evals"], out1["evals"][rows])
     assert torch.equal(st2.server, st1.server[rows])
+
+
+def _lm_spec(**kw):
+    from repro_torch.experiments import grid as tgrid
+
+    base = dict(algorithms=("fedpbc", "fedavg", "fedavg_all",
+                            "fedavg_known_p"), schemes=("bernoulli_ti",),
+                seeds=(0,), rounds=1, eval_every=1, num_clients=4,
+                local_steps=2, batch_size=2, per_client=16, task="lm",
+                lm_d_model=64, lm_layers=2, lm_seq=32, classes=4,
+                lm_n_seqs=256, lm_n_test=64)
+    base.update(kw)
+    return tgrid.SweepSpec(**base)
+
+
+@pytest.mark.gpu
+def test_lm_sweep_round_through_the_kernels_matches_the_plain_path(cuda):
+    """One LM-sweep round of the quartet at ``lm_d_model`` 64 (head dim
+    16, T = 32) through the fp32 flash kernels and the fused aggregation,
+    against the plain attention and the branch aggregation from the same
+    generators: server params within fp32 1e-4 (flash's online softmax in
+    tiles, a few products of SGD later); the flash forward launched per
+    layer per local step and per eval forward, dq and dkdv per layer per
+    local step, the aggregation once; the plain path launches none."""
+    from repro_torch.experiments import grid as tgrid
+    from repro_torch.experiments import tasks as ttasks
+
+    spec = _lm_spec(use_kernel=True)
+    plain_spec = dataclasses.replace(spec, use_kernel=False)
+    fed = spec.cell_config("fedpbc", "bernoulli_ti")
+    task = tgrid.get_traced_task(spec)
+    m = task.meta
+    plain_task = ttasks.make_traced_lm_task(
+        num_clients=m["num_clients"], d_model=m["d_model"],
+        layers=m["layers"], seq_len=m["seq_len"], classes=m["classes"],
+        n_seqs=m["n_train"], n_test=m["n_test"],
+        per_client=m["per_client"], local_steps=m["local_steps"],
+        batch_size=m["batch_size"], device=cuda, backend="torch")
+    counters = (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+                tflash.flash_attention_bwd_dkdv, tmasked.fused_masked_agg)
+    runs = []
+    for sp, tk in ((spec, task), (plain_spec, plain_task)):
+        for c in counters:
+            c.launches = 0
+        batch = tgrid.make_cell_batch(sp, fed, tk, algos=sp.algorithms)
+        st, out = tgrid.make_runner(sp, fed, tk)(batch)
+        runs.append((st, out, [c.launches for c in counters]))
+    (st_k, out_k, n_k), (st_p, out_p, n_p) = runs
+    L, s = spec.lm_layers, spec.local_steps
+    assert n_k == [L * (s + 1), L * s, L * s, 1]
+    assert n_p == [0, 0, 0, 0]
+    assert torch.isfinite(out_k["metrics"]["loss"]).all()
+    torch.testing.assert_close(st_k.server, st_p.server, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(out_k["metrics"]["loss"],
+                               out_p["metrics"]["loss"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_lm_sweep_at_d_model_576_raises_from_the_flash_wrapper(cuda):
+    """``reduced()`` gives the LM task 4 heads: at ``lm_d_model`` 576 the
+    head dim is 144, outside the kernel's ``HEAD_DIMS``; the wrapper raises
+    instead of falling back to the plain attention (ROADMAP Queue 3)."""
+    from repro_torch.experiments import grid as tgrid
+
+    spec = _lm_spec(lm_d_model=576, lm_layers=1, lm_seq=16, batch_size=1,
+                    algorithms=("fedpbc",))
+    assert 576 // 4 not in tflash.HEAD_DIMS
+    with pytest.raises(ValueError, match="D in"):
+        tgrid.run_sweep(spec)
+
+
+@pytest.mark.gpu
+def test_dense_decode_on_the_card_matches_the_cpu_and_launches_no_kernel(
+        cuda):
+    """SmolLM-135M reduced (fp32, head dim 64) for the patterns full and
+    swa (window 64 < T = 96): ``decode_step`` on the card against the same
+    steps on the CPU, fp32 1e-4 at every step, with 0 flash launches (the
+    reference calls no kernel there); and teacher forcing against the
+    flash-kernel ``forward`` (rel < 2e-3, tests/test_decode_consistency.py's
+    bar)."""
+    T = 96
+    for pattern in ("full", "swa"):
+        cfg = dataclasses.replace(reduced(get_config("smollm-135m")),
+                                  dtype="float32")
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, pattern=pattern))
+        leaves = tmodel.init_leaves(torch.Generator().manual_seed(0), cfg)
+        on_card = {k: v.to(cuda) for k, v in leaves.items()}
+        toks = torch.randint(0, cfg.vocab_size, (1, T),
+                             generator=torch.Generator().manual_seed(1))
+        caches = [tmodel.make_cache(cfg, 1, T),
+                  tmodel.make_cache(cfg, 1, T, device=cuda)]
+        tflash.flash_attention_fwd.launches = 0
+        outs = []
+        for t in range(T):
+            lc, caches[0] = tmodel.decode_step(leaves, cfg, toks[:, t:t + 1],
+                                               caches[0], t)
+            lg, caches[1] = tmodel.decode_step(
+                on_card, cfg, toks[:, t:t + 1].to(cuda), caches[1], t)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+            outs.append(lg[:, 0])
+        assert tflash.flash_attention_fwd.launches == 0
+        with torch.no_grad():
+            ref, _ = tmodel.forward(on_card, cfg, toks.to(cuda))
+        assert tflash.flash_attention_fwd.launches == cfg.num_layers
+        dec = torch.stack(outs, 1)
+        rel = float((dec - ref).abs().max() / ref.abs().max())
+        assert rel < 2e-3, (pattern, rel)

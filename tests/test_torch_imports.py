@@ -30,9 +30,18 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
             "repro_torch.scale.sparse_state"} <= set(mods)
     assert {"repro_torch.experiments.search",
             "repro_torch.paper.asha"} <= set(mods)
+    # the LM sweep task and dense decode
+    names = {"repro_torch.data.sources": ["traced_lm_source"],
+             "repro_torch.experiments.tasks": ["LMTask",
+                                               "make_traced_lm_task"],
+             "repro_torch.experiments.grid": ["get_task"],
+             "repro_torch.models.attention": ["decode_attention"]}
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            f"for m, ns in {names!r}.items():\n"
+            "    for n in ns:\n"
+            "        getattr(importlib.import_module(m), n)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k == 'repro' or k.startswith('repro.') "
             "or k == 'triton' or k.startswith('triton.'))\n"

@@ -167,12 +167,21 @@ def test_sweep_spec_validation_matches_reference(kw, match):
 @pytest.mark.parametrize("kw", [dict(task="lm"), dict(cohort_size=4),
                                 dict(strategies=("buffered",))])
 def test_later_slice_spec_knobs_raise_not_implemented(kw):
-    """``task="lm"`` still waits for its ROADMAP item. The scale knobs are
-    ported (tests/test_torch_scale.py): a cohort constructs, and a strategy
-    must be a ``repro_torch.scale.Strategy``, as in the reference."""
+    """The knobs of earlier ROADMAP items are ported. ``task="lm"``
+    constructs (tests/test_torch_lm_sweep.py runs it) and ``get_task``
+    refuses it with the reference's message; a cohort constructs, and a
+    strategy must be a ``repro_torch.scale.Strategy``, as in the
+    reference (tests/test_torch_scale.py)."""
     if "task" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgrid.SweepSpec(**kw)
+        port, ref = tgrid.SweepSpec(**kw), jgrid.SweepSpec(**kw)
+        assert port.task == ref.task == "lm"
+        errors = []
+        for module, spec, extra in ((tgrid, port, dict(device="cpu")),
+                                    (jgrid, ref, {})):
+            with pytest.raises(ValueError, match="traced-only") as err:
+                module.get_task(spec, **extra)
+            errors.append(str(err.value))
+        assert errors[0] == errors[1]
     elif "cohort_size" in kw:
         assert tgrid.SweepSpec(**kw).cohort_size == 4
     else:
