@@ -30,10 +30,14 @@ branch path from the same generators; the server params must agree to 1e-5.
 Phase 4 builds the CUDA flash-attention kernels (``nvcc`` into
 ``build/cuda/``), prints each kernel's registers and spills from the
 ``-Xptxas -v`` report (and, for the tensor-core kernels of ``FLASH_TC``,
-by head dim), and holds forward and dq/dk/dv against the plain
+by head dim, of both designs; the build's head dims must be the
+wrapper's ``HEAD_DIMS``), and holds forward and dq/dk/dv against the plain
 version and its autograd at the reference's kernel-test shapes, at bf16
 shapes of the tensor-core backward (D = 128, a ragged T at D = 32, not
-causal) and at the LM path's shape ``[144, 2048, 64]`` bf16 causal
+causal), at D = 144 and 256 in both dtypes (gemma2-9b's window and
+softcap, and its layer's prefill ``[16, 8192, 256]``), at D = 40
+(zero-padded to 64 by the wrapper) and at the LM path's shape
+``[144, 2048, 64]`` bf16 causal
 (``FLASH_TOL``: fp32 atol and rtol 2e-3, the reference's; bf16 atol 1e-2
 with the reference's rtol 3e-2, set from the measured errors), naming the
 kernels each shape took (``FLASH_DESIGN``: bf16 takes the tensor-core
@@ -43,7 +47,13 @@ needs; it times the three kernels and the forward of
 with CUDA-graph replays, the plain version and the yardstick's backward
 (which allocate) with CUDA events around eager calls, prints the backward
 total (dq + dkdv) against SDPA's backward, and computes each kernel's
-bound from its flops at the card's bf16 dense peak. Phase 5
+bound from its flops at the card's bf16 dense peak; then the same at the
+new head dims (``FLASH_HEAD_DIM_TIMED``): gemma2-9b's prefill ``[16,
+8192, 256]`` bf16 with its window 4096 and softcap 50 (SDPA timed causal
+only, as it has neither: not the same function, so no library time) and
+``[256, 256, 144]`` fp32 (the LM sweep at 576) and ``[144, 2048, 40]``
+bf16 (zero-padded to 64), each bound at its dtype's peak for the pairs
+its masks allow and its true head dim. Phase 5
 drives the LM slice: ``repro_torch.launch.train --full`` (SmolLM-135M,
 30 layers, 8 clients, 2 local steps, batch 2, 2048 tokens, 10 rounds,
 fedpbc over bernoulli links, the fused aggregation on); every loss must be
@@ -200,8 +210,11 @@ losses printed beside. (c) lm-cohort (``LM_COHORT``: fedpbc and fedavg, m
 = 10,000, C = 256, 5 rounds): rounds/s, peak memory, 0 aggregation
 launches. (d) lm-wide (``LM_WIDE``: d_model 512, 4 layers, T = 256, m = 8,
 the quartet at lr 0.1, 5 rounds): rounds/s, tokens/s, peak memory, and one
-round under ``torch.profiler``. Every cell's launches are counted on its
-timed run against ``_want_launches`` (flash forward per layer per local
+round under ``torch.profiler``. (e) lm-576 (``LM_576``: lm-family's cell
+at d_model 576, 4 heads of 144, 3 rounds) through the fp32 flash kernels
+and against the plain path from the same generators (largest |server
+difference| within ``LM_PATHS_TOL``). Every cell's launches are counted
+on its timed run against ``_want_launches`` (flash forward per layer per local
 step and per eval forward, dq and dkdv per layer per local step, the
 aggregation once a round), every loss and parameter must be finite, and
 the phase is held to ``PHASE12_LIMIT_S``.
@@ -220,6 +233,32 @@ kernel and through the plain attention against ``TF_T`` ``decode_step``
 calls, max |logit difference| / max |logit| within ``TF_CASES``' limits
 at 2 layers (bf16 and fp32), measured at the full 30 layers in bf16. The phase is held to ``PHASE13_LIMIT_S``.
 
+Phase 14 runs gemma2-9b at its published widths and depth (42 layers,
+d_model 3584, 16 heads of 256, 8 KV heads, local/global alternation with
+a 4096 window, softcaps 50 and 30, tied embeddings, 9,241,404,928
+parameters, bf16, seeded): (a) ``repro_torch.launch.serve --full --arch
+gemma2-9b`` at ``GEMMA_SERVE`` (batch 8, prompt 64, gen 32; ids inside
+the vocabulary, 0 flash launches, tokens/s, ms a step, peak memory) and
+a short run profiled (the idle share); (b) ``forward`` on ``[1, 8192]``
+(past the window: the window and softcap masks live in ``flash_fwd_tc``
+at D = 256), 42 launches, finite logits under the final softcap,
+tokens/s, peak memory, and the same tokens at 2 layers through the
+kernel against the plain attention within ``GEMMA_PATHS_TOL``; (c)
+teacher forcing on ``[1, 128]`` as phase 13's (``GEMMA_TF_CASES``: bf16
+and fp32 at 2 layers held, bf16 at 42 measured). Phase 15 runs the MoE
+family at published widths and reduced depth (``MOE_CASES``,
+``dataclasses.replace(cfg, num_layers=...)``, the cut printed as
+``reduced``): mixtral-8x22b at 4 of 56 layers, then (freed first)
+llama4-maverick at 2 of 48 (one dense + MoE period; its chunked layers
+take the plain attention, as the reference's dispatch does): a prefill
+``forward`` on ``[4, 2048]`` (tokens/s, the aux loss finite and positive,
+the share of slots dropped at the config's capacity factor by layer,
+flash launches, peak memory), 32 greedy ``decode_step``s at batch 4
+(tokens/s, ms a step, a profiled window's idle share, 0 flash launches),
+and teacher forcing on ``[1, 64]`` at that depth with the capacity factor
+at E / k (dropless), measured. Phases 14 and 15 together are held to
+``PHASE14_15_LIMIT_S``.
+
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
@@ -227,15 +266,17 @@ Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
 seconds, launches, family batches and results), a ``{"scale": {...}}``
 line (phase 10's), a ``{"search": {...}}`` line (phase 11's), a
 ``{"lm_sweep": {...}}`` line (phase 12's cells), a ``{"serve": {...}}``
-line (phase 13's), then a
+line (phase 13's), a ``{"zoo": {...}}`` line (phases 14 and 15), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
 11's as ``search_launches``, phase 12's by cell as ``lm_sweep_launches``
 and its timings at the sweep's shapes as ``lm_sweep_shapes``, its Fig. 3
 shape timing as ``fig3_shape``; each flash kernel with its design and its
-registers and spills at D = 64 and by head dim, its phase-12 launches by
-cell and timings at D = 16 and 128 (fp32), and its launches in phase 13's
-serve run as ``serve_launches``; the WKV6 wrapper once per
+registers and spills at D = 64 and by head dim (both designs), its
+errors by checked shape, its timings at the new head dims as
+``head_dim_shapes``, its phase-12 launches by cell and timings at D = 16
+and 128 (fp32), its launches in phase 13's serve run as
+``serve_launches`` and in phases 14-15 as ``zoo_launches``; the WKV6 wrapper once per
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
 ptxas by head dim), the card's name and power limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -245,6 +286,7 @@ non-zero at once.
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -441,8 +483,29 @@ FLASH_SHAPES = [(2, 2, 256, 64, 0, 0.0, "float32", True),
                 (1, 2, 256, 64, 0, 0.0, "bfloat16", True),
                 (1, 3, 256, 128, 0, 0.0, "bfloat16", True),
                 (2, 3, 200, 32, 0, 0.0, "bfloat16", True),
-                (2, 2, 200, 64, 0, 0.0, "bfloat16", False)]
+                (2, 2, 200, 64, 0, 0.0, "bfloat16", False),
+                # head dims 144 (the LM sweep at lm_d_model 576) and 256
+                # (gemma2-9b: its window and softcap live at T = 1024, then
+                # one gemma2 layer's prefill), and 40, zero-padded to 64
+                (1, 2, 256, 144, 0, 0.0, "float32", True),
+                (1, 2, 256, 144, 0, 0.0, "bfloat16", True),
+                (1, 2, 200, 144, 0, 0.0, "bfloat16", False),
+                (1, 2, 512, 256, 128, 50.0, "float32", True),
+                (2, 2, 1024, 256, 256, 50.0, "bfloat16", True),
+                (1, 2, 256, 256, 0, 0.0, "bfloat16", False),
+                (1, 16, 8192, 256, 4096, 50.0, "bfloat16", True),
+                (2, 2, 256, 40, 0, 0.0, "float32", True),
+                (2, 2, 256, 40, 0, 0.0, "bfloat16", True)]
 FLASH_MAIN = (1, LM_CLIENTS * LM_BATCH * 9, LM_SEQ, 64, 0, 0.0, "bfloat16")
+# timed at the new head dims, (bh, t, d, window, softcap, dtype), causal:
+# one gemma2-9b layer's prefill ([1 * 16, 8192, 256], its local layers'
+# window and its attention softcap) and the LM sweep at lm_d_model 576
+# ([G * b * 4, 32, 144] at lm-family's G = 32, b = 2 is [256, 32, 144]; a
+# 256-token sequence makes it [256, 256, 144]); and a head dim the wrapper
+# zero-pads (40 -> 64) at the LM path's [144, 2048, D], beside its D = 64
+FLASH_HEAD_DIM_TIMED = [(16, 8192, 256, 4096, 50.0, "bfloat16"),
+                        (256, 256, 144, 0, 0.0, "float32"),
+                        (144, 2048, 40, 0, 0.0, "bfloat16")]
 # the kernels by input dtype and pass (the C interface's BY_D switches)
 FLASH_DESIGN = {
     "bfloat16": {"fwd": "tensor-core bf16 (flash_fwd_tc)",
@@ -451,8 +514,11 @@ FLASH_DESIGN = {
     "float32": {"fwd": "CUDA-core fp32 (flash_fwd)",
                 "bwd": "CUDA-core fp32 (flash_bwd_dq, flash_bwd_dkdv)"}}
 # the tensor-core kernel of each pass, whose ptxas report phase 4 prints
+# by head dim, and the CUDA-core one
 FLASH_TC = {"fwd": "flash_fwd_tc", "dq": "flash_bwd_dq_tc",
             "dkdv": "flash_bwd_dkdv_tc"}
+FLASH_F32 = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
+             "dkdv": "flash_bwd_dkdv"}
 # (atol, rtol) of the kernel against the plain version: fp32 the
 # reference's 2e-3; bf16 the reference's rtol 3e-2 with an atol of 1e-2,
 # above the 7.7e-3 that dq needs at the LM's shape (the largest measured)
@@ -511,6 +577,9 @@ LM_COHORT = dict(algorithms=FAMILY[:2], rounds=5, eval_every=5,
                  local_steps=1, lm_n_seqs=512)
 LM_WIDE = dict(lm_d_model=512, lm_layers=4, lm_seq=256, num_clients=8,
                lrs=(0.1,), rounds=5, eval_every=5)
+# lm-576: lm-family's cell at SmolLM-135M's width, d_model 576 (4 heads of
+# 144, a head dim the flash kernels instantiate beyond 128), 3 rounds
+LM_576 = dict(lm_d_model=576, rounds=3, eval_every=3)
 # lm-family's final test accuracy (CellResult.final_test) of seeds 0, 1, 2
 # on the JAX reference by member and lr, and each seed's mean training loss
 # in the last round, run on the CPU:
@@ -566,6 +635,32 @@ SERVE_PROFILE_P = SERVE_PROFILE_G = 8   # the profiled serve window's steps
 TF_CASES = (("bfloat16", 2, 2e-2), ("float32", 2, 1e-4),
             ("bfloat16", SMOLLM_LAYERS, None))
 PHASE13_LIMIT_S = 120.0
+# Phase 14, gemma2-9b at its published widths and depth (42 layers,
+# d_model 3584, 16 heads of 256 on 8 KV heads, local/global alternation
+# with a 4096 window, attention softcap 50, final softcap 30, tied
+# embeddings; bf16): the serve launcher at (batch, prompt, gen); one
+# forward on [1, GEMMA_T], T past the window, so the window and softcap
+# masks are live in flash_fwd_tc at D = 256, and the same at 2 layers
+# through the kernel against the plain attention (bf16, phase 8c's bar);
+# teacher forcing on [1, GEMMA_TF_T] as phase 13's (dtype, layers, limit)
+GEMMA_LAYERS, GEMMA_T, GEMMA_TF_T = 42, 8192, 128
+GEMMA_SERVE = (8, 64, 32)
+GEMMA_PATHS_TOL = 2e-2
+GEMMA_TF_CASES = (("bfloat16", 2, 2e-2), ("float32", 2, 1e-4),
+                  ("bfloat16", GEMMA_LAYERS, None))
+# Phase 15, MoE at published widths and reduced depth (bf16): (arch,
+# layers), the depth cut so that the weights fit one card (mixtral-8x22b:
+# 4 of 56 layers, ~20.9 GB; llama4-maverick: one dense + MoE period, 2 of
+# 48 layers, ~37 GB); a prefill forward on MOE_PREFILL tokens at the
+# config's capacity factor, then MOE_DECODE steps of greedy decode at
+# batch MOE_PREFILL[0]; teacher forcing on [1, MOE_TF_T] at that depth
+# with the capacity factor at E / k, so no token is dropped in either path
+# (as tests/test_decode_consistency.py makes its reduced MoE dropless),
+# measured: in bf16 a token whose hidden state rounds differently in the
+# two paths may pick another expert
+MOE_CASES = (("mixtral-8x22b", 4), ("llama4-maverick-400b-a17b", 2))
+MOE_PREFILL, MOE_DECODE, MOE_TF_T = (4, 2048), 32, 64
+PHASE14_15_LIMIT_S = 150.0
 
 
 def fail(msg):
@@ -951,31 +1046,40 @@ def check_flash_shape(torch, fa, ref, gen, shape, tag):
     return e
 
 
-def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag):
-    """The three kernels at ``[bh, t, d]`` causal (CUDA-graph replays),
-    the plain version and its autograd (CUDA events around eager calls)
-    and one ``scaled_dot_product_attention`` call forward and backward
-    (the yardstick; the port never calls it); each pass's bound from its
-    bytes at ``bw`` and its flops at ``peak`` (the dtype's rate)."""
+def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
+                 window=0, cap=0.0):
+    """The three kernels at ``[bh, t, d]`` causal, with ``window`` and
+    softcap ``cap`` (CUDA-graph replays), the plain version and its
+    autograd (CUDA events around eager calls) and one
+    ``scaled_dot_product_attention`` call forward and backward (the
+    yardstick; the port never calls it); each pass's bound from its bytes
+    at ``bw`` and its flops at ``peak`` (the dtype's rate) for the pairs
+    the causal mask and the window allow. SDPA has neither a window nor a
+    softcap: with either, its time is of plain causal attention (more
+    pairs, no tanh), kept as ``sdpa_ms`` and not as ``library_ms``."""
     import torch.nn.functional as F
 
     dev = gen.device
     dt = getattr(torch, dtype)
+    kw = dict(causal=True, window=window, logit_softcap=cap)
     q, k, v, do = (torch.randn(bh, t, d, generator=gen, device=dev).to(dt)
                    for _ in range(4))
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse)
-    ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=20),
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
+    ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                         iters=20),
           "dq": time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, do,
-                                                          lse), iters=20),
+                                                          lse, **kw),
+                        iters=20),
           "dkdv": time_ms(lambda: fa.flash_attention_bwd_dkdv(
-              q, k, v, do, lse, delta), iters=20)}
+              q, k, v, do, lse, delta, **kw), iters=20)}
     # the plain version: forward, and its autograd for dq alone and for
     # dk, dv alone (each less the forward it reruns)
     qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
 
     def plain_fwd():
-        return ref.flash_attention_ref(qr, kr, vr)
+        return ref.flash_attention_ref(qr, kr, vr, window=window,
+                                       logit_softcap=cap)
 
     plain_f = time_ms_events(plain_fwd, iters=5)
     plain = {"fwd": plain_f,
@@ -983,6 +1087,8 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag):
                  plain_fwd(), [qr], do), iters=5) - plain_f,
              "dkdv": time_ms_events(lambda: torch.autograd.grad(
                  plain_fwd(), [kr, vr], do), iters=5) - plain_f}
+    del qr, kr, vr
+    torch.cuda.empty_cache()
     # the yardstick: one scaled_dot_product_attention call, forward and
     # backward (its backward computes dq, dk and dv together)
     q4, k4, v4 = (x.view(1, bh, t, d).clone().requires_grad_(True)
@@ -991,14 +1097,18 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag):
     def sdpa():
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
 
-    sdpa_err = (sdpa().float() - o.view(1, bh, t, d).float()).abs().max()
+    same = not window and not cap
+    sdpa_err = (sdpa().float() - o.view(1, bh, t, d).float()).abs().max() \
+        if same else None
     lib_f = time_ms(lambda: F.scaled_dot_product_attention(
         q4.detach(), k4.detach(), v4.detach(), is_causal=True), iters=20)
     lib_b = time_ms_events(lambda: torch.autograd.grad(
         sdpa(), [q4, k4, v4], do.view(1, bh, t, d)), iters=10) \
         - time_ms_events(sdpa, iters=10)
-    library = {"fwd": lib_f, "dq": lib_b, "dkdv": lib_b}
-    pairs = bh * _attention_pairs(t, 0)
+    sdpa_ms = {"fwd": lib_f, "dq": lib_b, "dkdv": lib_b}
+    note = "" if same else (" (causal only: SDPA has no window and no "
+                            "softcap, so not the same function)")
+    pairs = bh * _attention_pairs(t, window)
     flops = {"fwd": 4 * pairs * d, "dq": 6 * pairs * d,
              "dkdv": 8 * pairs * d}
     row, mat = bh * t * 4, bh * t * d * q.element_size()
@@ -1009,61 +1119,86 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag):
     by = {kk: "operations" if flops[kk] / peak > nbytes[kk] / bw
           else "bytes" for kk in ms}
     short = "bf16" if dtype == "bfloat16" else "fp32"
+    masks = "causal" + (f", window {window}" if window else "") + (
+        f", softcap {cap:g}" if cap else "")
     for kk in ms:
         print(f"{tag} timing flash_attention_"
               f"{'fwd' if kk == 'fwd' else 'bwd_' + kk} "
-              f"[{bh},{t},{d}] {short} causal: kernel {ms[kk]:.5f} ms, plain "
-              f"{plain[kk]:.5f} ms, scaled_dot_product_attention "
+              f"[{bh},{t},{d}] {short} {masks}: kernel {ms[kk]:.5f} ms, "
+              f"plain {plain[kk]:.5f} ms, scaled_dot_product_attention "
               f"{'fwd' if kk == 'fwd' else 'bwd (dq+dk+dv)'} "
-              f"{library[kk]:.5f} ms, bound {bound[kk]:.5f} ms "
+              f"{sdpa_ms[kk]:.5f} ms{note}, bound {bound[kk]:.5f} ms "
               f"({flops[kk]:.4e} flop at {peak / 1e12:g} TFLOP/s {short}; "
               f"{nbytes[kk]} bytes), {flops[kk] / ms[kk] / 1e9:.2f} "
               f"TFLOP/s achieved", flush=True)
     bwd = ms["dq"] + ms["dkdv"]
-    print(f"{tag} backward total (dq + dkdv) vs SDPA backward, [{bh},{t},"
-          f"{d}] {short} causal: {ms['dq']:.5f} + {ms['dkdv']:.5f} = "
-          f"{bwd:.5f} ms vs {lib_b:.5f} ms, {bwd / lib_b:.2f}x; "
-          f"{(flops['dq'] + flops['dkdv']) / bwd / 1e9:.2f} TFLOP/s vs "
-          f"{(flops['dq'] + flops['dkdv']) / lib_b / 1e9:.2f}", flush=True)
-    print(f"{tag} scaled_dot_product_attention vs kernel forward: max "
-          f"|diff| {sdpa_err.item():.3e}", flush=True)
-    del q, k, v, do, o, lse, dq, delta, qr, kr, vr, q4, k4, v4
+    print(f"{tag} backward total (dq + dkdv) vs SDPA backward{note}, "
+          f"[{bh},{t},{d}] {short} {masks}: {ms['dq']:.5f} + "
+          f"{ms['dkdv']:.5f} = {bwd:.5f} ms vs {lib_b:.5f} ms, "
+          f"{bwd / lib_b:.2f}x; "
+          f"{(flops['dq'] + flops['dkdv']) / bwd / 1e9:.2f} TFLOP/s",
+          flush=True)
+    if same:
+        print(f"{tag} scaled_dot_product_attention vs kernel forward: max "
+              f"|diff| {sdpa_err.item():.3e}", flush=True)
+    del q, k, v, do, o, lse, dq, delta, q4, k4, v4
     torch.cuda.empty_cache()
-    return {kk: dict(ms=ms[kk], plain_ms=plain[kk], library_ms=library[kk],
-                     bound_ms=bound[kk], bound_by=by[kk], flops=flops[kk],
-                     bytes=nbytes[kk], shape=[bh, t, d], dtype=dtype)
+    return {kk: dict(ms=ms[kk], plain_ms=plain[kk],
+                     library_ms=sdpa_ms[kk] if same else None,
+                     sdpa_ms=sdpa_ms[kk], bound_ms=bound[kk],
+                     bound_by=by[kk], flops=flops[kk], bytes=nbytes[kk],
+                     shape=[bh, t, d], dtype=dtype, window=window,
+                     softcap=cap)
             for kk in ms}
 
 
-def phase4_flash(torch, fa, ref, bw, bf16_peak, build_log):
+def phase4_flash(torch, fa, ref, bw, bf16_peak, fp32_peak, build_log):
     print_ptxas("phase4", build_log)
     ptxas = ptxas_table(build_log)
-    for name in FLASH_TC.values():
+    for name in list(FLASH_TC.values()) + list(FLASH_F32.values()):
         got = {kk[1]: vv for kk, vv in ptxas.items() if kk[0] == name}
         print(f"phase4 ptxas {name} by head dim: " + "; ".join(
             f"D={dd}: {vv.get('registers')} registers, spill stores "
             f"{vv.get('spill_stores')} B, loads {vv.get('spill_loads')} B"
             for dd, vv in sorted(got.items())), flush=True)
+    if sorted({kk[1] for kk in ptxas}) != list(fa.HEAD_DIMS):
+        fail(f"the build's head dims {sorted({kk[1] for kk in ptxas})} are "
+             f"not the wrapper's {fa.HEAD_DIMS}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    errs = {}
+    errs, by_shape = {}, {}
     for shape in FLASH_SHAPES + [FLASH_MAIN + (True,)]:
         errs = check_flash_shape(torch, fa, ref, gen, shape, "phase4")
+        by_shape[str(list(shape))] = errs
     torch.cuda.empty_cache()
 
     # timing at the LM path's shape, [B*m*b*H, T, D] bf16 causal
     b, h, t, d, win, cap, dtype = FLASH_MAIN
     timed = flash_timing(torch, fa, ref, gen, b * h, t, d, dtype, bw,
                          bf16_peak, "phase4")
-    # registers and spills of the tensor-core kernels, by head dim
-    tc = {kk: {f"D={key[1]}": vv for key, vv in sorted(ptxas.items())
-               if key[0] == FLASH_TC[kk]} for kk in timed}
+    # and at the new head dims: gemma2-9b's prefill, the LM sweep at 576
+    at_d = {}
+    for bh, t2, d2, win2, cap2, dt2 in FLASH_HEAD_DIM_TIMED:
+        peak = bf16_peak if dt2 == "bfloat16" else fp32_peak
+        at_d[f"[{bh},{t2},{d2}] {dt2}"] = flash_timing(
+            torch, fa, ref, gen, bh, t2, d2, dt2, bw, peak, "phase4",
+            window=win2, cap=cap2)
+    # registers and spills by head dim, of both designs
+    design = {kk: {f"D={key[1]}": vv for key, vv in sorted(ptxas.items())
+                   if key[0] == FLASH_TC[kk]} for kk in timed}
+    cores = {kk: {f"D={key[1]}": vv for key, vv in sorted(ptxas.items())
+                  if key[0] == FLASH_F32[kk]} for kk in timed}
     for kk, r in timed.items():
-        del r["shape"], r["dtype"]
-        r.update(ptxas=tc[kk], max_abs_err=(
-            errs["o"] if kk == "fwd" else errs["dq"] if kk == "dq"
-            else max(errs["dk"], errs["dv"])))
+        del r["shape"], r["dtype"], r["window"], r["softcap"]
+        pick = (lambda e: e["o"]) if kk == "fwd" else (
+            lambda e: e["dq"]) if kk == "dq" else (
+            lambda e: max(e["dk"], e["dv"]))
+        r.update(ptxas=design[kk], ptxas_fp32=cores[kk],
+                 max_abs_err=pick(errs),
+                 max_abs_err_by_shape={sh: pick(e)
+                                       for sh, e in by_shape.items()},
+                 head_dim_shapes={sh: v[kk] for sh, v in at_d.items()})
     return timed
 
 
@@ -2636,6 +2771,7 @@ def phase12_lm_sweep(torch, fa, masked, ref, grid, bw, fp32_peak):
     family = grid.SweepSpec(**LM_SWEEP)
     wide = dataclasses.replace(family, **LM_WIDE)
     cohort = dataclasses.replace(family, **LM_COHORT)
+    at_576 = dataclasses.replace(family, **LM_576)
     counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkdv, masked.fused_masked_agg)
     res = {"kernels": {}}
@@ -2794,6 +2930,41 @@ def phase12_lm_sweep(torch, fa, masked, ref, grid, bw, fp32_peak):
     del captured, st, ds, draws, step
     gc.collect()
     torch.cuda.empty_cache()
+
+    # (e) lm-576: head dim 144 through the fp32 flash kernels, against the
+    # plain attention and the branch aggregation from the same generators
+    E = len(sweep.eval_rounds(at_576.rounds, at_576.eval_every))
+    st_k, out_k, row = _lm_cell(torch, grid, at_576, counters,
+                                "phase12e lm-576 (d_model 576, head dim "
+                                "144; kernels)")
+    if row["launches"] != _want_launches(at_576, E):
+        fail(f"lm-576 launches {row['launches']}, expected "
+             f"{_want_launches(at_576, E)}")
+    plain_task = tasks.make_traced_lm_task(
+        data_seed=at_576.data_seed, num_clients=at_576.num_clients,
+        arch=at_576.lm_arch, d_model=at_576.lm_d_model,
+        layers=at_576.lm_layers, seq_len=at_576.lm_seq,
+        classes=at_576.classes, n_seqs=at_576.lm_n_seqs,
+        n_test=at_576.lm_n_test, per_client=at_576.per_client,
+        local_steps=at_576.local_steps, batch_size=at_576.batch_size,
+        device=dev, backend="torch")
+    st_p, out_p, row_p = _lm_cell(
+        torch, grid, dataclasses.replace(at_576, use_kernel=False), counters,
+        "phase12e lm-576 (plain path)", task=plain_task)
+    rows = (st_k.server - st_p.server).abs().amax(-1)
+    print(f"phase12e lm-576 kernel vs plain path, {at_576.rounds} rounds: "
+          f"largest |server diff| of a trajectory {rows.max().item():.3e}; "
+          f"tol {LM_PATHS_TOL:g}; flash launches fwd / dq / dkdv "
+          f"{row['launches'][:3]} (plain path {row_p['launches']})",
+          flush=True)
+    if row_p["launches"] != [0, 0, 0, 0] or not rows.max() <= LM_PATHS_TOL:
+        fail("lm-576: the kernel and plain paths diverge, or the plain "
+             "path launched a kernel")
+    res["d_model_576"] = dict(row, plain=row_p,
+                              paths_max_row_diff=rows.max().item())
+    del st_k, st_p, out_k, out_p, plain_task
+    gc.collect()
+    torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     print(f"phase12 done in {res['seconds']:.1f} s (limit "
           f"{PHASE12_LIMIT_S:g} s)", flush=True)
@@ -2869,47 +3040,10 @@ def phase13_dense_serving(torch, fa, ref, card):
         c = dataclasses.replace(cfg, dtype=dtype, num_layers=layers)
         params = model.init_leaves(
             torch.Generator(device=dev).manual_seed(0), c)
-        with torch.no_grad():
-            fwd = {}
-            for path, backend in (("kernel", None), ("plain", "torch")):
-                fa.flash_attention_fwd.launches = 0
-                fwd[path], _ = model.forward(params, c, toks,
-                                             backend=backend)
-                want = layers if path == "kernel" else 0
-                if fa.flash_attention_fwd.launches != want:
-                    fail(f"the {path} forward launched the flash kernel "
-                         f"{fa.flash_attention_fwd.launches} times, "
-                         f"expected {want}")
-            cache = model.make_cache(c, 1, TF_T, device=dev)
-            outs = []
-            fa.flash_attention_fwd.launches = 0
-            for t in range(TF_T):
-                lg, cache = model.decode_step(params, c, toks[:, t:t + 1],
-                                              cache, t)
-                outs.append(lg[:, 0])
-            dec = torch.stack(outs, 1)
-        if fa.flash_attention_fwd.launches != 0:
-            fail("decode_step launched the flash kernel")
-        rel = {}
-        for path, f in fwd.items():
-            rel[path] = ((dec - f).abs().max() / f.abs().max()).item()
-        rel["kernel_vs_plain"] = ((fwd["kernel"] - fwd["plain"]).abs().max()
-                                  / fwd["plain"].abs().max()).item()
-        ok = torch.isfinite(dec).all().item() and (
-            tol is None or (rel["kernel"] <= tol and rel["plain"] <= tol))
-        print(f"phase13b teacher forcing {dtype}, {layers} layers, [1, "
-              f"{TF_T}]: max |decode - forward| / max |forward|: through "
-              f"the flash kernel {rel['kernel']:.3e}, plain attention "
-              f"{rel['plain']:.3e} (limit "
-              f"{'none, measured' if tol is None else f'{tol:g}'}); kernel "
-              f"vs plain forward {rel['kernel_vs_plain']:.3e} "
-              f"{'ok' if ok else 'OUTSIDE'}; done at "
-              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
         res["teacher_forcing"][f"{dtype}_{layers}_layers"] = dict(
-            rel, limit=tol, done_at_s=time.perf_counter() - t_phase)
-        if not ok:
-            fail(f"teacher forcing ({dtype}): decode and forward disagree")
-        del params, fwd, cache, outs, dec
+            _teacher_forcing(torch, fa, model, params, c, toks, "phase13b",
+                             tol), done_at_s=time.perf_counter() - t_phase)
+        del params
         torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     print(f"phase13 done in {res['seconds']:.1f} s (limit "
@@ -2917,6 +3051,346 @@ def phase13_dense_serving(torch, fa, ref, card):
     if res["seconds"] > PHASE13_LIMIT_S:
         fail(f"phase 13 took {res['seconds']:.1f} s, over its "
              f"{PHASE13_LIMIT_S:g} s")
+    return res
+
+
+def _picks(moe_mod, fn):
+    """``fn()`` with every MoE layer's top-k expert picks recorded, in call
+    order: ``(fn(), [idx [B, T, k], ...])``."""
+    from unittest import mock
+
+    picks, real = [], moe_mod._router
+
+    def record(p, x, c):
+        out = real(p, x, c)
+        picks.append(out[0])
+        return out
+
+    with mock.patch.object(moe_mod, "_router", record):
+        return fn(), picks
+
+
+def _teacher_forcing(torch, fa, model, params, cfg, toks, label, tol):
+    """``forward`` on ``toks [1, T]`` through the flash kernel and through
+    the plain attention against T ``decode_step`` calls: max |decode -
+    forward| / max |forward| of each, and kernel vs plain; fails past
+    ``tol`` (None: measured). For an MoE model also the (layer, token)
+    pairs whose top-k experts differ between the paths: in bf16 a hidden
+    state that rounds otherwise may tip a near tie of the router."""
+    from repro_torch.models import moe as moe_mod
+
+    dev = toks.device
+    T = toks.shape[1]
+    # the flash kernel takes the full and swa layers (``dispatch.attention``)
+    layers = sum(model.attn_kind(cfg, i) in ("full", "swa")
+                 for i in range(cfg.num_layers))
+    picks = {}
+    with torch.no_grad():
+        fwd = {}
+        for path, backend in (("kernel", None), ("plain", "torch")):
+            fa.flash_attention_fwd.launches = 0
+            (fwd[path], _), picks[path] = _picks(moe_mod, lambda: (
+                model.forward(params, cfg, toks, backend=backend)))
+            want = layers if path == "kernel" else 0
+            if fa.flash_attention_fwd.launches != want:
+                fail(f"{label}: the {path} forward launched the flash "
+                     f"kernel {fa.flash_attention_fwd.launches} times, "
+                     f"expected {want}")
+
+        def decode():
+            cache = model.make_cache(cfg, 1, T, device=dev)
+            outs = []
+            for t in range(T):
+                lg, cache = model.decode_step(params, cfg, toks[:, t:t + 1],
+                                              cache, t)
+                outs.append(lg[:, 0])
+            return torch.stack(outs, 1)
+
+        fa.flash_attention_fwd.launches = 0
+        dec, picks["decode"] = _picks(moe_mod, decode)
+    if fa.flash_attention_fwd.launches != 0:
+        fail("decode_step launched the flash kernel")
+    rel = {path: ((dec - f).abs().max() / f.abs().max()).item()
+           for path, f in fwd.items()}
+    rel["kernel_vs_plain"] = ((fwd["kernel"] - fwd["plain"]).abs().max()
+                              / fwd["plain"].abs().max()).item()
+    flips = ""
+    if cfg.moe:
+        L = len(picks["plain"])
+
+        def by_layer(ps):      # [L, T, k], each row's experts sorted
+            if len(ps) == L * T:                  # decode: step-major
+                ps = [torch.cat(ps[layer::L], 1) for layer in range(L)]
+            return torch.stack(ps)[:, 0].sort(-1).values
+
+        want = by_layer(picks["plain"])
+        rel["routing_flips"] = {
+            path: int((by_layer(picks[path]) != want).any(-1).sum())
+            for path in ("kernel", "decode")}
+        flips = (f"; (layer, token) pairs routed otherwise than the plain "
+                 f"forward: kernel forward {rel['routing_flips']['kernel']}"
+                 f", decode {rel['routing_flips']['decode']} of {L * T}")
+    ok = torch.isfinite(dec).all().item() and (
+        tol is None or (rel["kernel"] <= tol and rel["plain"] <= tol))
+    print(f"{label} teacher forcing {cfg.dtype}, {cfg.num_layers} layers, "
+          f"[1, {T}]: max |decode - forward| / max |forward|: through the "
+          f"flash kernel {rel['kernel']:.3e}, plain attention "
+          f"{rel['plain']:.3e} (limit "
+          f"{'none, measured' if tol is None else f'{tol:g}'}); kernel vs "
+          f"plain forward {rel['kernel_vs_plain']:.3e}{flips} "
+          f"{'ok' if ok else 'OUTSIDE'}", flush=True)
+    if not ok:
+        fail(f"{label}: teacher forcing ({cfg.dtype}, {cfg.num_layers} "
+             f"layers): decode and forward disagree")
+    return dict(rel, limit=tol)
+
+
+def _first_periods(params, n):
+    """The leaves of a model's first ``n`` periods (views)."""
+    return {k: v[:n] if k.startswith("blocks.") else v
+            for k, v in params.items()}
+
+
+def phase14_gemma2(torch, fa, card):
+    """gemma2-9b at full width and depth: the serve launcher, a forward
+    past the window through flash_fwd_tc at D = 256, the same at 2 layers
+    against the plain attention, and teacher forcing."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv)
+    cfg = get_config("gemma2-9b")
+    if cfg.num_layers != GEMMA_LAYERS or cfg.head_dim != 256:
+        fail("gemma2-9b's config is not the published one")
+    res = {"n_params": cfg.param_count()}
+    params, res["init_s"], _, _ = _counted(torch, counters, lambda: (
+        model.init_leaves(torch.Generator(device=dev).manual_seed(0), cfg)))
+    print(f"phase14 gemma2-9b: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.attention.num_heads} heads of "
+          f"{cfg.head_dim} on {cfg.attention.num_kv_heads} KV heads, "
+          f"{res['n_params']} parameters bf16, seeded in "
+          f"{res['init_s']:.2f} s", flush=True)
+    b, p_len, g_len = GEMMA_SERVE
+    args = ["--arch", "gemma2-9b", "--full", "--batch", str(b)]
+    res["profile"] = profile_window(
+        torch, f"phase14a serve gemma2-9b (batch {b}, prompt 4, gen 4)",
+        lambda: serve.main(args + ["--prompt-len", "4", "--gen", "4"],
+                           params=params), 8, "step")
+    out, _, launches, peak = _counted(torch, counters, lambda: serve.main(
+        args + ["--prompt-len", str(p_len), "--gen", str(g_len)],
+        params=params))
+    decode_s = out["seconds"] - out["prefill_seconds"]
+    steps = p_len + g_len
+    print(f"phase14a serve gemma2-9b --full batch {b} prompt {p_len} gen "
+          f"{g_len} on {card}: {out['seconds']:.4f} s = "
+          f"{out['tokens_per_s']:.1f} tokens/s incl. prefill (decode "
+          f"{b * g_len / decode_s:.1f} tokens/s, "
+          f"{1e3 * out['seconds'] / steps:.3f} ms per step); idle share "
+          f"{res['profile']['device_idle_share']:.3f} (profiled window); "
+          f"first ids {out['ids'][0][:12].tolist()}; flash launches "
+          f"{launches} (want 0); peak memory {peak / 2 ** 30:.3f} GiB; done "
+          f"at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if tuple(out["ids"].shape) != (b, g_len) or not (
+            (out["ids"] >= 0) & (out["ids"] < cfg.vocab_size)).all():
+        fail("gemma2-9b: the served ids are misshapen or out of the "
+             "vocabulary")
+    if launches != [0, 0, 0]:
+        fail(f"gemma2-9b: decode_step launched flash kernels {launches}")
+    res["serve"] = dict(seconds=out["seconds"],
+                        tokens_per_s=out["tokens_per_s"],
+                        decode_tokens_per_s=b * g_len / decode_s,
+                        ms_per_step=1e3 * out["seconds"] / steps,
+                        peak_gib=peak / 2 ** 30, flash_launches=launches)
+    del out
+
+    # (b) one forward on [1, GEMMA_T] through the kernels, all 42 layers
+    toks = torch.randint(0, cfg.vocab_size, (1, GEMMA_T),
+                         generator=torch.Generator().manual_seed(14)).to(dev)
+
+    def forward(p, c, backend=None):
+        with torch.no_grad():
+            return model.forward(p, c, toks, backend=backend)[0]
+
+    logits, sec, launches, peak = _counted(torch, counters,
+                                           lambda: forward(params, cfg))
+    ok = (tuple(logits.shape) == (1, GEMMA_T, cfg.vocab_size)
+          and torch.isfinite(logits).all().item()
+          and logits.abs().max().item() <= cfg.final_softcap)
+    print(f"phase14b forward gemma2-9b [1, {GEMMA_T}] (window "
+          f"{cfg.attention.window}, softcaps {cfg.attention.logit_softcap:g}"
+          f" / {cfg.final_softcap:g}): {sec:.4f} s = {GEMMA_T / sec:.1f} "
+          f"tokens/s; logits {list(logits.shape)} finite, |max| "
+          f"{logits.abs().max().item():.3f} <= the final softcap: "
+          f"{'ok' if ok else 'NO'}; flash launches {launches} (want "
+          f"[{cfg.num_layers}, 0, 0]); peak memory {peak / 2 ** 30:.3f} GiB",
+          flush=True)
+    if not ok or launches != [cfg.num_layers, 0, 0]:
+        fail("gemma2-9b: the long forward is misshapen, non-finite or did "
+             "not run through the flash kernel once a layer")
+    res["forward"] = dict(seconds=sec, tokens_per_s=GEMMA_T / sec,
+                          peak_gib=peak / 2 ** 30, flash_launches=launches)
+    del logits
+    c2 = dataclasses.replace(cfg, num_layers=2)
+    p2 = _first_periods(params, 1)
+    kern = forward(p2, c2)
+    plain = forward(p2, c2, "torch")
+    rel = ((kern - plain).abs().max() / plain.abs().max()).item()
+    print(f"phase14b forward [1, {GEMMA_T}] at 2 layers, kernel vs plain "
+          f"attention: max |logit diff| / max |logit| {rel:.3e} (limit "
+          f"{GEMMA_PATHS_TOL:g}) {'ok' if rel <= GEMMA_PATHS_TOL else 'OUTSIDE'}"
+          f"; done at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not rel <= GEMMA_PATHS_TOL:
+        fail("gemma2-9b: the long forward through the kernel disagrees with "
+             "the plain attention")
+    res["forward"]["kernel_vs_plain_2_layers"] = rel
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    # (c) teacher forcing
+    toks = toks[:, :GEMMA_TF_T]
+    res["teacher_forcing"] = {}
+    for dtype, layers, tol in GEMMA_TF_CASES:
+        c = dataclasses.replace(cfg, dtype=dtype, num_layers=layers)
+        p = _first_periods(params, layers // model.period_length(cfg))
+        if dtype == "float32":
+            p = {k: v.float() for k, v in p.items()}
+        res["teacher_forcing"][f"{dtype}_{layers}_layers"] = \
+            _teacher_forcing(torch, fa, model, p, c, toks, "phase14c", tol)
+        del p
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase14 done in {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def phase15_moe(torch, fa, card):
+    """mixtral-8x22b and llama4-maverick at their published widths and
+    reduced depth: a prefill forward (the share of tokens dropped at
+    capacity, the aux loss), greedy decode steps, teacher forcing."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.models import moe as moe_mod
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv)
+    res = {}
+    real_moe = moe_mod.moe_apply
+    for arch, layers in MOE_CASES:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        m = cfg.moe
+        row = {"reduced": {"num_layers": [full.num_layers, layers]},
+               "n_params": cfg.param_count(),
+               "active_params": cfg.active_param_count()}
+        params, row["init_s"], _, _ = _counted(torch, counters, lambda: (
+            model.init_leaves(torch.Generator(device=dev).manual_seed(0),
+                              cfg)))
+        print(f"phase15 {arch}: reduced num_layers {full.num_layers} -> "
+              f"{layers} (published widths: d_model {cfg.d_model}, d_ff "
+              f"{cfg.d_ff}, {m.num_experts} experts top-{m.top_k} every "
+              f"{cfg.moe_every} layer(s), attention {cfg.attention.pattern}"
+              f" window {cfg.attention.window}); {row['n_params']} "
+              f"parameters ({row['active_params']} active a token) bf16, "
+              f"seeded in {row['init_s']:.2f} s", flush=True)
+        B, T = MOE_PREFILL
+        toks = torch.randint(0, cfg.vocab_size, (B, T),
+                             generator=torch.Generator().manual_seed(15)
+                             ).to(dev)
+        dropped = []
+
+        def counted_moe(p, x, c):
+            # the share of (token, choice) slots over capacity, read
+            # beside the layer's own routing (one more router product)
+            idx, _, _ = moe_mod._router(p, x, c)
+            dropped.append(1.0 - moe_mod.slots(idx, c, x.shape[1])[1]
+                           .float().mean())
+            return real_moe(p, x, c)
+
+        def prefill():
+            with torch.no_grad():
+                return model.forward(params, cfg, toks)
+
+        with mock.patch.object(moe_mod, "moe_apply", counted_moe):
+            (logits, aux), sec, launches, peak = _counted(torch, counters,
+                                                          prefill)
+        drop = [d.item() for d in dropped]
+        want = [layers if cfg.attention.pattern in ("full", "swa") else 0,
+                0, 0]
+        ok = (tuple(logits.shape) == (B, T, cfg.vocab_size)
+              and torch.isfinite(logits).all().item()
+              and math.isfinite(aux.item()) and aux.item() > 0
+              and launches == want)
+        print(f"phase15a {arch} prefill forward [{B}, {T}] on {card}: "
+              f"{sec:.4f} s = {B * T / sec:.1f} tokens/s; aux (balance "
+              f"loss, summed over {len(drop)} MoE layers) {aux.item():.4f}; "
+              f"dropped at capacity factor {m.capacity_factor:g} by layer "
+              f"{[round(d, 4) for d in drop]}; flash launches {launches} "
+              f"(want {want}: chunked layers take the plain attention); "
+              f"peak memory {peak / 2 ** 30:.3f} GiB "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            fail(f"{arch}: the prefill forward is misshapen or non-finite, "
+                 f"its aux is not positive, or its flash launches are "
+                 f"{launches}, not {want}")
+        row["prefill"] = dict(seconds=sec, tokens_per_s=B * T / sec,
+                              aux=aux.item(), dropped_share_by_layer=drop,
+                              peak_gib=peak / 2 ** 30,
+                              flash_launches=launches)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        del logits
+
+        def decode(n, tok=tok):
+            cache = model.make_cache(cfg, B, n, device=dev)
+            ids = []
+            with torch.no_grad():
+                for t in range(n):
+                    lg, cache = model.decode_step(params, cfg, tok, cache, t)
+                    tok = lg[:, -1].argmax(-1)[:, None]
+                    ids.append(tok)
+            return torch.cat(ids, 1)
+
+        prof = profile_window(torch, f"phase15b {arch} decode (batch {B}, "
+                              f"4 steps)", lambda: decode(4), 4, "step")
+        ids, sec, launches, peak = _counted(torch, counters,
+                                            lambda: decode(MOE_DECODE))
+        ok = (tuple(ids.shape) == (B, MOE_DECODE) and launches == [0, 0, 0]
+              and ((ids >= 0) & (ids < cfg.vocab_size)).all().item())
+        print(f"phase15b {arch} greedy decode batch {B}, {MOE_DECODE} steps:"
+              f" {sec:.4f} s = {B * MOE_DECODE / sec:.1f} tokens/s, "
+              f"{1e3 * sec / MOE_DECODE:.3f} ms per step; idle share "
+              f"{prof['device_idle_share']:.3f} (profiled window); first "
+              f"ids {ids[0][:8].tolist()}; flash launches {launches} (want "
+              f"0); peak memory {peak / 2 ** 30:.3f} GiB "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            fail(f"{arch}: decode ids misshapen or a flash launch")
+        row["decode"] = dict(seconds=sec, tokens_per_s=B * MOE_DECODE / sec,
+                             ms_per_step=1e3 * sec / MOE_DECODE,
+                             peak_gib=peak / 2 ** 30, profile=prof,
+                             flash_launches=launches)
+        dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+        row["teacher_forcing"] = _teacher_forcing(
+            torch, fa, model, params, dropless, toks[:1, :MOE_TF_T],
+            f"phase15c {arch}", None)
+        row["seconds"] = time.perf_counter() - t_phase
+        res[arch] = row
+        del params, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase15 done in {res['seconds']:.1f} s", flush=True)
     return res
 
 
@@ -2962,10 +3436,12 @@ def main():
         logs = nvcc.result()
     print(f"nvcc builds of {fa.SOURCE.name} and {rk.SOURCE.name} (in "
           f"parallel, beside phase 1) done at {time.perf_counter() - t0:.1f}"
-          f" s", flush=True)
+          f" s; " + "; ".join(log.splitlines()[0] for log in logs.values()),
+          flush=True)
     spec, launches, rounds_per_s = phase2_main_path(torch, masked, grid)
     phase3_paths_agree(torch, grid, spec)
-    f = phase4_flash(torch, fa, ref, bw, bf16_peak, logs[fa.SOURCE.name])
+    f = phase4_flash(torch, fa, ref, bw, bf16_peak, fp32_peak,
+                     logs[fa.SOURCE.name])
     lm = phase5_slice(torch, train, fa, masked, card)
     paths_err = phase6_paths_agree(torch, train, fa)
     wkv = phase7_wkv(torch, rk, ref, bw, fp32_peak, logs[rk.SOURCE.name])
@@ -2975,10 +3451,18 @@ def main():
     found = phase11_search(torch, masked, ref, grid)
     lm_sweep = phase12_lm_sweep(torch, fa, masked, ref, grid, bw, fp32_peak)
     dense = phase13_dense_serving(torch, fa, ref, card)
+    gemma = phase14_gemma2(torch, fa, card)
+    moe = phase15_moe(torch, fa, card)
+    zoo_s = gemma["seconds"] + moe["seconds"]
+    print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
+          f"s)", flush=True)
+    if zoo_s > PHASE14_15_LIMIT_S:
+        fail(f"phases 14-15 took {zoo_s:.1f} s, over their "
+             f"{PHASE14_15_LIMIT_S:g} s")
     # each flash kernel's launches by LM-sweep cell, counted on that cell's
     # timed run (index 0-2: fwd, dq, dkdv; 3: the aggregation)
     cell_launches = {c: lm_sweep[c]["launches"]
-                     for c in ("family", "cohort", "wide")}
+                     for c in ("family", "cohort", "wide", "d_model_576")}
     kernel = {"name": "fused_masked_agg", "route": "triton",
               "source": "src/repro_torch/kernels/masked_agg.py",
               "replaces": "src/repro/kernels/masked_agg.py:180 "
@@ -3029,7 +3513,12 @@ def main():
             lm_sweep_launches={c: v[i] for c, v in cell_launches.items()},
             lm_sweep_shapes={dd: v[key] for dd, v in
                              lm_sweep["kernels"]["flash"].items()},
-            serve_launches=dense["serve_flash_launches"][i])
+            serve_launches=dense["serve_flash_launches"][i],
+            zoo_launches={
+                "gemma2_9b_serve": gemma["serve"]["flash_launches"][i],
+                "gemma2_9b_forward": gemma["forward"]["flash_launches"][i],
+                **{f"{a}_prefill": moe[a]["prefill"]["flash_launches"][i]
+                   for a, _ in MOE_CASES}})
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err
@@ -3061,6 +3550,7 @@ def main():
     print(json.dumps({"lm_sweep": {k2: v for k2, v in lm_sweep.items()
                                    if k2 != "kernels"}}), flush=True)
     print(json.dumps({"serve": dense}), flush=True)
+    print(json.dumps({"zoo": {"gemma2-9b": gemma, "moe": moe}}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -15,7 +15,9 @@ module needs neither JAX nor the reference package:
   each in its dtype, for any ported family: the reference's RWKV6 tree
   (``blocks[i]["tmix"][...]``, with the channel mix's leaves inside
   ``tmix``) lands on ``blocks.{i}.tmix.wr`` and so on, and its fp32 leaves
-  (``decay_base``, ``bonus_u``, ``ln_x``) stay fp32 in a bf16 model;
+  (``decay_base``, ``bonus_u``, ``ln_x``) stay fp32 in a bf16 model; an MoE
+  layer's ``blocks[i]["moe"]`` lands on ``blocks.{i}.moe.router`` (fp32,
+  bit for bit) and ``moe.up``/``gate``/``down`` (the model dtype);
 - ``fed_state_from_jax(np_state, layout, scheme)``: a reference ``FedState``
   (an object with its fields, numpy leaves, leading ``[B]`` axis on every
   leaf, e.g. from a vmapped init) -> the port's ``FedState``, so a test can

@@ -18,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Mapping
 
@@ -83,10 +84,11 @@ def report_path(lib: Path) -> Path:
 def compile_all(sources: Iterable[Path]) -> Dict[str, str]:
     """Build every source not built yet, one ``nvcc`` each, all started
     together; returns the compiler reports (``-Xptxas -v``: registers,
-    shared memory, spills) by file name. Each report is kept beside its
-    library (``report_path``); for a library already built the report
-    returned is that file's, under a first line that says it was cached.
-    Raises if any build fails."""
+    shared memory, spills) by file name, each under a first line ``nvcc
+    <file>: <s> s`` with that build's wall seconds. Each report is kept
+    beside its library (``report_path``); for a library already built the
+    report returned is that file's, under a first line that says it was
+    cached. Raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, arch = _nvcc(), _arch()
     logs: Dict[str, str] = {}
@@ -99,15 +101,25 @@ def compile_all(sources: Iterable[Path]) -> Dict[str, str]:
                 report.read_text() if report.exists() else "(missing)\n")
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        out = tmp.with_suffix(".log")
         cmd = [nvcc, "-gencode", f"arch=compute_{arch},code=sm_{arch}",
                "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v", "-o", str(tmp), str(source)]
-        running.append((source, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        with open(out, "w") as sink:
+            proc = subprocess.Popen(cmd, stdout=sink,
+                                    stderr=subprocess.STDOUT, text=True)
+        running.append((source, lib, tmp, out, proc, time.perf_counter()))
+    done: Dict[str, float] = {}
+    while len(done) < len(running):
+        for source, *_, proc, t0 in running:
+            if source.name not in done and proc.poll() is not None:
+                done[source.name] = time.perf_counter() - t0
+        time.sleep(0.05)
     failed = []
-    for source, lib, tmp, proc in running:
-        logs[source.name] = proc.communicate()[0]
+    for source, lib, tmp, out, proc, _ in running:
+        logs[source.name] = (f"nvcc {source.name}: "
+                             f"{done[source.name]:.1f} s\n" + out.read_text())
+        out.unlink()
         if proc.returncode != 0:
             failed.append(source.name)
         else:

@@ -24,11 +24,13 @@
 //
 // fp32 inputs (flash_fwd, flash_bwd_dq, flash_bwd_dkdv): products as fp32
 // FMAs on the CUDA cores from fp32 copies of the tiles in shared memory
-// (tensor cores would round fp32 operands to TF32 or bf16): 64-row tiles,
-// 256 threads as a 16 x 16 grid, each thread a 4 x 4 register micro-tile of
-// the score tile and a 4 x (D/16) micro-tile of the output, operands read as
-// float4 from shared memory laid out so the inner product's index runs along
-// rows.
+// (tensor cores would round fp32 operands to TF32 or bf16): 64-row tiles
+// up to D = 128, 32-row tiles above (f32_rows: at 64 rows dq and dkdv would
+// pass 227 KB of shared memory at D = 144 and 256), 256 threads as a
+// 16 x 16 grid, each thread an R x R register micro-tile of the score tile
+// (R = rows / 16) and an R x (D/16) micro-tile of the output, operands read
+// as float4 (float2 at R = 2) from shared memory laid out so the inner
+// product's index runs along rows.
 //
 // bf16 inputs (flash_fwd_tc, flash_bwd_dq_tc, flash_bwd_dkdv_tc): tensor
 // cores, mma.sync m16n8k16 bf16 -> fp32 (warp_mma.cuh). 4 warps; a block
@@ -54,20 +56,35 @@
 // lanes to a row.
 //
 // Tiles: 64 resident rows (one m16 strip a warp). Loop tiles: the forward
-// 64 keys wide at every D (a thread holds O, D/2 fp32, S, 32 fp32, and Q's
-// fragments, D/4 registers); the backward 64 wide at D <= 32, 32 wide at
-// D >= 64. Registers bound the design. On an H100 (sm_90a, `nvcc -Xptxas
-// -v` as chip_smoke.py phase 4 prints it) the forward takes 95 / 124 / 127
-// / 178 registers at D = 16 / 32 / 64 / 128. A thread of dkdv holds dK and
-// dV (2 x D/2 fp32) plus S^T and dP^T (2 x BN/2 fp32): 64-wide tiles at
-// D = 64 took dkdv to 200 registers, two blocks an SM, and ran slower than
-// 32-wide tiles at 160 registers, three blocks an SM; dq ran alike at both
-// widths (138 and 103 registers). Capping dkdv at three 64-wide blocks an
-// SM spilled. At D = 128 dkdv takes 240 registers, dq 130; no instantiation
-// spills. Dynamic shared memory: the forward 1 resident tile and 2 x 2 ring
-// tiles of [rows][D + 8] bf16, 46,080 bytes at D = 64 and 87,040 at
-// D = 128; the backward 2 resident and 2 x 2 ring tiles plus the fp32 row
-// statistics, 37,376 bytes at D = 64 and 70,144 at D = 128.
+// 64 keys wide up to D = 128 (a thread holds O, D/2 fp32, S, 32 fp32, and
+// Q's fragments, D/4 registers, for the whole loop) and 32 wide above,
+// where Q is reloaded from shared memory by ldmatrix at each k step (O
+// alone is 128 fp32 at D = 256); the backward 64 wide at D <= 32, 32 wide
+// at D >= 64. Registers bound the design. On an H100 (sm_90a, `nvcc
+// -Xptxas -v` as chip_smoke.py phase 4 prints it) the forward takes 95 /
+// 124 / 127 / 178 / 129 / 224 registers at D = 16 / 32 / 64 / 128 / 144 /
+// 256. A thread of dkdv holds dK and dV (2 x D/2 fp32) plus S^T and dP^T
+// (2 x BN/2 fp32): 64-wide tiles at D = 64 took dkdv to 200 registers, two
+// blocks an SM, and ran slower than 32-wide tiles at 160 registers, three
+// blocks an SM; dq ran alike at both widths (138 and 103 registers).
+// Capping dkdv at three 64-wide blocks an SM spilled. At D = 128 dkdv takes
+// 238 registers, dq 130. Above D = 128 the backward splits its output
+// columns over grid z (dq_tc_cols, dkdv_tc_cols): each block recomputes the
+// full S and dP (S^T and dP^T) and accumulates only its DC columns of dQ
+// (dK and dV), so a thread's accumulators stay DC / 2 (2 x DC / 2) fp32: dq
+// one slice of 144 at D = 144 (162 registers) and two of 128 at D = 256
+// (130), dkdv three of 48 at D = 144 (137) and two of 128 at D = 256
+// (232). No bf16 instantiation spills. Dynamic shared memory: the forward
+// 1 resident tile and 2 x 2 ring tiles of [rows][D + 8] bf16, 46,080 bytes
+// at D = 64, 87,040 at D = 128 and 101,376 at D = 256; the backward 2
+// resident and 2 x 2 ring tiles plus the fp32 row statistics, 37,376
+// bytes at D = 64, 70,144 at D = 128 and 135,680 at D = 256 (over 48 KB
+// only after the cudaFuncSetAttribute of launch, once per instantiation).
+//
+// Head dims: the C interface instantiates D = 16, 32, 64, 128, 144 and 256
+// (BY_D) and takes the score scale from the caller, who zero-pads any
+// other D <= 256 up to the next of these and passes its own D^-1/2
+// (kernels/flash_attention.py).
 //
 // Both designs skip tiles that the causal mask or the window masks
 // completely (a skipped tile adds exp(-1e30 - m) = 0 in the reference). A
@@ -84,11 +101,19 @@
 namespace {
 
 constexpr int NT = 256;          // threads per block, a 16 x 16 grid
-constexpr int BT = 64;           // rows per tile (queries and keys alike)
-constexpr int PT = BT + 4;       // padded row stride of a [BT][BT] tile
 constexpr float NEG_INF = -1e30f;
 
-// N consecutive floats from shared memory (16-byte aligned for N % 4 == 0).
+// rows per tile (queries and keys alike) of the fp32 kernels: 64, or 32
+// above D = 128, where 64-row tiles of dq and dkdv pass 227 KB of shared
+// memory
+template <int D>
+__host__ __device__ constexpr int f32_rows() { return D > 128 ? 32 : 64; }
+// padded row stride of a [BT][BT] score tile
+template <int BT>
+__host__ __device__ constexpr int pt() { return BT + 4; }
+
+// N consecutive floats from shared memory (16-byte aligned for N % 4 == 0,
+// 8-byte for N % 2 == 0).
 template <int N>
 __device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
   if constexpr (N % 4 == 0) {
@@ -97,9 +122,26 @@ __device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
       const float4 t = *reinterpret_cast<const float4*>(src + i);
       dst[i] = t.x; dst[i + 1] = t.y; dst[i + 2] = t.z; dst[i + 3] = t.w;
     }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(src + i);
+      dst[i] = t.x; dst[i + 1] = t.y;
+    }
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) dst[i] = src[i];
+  }
+}
+
+// R consecutive floats into shared memory (as lds aligns them).
+template <int R>
+__device__ __forceinline__ void sts(float* dst, const float (&v)[R]) {
+  if constexpr (R == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    static_assert(R == 2, "micro-tiles are 4 or 2 wide");
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
   }
 }
 
@@ -108,7 +150,7 @@ __device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
 // One 16-byte global load per thread and step; consecutive threads take
 // consecutive rows, so the transposed stores hit consecutive banks. Rows
 // >= T are zero.
-template <int D>
+template <int D, int BT>
 __device__ __forceinline__ void load_tile(const float* __restrict__ src,
                                           int row0, int t_len, float* rm,
                                           float* tr) {
@@ -139,38 +181,38 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src,
 }
 
 // acc[i][j] += sum_k A[k][ra + i] * B[k][cb + j] over k < K, with A and B
-// stored k-major ([K][BT], the transposed tiles): a 4 x 4 micro-tile.
-template <int K>
-__device__ __forceinline__ void mm_kmajor(float (&acc)[4][4], const float* a,
+// stored k-major ([K][BT], the transposed tiles): an R x R micro-tile.
+template <int K, int BT, int R>
+__device__ __forceinline__ void mm_kmajor(float (&acc)[R][R], const float* a,
                                           const float* b, int ra, int cb) {
 #pragma unroll 8
   for (int k = 0; k < K; ++k) {
-    float av[4], bv[4];
+    float av[R], bv[R];
     lds(av, a + k * BT + ra);
     lds(bv, b + k * BT + cb);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+      for (int j = 0; j < R; ++j) acc[i][j] += av[i] * bv[j];
   }
 }
 
 // acc[i][j] += sum_k P[ra + i][k] * X[k][cb + j] over the BT keys k: P a
-// [BT][PT] row-major score tile, X a [BT][D + 4] row-major value tile.
-template <int D, int DC>
-__device__ __forceinline__ void mm_rows(float (&acc)[4][DC], const float* p,
+// [BT][BT + 4] row-major score tile, X a [BT][D + 4] row-major value tile.
+template <int D, int DC, int BT, int R>
+__device__ __forceinline__ void mm_rows(float (&acc)[R][DC], const float* p,
                                         const float* x, int ra, int cb) {
 #pragma unroll 2
   for (int k = 0; k < BT; k += 4) {
-    float pv[4][4];
+    float pv[R][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) lds(pv[i], p + (ra + i) * PT + k);
+    for (int i = 0; i < R; ++i) lds(pv[i], p + (ra + i) * pt<BT>() + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       float xv[DC];
       lds(xv, x + (k + kk) * (D + 4) + cb);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < DC; ++j) acc[i][j] += pv[i][kk] * xv[j];
     }
@@ -239,7 +281,10 @@ __device__ __forceinline__ float score(float dot, float scale, float cap,
 }
 
 template <int D>
-constexpr int fwd_smem_floats() { return 2 * D * BT + BT * (D + 4) + BT * PT; }
+constexpr int fwd_smem_floats() {
+  constexpr int BT = f32_rows<D>();
+  return 2 * D * BT + BT * (D + 4) + BT * pt<BT>();
+}
 
 template <int D>
 __global__ void __launch_bounds__(NT)
@@ -247,7 +292,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
           float* __restrict__ lse, int t_len, Mask mask, float scale,
           float cap) {
-  constexpr int DC = D / 16;
+  constexpr int BT = f32_rows<D>(), R = BT / 16, PT = pt<BT>(), DC = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                 // [D][BT]
   float* kt = qt + D * BT;          // [D][BT]
@@ -258,13 +303,13 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int iq = n_tiles - 1 - blockIdx.y;   // the heaviest tiles first
   const int q0 = iq * BT;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ra = ty * 4, cb = tx * 4;
+  const int ra = ty * R, cb = tx * R;
   const size_t base = (size_t)bh * t_len * D;
 
-  load_tile<D>(q + base, q0, t_len, nullptr, qt);
-  float m_i[4], l_i[4], acc[4][DC];
+  load_tile<D, BT>(q + base, q0, t_len, nullptr, qt);
+  float m_i[R], l_i[R], acc[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m_i[i] = NEG_INF;
     l_i[i] = 0.f;
 #pragma unroll
@@ -275,16 +320,16 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   for (int ik = lo; ik <= hi; ++ik) {
     const int k0 = ik * BT;
     __syncthreads();
-    load_tile<D>(k + base, k0, t_len, nullptr, kt);
-    load_tile<D>(v + base, k0, t_len, vs, nullptr);
+    load_tile<D, BT>(k + base, k0, t_len, nullptr, kt);
+    load_tile<D, BT>(v + base, k0, t_len, vs, nullptr);
     __syncthreads();
-    float s[4][4] = {};
-    mm_kmajor<D>(s, qt, kt, ra, cb);
+    float s[R][R] = {};
+    mm_kmajor<D, BT>(s, qt, kt, ra, cb);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       float th, mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float x = score(s[i][j], scale, cap, &th);
         s[i][j] = mask.allow(q0 + ra + i, k0 + cb + j) ? x : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
@@ -293,7 +338,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       const float corr = expf(m_i[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[i][j] = expf(s[i][j] - m_new);
         rs += s[i][j];
       }
@@ -301,14 +346,13 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       m_i[i] = m_new;
 #pragma unroll
       for (int j = 0; j < DC; ++j) acc[i][j] *= corr;
-      *reinterpret_cast<float4*>(ps + (ra + i) * PT + cb) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      sts(ps + (ra + i) * PT + cb, s[i]);
     }
     __syncthreads();
-    mm_rows<D, DC>(acc, ps, vs, ra, tx * DC);
+    mm_rows<D, DC, BT>(acc, ps, vs, ra, tx * DC);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = q0 + ra + i;
     if (r >= t_len) continue;
     const float den = fmaxf(l_i[i], 1e-30f);
@@ -321,7 +365,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 constexpr int dq_smem_floats() {
-  return 4 * D * BT + BT * (D + 4) + BT * PT + 2 * BT;
+  constexpr int BT = f32_rows<D>();
+  return 4 * D * BT + BT * (D + 4) + BT * pt<BT>() + 2 * BT;
 }
 
 template <int D>
@@ -331,7 +376,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ dout, const float* __restrict__ lse,
              float* __restrict__ delta, float* __restrict__ dq, int t_len,
              Mask mask, float scale, float cap) {
-  constexpr int DC = D / 16;
+  constexpr int BT = f32_rows<D>(), R = BT / 16, PT = pt<BT>(), DC = D / 16;
+  constexpr int TPR = NT / BT;       // threads to a row of delta
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                  // [D][BT]
   float* dot_ = qt + D * BT;         // [D][BT]  dO transposed
@@ -346,44 +392,45 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int iq = n_tiles - 1 - blockIdx.y;
   const int q0 = iq * BT;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ra = ty * 4, cb = tx * 4;
+  const int ra = ty * R, cb = tx * R;
   const size_t base = (size_t)bh * t_len * D;
 
-  load_tile<D>(q + base, q0, t_len, nullptr, qt);
-  load_tile<D>(dout + base, q0, t_len, nullptr, dot_);
-  {  // delta = rowsum(dO * O): 4 threads per row
-    const int r = threadIdx.x / 4, part = threadIdx.x % 4, row = q0 + r;
+  load_tile<D, BT>(q + base, q0, t_len, nullptr, qt);
+  load_tile<D, BT>(dout + base, q0, t_len, nullptr, dot_);
+  {  // delta = rowsum(dO * O): TPR threads per row
+    const int r = threadIdx.x / TPR, part = threadIdx.x % TPR, row = q0 + r;
     float acc = 0.f;
     if (row < t_len) {
-      for (int d = part * (D / 4); d < (part + 1) * (D / 4); ++d)
+      for (int d = part * (D / TPR); d < (part + 1) * (D / TPR); ++d)
         acc += dout[base + (size_t)row * D + d] *
                o[base + (size_t)row * D + d];
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+#pragma unroll
+    for (int off = 1; off < TPR; off <<= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (part == 0) {
       dl_s[r] = acc;
       lse_s[r] = row < t_len ? lse[(size_t)bh * t_len + row] : 0.f;
       if (row < t_len) delta[(size_t)bh * t_len + row] = acc;
     }
   }
-  float acc[4][DC] = {};
+  float acc[R][DC] = {};
   const int lo = mask.key_tile_lo(q0, BT);
   const int hi = mask.key_tile_hi(q0, BT, BT, n_tiles);
   for (int ik = lo; ik <= hi; ++ik) {
     const int k0 = ik * BT;
     __syncthreads();
-    load_tile<D>(k + base, k0, t_len, ks, kt);
-    load_tile<D>(v + base, k0, t_len, nullptr, vt);
+    load_tile<D, BT>(k + base, k0, t_len, ks, kt);
+    load_tile<D, BT>(v + base, k0, t_len, nullptr, vt);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mm_kmajor<D>(s, qt, kt, ra, cb);
-    mm_kmajor<D>(dp, dot_, vt, ra, cb);
+    float s[R][R] = {}, dp[R][R] = {};
+    mm_kmajor<D, BT>(s, qt, kt, ra, cb);
+    mm_kmajor<D, BT>(dp, dot_, vt, ra, cb);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int r = ra + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         float th;
         const float x = score(s[i][j], scale, cap, &th);
         float g = 0.f;
@@ -393,14 +440,13 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
         }
         s[i][j] = g;
       }
-      *reinterpret_cast<float4*>(ds + r * PT + cb) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      sts(ds + r * PT + cb, s[i]);
     }
     __syncthreads();
-    mm_rows<D, DC>(acc, ds, ks, ra, tx * DC);
+    mm_rows<D, DC, BT>(acc, ds, ks, ra, tx * DC);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = q0 + ra + i;
     if (r >= t_len) continue;
 #pragma unroll
@@ -411,7 +457,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 constexpr int dkdv_smem_floats() {
-  return 4 * D * BT + 2 * BT * (D + 4) + BT * PT + 2 * BT;
+  constexpr int BT = f32_rows<D>();
+  return 4 * D * BT + 2 * BT * (D + 4) + BT * pt<BT>() + 2 * BT;
 }
 
 template <int D>
@@ -421,7 +468,7 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int t_len,
                Mask mask, float scale, float cap) {
-  constexpr int DC = D / 16;
+  constexpr int BT = f32_rows<D>(), R = BT / 16, PT = pt<BT>(), DC = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                  // [D][BT]
   float* vt = kt + D * BT;           // [D][BT]
@@ -429,27 +476,27 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   float* dot_ = qt + D * BT;         // [D][BT]  dO transposed
   float* qs = dot_ + D * BT;         // [BT][D + 4]
   float* dos = qs + BT * (D + 4);    // [BT][D + 4]
-  float* pt = dos + BT * (D + 4);    // [BT][PT]: P^T, then dS^T ([k][q])
-  float* lse_s = pt + BT * PT;       // [BT]
+  float* pt_ = dos + BT * (D + 4);   // [BT][PT]: P^T, then dS^T ([k][q])
+  float* lse_s = pt_ + BT * PT;      // [BT]
   float* dl_s = lse_s + BT;          // [BT]
   const int bh = blockIdx.x;
   const int n_tiles = gridDim.y;
   const int ik = blockIdx.y;          // causal: low key tiles are heaviest
   const int k0 = ik * BT;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ra = ty * 4, cb = tx * 4;   // ra: key rows, cb: query columns
+  const int ra = ty * R, cb = tx * R;   // ra: key rows, cb: query columns
   const size_t base = (size_t)bh * t_len * D;
 
-  load_tile<D>(k + base, k0, t_len, nullptr, kt);
-  load_tile<D>(v + base, k0, t_len, nullptr, vt);
-  float acc_k[4][DC] = {}, acc_v[4][DC] = {};
+  load_tile<D, BT>(k + base, k0, t_len, nullptr, kt);
+  load_tile<D, BT>(v + base, k0, t_len, nullptr, vt);
+  float acc_k[R][DC] = {}, acc_v[R][DC] = {};
   const int lo = mask.query_tile_lo(k0, BT);
   const int hi = mask.query_tile_hi(k0, BT, BT, n_tiles);
   for (int iq = lo; iq <= hi; ++iq) {
     const int q0 = iq * BT;
     __syncthreads();
-    load_tile<D>(q + base, q0, t_len, qs, qt);
-    load_tile<D>(dout + base, q0, t_len, dos, dot_);
+    load_tile<D, BT>(q + base, q0, t_len, qs, qt);
+    load_tile<D, BT>(dout + base, q0, t_len, dos, dot_);
     if (threadIdx.x < BT) {
       const int row = q0 + threadIdx.x;
       const bool in = row < t_len;
@@ -458,13 +505,13 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
     // transposed scores: st[i][j] for key ra + i, query cb + j
-    float st[4][4] = {}, dpt[4][4] = {};
-    mm_kmajor<D>(st, kt, qt, ra, cb);
-    mm_kmajor<D>(dpt, vt, dot_, ra, cb);
+    float st[R][R] = {}, dpt[R][R] = {};
+    mm_kmajor<D, BT>(st, kt, qt, ra, cb);
+    mm_kmajor<D, BT>(dpt, vt, dot_, ra, cb);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int c = cb + j;
         float th, p = 0.f, g = 0.f;
         const float x = score(st[i][j], scale, cap, &th);
@@ -476,21 +523,18 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
         st[i][j] = p;
         dpt[i][j] = g;
       }
-      *reinterpret_cast<float4*>(pt + (ra + i) * PT + cb) =
-          make_float4(st[i][0], st[i][1], st[i][2], st[i][3]);
+      sts(pt_ + (ra + i) * PT + cb, st[i]);
     }
     __syncthreads();
-    mm_rows<D, DC>(acc_v, pt, dos, ra, tx * DC);     // dV += P^T dO
+    mm_rows<D, DC, BT>(acc_v, pt_, dos, ra, tx * DC);   // dV += P^T dO
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(pt + (ra + i) * PT + cb) =
-          make_float4(dpt[i][0], dpt[i][1], dpt[i][2], dpt[i][3]);
+    for (int i = 0; i < R; ++i) sts(pt_ + (ra + i) * PT + cb, dpt[i]);
     __syncthreads();
-    mm_rows<D, DC>(acc_k, pt, qs, ra, tx * DC);      // dK += dS^T Q
+    mm_rows<D, DC, BT>(acc_k, pt_, qs, ra, tx * DC);    // dK += dS^T Q
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = k0 + ra + i;
     if (r >= t_len) continue;
 #pragma unroll
@@ -507,12 +551,28 @@ typedef __nv_bfloat16 bf16;
 constexpr int TC_NT = 128;       // 4 warps
 constexpr int TC_ROWS = 64;      // resident rows of a block, 16 a warp
 
-// width of the loop tiles
+// width of the backward's loop tiles
 template <int D>
 __host__ __device__ constexpr int tc_cols() { return D >= 64 ? 32 : 64; }
 // row stride (bf16) of a [rows][D] tile in shared memory
 template <int D>
 __host__ __device__ constexpr int tc_stride() { return D + 8; }
+// The largest multiple of 16 that divides D and is at most MAX: the output
+// columns a block of the backward accumulates (a grid z step each), so
+// that a thread's accumulators stay in registers at D = 144 and 256.
+template <int D, int MAX>
+__host__ __device__ constexpr int tc_split() {
+  int best = 16;
+  for (int c = 16; c <= MAX && c <= D; c += 16)
+    if (D % c == 0) best = c;
+  return best;
+}
+// dq: 16 x DC accumulators a warp (DC / 2 a thread), up to 144 columns
+template <int D>
+__host__ __device__ constexpr int dq_tc_cols() { return tc_split<D, 144>(); }
+// dkdv: two such strips (dK and dV), up to 128 columns each
+template <int D>
+__host__ __device__ constexpr int dkdv_tc_cols() { return tc_split<D, 128>(); }
 
 // Rows [row0, row0 + ROWS) of a [T, D] bf16 matrix into a [ROWS][D + 8]
 // tile by cp.async, 16 bytes a copy, consecutive threads along a row; rows
@@ -582,10 +642,11 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4],
   for (int kk = 0; kk < D / 16; ++kk) mma_abt_k<D, N>(acc, af[kk], b, kk * 16);
 }
 
-// acc (a 16 x D strip) += P X over k < N: P in registers as N/16 A
-// fragments, X the N rows at `x`, [rows][D + 8] in shared memory.
-template <int D, int N>
-__device__ __forceinline__ void mma_px(float (&acc)[D / 8][4],
+// acc (a 16 x DC strip) += P X over k < N: P in registers as N/16 A
+// fragments, X the N rows at `x` (DC columns of a [rows][D + 8] tile in
+// shared memory, `x` at the first of them).
+template <int D, int N, int DC>
+__device__ __forceinline__ void mma_px(float (&acc)[DC / 8][4],
                                        const uint32_t (&p)[N / 16][4],
                                        const bf16* x) {
   constexpr int S = tc_stride<D>();
@@ -593,7 +654,7 @@ __device__ __forceinline__ void mma_px(float (&acc)[D / 8][4],
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int j = 0; j < DC / 16; ++j) {
       uint32_t bf[4];
       ldsm_x4_t(bf, x + (kk * 16 + l % 8 + ((l / 8) % 2) * 8) * S + j * 16 +
                         (l / 16) * 8);
@@ -617,11 +678,12 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&f)[N / 16][4],
   }
 }
 
-// A 16 x D strip of accumulators, times `mul`, into rows [row0, row0 + 16)
-// of a [T, D] bf16 matrix (rows >= T dropped).
-template <int D>
+// A 16 x DC strip of accumulators, times `mul`, into rows [row0, row0 + 16)
+// of a [T, D] bf16 matrix (`out` at the strip's first column; rows >= T
+// dropped).
+template <int D, int DC>
 __device__ __forceinline__ void store_strip(bf16* out,
-                                            const float (&acc)[D / 8][4],
+                                            const float (&acc)[DC / 8][4],
                                             int row0, int t_len, float mul) {
   const int l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
 #pragma unroll
@@ -629,19 +691,24 @@ __device__ __forceinline__ void store_strip(bf16* out,
     const int row = row0 + g + 8 * h;
     if (row >= t_len) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DC / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + (size_t)row * D + j * 8 + 2 * t4) =
           pack_bf16x2(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
   }
 }
 
-// The forward's loop tiles are 64 keys wide at every head dim: a thread
-// holds O (D/2 fp32), S (BN/2) and its Q fragments (D/4 registers).
-constexpr int TC_FWD_COLS = 64;
+// The forward's loop tiles: 64 keys wide up to D = 128, where a thread
+// holds O (D/2 fp32), S (32 fp32) and its Q fragments (D/4 registers) for
+// the whole loop; above, 32 wide, with Q reloaded from shared memory by
+// ldmatrix at every k step (O alone is D/2 = 128 fp32 at D = 256).
+template <int D>
+__host__ __device__ constexpr int fwd_tc_cols() { return D > 128 ? 32 : 64; }
+template <int D>
+__host__ __device__ constexpr bool fwd_q_in_regs() { return D <= 128; }
 
 template <int D>
 constexpr int fwd_tc_smem_bytes() {
-  return (TC_ROWS + 4 * TC_FWD_COLS) * tc_stride<D>() * 2;
+  return (TC_ROWS + 4 * fwd_tc_cols<D>()) * tc_stride<D>() * 2;
 }
 
 template <int D>
@@ -650,7 +717,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
              float* __restrict__ lse, int t_len, Mask mask, float scale,
              float cap) {
-  constexpr int BN = TC_FWD_COLS, S = tc_stride<D>();
+  constexpr int BN = fwd_tc_cols<D>(), S = tc_stride<D>();
   extern __shared__ __align__(16) float smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // [TC_ROWS][S]
   bf16* ks = qs + TC_ROWS * S;                // [2][BN][S]: the K ring
@@ -667,7 +734,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
   cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
   cp_async_commit();
-  uint32_t qf[D / 16][4];   // the warp's 16 query rows, for the whole loop
+  // the warp's 16 query rows, for the whole loop (up to D = 128)
+  uint32_t qf[fwd_q_in_regs<D>() ? D / 16 : 1][4];
   float acc[D / 8][4] = {};
   // online softmax of the thread's rows g and g + 8 of its strip; the 4
   // lanes of a quad hold one row's columns
@@ -681,9 +749,13 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + base, k0 + BN, t_len);
     }
     cp_async_commit();
-    if (ik == lo) ldsm_a<D>(qf, qs + w * 16 * S);
     float s[BN / 8][4] = {};
-    mma_abt<D, BN>(s, qf, ks + buf * BN * S);       // S = Q K^T
+    if constexpr (fwd_q_in_regs<D>()) {
+      if (ik == lo) ldsm_a<D>(qf, qs + w * 16 * S);
+      mma_abt<D, BN>(s, qf, ks + buf * BN * S);     // S = Q K^T
+    } else {
+      mma_abt<D, BN>(s, qs + w * 16 * S, ks + buf * BN * S);
+    }
     const bool edge = mask.partial(q0, TC_ROWS, k0, BN);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -728,14 +800,14 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     uint32_t pf[BN / 16][4];
     to_a_frags<BN>(pf, s);
-    mma_px<D, BN>(acc, pf, vs + buf * BN * S);      // O += P V
+    mma_px<D, BN, D>(acc, pf, vs + buf * BN * S);   // O += P V
   }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] /= fmaxf(l_r[i / 2], 1e-30f);
   }
-  store_strip<D>(o + base, acc, q0 + w * 16, t_len, 1.f);
+  store_strip<D, D>(o + base, acc, q0 + w * 16, t_len, 1.f);
   if (t4 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -751,6 +823,9 @@ constexpr int dq_tc_smem_bytes() {
          2 * TC_ROWS * 4;
 }
 
+// Grid (BH, row tiles, D / dq_tc_cols): block z accumulates dQ's columns
+// [z DC, (z + 1) DC); every block computes the full S and dP, and block
+// z = 0 writes delta.
 template <int D>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -759,6 +834,10 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 float* __restrict__ delta, bf16* __restrict__ dq, int t_len,
                 Mask mask, float scale, float cap) {
   constexpr int BN = tc_cols<D>(), S = tc_stride<D>(), CH = D / 8;
+  constexpr int DC = dq_tc_cols<D>();
+  // delta's lanes to a row: CH where that is a power of two (one 16-byte
+  // load each), else 2, each looping over its row's 16-byte chunks
+  constexpr int LPR = (CH & (CH - 1)) == 0 && CH <= 32 ? CH : 2;
   extern __shared__ __align__(16) float smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // [TC_ROWS][S]
   bf16* dos = qs + TC_ROWS * S;               // [TC_ROWS][S]
@@ -768,6 +847,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* dl_s = lse_s + TC_ROWS;                              // [TC_ROWS]
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
+  const int c0 = blockIdx.z * DC;
   const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
   const size_t base = (size_t)bh * t_len * D;
   const int n_k = (t_len + BN - 1) / BN;
@@ -779,33 +859,36 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
   cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
   cp_async_commit();
-  // delta = rowsum(dO * O): 16-byte loads, the D/8 lanes of a row reduce
+  // delta = rowsum(dO * O): 16-byte loads, the LPR lanes of a row reduce
   // by shuffles (every thread takes part in every step)
-  for (int idx = threadIdx.x; idx < TC_ROWS * CH; idx += TC_NT) {
-    const int r = idx / CH, c = idx % CH, row = q0 + r;
+  for (int idx = threadIdx.x; idx < TC_ROWS * LPR; idx += TC_NT) {
+    const int r = idx / LPR, part = idx % LPR, row = q0 + r;
     float acc = 0.f;
     if (row < t_len) {
-      const uint4 a = *reinterpret_cast<const uint4*>(
-          dout + base + (size_t)row * D + c * 8);
-      const uint4 b = *reinterpret_cast<const uint4*>(
-          o + base + (size_t)row * D + c * 8);
-      const bf16* ea = reinterpret_cast<const bf16*>(&a);
-      const bf16* eb = reinterpret_cast<const bf16*>(&b);
+      for (int c = part; c < CH; c += LPR) {
+        const uint4 a = *reinterpret_cast<const uint4*>(
+            dout + base + (size_t)row * D + c * 8);
+        const uint4 b = *reinterpret_cast<const uint4*>(
+            o + base + (size_t)row * D + c * 8);
+        const bf16* ea = reinterpret_cast<const bf16*>(&a);
+        const bf16* eb = reinterpret_cast<const bf16*>(&b);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        acc += __bfloat162float(ea[j]) * __bfloat162float(eb[j]);
+        for (int j = 0; j < 8; ++j)
+          acc += __bfloat162float(ea[j]) * __bfloat162float(eb[j]);
+      }
     }
 #pragma unroll
-    for (int off = CH / 2; off > 0; off >>= 1)
+    for (int off = LPR / 2; off > 0; off >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (c == 0) {
+    if (part == 0) {
       dl_s[r] = acc;
       lse_s[r] = row < t_len ? lse[(size_t)bh * t_len + row] : 0.f;
-      if (row < t_len) delta[(size_t)bh * t_len + row] = acc;
+      if (row < t_len && blockIdx.z == 0)
+        delta[(size_t)bh * t_len + row] = acc;
     }
   }
 
-  float acc[D / 8][4] = {};
+  float acc[DC / 8][4] = {};
   for (int ik = lo; ik <= hi; ++ik) {
     const int buf = (ik - lo) & 1, k0 = ik * BN;
     cp_async_wait_all();
@@ -837,9 +920,9 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     uint32_t df[BN / 16][4];
     to_a_frags<BN>(df, s);
-    mma_px<D, BN>(acc, df, kt);                     // dQ += dS K
+    mma_px<D, BN, DC>(acc, df, kt + c0);            // dQ += dS K
   }
-  store_strip<D>(dq + base, acc, q0 + w * 16, t_len, scale);
+  store_strip<D, DC>(dq + base + c0, acc, q0 + w * 16, t_len, scale);
 }
 
 template <int D>
@@ -848,6 +931,9 @@ constexpr int dkdv_tc_smem_bytes() {
          4 * tc_cols<D>() * 4;
 }
 
+// Grid (BH, key tiles, D / dkdv_tc_cols): block z accumulates dK's and
+// dV's columns [z DC, (z + 1) DC); every block computes the full S^T and
+// dP^T.
 template <int D>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -857,6 +943,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   bf16* __restrict__ dv, int t_len, Mask mask, float scale,
                   float cap) {
   constexpr int BN = tc_cols<D>(), S = tc_stride<D>();
+  constexpr int DC = dkdv_tc_cols<D>();
   extern __shared__ __align__(16) float smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);   // [TC_ROWS][S]
   bf16* vs = ks + TC_ROWS * S;                // [TC_ROWS][S]
@@ -866,6 +953,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* dl_s = lse_s + 2 * BN;                               // [2][BN]
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * TC_ROWS;        // causal: low keys are heaviest
+  const int c0 = blockIdx.z * DC;
   const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
   const size_t base = (size_t)bh * t_len * D;
   const float* lse_bh = lse + (size_t)bh * t_len;
@@ -891,7 +979,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_tile<TC_ROWS, D>(vs, v + base, k0, t_len);
   load(lo, 0);
   cp_async_commit();
-  float acc_k[D / 8][4] = {}, acc_v[D / 8][4] = {};
+  float acc_k[DC / 8][4] = {}, acc_v[DC / 8][4] = {};
   for (int iq = lo; iq <= hi; ++iq) {
     const int buf = (iq - lo) & 1, q0 = iq * BN;
     cp_async_wait_all();
@@ -926,18 +1014,19 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     uint32_t f[BN / 16][4];
     to_a_frags<BN>(f, st);
-    mma_px<D, BN>(acc_v, f, dot_);                  // dV += P^T dO
+    mma_px<D, BN, DC>(acc_v, f, dot_ + c0);         // dV += P^T dO
     to_a_frags<BN>(f, dpt);
-    mma_px<D, BN>(acc_k, f, qt);                    // dK += dS^T Q
+    mma_px<D, BN, DC>(acc_k, f, qt + c0);           // dK += dS^T Q
   }
-  store_strip<D>(dk + base, acc_k, k0 + w * 16, t_len, scale);
-  store_strip<D>(dv + base, acc_v, k0 + w * 16, t_len, 1.f);
+  store_strip<D, DC>(dk + base + c0, acc_k, k0 + w * 16, t_len, scale);
+  store_strip<D, DC>(dv + base + c0, acc_v, k0 + w * 16, t_len, 1.f);
 }
 
 // Opt the kernel into more than 48 KB of dynamic shared memory (once per
-// kernel instantiation) and launch it: NT threads a block, one block per
-// (head, ROWS rows).
-template <auto Kernel, int NT, int ROWS, typename... Args>
+// kernel instantiation: each instantiation of launch has its own `ready`)
+// and launch it: NT threads a block, one block per (head, ROWS rows,
+// column slice of SPLIT).
+template <auto Kernel, int NT, int ROWS, int SPLIT = 1, typename... Args>
 int launch(int bytes, int bh, int t_len, cudaStream_t stream, Args... args) {
   static bool ready = false;
   if (!ready) {
@@ -946,7 +1035,7 @@ int launch(int bytes, int bh, int t_len, cudaStream_t stream, Args... args) {
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  const dim3 grid(bh, (t_len + ROWS - 1) / ROWS);
+  const dim3 grid(bh, (t_len + ROWS - 1) / ROWS, SPLIT);
   Kernel<<<grid, NT, bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }
@@ -958,31 +1047,37 @@ constexpr int UNSUPPORTED = -1;
 
 // C interface, loaded with ctypes. Pointers are device pointers of
 // contiguous [BH, T, D] tensors (lse and delta [BH, T] fp32); `bf16` selects
-// bfloat16 over float32, and with it the tensor-core kernels. Each returns
-// the launch's cudaError_t, or -1 for a head dim without an instantiation.
+// bfloat16 over float32, and with it the tensor-core kernels; `d` selects
+// the instantiation and `scale` is the score scale, the caller's true
+// head dim ** -0.5 (the wrapper zero-pads other head dims up to an
+// instantiated one). Each returns the launch's cudaError_t, or -1 for a
+// head dim without an instantiation.
 extern "C" {
 
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float* lse, int bh, int t_len, int d, int bf16,
-                        int causal, int window, float cap, void* stream) {
+                        int causal, int window, float cap, float scale,
+                        void* stream) {
   const Mask mask{t_len, causal, window};
-  const float scale = 1.f / sqrtf((float)d);
   cudaStream_t st = (cudaStream_t)stream;
 #define FWD(T, D)                                                          \
-  return launch<flash_fwd<D>, NT, BT>(fwd_smem_floats<D>() * F32, bh,   \
-                t_len, st,                                                 \
+  return launch<flash_fwd<D>, NT, f32_rows<D>()>(fwd_smem_floats<D>() * F32, \
+                bh, t_len, st,                                             \
                 (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, t_len,  \
                 mask, scale, cap)
 #define FWD_TC(T, D)                                                       \
   return launch<flash_fwd_tc<D>, TC_NT, TC_ROWS>(fwd_tc_smem_bytes<D>(),   \
                 bh, t_len, st, (const T*)q, (const T*)k, (const T*)v,      \
                 (T*)o, lse, t_len, mask, scale, cap)
+// the instantiated head dims (kernels/flash_attention.py HEAD_DIMS)
 #define BY_D(M, T)        \
   switch (d) {            \
     case 16: M(T, 16);    \
     case 32: M(T, 32);    \
     case 64: M(T, 64);    \
     case 128: M(T, 128);  \
+    case 144: M(T, 144);  \
+    case 256: M(T, 256);  \
     default: return UNSUPPORTED; \
   }
   if (bf16) { BY_D(FWD_TC, __nv_bfloat16) } else { BY_D(FWD, float) }
@@ -994,20 +1089,19 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const float* lse,
                            float* delta, void* dq, int bh, int t_len, int d,
                            int bf16, int causal, int window, float cap,
-                           void* stream) {
+                           float scale, void* stream) {
   const Mask mask{t_len, causal, window};
-  const float scale = 1.f / sqrtf((float)d);
   cudaStream_t st = (cudaStream_t)stream;
 #define DQ(T, D)                                                            \
-  return launch<flash_bwd_dq<D>, NT, BT>(dq_smem_floats<D>() * F32, bh,  \
-                t_len, st, (const T*)q, (const T*)k, (const T*)v,           \
-                (const T*)o, (const T*)dout, lse, delta, (T*)dq, t_len,     \
-                mask, scale, cap)
+  return launch<flash_bwd_dq<D>, NT, f32_rows<D>()>(                        \
+                dq_smem_floats<D>() * F32, bh, t_len, st, (const T*)q,      \
+                (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, \
+                delta, (T*)dq, t_len, mask, scale, cap)
 #define DQ_TC(T, D)                                                         \
-  return launch<flash_bwd_dq_tc<D>, TC_NT, TC_ROWS>(dq_tc_smem_bytes<D>(),  \
-                bh, t_len, st, (const T*)q, (const T*)k, (const T*)v,       \
-                (const T*)o, (const T*)dout, lse, delta, (T*)dq, t_len,     \
-                mask, scale, cap)
+  return launch<flash_bwd_dq_tc<D>, TC_NT, TC_ROWS, D / dq_tc_cols<D>()>(   \
+                dq_tc_smem_bytes<D>(), bh, t_len, st, (const T*)q,          \
+                (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, \
+                delta, (T*)dq, t_len, mask, scale, cap)
   if (bf16) { BY_D(DQ_TC, __nv_bfloat16) } else { BY_D(DQ, float) }
 #undef DQ
 #undef DQ_TC
@@ -1017,23 +1111,25 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv, int bh,
                              int t_len, int d, int bf16, int causal,
-                             int window, float cap, void* stream) {
+                             int window, float cap, float scale,
+                             void* stream) {
   const Mask mask{t_len, causal, window};
-  const float scale = 1.f / sqrtf((float)d);
   cudaStream_t st = (cudaStream_t)stream;
 #define DKDV(T, D)                                                            \
-  return launch<flash_bwd_dkdv<D>, NT, BT>(dkdv_smem_floats<D>() * F32,    \
-                bh, t_len, st, (const T*)q, (const T*)k, (const T*)v,         \
-                (const T*)dout, lse, delta, (T*)dk, (T*)dv, t_len, mask,      \
-                scale, cap)
+  return launch<flash_bwd_dkdv<D>, NT, f32_rows<D>()>(                        \
+                dkdv_smem_floats<D>() * F32, bh, t_len, st, (const T*)q,      \
+                (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, \
+                (T*)dv, t_len, mask, scale, cap)
 #define DKDV_TC(T, D)                                                         \
-  return launch<flash_bwd_dkdv_tc<D>, TC_NT, TC_ROWS>(                        \
+  return launch<flash_bwd_dkdv_tc<D>, TC_NT, TC_ROWS,                         \
+                D / dkdv_tc_cols<D>()>(                                       \
                 dkdv_tc_smem_bytes<D>(), bh, t_len, st, (const T*)q,          \
                 (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, \
                 (T*)dv, t_len, mask, scale, cap)
   if (bf16) { BY_D(DKDV_TC, __nv_bfloat16) } else { BY_D(DKDV, float) }
 #undef DKDV
 #undef DKDV_TC
+#undef BY_D
 }
 
 }  // extern "C"

@@ -16,8 +16,12 @@ with its own launch counter:
 differentiable through them (``torch.autograd.Function``). On CPU tensors it
 is the plain version (``repro_torch.kernels.ref.flash_attention_ref``); on
 CUDA tensors it always launches the kernels, and a build or launch failure
-raises. Head dims 16, 32, 64 and 128, fp32 or bf16, any ``T`` (ragged tiles are
-masked).
+raises. Any head dim from 1 to 256 (``MAX_HEAD_DIM``), fp32 or bf16, any
+``T`` (ragged tiles are masked): the source instantiates ``HEAD_DIMS``, and
+each wrapper zero-pads another ``D`` up to the next of them and slices its
+outputs back (zero columns of q and k leave the scores unchanged, zero
+columns of v only add output columns that are dropped), passing the true
+``D ** -0.5`` as the score scale.
 
 Build: at first launch ``nvcc`` compiles the source for the card
 (``sm_90a`` on an H100) into ``build/cuda/``, a shared library with a plain
@@ -37,17 +41,35 @@ from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+# the head dims the source instantiates (its BY_D switch): every published
+# head dim of the repo's configs (64, 128, 256) and the LM sweep's 144
+# (lm_d_model 576 over reduced()'s 4 heads)
+HEAD_DIMS = (16, 32, 64, 128, 144, 256)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 
-__all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_fwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkdv"]
+__all__ = ["HEAD_DIMS", "MAX_HEAD_DIM", "flash_attention",
+           "flash_attention_fwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkdv", "padded_head_dim"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (..., cap, scale, stream)
 _SIGNATURES = {
-    "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
-    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
-    "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _F, _P],
+    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
 }
+
+
+def padded_head_dim(d: int) -> int:
+    """The instantiated head dim that a ``[.., D]`` input runs at: the
+    smallest of ``HEAD_DIMS`` at least ``d``; raises above
+    ``MAX_HEAD_DIM``."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"the flash-attention kernels take head dims 1 to "
+            f"{MAX_HEAD_DIM}, got {d}: a larger D needs tiles that split "
+            f"the head dim (ROADMAP Queue 3)")
+    return next(h for h in HEAD_DIMS if h >= d)
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,12 +97,18 @@ def _check_q(q: torch.Tensor):
     if not q.is_cuda:
         raise ValueError(f"the flash-attention kernels take CUDA tensors, "
                          f"got {q.device}")
-    if q.dim() != 3 or q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"q must be [BH, T, D] with D in {HEAD_DIMS}, got "
-                         f"{tuple(q.shape)}")
+    if q.dim() != 3:
+        raise ValueError(f"q must be [BH, T, D], got {tuple(q.shape)}")
+    padded_head_dim(q.shape[-1])
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be fp32 or bf16, got {q.dtype}")
     _check("q", q, q)
+
+
+def _pad(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """``x [.., D]`` zero-padded to ``[.., dp]`` (itself when ``D == dp``)."""
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
 
 
 def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor):
@@ -96,10 +124,13 @@ def _call(name: str, *args):
                               else f"cudaError_t {err}"))
 
 
-def _common(q: torch.Tensor, causal: bool, window: int, softcap: float):
+def _common(q: torch.Tensor, dp: int, causal: bool, window: int,
+            softcap: float):
+    """The C interface's trailing arguments for ``q [BH, T, D]`` run at
+    the instantiated head dim ``dp``, scaled by the true ``D ** -0.5``."""
     bh, t, d = q.shape
-    return (bh, t, d, int(q.dtype == torch.bfloat16), int(bool(causal)),
-            int(window), float(softcap),
+    return (bh, t, dp, int(q.dtype == torch.bfloat16), int(bool(causal)),
+            int(window), float(softcap), d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
@@ -110,14 +141,16 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_softcap=0.0
     _check_q(q)
     _check("k", k, q)
     _check("v", v, q)
-    o = torch.empty_like(q)
+    d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
+    qp, kp, vp = (_pad(x, dp) for x in (q, k, v))
+    o = torch.empty_like(qp)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _call("flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              o.data_ptr(), lse.data_ptr(),
-              *_common(q, causal, window, logit_softcap))
+        _call("flash_attention_fwd", qp.data_ptr(), kp.data_ptr(),
+              vp.data_ptr(), o.data_ptr(), lse.data_ptr(),
+              *_common(q, dp, causal, window, logit_softcap))
     flash_attention_fwd.launches += 1
-    return o, lse
+    return o[..., :d].contiguous() if dp != d else o, lse
 
 
 def flash_attention_bwd_dq(q, k, v, o, do, lse, *, causal=True, window=0,
@@ -128,15 +161,17 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, *, causal=True, window=0,
     for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
         _check(name, t, q)
     _check_rows("lse", lse, q)
-    dq = torch.empty_like(q)
+    d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
+    qp, kp, vp, op, dop = (_pad(x, dp) for x in (q, k, v, o, do))
+    dq = torch.empty_like(qp)
     delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
-        _call("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        _call("flash_attention_bwd_dq", qp.data_ptr(), kp.data_ptr(),
+              vp.data_ptr(), op.data_ptr(), dop.data_ptr(), lse.data_ptr(),
               delta.data_ptr(), dq.data_ptr(),
-              *_common(q, causal, window, logit_softcap))
+              *_common(q, dp, causal, window, logit_softcap))
     flash_attention_bwd_dq.launches += 1
-    return dq, delta
+    return dq[..., :d].contiguous() if dp != d else dq, delta
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True,
@@ -149,14 +184,18 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True,
         _check(name, t, q)
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
+    qp, kp, vp, dop = (_pad(x, dp) for x in (q, k, v, do))
+    dk = torch.empty_like(kp)
+    dv = torch.empty_like(vp)
     with torch.cuda.device(q.device):
-        _call("flash_attention_bwd_dkdv", q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              dk.data_ptr(), dv.data_ptr(),
-              *_common(q, causal, window, logit_softcap))
+        _call("flash_attention_bwd_dkdv", qp.data_ptr(), kp.data_ptr(),
+              vp.data_ptr(), dop.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              *_common(q, dp, causal, window, logit_softcap))
     flash_attention_bwd_dkdv.launches += 1
+    if dp != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 

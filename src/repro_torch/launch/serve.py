@@ -5,6 +5,15 @@ decoding with the KV cache (dense family) or the RWKV state.
       --gen 64                      # SmolLM-135M, the default --arch
   python -m repro_torch.launch.serve --arch rwkv6-3b --full \
       --batch 8 --prompt-len 128 --gen 64
+  python -m repro_torch.launch.serve --arch gemma2-9b --full \
+      --batch 8 --prompt-len 64 --gen 32
+
+``--arch`` takes every ported arch id (``configs.base.PORTED``: the dense
+smollm-135m, gemma2-9b, deepseek-coder-33b and granite-34b, the MoE
+mixtral-8x22b and llama4-maverick-400b-a17b, and rwkv6-3b), as the
+reference's launcher does; at ``--full`` the 33B-400B ones do not fit one
+80 GB card (``chip_smoke.py`` runs the MoE ones at full width and reduced
+depth by calling ``decode_step`` itself).
 
 Runs on the card (``main(..., device="cpu")`` for the CPU; without CUDA the
 default raises). ``--reduced`` (the default) is the 2-layer, d_model-256
@@ -17,8 +26,10 @@ greedily; the tokens/s printed counts prompt and generated tokens over the
 whole loop. A dense model's ``decode_step`` writes each layer's k/v into
 its cache (a ring buffer for windowed layers) and attends it with the
 plain ``decode_attention``, which launches no kernel, as the reference
-calls none there; an RWKV6 model's runs each layer's WKV6 recurrence as
-one launch of the CUDA kernel at T = 1, the state carried in the cache.
+calls none there (an MoE model's likewise, its MoE layers routing each
+row's token in plain PyTorch); an RWKV6 model's runs each layer's WKV6
+recurrence as one launch of the CUDA kernel at T = 1, the state carried
+in the cache.
 """
 from __future__ import annotations
 

@@ -11,8 +11,8 @@ backward (the reference recomputes them under ``jax.checkpoint``).
 Masks: causal full, sliding-window (swa) and block-local (chunked); logit
 softcap; GQA by repeating KV heads. ``decode_attention`` is one query token
 against a KV cache, plain torch as in the reference (which has no kernel
-there). ``cross_attention`` waits for the model zoo (ROADMAP Queue 1
-item 7).
+there). ``cross_attention`` waits for the model zoo's vlm and audio
+families (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Model assembly (port of ``repro.models.model``): the dense and RWKV6
-families.
+"""Model assembly (port of ``repro.models.model``): the dense, MoE and
+RWKV6 families.
 
 Design, as in the reference:
 - the layer stack is organised in *periods*, the smallest repeating pattern
@@ -8,8 +8,8 @@ Design, as in the reference:
   ``[n_periods]`` axis (the reference's ``blocks`` tuple);
 - ``forward``: train/prefill over the full sequence; ``loss_fn``: chunked
   cross-entropy; ``decode_step``: one token against the cache (serve path:
-  the dense family's KV cache, ring buffers for windowed layers, through
-  the plain ``decode_attention``; RWKV6's state).
+  the dense and MoE families' KV cache, ring buffers for windowed layers,
+  through the plain ``decode_attention``; RWKV6's state).
 
 What differs: the parameters are the named views of one flat buffer
 (``param_layout``; ``repro_torch.core.params``) with any leading model
@@ -28,8 +28,15 @@ leaves inside it, as there) plus ``ln1``/``ln2``, and its fp32 leaves
 is held leaf by leaf (``init_leaves``; ``ParamLayout.fp32``), not in one
 buffer; each layer's WKV6 recurrence is one launch of the CUDA kernel
 (``models/rwkv.py``). Its training is not ported (ROADMAP Queue 1 item 10:
-it needs a WKV6 backward). Other families raise ``NotImplementedError``
-(ROADMAP Queue 1 item 7: the model zoo).
+it needs a WKV6 backward).
+
+The MoE family (``family="moe"``; mixtral, llama4-maverick) is the dense
+stack with ``moe.*`` leaves in place of ``ffn.*`` on the layers of
+``cfg._is_moe_layer`` (``models/moe.py``: plain torch, as the reference
+has no kernel there). Its router stays fp32 in a bf16 model, so it too is
+held leaf by leaf: ``forward`` and ``decode_step`` run, training does not
+(ROADMAP Queue 1 item 15). Other families raise ``NotImplementedError``
+(ROADMAP Queue 1 item 14: the rest of the model zoo).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import ParamLayout
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import (
@@ -56,29 +64,43 @@ from repro_torch.models.layers import (
 Params = Dict[str, torch.Tensor]
 
 
-# the families ported so far: dense transformers and RWKV6 ("ssm")
-FAMILIES = ("dense", "ssm")
+# the families ported so far: dense transformers, MoE and RWKV6 ("ssm")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def _ported(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-            f"7: the model zoo); the port runs {FAMILIES}")
+            f"14: the model zoo's Mamba, hybrid, vlm and audio families); "
+            f"the port runs {FAMILIES}")
+
+
+# why a family's training is not ported yet, by family
+_NOT_TRAINABLE = {
+    "ssm": "ROADMAP Queue 1 item 10: RWKV6 training needs a hand-written "
+           "WKV6 backward and an fp32 buffer for its fp32 leaves",
+    "moe": "ROADMAP Queue 1 item 15: the fp32 router leaf needs an fp32 "
+           "buffer beside the bf16 one, as item 10's leaves do",
+}
 
 
 def _trainable(cfg: ModelConfig):
     _ported(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet (ROADMAP "
-            "Queue 1 item 10: RWKV6 training needs a hand-written WKV6 "
-            "backward); its forward and decode_step are")
+            f"training the {cfg.family!r} family is not ported yet "
+            f"({_NOT_TRAINABLE[cfg.family]}); its forward and decode_step "
+            f"are")
 
 
 def period_length(cfg: ModelConfig) -> int:
+    """The smallest repeating pattern of layer kinds: 2 for local/global
+    alternation, times the MoE interleave (the lcm with ``moe_every``)."""
     _ported(cfg)
     p = 2 if cfg.attention.pattern == "local_global" else 1
+    if cfg.moe:
+        p = math.lcm(p, max(cfg.moe_every, 1))
     assert cfg.num_layers % p == 0, (cfg.name, cfg.num_layers, p)
     return p
 
@@ -90,9 +112,10 @@ def attn_kind(cfg: ModelConfig, layer_idx: int) -> str:
     return pat
 
 
-def _layer_leaves(cfg: ModelConfig):
-    """(name, shape) of one layer's parameters, the reference's nesting
-    joined with dots."""
+def _layer_leaves(cfg: ModelConfig, i: int = 0):
+    """(name, shape) of the parameters of the layer at period position
+    ``i``, the reference's nesting joined with dots (``moe.*`` in place of
+    ``ffn.*`` on an MoE layer)."""
     d, hd, a = cfg.d_model, cfg.head_dim, cfg.attention
     if cfg.layer_kind(0) == "rwkv":
         return ([("ln1", (d,))]
@@ -103,9 +126,10 @@ def _layer_leaves(cfg: ModelConfig):
            ("attn.wk", (d, a.num_kv_heads * hd)),
            ("attn.wv", (d, a.num_kv_heads * hd)),
            ("attn.wo", (a.num_heads * hd, d)),
-           ("ln2", (d,)),
-           ("ffn.up", (d, cfg.d_ff)),
-           ("ffn.down", (cfg.d_ff, d))]
+           ("ln2", (d,))]
+    if cfg._is_moe_layer(i):
+        return out + [(f"moe.{n}", s) for n, s in moe_mod.moe_leaves(cfg)]
+    out += [("ffn.up", (d, cfg.d_ff)), ("ffn.down", (cfg.d_ff, d))]
     if cfg.gated_mlp:
         out.append(("ffn.gate", (d, cfg.d_ff)))
     return out
@@ -114,20 +138,23 @@ def _layer_leaves(cfg: ModelConfig):
 def param_layout(cfg: ModelConfig) -> ParamLayout:
     """The model's leaves: ``embed``, ``blocks.{i}.<layer leaf>`` stacked
     ``[n_periods, ...]`` for each period position ``i``, ``final_norm``,
-    and ``lm_head`` unless the embedding is tied; RWKV6's fp32 leaves are
-    the layout's ``fp32``."""
+    and ``lm_head`` unless the embedding is tied; RWKV6's fp32 leaves and
+    the MoE router are the layout's ``fp32``."""
     P = period_length(cfg)
     n_periods = cfg.num_layers // P
     leaves = [("embed", (cfg.vocab_size, cfg.d_model))]
     for i in range(P):
         leaves += [(f"blocks.{i}.{name}", (n_periods,) + shape)
-                   for name, shape in _layer_leaves(cfg)]
+                   for name, shape in _layer_leaves(cfg, i)]
     leaves.append(("final_norm", (cfg.d_model,)))
     if not cfg.tie_embeddings:
         leaves.append(("lm_head", (cfg.d_model, cfg.vocab_size)))
-    fp32 = frozenset(name for name, _ in leaves
-                     if name.rsplit(".", 1)[-1] in rwkv_mod.FP32_LEAVES
-                     and ".tmix." in name)
+    fp32 = frozenset(
+        name for name, _ in leaves
+        if (".tmix." in name
+            and name.rsplit(".", 1)[-1] in rwkv_mod.FP32_LEAVES)
+        or (".moe." in name
+            and name.rsplit(".", 1)[-1] in moe_mod.FP32_LEAVES))
     return ParamLayout(tuple(leaves), fp32)
 
 
@@ -135,8 +162,9 @@ def init_leaves(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """One model's named leaves on the generator's device, each in its
     dtype (``cfg.dtype``; fp32 for the layout's ``fp32`` leaves): the
     reference's init laws (embedding N(0, 0.02^2), dense N(0, 1/d_in),
-    norms zero, RWKV's as ``models.rwkv.init_leaf``), drawn from ``gen``
-    (other numbers than ``jax.random``'s)."""
+    norms zero, RWKV's as ``models.rwkv.init_leaf``, MoE's as
+    ``models.moe.init_leaf``), drawn from ``gen`` (other numbers than
+    ``jax.random``'s)."""
     dt = dtype_of(cfg)
     dev = gen.device
     out = {}
@@ -152,6 +180,10 @@ def init_leaves(gen: torch.Generator, cfg: ModelConfig) -> Params:
             leaf = torch.stack([
                 rwkv_mod.init_leaf(gen, name.rsplit(".", 1)[-1], shape[1:],
                                    dt) for _ in range(shape[0])])
+        elif ".moe." in name:                   # [n_periods, ...]
+            leaf = torch.stack([
+                moe_mod.init_leaf(gen, name.rsplit(".", 1)[-1], shape[1:],
+                                  dt) for _ in range(shape[0])])
         else:                                   # [n_periods, d_in, d_out]
             leaf = torch.stack([init_dense(gen, *shape[1:], dt)
                                 for _ in range(shape[0])])
@@ -191,12 +223,32 @@ def _self_attn_block(p: Params, x, cfg: ModelConfig, kind: str, b: int,
     return x + o.reshape(G, N, -1) @ p["attn.wo"]
 
 
-def _ffn_block(p: Params, x, cfg: ModelConfig):
+def _ffn_block(p: Params, x, cfg: ModelConfig, rows=None):
+    """``x + ffn(norm(x))`` and the MoE balance loss: ``x [G, rows * T,
+    d]`` with leaves ``[G, ...]`` (the forward; aux ``[G]``), or ``rows``
+    None: ``x [b, T, d]`` with one model's leaves (decode; aux 0-d). An
+    MoE layer dispatches each of its ``rows`` batch rows as one group."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    ffn = {"up": p["ffn.up"], "down": p["ffn.down"]}
-    if cfg.gated_mlp:
-        ffn["gate"] = p["ffn.gate"]
-    return x + mlp_apply(ffn, h, cfg.gated_mlp)
+    if "moe.router" not in p:
+        ffn = {"up": p["ffn.up"], "down": p["ffn.down"]}
+        if cfg.gated_mlp:
+            ffn["gate"] = p["ffn.gate"]
+        aux = torch.zeros(x.shape[:-2] if rows else (), dtype=torch.float32,
+                          device=x.device)
+        return x + mlp_apply(ffn, h, cfg.gated_mlp), aux
+    names = [n for n, _ in moe_mod.moe_leaves(cfg)]
+    if rows is None:
+        out, aux = moe_mod.moe_apply({n: p[f"moe.{n}"] for n in names}, h,
+                                     cfg)
+        return x + out, aux
+    G, N, d = h.shape
+    outs, auxs = [], []
+    for g in range(G):
+        out, aux = moe_mod.moe_apply({n: p[f"moe.{n}"][g] for n in names},
+                                     h[g].reshape(rows, N // rows, d), cfg)
+        outs.append(out.reshape(N, d))
+        auxs.append(aux)
+    return x + torch.stack(outs), torch.stack(auxs)
 
 
 def _models(params: Params, tokens: torch.Tensor) -> Tuple[Params, int]:
@@ -242,14 +294,16 @@ def _rwkv_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   *, backend=None) -> torch.Tensor:
-    """``params`` leaves ``[*L, ...]``, ``tokens [*L, b, T]`` -> the final
-    normed hidden states ``[*L, b, T, d]`` (the LM head not applied; the
-    rwkv family takes no ``L``). ``backend``: ``None`` (the kernels for
-    CUDA tensors) or ``"torch"`` (the plain versions on any device), see
-    ``repro_torch.kernels.dispatch``."""
+                   *, backend=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``params`` leaves ``[*L, ...]``, ``tokens [*L, b, T]`` -> ``(the
+    final normed hidden states [*L, b, T, d], aux [*L])``, the LM head not
+    applied (the rwkv family takes no ``L``); aux is the MoE balance loss
+    summed over layers, zero for the dense and rwkv families. ``backend``:
+    ``None`` (the kernels for CUDA tensors) or ``"torch"`` (the plain
+    versions on any device), see ``repro_torch.kernels.dispatch``."""
     if cfg.family == "ssm":
-        return _rwkv_hidden(params, cfg, tokens, backend)
+        return (_rwkv_hidden(params, cfg, tokens, backend),
+                torch.zeros((), dtype=torch.float32, device=tokens.device))
     P = period_length(cfg)
     n_periods = cfg.num_layers // P
     p, G = _models(params, tokens)
@@ -258,15 +312,18 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     rows = torch.arange(G, device=tok.device)[:, None]
     x = p["embed"][rows, tok].to(dtype_of(cfg))          # [G, b*T, d]
     positions = torch.arange(t, device=tok.device)
+    aux = torch.zeros(G, dtype=torch.float32, device=tok.device)
     for layer in range(n_periods):
         for i in range(P):
             lp = {name: p[f"blocks.{i}.{name}"][:, layer]
-                  for name, _ in _layer_leaves(cfg)}
+                  for name, _ in _layer_leaves(cfg, i)}
             x = _self_attn_block(lp, x, cfg, attn_kind(cfg, i), b, positions,
                                  backend)
-            x = _ffn_block(lp, x, cfg)
+            x, a = _ffn_block(lp, x, cfg, b)
+            aux = aux + a
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-    return x.reshape(tokens.shape + (cfg.d_model,))
+    lead = tokens.shape[:-2]
+    return x.reshape(tokens.shape + (cfg.d_model,)), aux.reshape(lead)
 
 
 def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -279,15 +336,13 @@ def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             backend=None):
     """tokens ``[*L, b, T]`` -> ``(logits [*L, b, T, V] fp32, aux [*L])``
-    (aux, the MoE balance loss, is zero for the dense and rwkv families;
-    the train/prefill entry)."""
-    hidden = hidden_forward(params, cfg, tokens, backend=backend)
-    lead = tokens.shape[:-2]
-    G = math.prod(lead)
+    (aux, the MoE balance loss summed over layers, is zero for the dense
+    and rwkv families; the train/prefill entry)."""
+    hidden, aux = hidden_forward(params, cfg, tokens, backend=backend)
+    G = math.prod(tokens.shape[:-2])
     h = hidden.reshape(G, -1, cfg.d_model)
     logits = h @ _head(params, cfg).reshape(G, cfg.d_model, -1)
     logits = softcap(logits.float(), cfg.final_softcap)
-    aux = torch.zeros(lead, dtype=torch.float32, device=tokens.device)
     return logits.reshape(tokens.shape + (-1,)), aux
 
 
@@ -313,7 +368,9 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
     """
     _trainable(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
-    hidden = hidden_forward(params, cfg, tokens, backend=backend)
+    # aux is zero for the dense family: the reference's `+ 0.01 * aux`
+    # adds nothing
+    hidden, _ = hidden_forward(params, cfg, tokens, backend=backend)
     lead = tokens.shape[:-2]
     G = math.prod(lead)
     b, t = tokens.shape[-2:]
@@ -437,11 +494,11 @@ def _decode_dense(params: Params, cfg: ModelConfig, x, cache, pos):
     for layer in range(cfg.num_layers // P):
         for i in range(P):
             lp = {name: params[f"blocks.{i}.{name}"][layer]
-                  for name, _ in _layer_leaves(cfg)}
+                  for name, _ in _layer_leaves(cfg, i)}
             x, ck, cv = _decode_attn_layer(
                 lp, x, cfg, attn_kind(cfg, i), cache[i]["k"][layer],
                 cache[i]["v"][layer], pos)
-            x = _ffn_block(lp, x, cfg)
+            x, _ = _ffn_block(lp, x, cfg)
             new[i]["k"].append(ck)
             new[i]["v"].append(cv)
     return x, new
@@ -452,10 +509,11 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     """``token [B, 1]`` int; ``cache`` from ``make_cache``; ``pos`` (an int
     or a 0-d tensor) the tokens already in the cache (the RWKV state
     carries it). Returns ``(logits [B, 1, V] fp32, new_cache)``; the cache
-    given is not changed. The dense family runs the plain
+    given is not changed. The dense and MoE families run the plain
     ``decode_attention`` (no kernel launch, as the reference calls none
-    there); RWKV6 one WKV6 launch per layer at T = 1 (``backend`` as in
-    ``forward``)."""
+    there; an MoE layer routes each row's one token, so at capacity 1 an
+    expert is never over-full); RWKV6 one WKV6 launch per layer at T = 1
+    (``backend`` as in ``forward``)."""
     _ported(cfg)
     x = params["embed"][token.long()].to(dtype_of(cfg))
     if cfg.family != "ssm":

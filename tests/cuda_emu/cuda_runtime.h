@@ -110,26 +110,27 @@ void emu_launch(F kernel, dim3 grid, int threads, int bytes, cudaStream_t,
   gridDim = grid;
   emu_threads = threads;
   std::vector<float> smem(bytes / 4 + 4);
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::memset(smem.data(), 0xff, smem.size() * sizeof(float));
-      emu_smem = smem.data();
-      std::barrier<> block(threads);
-      emu_block = &block;
-      std::vector<std::barrier<>*> warps;
-      for (int w = 0; w < threads / 32; ++w)
-        warps.push_back(new std::barrier<>(32));
-      emu_warp = warps;
-      std::vector<std::thread> pool;
-      for (int t = 0; t < threads; ++t)
-        pool.emplace_back([&, t] {
-          threadIdx = dim3(t);
-          blockIdx = dim3(bx, by);
-          kernel(args...);
-        });
-      for (auto& th : pool) th.join();
-      for (auto* w : warps) delete w;
-    }
+  for (unsigned b = 0; b < grid.x * grid.y * grid.z; ++b) {
+    const unsigned bx = b % grid.x, by = b / grid.x % grid.y,
+                   bz = b / (grid.x * grid.y);
+    std::memset(smem.data(), 0xff, smem.size() * sizeof(float));
+    emu_smem = smem.data();
+    std::barrier<> block(threads);
+    emu_block = &block;
+    std::vector<std::barrier<>*> warps;
+    for (int w = 0; w < threads / 32; ++w)
+      warps.push_back(new std::barrier<>(32));
+    emu_warp = warps;
+    std::vector<std::thread> pool;
+    for (int t = 0; t < threads; ++t)
+      pool.emplace_back([&, t] {
+        threadIdx = dim3(t);
+        blockIdx = dim3(bx, by, bz);
+        kernel(args...);
+      });
+    for (auto& th : pool) th.join();
+    for (auto* w : warps) delete w;
+  }
 }
 
 extern "C" int emu_block_threads() { return emu_threads; }

@@ -50,6 +50,16 @@ CASES = [  # (bh, t, d, dtype, causal, window, softcap)
     (1, 200, 128, "bfloat16", False, 0, 0.0),     # ragged T, not causal
     (1, 256, 128, "bfloat16", True, 100, 5.0),    # window, softcap
     (2, 40, 16, "bfloat16", True, 0, 0.0),        # T < one 64-row tile
+    # D = 144 (the LM sweep at lm_d_model 576) and 256 (gemma2-9b): 32-row
+    # fp32 tiles; bf16 Q reloaded from shared memory in the forward and the
+    # backward's output columns split over grid z (dq 144 | 128 + 128, dkdv
+    # 3 x 48 | 2 x 128); and a head dim padded inside the wrapper
+    (1, 96, 144, "float32", True, 0, 0.0),
+    (1, 80, 144, "bfloat16", True, 0, 0.0),       # ragged T
+    (1, 72, 256, "float32", True, 40, 50.0),      # window, softcap, ragged
+    (1, 128, 256, "bfloat16", True, 50, 50.0),    # gemma2's masks
+    (1, 64, 40, "float32", True, 0, 0.0),         # padded to 64
+    (1, 72, 40, "bfloat16", False, 0, 5.0),       # padded to 64
 ]
 
 
@@ -76,8 +86,13 @@ def test_emulated_kernels_match_plain_version(emulated, bh, t, d, dtype,
     gen = torch.Generator().manual_seed(t + d + window)
     q, k, v, do = (torch.randn(bh, t, d, generator=gen).to(dt)
                    for _ in range(4))
-    common = (bh, t, d, int(dt == torch.bfloat16), int(causal), window, cap,
-              None)
+    # the C interface at the instantiated head dim, zero-padded as the
+    # wrapper pads, with the true D's scale
+    dp = tflash.padded_head_dim(d)
+    q, k, v, do = (torch.nn.functional.pad(x, (0, dp - d)) for x in
+                   (q, k, v, do))
+    common = (bh, t, dp, int(dt == torch.bfloat16), int(causal), window, cap,
+              d ** -0.5, None)
     o, lse = torch.empty_like(q), torch.empty(bh, t)
     routes = [_route(emulated, lambda: emulated.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -97,6 +112,12 @@ def test_emulated_kernels_match_plain_version(emulated, bh, t, d, dtype,
             assert threads == 128 and mmas > 0
         else:
             assert threads == 256 and mmas == 0
+    # the padding columns of every output are zero; the rest is the plain
+    # version's at the true D
+    for got in (o, dq, dk, dv):
+        assert not got[..., d:].any()
+    q, k, v, do, o, dq, dk, dv = (x[..., :d] for x in
+                                  (q, k, v, do, o, dq, dk, dv))
     rs = [x.float().requires_grad_(True) for x in (q, k, v)]
     want = flash_attention_ref(*rs, causal=causal, window=window,
                                logit_softcap=cap)
@@ -123,8 +144,12 @@ def test_emulated_kernels_match_plain_version(emulated, bh, t, d, dtype,
 
 
 def test_emulated_launch_refuses_an_unsupported_head_dim(emulated):
-    x = torch.zeros(1, 64, 48)
+    """Past the largest instantiation the C interface refuses (-1) and the
+    wrapper raises before any launch, naming the gap."""
+    x = torch.zeros(1, 64, 272)
     lse = torch.empty(1, 64)
     assert emulated.flash_attention_fwd(
         x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
-        lse.data_ptr(), 1, 64, 48, 0, 1, 0, 0.0, None) == -1
+        lse.data_ptr(), 1, 64, 272, 0, 1, 0, 0.0, 272 ** -0.5, None) == -1
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
+        tflash.padded_head_dim(272)

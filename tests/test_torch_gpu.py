@@ -51,6 +51,14 @@ FLASH_CASES = [
     (3, 2, 80, 16, 0, 0.0, "float32"),
     (1, 3, 256, 128, 0, 0.0, "bfloat16"),
     (2, 3, 200, 32, 0, 0.0, "bfloat16"),
+    # head dims 144 (the LM sweep at lm_d_model 576) and 256 (gemma2-9b,
+    # its window and softcap), and 40, zero-padded to 64 in the wrapper
+    (1, 2, 256, 144, 0, 0.0, "float32"),
+    (1, 2, 200, 144, 0, 0.0, "bfloat16"),
+    (1, 2, 200, 256, 0, 0.0, "float32"),
+    (1, 2, 512, 256, 128, 50.0, "bfloat16"),
+    (2, 2, 128, 40, 0, 0.0, "float32"),
+    (2, 2, 128, 40, 0, 0.0, "bfloat16"),
 ]
 # not causal: (b, h, t, d, window, softcap, dtype)
 FLASH_CASES_NOT_CAUSAL = [
@@ -469,17 +477,72 @@ def test_lm_sweep_round_through_the_kernels_matches_the_plain_path(cuda):
 
 
 @pytest.mark.gpu
-def test_lm_sweep_at_d_model_576_raises_from_the_flash_wrapper(cuda):
-    """``reduced()`` gives the LM task 4 heads: at ``lm_d_model`` 576 the
-    head dim is 144, outside the kernel's ``HEAD_DIMS``; the wrapper raises
-    instead of falling back to the plain attention (ROADMAP Queue 3)."""
+def test_lm_sweep_at_d_model_576_runs_through_the_kernels(cuda):
+    """``reduced()`` gives the LM task 4 heads: at ``lm_d_model`` 576 (
+    SmolLM-135M's width) the head dim is 144. One LM-sweep round through
+    the fp32 flash kernels at D = 144 against the plain attention from the
+    same generators: server params within fp32 1e-4, as at d_model 64; the
+    flash forward launched per layer per local step and per eval forward,
+    dq and dkdv per layer per local step."""
     from repro_torch.experiments import grid as tgrid
+    from repro_torch.experiments import tasks as ttasks
 
-    spec = _lm_spec(lm_d_model=576, lm_layers=1, lm_seq=16, batch_size=1,
-                    algorithms=("fedpbc",))
-    assert 576 // 4 not in tflash.HEAD_DIMS
-    with pytest.raises(ValueError, match="D in"):
-        tgrid.run_sweep(spec)
+    spec = _lm_spec(lm_d_model=576, lm_layers=1, lm_seq=32,
+                    algorithms=("fedpbc", "fedavg"), use_kernel=False)
+    assert 576 // 4 == 144 in tflash.HEAD_DIMS
+    fed = spec.cell_config("fedpbc", "bernoulli_ti")
+    task = tgrid.get_traced_task(spec)
+    m = task.meta
+    plain_task = ttasks.make_traced_lm_task(
+        num_clients=m["num_clients"], d_model=m["d_model"],
+        layers=m["layers"], seq_len=m["seq_len"], classes=m["classes"],
+        n_seqs=m["n_train"], n_test=m["n_test"],
+        per_client=m["per_client"], local_steps=m["local_steps"],
+        batch_size=m["batch_size"], device=cuda, backend="torch")
+    counters = (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+                tflash.flash_attention_bwd_dkdv)
+    runs = []
+    for tk in (task, plain_task):
+        for c in counters:
+            c.launches = 0
+        batch = tgrid.make_cell_batch(spec, fed, tk, algos=spec.algorithms)
+        st, out = tgrid.make_runner(spec, fed, tk)(batch)
+        runs.append((st, out, [c.launches for c in counters]))
+    (st_k, out_k, n_k), (st_p, out_p, n_p) = runs
+    L, s = spec.lm_layers, spec.local_steps
+    assert n_k == [L * (s + 1), L * s, L * s]
+    assert n_p == [0, 0, 0]
+    assert torch.isfinite(out_k["metrics"]["loss"]).all()
+    torch.testing.assert_close(st_k.server, st_p.server, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-coder-33b", "granite-34b"])
+def test_full_width_two_layer_forward_through_the_kernel(cuda, arch):
+    """deepseek-coder-33b (56 heads, 8 KV heads of 128) and granite-34b
+    (48 query heads on one KV head: ``repeat_kv`` at its widest; a
+    non-gated MLP) at their published widths, 2 layers, bf16, ``[1, 256]``:
+    the forward through ``flash_fwd_tc`` (one launch a layer) against the
+    plain attention (none), max |logit diff| / max |logit| within bf16
+    2e-2 (``chip_smoke.py`` phase 13's bar at 2 layers)."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    params = tmodel.init_leaves(torch.Generator(device=cuda).manual_seed(0),
+                                cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    out = {}
+    for path, backend in (("kernel", None), ("plain", "torch")):
+        tflash.flash_attention_fwd.launches = 0
+        with torch.no_grad():
+            out[path], _ = tmodel.forward(params, cfg, toks, backend=backend)
+        assert tflash.flash_attention_fwd.launches == (
+            cfg.num_layers if path == "kernel" else 0)
+    assert out["kernel"].shape == (1, 256, cfg.vocab_size)
+    assert torch.isfinite(out["kernel"]).all()
+    rel = ((out["kernel"] - out["plain"]).abs().max()
+           / out["plain"].abs().max()).item()
+    assert rel < 2e-2, (arch, rel)
 
 
 @pytest.mark.gpu

@@ -35,7 +35,20 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
              "repro_torch.experiments.tasks": ["LMTask",
                                                "make_traced_lm_task"],
              "repro_torch.experiments.grid": ["get_task"],
-             "repro_torch.models.attention": ["decode_attention"]}
+             "repro_torch.models.attention": ["decode_attention"],
+             # the model zoo's dense and MoE families, the flash padding
+             "repro_torch.models.moe": ["moe_init", "moe_apply",
+                                        "_capacity"],
+             "repro_torch.configs": ["MoEConfig", "SSMConfig", "ShapeConfig",
+                                     "INPUT_SHAPES", "applicable_shapes",
+                                     "long_context_capable"],
+             "repro_torch.configs.gemma2_9b": ["CONFIG"],
+             "repro_torch.configs.deepseek_coder_33b": ["CONFIG"],
+             "repro_torch.configs.granite_34b": ["CONFIG"],
+             "repro_torch.configs.mixtral_8x22b": ["CONFIG"],
+             "repro_torch.configs.llama4_maverick_400b_a17b": ["CONFIG"],
+             "repro_torch.kernels.flash_attention": ["padded_head_dim",
+                                                     "MAX_HEAD_DIM"]}
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -84,8 +84,8 @@ def test_configs_match_reference():
     assert tc.param_count() == jc.param_count() == 134_515_008
     for kw in (dict(), dict(d_model=64, layers=2)):
         _same_fields(reduced(tc, **kw), jreduced(jc, **kw))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        get_config("gemma2-9b")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        get_config("jamba-1.5-large-398b")
     with pytest.raises(KeyError):
         get_config("nope")
 

@@ -374,8 +374,9 @@ def test_serve_matches_the_reference_greedy_loop():
 
 
 def test_serve_refuses_families_without_a_ported_decode():
-    """The dense family decodes (tests/test_torch_decode.py); an arch of
-    the model zoo still raises, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        serve.main(["--arch", "gemma2-9b", "--batch", "1",
+    """The dense and MoE families decode (tests/test_torch_decode.py,
+    tests/test_torch_zoo.py); an arch of the model zoo's unported families
+    still raises, naming its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+        serve.main(["--arch", "jamba-1.5-large-398b", "--batch", "1",
                     "--prompt-len", "2", "--gen", "1"], device="cpu")
