@@ -259,6 +259,40 @@ and teacher forcing on ``[1, 64]`` at that depth with the capacity factor
 at E / k (dropless), measured. Phases 14 and 15 together are held to
 ``PHASE14_15_LIMIT_S``.
 
+Phase 16 runs the hybrid, vlm and audio families at published widths
+(bf16, seeded). First the flash forward at the shapes the phase gives it
+(``ZOO_FLASH``: seamless's fp32 encoder ``[128, 1024, 64]``, its decoder
+``[64, 2048, 64]`` bf16, vision's and jamba's ``[256, 2048, 128]`` bf16)
+against its plain version within ``FLASH_TOL``, timed beside the plain
+version, SDPA's causal forward and its bound. (a) seamless-m4t-medium,
+not cut (12 encoder and 12 decoder layers, d_model 1024, 16 heads of 64,
+vocab 256,206): ``repro_torch.launch.serve --full --arch
+seamless-m4t-medium`` at ``SEAMLESS_SERVE`` (batch 8, prompt 64, gen 32;
+the launcher's 0.1 fp32 frames, so the encoder runs in fp32 through the
+fp32 flash forward at every step: 12 launches a step, 1,152 a run), ids
+in the vocabulary, ms a step, a short run profiled (idle share), peak
+memory; a ``forward`` on ``[4, 2048]`` with seeded ``0.1 * N(0, 1)``
+frames ``[4, 1024, 1024]`` fp32 (24 launches, finite logits, tokens/s);
+the same at 2 + 2 layers through the kernel against the plain attention
+within ``ZOO_PATHS_TOL``; teacher forcing on ``[1, 128]`` as phase 13's
+(``SEAMLESS_TF_CASES``: bf16 and fp32 at 2 + 2 layers held, 12 + 12
+measured; ``decode_step`` launches 12 a step there too, and the plain
+path none). (b) llama-3.2-vision-90b at 10 of 100 layers and
+jamba-1.5-large-398b at 8 of 72 with its experts cut from 16 to 8
+(``MEMORY_CASES``; the cuts printed as ``reduced``), the vlm's
+``cross_gate`` set to 1.0 after init (at its init 0 a cross layer adds
+nothing): a prefill ``forward`` on ``[4, 2048]`` (the vlm with 1,024
+seeded image tokens; one launch per self-attention layer, 10 and 1;
+tokens/s, peak memory; jamba's aux finite and positive, its share of
+slots dropped by MoE layer, and the Mamba layers' share of the prefill's
+device time under ``torch.profiler``; a peak over ``ZOO_PEAK_GIB`` reruns
+it at half the batch), 32 greedy ``decode_step``s at batch 4 (ms a step,
+a profiled window's idle share, 0 launches), the vlm's one period
+through the kernel against the plain attention within ``ZOO_PATHS_TOL``,
+and teacher forcing on ``[1, 64]`` (the vlm at one period, jamba with the
+capacity factor at E / k), measured. Phase 16 is held to
+``PHASE16_LIMIT_S``.
+
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
@@ -266,7 +300,7 @@ Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
 seconds, launches, family batches and results), a ``{"scale": {...}}``
 line (phase 10's), a ``{"search": {...}}`` line (phase 11's), a
 ``{"lm_sweep": {...}}`` line (phase 12's cells), a ``{"serve": {...}}``
-line (phase 13's), a ``{"zoo": {...}}`` line (phases 14 and 15), then a
+line (phase 13's), a ``{"zoo": {...}}`` line (phases 14, 15 and 16), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
 11's as ``search_launches``, phase 12's by cell as ``lm_sweep_launches``
@@ -276,7 +310,8 @@ registers and spills at D = 64 and by head dim (both designs), its
 errors by checked shape, its timings at the new head dims as
 ``head_dim_shapes``, its phase-12 launches by cell and timings at D = 16
 and 128 (fp32), its launches in phase 13's serve run as
-``serve_launches`` and in phases 14-15 as ``zoo_launches``; the WKV6 wrapper once per
+``serve_launches`` and in phases 14-16 as ``zoo_launches``, the forward's
+timings at phase 16's shapes as ``zoo_shapes``; the WKV6 wrapper once per
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
 ptxas by head dim), the card's name and power limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -661,6 +696,42 @@ GEMMA_TF_CASES = (("bfloat16", 2, 2e-2), ("float32", 2, 1e-4),
 MOE_CASES = (("mixtral-8x22b", 4), ("llama4-maverick-400b-a17b", 2))
 MOE_PREFILL, MOE_DECODE, MOE_TF_T = (4, 2048), 32, 64
 PHASE14_15_LIMIT_S = 150.0
+# Phase 16, the hybrid, vlm and audio families at published widths (bf16,
+# seeded). seamless-m4t-medium is not cut: the serve launcher at
+# SEAMLESS_SERVE (batch, prompt, gen; its own memory, 0.1 * ones fp32, so
+# the encoder runs in fp32 and launches the fp32 flash forward once a layer
+# at every step), a forward on ZOO_PREFILL tokens with ZOO_MEMORY-seeded
+# 0.1 * N(0, 1) fp32 frames, the same at 2 + 2 layers through the kernel
+# against the plain attention (phase 14's bar), teacher forcing on [1,
+# SEAMLESS_TF_T] as phase 13's (dtype, layers, limit; layers of decoder and
+# encoder each). llama-3.2-vision-90b and jamba-1.5-large-398b at reduced
+# depth, (arch, layers, experts or None): vision two periods of 4 self + 1
+# cross, 10 of 100 layers (~20.4 GiB); jamba one period, 8 of 72 layers (7
+# Mamba + 1 attention, MoE on every second), its experts cut from 16 to 8
+# so that the period fits one card (16 experts: 84.3 GiB of weights; 8:
+# 48.3 GiB); a prefill on ZOO_PREFILL tokens (the vlm with 1,024 seeded
+# image tokens), ZOO_DECODE greedy decode steps at its batch, and teacher
+# forcing on [1, ZOO_TF_T] (jamba with the capacity factor at E / k),
+# measured; the vlm also at one period (5 layers) through the kernel
+# against the plain attention (phase 14's bar). The vlm's cross_gate starts
+# at 0 (tanh(0) = 0: a cross layer would add nothing), so phase 16 sets it
+# to 1.0 after init. A jamba prefill whose peak passes ZOO_PEAK_GIB is
+# rerun at half the batch.
+SEAMLESS_SERVE, SEAMLESS_TF_T = (8, 64, 32), 128
+SEAMLESS_TF_CASES = (("bfloat16", 2, 2e-2), ("float32", 2, 1e-4),
+                     ("bfloat16", 12, None))
+MEMORY_CASES = (("llama-3.2-vision-90b", 10, None),
+                ("jamba-1.5-large-398b", 8, 8))
+ZOO_PREFILL, ZOO_DECODE, ZOO_TF_T, ZOO_MEMORY = (4, 2048), 32, 64, 16
+ZOO_PATHS_TOL = GEMMA_PATHS_TOL
+ZOO_PEAK_GIB = 72.0
+# the flash forward at the shapes phase 16 gives it, (b, h, t, d, dtype):
+# seamless's encoder in the serve run (batch 8, 1,024 fp32 frames), its
+# decoder in the forward, the vlm's and jamba's attention in the prefill
+# (64 heads of 128 on 8 KV heads: one shape for both)
+ZOO_FLASH = ((8, 16, 1024, 64, "float32"), (4, 16, 2048, 64, "bfloat16"),
+             (4, 64, 2048, 128, "bfloat16"))
+PHASE16_LIMIT_S = 150.0
 
 
 def fail(msg):
@@ -1001,24 +1072,26 @@ def ptxas_table(log):
     return table
 
 
-def check_flash_shape(torch, fa, ref, gen, shape, tag):
+def check_flash_shape(torch, fa, ref, gen, shape, tag, forward_only=False):
     """Forward and dq/dk/dv of the kernels against the plain version and
     its autograd at ``shape`` (b, h, t, d, window, softcap, dtype, causal)
     within ``FLASH_TOL``; fails on a mismatch, returns the max |err| of
-    each output."""
+    each output. ``forward_only``: the forward alone (a serving shape)."""
     b, h, t, d, win, cap, dtype, causal = shape
     dt = getattr(torch, dtype)
     dev = gen.device
     q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device=dev)
                   .to(dt) for _ in range(4))
-    ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ts = [x.clone().requires_grad_(not forward_only) for x in (q, k, v)]
     out = fa.flash_attention(*ts, causal=causal, window=win,
                              logit_softcap=cap)
-    grads = torch.autograd.grad(out, ts, g)
-    rs = [x.float().requires_grad_(True) for x in (q, k, v)]
+    rs = [x.float().requires_grad_(not forward_only) for x in (q, k, v)]
     want = ref.flash_attention_ref(*rs, causal=causal, window=win,
                                    logit_softcap=cap)
-    want_grads = torch.autograd.grad(want, rs, g.float())
+    grads = want_grads = ()
+    if not forward_only:
+        grads = torch.autograd.grad(out, ts, g)
+        want_grads = torch.autograd.grad(want, rs, g.float())
     torch.cuda.synchronize()
     atol, rtol = FLASH_TOL[dtype]
     e, need = {}, {}
@@ -1047,7 +1120,7 @@ def check_flash_shape(torch, fa, ref, gen, shape, tag):
 
 
 def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
-                 window=0, cap=0.0):
+                 window=0, cap=0.0, forward_only=False):
     """The three kernels at ``[bh, t, d]`` causal, with ``window`` and
     softcap ``cap`` (CUDA-graph replays), the plain version and its
     autograd (CUDA events around eager calls) and one
@@ -1056,7 +1129,9 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     at ``bw`` and its flops at ``peak`` (the dtype's rate) for the pairs
     the causal mask and the window allow. SDPA has neither a window nor a
     softcap: with either, its time is of plain causal attention (more
-    pairs, no tanh), kept as ``sdpa_ms`` and not as ``library_ms``."""
+    pairs, no tanh), kept as ``sdpa_ms`` and not as ``library_ms``.
+    ``forward_only``: the forward alone (a serving shape, which no path
+    differentiates)."""
     import torch.nn.functional as F
 
     dev = gen.device
@@ -1065,28 +1140,31 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     q, k, v, do = (torch.randn(bh, t, d, generator=gen, device=dev).to(dt)
                    for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
-    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
     ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
-                         iters=20),
-          "dq": time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, do,
-                                                          lse, **kw),
-                        iters=20),
-          "dkdv": time_ms(lambda: fa.flash_attention_bwd_dkdv(
-              q, k, v, do, lse, delta, **kw), iters=20)}
+                         iters=20)}
+    if not forward_only:
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
+        ms["dq"] = time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, o, do, lse, **kw), iters=20)
+        ms["dkdv"] = time_ms(lambda: fa.flash_attention_bwd_dkdv(
+            q, k, v, do, lse, delta, **kw), iters=20)
+        del dq, delta
     # the plain version: forward, and its autograd for dq alone and for
     # dk, dv alone (each less the forward it reruns)
-    qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
+    qr, kr, vr = (x.clone().requires_grad_(not forward_only)
+                  for x in (q, k, v))
 
     def plain_fwd():
         return ref.flash_attention_ref(qr, kr, vr, window=window,
                                        logit_softcap=cap)
 
     plain_f = time_ms_events(plain_fwd, iters=5)
-    plain = {"fwd": plain_f,
-             "dq": time_ms_events(lambda: torch.autograd.grad(
-                 plain_fwd(), [qr], do), iters=5) - plain_f,
-             "dkdv": time_ms_events(lambda: torch.autograd.grad(
-                 plain_fwd(), [kr, vr], do), iters=5) - plain_f}
+    plain = {"fwd": plain_f}
+    if not forward_only:
+        plain["dq"] = time_ms_events(lambda: torch.autograd.grad(
+            plain_fwd(), [qr], do), iters=5) - plain_f
+        plain["dkdv"] = time_ms_events(lambda: torch.autograd.grad(
+            plain_fwd(), [kr, vr], do), iters=5) - plain_f
     del qr, kr, vr
     torch.cuda.empty_cache()
     # the yardstick: one scaled_dot_product_attention call, forward and
@@ -1098,14 +1176,17 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
 
     same = not window and not cap
-    sdpa_err = (sdpa().float() - o.view(1, bh, t, d).float()).abs().max() \
-        if same else None
+    with torch.no_grad():
+        sdpa_err = (sdpa().float() - o.view(1, bh, t, d).float()).abs(
+        ).max() if same else None
     lib_f = time_ms(lambda: F.scaled_dot_product_attention(
         q4.detach(), k4.detach(), v4.detach(), is_causal=True), iters=20)
-    lib_b = time_ms_events(lambda: torch.autograd.grad(
-        sdpa(), [q4, k4, v4], do.view(1, bh, t, d)), iters=10) \
-        - time_ms_events(sdpa, iters=10)
-    sdpa_ms = {"fwd": lib_f, "dq": lib_b, "dkdv": lib_b}
+    sdpa_ms = {"fwd": lib_f}
+    if not forward_only:
+        lib_b = time_ms_events(lambda: torch.autograd.grad(
+            sdpa(), [q4, k4, v4], do.view(1, bh, t, d)), iters=10) \
+            - time_ms_events(sdpa, iters=10)
+        sdpa_ms.update(dq=lib_b, dkdv=lib_b)
     note = "" if same else (" (causal only: SDPA has no window and no "
                             "softcap, so not the same function)")
     pairs = bh * _attention_pairs(t, window)
@@ -1131,17 +1212,18 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
               f"({flops[kk]:.4e} flop at {peak / 1e12:g} TFLOP/s {short}; "
               f"{nbytes[kk]} bytes), {flops[kk] / ms[kk] / 1e9:.2f} "
               f"TFLOP/s achieved", flush=True)
-    bwd = ms["dq"] + ms["dkdv"]
-    print(f"{tag} backward total (dq + dkdv) vs SDPA backward{note}, "
-          f"[{bh},{t},{d}] {short} {masks}: {ms['dq']:.5f} + "
-          f"{ms['dkdv']:.5f} = {bwd:.5f} ms vs {lib_b:.5f} ms, "
-          f"{bwd / lib_b:.2f}x; "
-          f"{(flops['dq'] + flops['dkdv']) / bwd / 1e9:.2f} TFLOP/s",
-          flush=True)
+    if not forward_only:
+        bwd = ms["dq"] + ms["dkdv"]
+        print(f"{tag} backward total (dq + dkdv) vs SDPA backward{note}, "
+              f"[{bh},{t},{d}] {short} {masks}: {ms['dq']:.5f} + "
+              f"{ms['dkdv']:.5f} = {bwd:.5f} ms vs {lib_b:.5f} ms, "
+              f"{bwd / lib_b:.2f}x; "
+              f"{(flops['dq'] + flops['dkdv']) / bwd / 1e9:.2f} TFLOP/s",
+              flush=True)
     if same:
         print(f"{tag} scaled_dot_product_attention vs kernel forward: max "
               f"|diff| {sdpa_err.item():.3e}", flush=True)
-    del q, k, v, do, o, lse, dq, delta, q4, k4, v4
+    del q, k, v, do, o, lse, q4, k4, v4
     torch.cuda.empty_cache()
     return {kk: dict(ms=ms[kk], plain_ms=plain[kk],
                      library_ms=sdpa_ms[kk] if same else None,
@@ -3070,28 +3152,42 @@ def _picks(moe_mod, fn):
         return fn(), picks
 
 
-def _teacher_forcing(torch, fa, model, params, cfg, toks, label, tol):
-    """``forward`` on ``toks [1, T]`` through the flash kernel and through
-    the plain attention against T ``decode_step`` calls: max |decode -
-    forward| / max |forward| of each, and kernel vs plain; fails past
-    ``tol`` (None: measured). For an MoE model also the (layer, token)
-    pairs whose top-k experts differ between the paths: in bf16 a hidden
-    state that rounds otherwise may tip a near tie of the router."""
+def _flash_launches(model, cfg):
+    """The flash forward's launches in one ``forward`` and in one
+    ``decode_step``: one per self-attention layer of a full or swa kind
+    (``dispatch.attention``; not the SSM layers, not chunked ones), plus
+    one per audio encoder layer in both (``decode_step`` encodes the
+    memory again at every step, as the reference's does)."""
+    enc = cfg.encoder_layers if cfg.family == "audio" else 0
+    layers = sum(cfg.layer_kind(i) != "ssm"
+                 and model.attn_kind(cfg, i) in ("full", "swa")
+                 for i in range(cfg.num_layers))
+    return layers + enc, enc
+
+
+def _teacher_forcing(torch, fa, model, params, cfg, toks, label, tol,
+                     memory=None):
+    """``forward`` on ``toks [1, T]`` (and ``memory``) through the flash
+    kernel and through the plain attention against T ``decode_step``
+    calls: max |decode - forward| / max |forward| of each, and kernel vs
+    plain; fails past ``tol`` (None: measured). For an MoE model also the
+    (layer, token) pairs whose top-k experts differ between the paths: in
+    bf16 a hidden state that rounds otherwise may tip a near tie of the
+    router."""
     from repro_torch.models import moe as moe_mod
 
     dev = toks.device
     T = toks.shape[1]
-    # the flash kernel takes the full and swa layers (``dispatch.attention``)
-    layers = sum(model.attn_kind(cfg, i) in ("full", "swa")
-                 for i in range(cfg.num_layers))
+    per_forward, per_step = _flash_launches(model, cfg)
     picks = {}
     with torch.no_grad():
         fwd = {}
         for path, backend in (("kernel", None), ("plain", "torch")):
             fa.flash_attention_fwd.launches = 0
             (fwd[path], _), picks[path] = _picks(moe_mod, lambda: (
-                model.forward(params, cfg, toks, backend=backend)))
-            want = layers if path == "kernel" else 0
+                model.forward(params, cfg, toks, memory=memory,
+                              backend=backend)))
+            want = per_forward if path == "kernel" else 0
             if fa.flash_attention_fwd.launches != want:
                 fail(f"{label}: the {path} forward launched the flash "
                      f"kernel {fa.flash_attention_fwd.launches} times, "
@@ -3102,14 +3198,16 @@ def _teacher_forcing(torch, fa, model, params, cfg, toks, label, tol):
             outs = []
             for t in range(T):
                 lg, cache = model.decode_step(params, cfg, toks[:, t:t + 1],
-                                              cache, t)
+                                              cache, t, memory=memory)
                 outs.append(lg[:, 0])
             return torch.stack(outs, 1)
 
         fa.flash_attention_fwd.launches = 0
         dec, picks["decode"] = _picks(moe_mod, decode)
-    if fa.flash_attention_fwd.launches != 0:
-        fail("decode_step launched the flash kernel")
+    if fa.flash_attention_fwd.launches != per_step * T:
+        fail(f"{label}: decode_step launched the flash kernel "
+             f"{fa.flash_attention_fwd.launches} times, expected "
+             f"{per_step * T}")
     rel = {path: ((dec - f).abs().max() / f.abs().max()).item()
            for path, f in fwd.items()}
     rel["kernel_vs_plain"] = ((fwd["kernel"] - fwd["plain"]).abs().max()
@@ -3127,9 +3225,20 @@ def _teacher_forcing(torch, fa, model, params, cfg, toks, label, tol):
         rel["routing_flips"] = {
             path: int((by_layer(picks[path]) != want).any(-1).sum())
             for path in ("kernel", "decode")}
+        # the decode's error before its first token routed otherwise: a
+        # flip changes that token's hidden state and, through the caches,
+        # every later one
+        flipped = (by_layer(picks["decode"]) != want).any(-1).any(0)
+        first = int(flipped.nonzero()[0]) if flipped.any() else T
+        rel["first_flipped_token"] = first
+        rel["plain_before_first_flip"] = (
+            (dec[:, :first] - fwd["plain"][:, :first]).abs().max()
+            / fwd["plain"].abs().max()).item() if first else None
         flips = (f"; (layer, token) pairs routed otherwise than the plain "
                  f"forward: kernel forward {rel['routing_flips']['kernel']}"
-                 f", decode {rel['routing_flips']['decode']} of {L * T}")
+                 f", decode {rel['routing_flips']['decode']} of {L * T}; "
+                 f"decode vs plain forward before the first such token "
+                 f"({first}): {rel['plain_before_first_flip']}")
     ok = torch.isfinite(dec).all().item() and (
         tol is None or (rel["kernel"] <= tol and rel["plain"] <= tol))
     print(f"{label} teacher forcing {cfg.dtype}, {cfg.num_layers} layers, "
@@ -3145,10 +3254,17 @@ def _teacher_forcing(torch, fa, model, params, cfg, toks, label, tol):
     return dict(rel, limit=tol)
 
 
-def _first_periods(params, n):
-    """The leaves of a model's first ``n`` periods (views)."""
-    return {k: v[:n] if k.startswith("blocks.") else v
-            for k, v in params.items()}
+def _first_periods(params, n, encoder_layers=None):
+    """The leaves of a model's first ``n`` periods (views), and of the
+    audio encoder's first ``encoder_layers`` layers if given."""
+    out = {}
+    for k, v in params.items():
+        if k.startswith("blocks."):
+            v = v[:n]
+        elif k.startswith("encoder.") and encoder_layers is not None:
+            v = v[:encoder_layers]
+        out[k] = v
+    return out
 
 
 def phase14_gemma2(torch, fa, card):
@@ -3394,6 +3510,403 @@ def phase15_moe(torch, fa, card):
     return res
 
 
+def _zoo_memory(torch, cfg, b, dev):
+    """Seeded ``0.1 * N(0, 1)`` image tokens (vlm) or audio frames (audio)
+    ``[b, M, d_model]`` fp32 (constant memory makes every token alike)."""
+    m = cfg.num_image_tokens if cfg.family == "vlm" else cfg.num_audio_frames
+    gen = torch.Generator(device=dev).manual_seed(ZOO_MEMORY)
+    return 0.1 * torch.randn(b, m, cfg.d_model, generator=gen, device=dev)
+
+
+def _range_share(torch, module, attr, fn):
+    """``fn()`` under ``torch.profiler`` with every call of
+    ``module.attr`` inside a ``record_function`` range: the ranges' time on
+    the device (their GPU annotations in the trace, each the span from the
+    first kernel of a call to its last) over the device time of all
+    kernels."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    real, name = getattr(module, attr), f"range_{attr}"
+
+    def ranged(*a, **kw):
+        with record_function(name):
+            return real(*a, **kw)
+
+    torch.cuda.synchronize()
+    with mock.patch.object(module, attr, ranged), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = span = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        if ev.key == name:
+            span += us
+        else:
+            total += us
+    if not span:
+        fail(f"the profile of {attr} has no GPU annotation of its ranges")
+    return dict(share=span / total, range_device_ms=span / 1e3,
+                total_device_ms=total / 1e3)
+
+
+def phase16_flash(torch, fa, ref, bw, bf16_peak, fp32_peak):
+    """The flash forward at phase 16's shapes (``ZOO_FLASH``) against its
+    plain version within ``FLASH_TOL``, and timed beside the plain version,
+    SDPA's causal forward and its bound."""
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.manual_seed(16)
+    out = {}
+    for b, h, t, d, dtype in ZOO_FLASH:
+        err = check_flash_shape(torch, fa, ref, gen,
+                                (b, h, t, d, 0, 0.0, dtype, True), "phase16",
+                                forward_only=True)
+        peak = bf16_peak if dtype == "bfloat16" else fp32_peak
+        r = flash_timing(torch, fa, ref, gen, b * h, t, d, dtype, bw, peak,
+                         "phase16", forward_only=True)["fwd"]
+        out[f"[{b * h},{t},{d}] {dtype}"] = dict(r, max_abs_err=err["o"])
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase16_seamless(torch, fa, card):
+    """seamless-m4t-medium at full width and depth: the serve launcher
+    (the fp32 encoder through the flash kernel at every step), a prefill
+    forward with seeded frames, kernel vs plain at 2 + 2 layers, teacher
+    forcing."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv)
+    arch = "seamless-m4t-medium"
+    cfg = get_config(arch)
+    if (cfg.num_layers, cfg.encoder_layers, cfg.d_model, cfg.head_dim,
+            cfg.vocab_size) != (12, 12, 1024, 64, 256206):
+        fail("seamless-m4t-medium's config is not the published one")
+    res = {"n_params": cfg.param_count()}
+    params, res["init_s"], _, _ = _counted(torch, counters, lambda: (
+        model.init_leaves(torch.Generator(device=dev).manual_seed(0), cfg)))
+    res["n_leaf_params"] = sum(v.numel() for v in params.values())
+    print(f"phase16a {arch}: {cfg.encoder_layers} encoder + "
+          f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.attention.num_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, untied head, GELU MLP; param_count "
+          f"{res['n_params']}, {res['n_leaf_params']} with audio_proj and "
+          f"enc_norm, bf16, seeded in {res['init_s']:.2f} s (not cut)",
+          flush=True)
+    per_forward, per_step = _flash_launches(model, cfg)
+    b, p_len, g_len = SEAMLESS_SERVE
+    args = ["--arch", arch, "--full", "--batch", str(b)]
+    res["profile"] = profile_window(
+        torch, f"phase16a serve {arch} (batch {b}, prompt 4, gen 4)",
+        lambda: serve.main(args + ["--prompt-len", "4", "--gen", "4"],
+                           params=params), 8, "step")
+    out, _, launches, peak = _counted(torch, counters, lambda: serve.main(
+        args + ["--prompt-len", str(p_len), "--gen", str(g_len)],
+        params=params))
+    steps = p_len + g_len
+    want = [per_step * steps, 0, 0]
+    decode_s = out["seconds"] - out["prefill_seconds"]
+    print(f"phase16a serve {arch} --full batch {b} prompt {p_len} gen "
+          f"{g_len} on {card}: {out['seconds']:.4f} s = "
+          f"{out['tokens_per_s']:.1f} tokens/s incl. prefill (decode "
+          f"{b * g_len / decode_s:.1f} tokens/s, "
+          f"{1e3 * out['seconds'] / steps:.3f} ms per step); idle share "
+          f"{res['profile']['device_idle_share']:.3f} (profiled window); "
+          f"first ids {out['ids'][0][:12].tolist()}; flash launches "
+          f"{launches} (want {want}: {per_step} a step, the encoder); peak "
+          f"memory {peak / 2 ** 30:.3f} GiB; done at "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if tuple(out["ids"].shape) != (b, g_len) or not (
+            (out["ids"] >= 0) & (out["ids"] < cfg.vocab_size)).all():
+        fail(f"{arch}: the served ids are misshapen or out of the "
+             f"vocabulary")
+    if launches != want:
+        fail(f"{arch}: serving launched flash kernels {launches}, not "
+             f"{want}")
+    res["serve"] = dict(seconds=out["seconds"],
+                        tokens_per_s=out["tokens_per_s"],
+                        decode_tokens_per_s=b * g_len / decode_s,
+                        ms_per_step=1e3 * out["seconds"] / steps,
+                        peak_gib=peak / 2 ** 30, flash_launches=launches)
+    del out
+
+    # (b) a prefill forward with seeded frames, through the kernels
+    B, T = ZOO_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator().manual_seed(16)).to(dev)
+    mem = _zoo_memory(torch, cfg, B, dev)
+
+    def forward(p, c, tk, m, backend=None):
+        with torch.no_grad():
+            return model.forward(p, c, tk, memory=m, backend=backend)[0]
+
+    logits, sec, launches, peak = _counted(torch, counters, lambda: (
+        forward(params, cfg, toks, mem)))
+    want = [per_forward, 0, 0]
+    ok = (tuple(logits.shape) == (B, T, cfg.vocab_size)
+          and torch.isfinite(logits).all().item() and launches == want)
+    print(f"phase16a forward {arch} [{B}, {T}] with frames "
+          f"{list(mem.shape)} fp32 on {card}: {sec:.4f} s = "
+          f"{B * T / sec:.1f} tokens/s; logits {list(logits.shape)} finite; "
+          f"flash launches {launches} (want {want}: encoder and decoder, "
+          f"one a layer); peak memory {peak / 2 ** 30:.3f} GiB "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        fail(f"{arch}: the forward is misshapen or non-finite, or launched "
+             f"{launches}, not {want}")
+    res["forward"] = dict(seconds=sec, tokens_per_s=B * T / sec,
+                          peak_gib=peak / 2 ** 30, flash_launches=launches)
+    del logits
+    c2 = dataclasses.replace(cfg, num_layers=2, encoder_layers=2)
+    p2 = _first_periods(params, 2, encoder_layers=2)
+    kern = forward(p2, c2, toks[:1], mem[:1])
+    plain = forward(p2, c2, toks[:1], mem[:1], "torch")
+    rel = ((kern - plain).abs().max() / plain.abs().max()).item()
+    print(f"phase16a forward [1, {T}] at 2 + 2 layers, kernel vs plain "
+          f"attention: max |logit diff| / max |logit| {rel:.3e} (limit "
+          f"{ZOO_PATHS_TOL:g}) {'ok' if rel <= ZOO_PATHS_TOL else 'OUTSIDE'}"
+          f"; done at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not rel <= ZOO_PATHS_TOL:
+        fail(f"{arch}: the forward through the kernel disagrees with the "
+             f"plain attention")
+    res["forward"]["kernel_vs_plain_2_2_layers"] = rel
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    # (c) teacher forcing, decoder and encoder cut alike
+    res["teacher_forcing"] = {}
+    for dtype, layers, tol in SEAMLESS_TF_CASES:
+        c = dataclasses.replace(cfg, dtype=dtype, num_layers=layers,
+                                encoder_layers=layers)
+        p = _first_periods(params, layers, encoder_layers=layers)
+        if dtype == "float32":
+            p = {k: v.float() for k, v in p.items()}
+        res["teacher_forcing"][f"{dtype}_{layers}_layers"] = \
+            _teacher_forcing(torch, fa, model, p, c,
+                             toks[:1, :SEAMLESS_TF_T], f"phase16a {arch}",
+                             tol, memory=mem[:1])
+        del p
+        torch.cuda.empty_cache()
+    del params, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase16a {arch} done in {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def phase16_reduced(torch, fa, card, arch, layers, experts):
+    """llama-3.2-vision-90b or jamba-1.5-large-398b at published widths and
+    reduced depth (and jamba's experts cut): a prefill, greedy decode
+    steps, (vlm) kernel vs plain at one period, teacher forcing."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    cut = {"num_layers": [full.num_layers, layers]}
+    if experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=experts))
+        cut["num_experts"] = [full.moe.num_experts, experts]
+    row = {"reduced": cut, "n_params": cfg.param_count(),
+           "active_params": cfg.active_param_count()}
+    params, row["init_s"], _, _ = _counted(torch, counters, lambda: (
+        model.init_leaves(torch.Generator(device=dev).manual_seed(0), cfg)))
+    gates = [k for k in params if k.endswith("cross_gate")]
+    for k in gates:             # tanh(0) = 0 would switch the cross layers off
+        params[k].fill_(1.0)
+    P = model.period_length(cfg)
+    kinds = [cfg.layer_kind(i) for i in range(P)]
+    print(f"phase16b {arch}: reduced " + ", ".join(
+        f"{k} {a} -> {b}" for k, (a, b) in cut.items())
+        + f" (published widths: d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"{cfg.attention.num_heads} heads of {cfg.head_dim} on "
+        f"{cfg.attention.num_kv_heads} KV heads, period {P}: {kinds}"
+        + (f", MoE {cfg.moe.num_experts} experts top-{cfg.moe.top_k} "
+           f"every {cfg.moe_every}" if cfg.moe else "")
+        + f"); {row['n_params']} parameters ({row['active_params']} active "
+        f"a token), {row['n_params'] * 2 / 2 ** 30:.1f} GiB bf16, seeded in "
+        f"{row['init_s']:.2f} s" + (f"; cross_gate set to 1.0 on "
+                                   f"{len(gates)} leaves" if gates else ""),
+        flush=True)
+    per_forward, per_step = _flash_launches(model, cfg)
+    B, T = ZOO_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator().manual_seed(16)).to(dev)
+    mem = _zoo_memory(torch, cfg, B, dev) if cfg.family == "vlm" else None
+    dropped, real_moe = [], moe_mod.moe_apply
+
+    def counted_moe(p, x, c):
+        # the share of (token, choice) slots over capacity, read beside
+        # the layer's own routing (one more router product)
+        idx, _, _ = moe_mod._router(p, x, c)
+        dropped.append(1.0 - moe_mod.slots(idx, c, x.shape[1])[1]
+                       .float().mean())
+        return real_moe(p, x, c)
+
+    def prefill(b):
+        with torch.no_grad():
+            return model.forward(params, cfg, toks[:b], memory=(
+                None if mem is None else mem[:b]))
+
+    while True:
+        dropped.clear()
+        with mock.patch.object(moe_mod, "moe_apply", counted_moe):
+            (logits, aux), sec, launches, peak = _counted(
+                torch, counters, lambda: prefill(B))
+        if peak <= ZOO_PEAK_GIB * 2 ** 30:
+            break
+        del logits, aux
+        if B == 1:
+            fail(f"{arch}: the prefill's peak passes {ZOO_PEAK_GIB:g} GiB "
+                 f"at batch 1")
+        print(f"phase16b {arch}: the prefill's peak "
+              f"{peak / 2 ** 30:.3f} GiB passes {ZOO_PEAK_GIB:g} GiB; "
+              f"halving its batch to {B // 2}", flush=True)
+        B //= 2
+        row.setdefault("reduced", {})["prefill_batch"] = [ZOO_PREFILL[0], B]
+    drop = [d.item() for d in dropped]
+    want = [per_forward, 0, 0]
+    ok = (tuple(logits.shape) == (B, T, cfg.vocab_size)
+          and torch.isfinite(logits).all().item() and launches == want
+          and (not cfg.moe or (math.isfinite(aux.item()) and aux.item() > 0)))
+    moe_note = (f"aux (balance loss, summed over {len(drop)} MoE layers) "
+                f"{aux.item():.4f}; dropped at capacity factor "
+                f"{cfg.moe.capacity_factor:g} by layer "
+                f"{[round(d, 4) for d in drop]}; " if cfg.moe else "")
+    print(f"phase16b {arch} prefill forward [{B}, {T}]"
+          + (f" with image tokens {list(mem.shape)} fp32" if mem is not None
+             else "") + f" on {card}: {sec:.4f} s = {B * T / sec:.1f} "
+          f"tokens/s; {moe_note}flash launches {launches} (want {want}: one "
+          f"per self-attention layer); peak memory {peak / 2 ** 30:.3f} GiB "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        fail(f"{arch}: the prefill is misshapen or non-finite, its aux is "
+             f"not positive, or its flash launches are {launches}, not "
+             f"{want}")
+    row["prefill"] = dict(batch=B, seconds=sec, tokens_per_s=B * T / sec,
+                          peak_gib=peak / 2 ** 30, flash_launches=launches)
+    if cfg.moe:
+        row["prefill"].update(aux=aux.item(), dropped_share_by_layer=drop)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    del logits
+    if cfg.family == "hybrid":
+        share = _range_share(torch, ssm_mod, "ssm_apply",
+                             lambda: prefill(B))
+        print(f"phase16b {arch} prefill profiled (torch.profiler): the "
+              f"{kinds.count('ssm')} Mamba layers take "
+              f"{share['range_device_ms']:.3f} of "
+              f"{share['total_device_ms']:.3f} device ms = "
+              f"{share['share']:.3f} (their ranges' GPU annotations)",
+              flush=True)
+        row["prefill"]["mamba_device_share"] = share
+
+    def decode(n, tok=tok):
+        cache = model.make_cache(cfg, B, n, device=dev)
+        ids = []
+        with torch.no_grad():
+            for t in range(n):
+                lg, cache = model.decode_step(params, cfg, tok, cache, t,
+                                              memory=(None if mem is None
+                                                      else mem[:B]))
+                tok = lg[:, -1].argmax(-1)[:, None]
+                ids.append(tok)
+        return torch.cat(ids, 1)
+
+    prof = profile_window(torch, f"phase16b {arch} decode (batch {B}, 4 "
+                          f"steps)", lambda: decode(4), 4, "step")
+    ids, sec, launches, peak = _counted(torch, counters,
+                                        lambda: decode(ZOO_DECODE))
+    want = [per_step * ZOO_DECODE, 0, 0]
+    ok = (tuple(ids.shape) == (B, ZOO_DECODE) and launches == want
+          and ((ids >= 0) & (ids < cfg.vocab_size)).all().item())
+    print(f"phase16b {arch} greedy decode batch {B}, {ZOO_DECODE} steps: "
+          f"{sec:.4f} s = {B * ZOO_DECODE / sec:.1f} tokens/s, "
+          f"{1e3 * sec / ZOO_DECODE:.3f} ms per step; idle share "
+          f"{prof['device_idle_share']:.3f} (profiled window); first ids "
+          f"{ids[0][:8].tolist()}; flash launches {launches} (want {want}); "
+          f"peak memory {peak / 2 ** 30:.3f} GiB {'ok' if ok else 'FAILED'}",
+          flush=True)
+    if not ok:
+        fail(f"{arch}: decode ids misshapen or flash launches {launches}")
+    row["decode"] = dict(seconds=sec, tokens_per_s=B * ZOO_DECODE / sec,
+                         ms_per_step=1e3 * sec / ZOO_DECODE,
+                         peak_gib=peak / 2 ** 30, profile=prof,
+                         flash_launches=launches)
+    tf_params, tf_cfg = params, cfg
+    if cfg.family == "vlm":                 # one period: 4 self + 1 cross
+        tf_cfg = dataclasses.replace(cfg, num_layers=P)
+        tf_params = _first_periods(params, 1)
+        with torch.no_grad():
+            kern, plain = (model.forward(tf_params, tf_cfg, toks[:1],
+                                         memory=mem[:1], backend=be)[0]
+                           for be in (None, "torch"))
+        rel = ((kern - plain).abs().max() / plain.abs().max()).item()
+        print(f"phase16b {arch} forward [1, {T}] at {P} layers, kernel vs "
+              f"plain attention: max |logit diff| / max |logit| {rel:.3e} "
+              f"(limit {ZOO_PATHS_TOL:g}) "
+              f"{'ok' if rel <= ZOO_PATHS_TOL else 'OUTSIDE'}", flush=True)
+        if not rel <= ZOO_PATHS_TOL:
+            fail(f"{arch}: the forward through the kernel disagrees with "
+                 f"the plain attention")
+        row["kernel_vs_plain_one_period"] = rel
+        del kern, plain
+    if cfg.moe:
+        m = cfg.moe
+        tf_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+    row["teacher_forcing"] = _teacher_forcing(
+        torch, fa, model, tf_params, tf_cfg, toks[:1, :ZOO_TF_T],
+        f"phase16b {arch}", None,
+        memory=None if mem is None else mem[:1])
+    del params, tf_params, toks, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_phase
+    print(f"phase16b {arch} done in {row['seconds']:.1f} s", flush=True)
+    return row
+
+
+def phase16_zoo(torch, fa, ref, card, bw, bf16_peak, fp32_peak):
+    """The hybrid, vlm and audio families at published widths: the flash
+    forward at their shapes, seamless-m4t-medium not cut, then vision and
+    jamba at reduced depth, one model at a time; held to
+    ``PHASE16_LIMIT_S``."""
+    t_phase = time.perf_counter()
+    res = {"flash": phase16_flash(torch, fa, ref, bw, bf16_peak, fp32_peak)}
+    res["seamless-m4t-medium"] = phase16_seamless(torch, fa, card)
+    for arch, layers, experts in MEMORY_CASES:
+        res[arch] = phase16_reduced(torch, fa, card, arch, layers, experts)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase16 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE16_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE16_LIMIT_S:
+        fail(f"phase 16 took {res['seconds']:.1f} s, over its "
+             f"{PHASE16_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3453,6 +3966,7 @@ def main():
     dense = phase13_dense_serving(torch, fa, ref, card)
     gemma = phase14_gemma2(torch, fa, card)
     moe = phase15_moe(torch, fa, card)
+    mem_zoo = phase16_zoo(torch, fa, ref, card, bw, bf16_peak, fp32_peak)
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
           f"s)", flush=True)
@@ -3518,7 +4032,14 @@ def main():
                 "gemma2_9b_serve": gemma["serve"]["flash_launches"][i],
                 "gemma2_9b_forward": gemma["forward"]["flash_launches"][i],
                 **{f"{a}_prefill": moe[a]["prefill"]["flash_launches"][i]
-                   for a, _ in MOE_CASES}})
+                   for a, _ in MOE_CASES},
+                **{f"seamless-m4t-medium_{part}":
+                   mem_zoo["seamless-m4t-medium"][part]["flash_launches"][i]
+                   for part in ("serve", "forward")},
+                **{f"{a}_{part}": mem_zoo[a][part]["flash_launches"][i]
+                   for a, _, _ in MEMORY_CASES
+                   for part in ("prefill", "decode")}})
+    kernels[1]["zoo_shapes"] = mem_zoo["flash"]
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err
@@ -3550,7 +4071,10 @@ def main():
     print(json.dumps({"lm_sweep": {k2: v for k2, v in lm_sweep.items()
                                    if k2 != "kernels"}}), flush=True)
     print(json.dumps({"serve": dense}), flush=True)
-    print(json.dumps({"zoo": {"gemma2-9b": gemma, "moe": moe}}), flush=True)
+    print(json.dumps({"zoo": {
+        "gemma2-9b": gemma, "moe": moe,
+        "memory_families": {k: v for k, v in mem_zoo.items()
+                            if k != "flash"}}}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,11 +1,10 @@
 """Config system (own copy of ``repro.configs.base``): the model,
 federation and input-shape configurations.
 
-Every field of the reference's ``ModelConfig`` is here, the hybrid, vlm
-and audio families' too (data only). The dense, MoE and RWKV6 (family
-``"ssm"``) families run; ``get_config(name)`` resolves the arch ids of
-``PORTED`` and raises ``NotImplementedError`` for jamba, llama-3.2-vision
-and seamless until their families are ported (ROADMAP Queue 1 item 14).
+Every field of the reference's ``ModelConfig`` is here, and every family
+runs: dense, MoE, RWKV6 (family ``"ssm"``), the Mamba hybrid (jamba), vlm
+(llama-3.2-vision) and audio (seamless-m4t); ``get_config(name)`` resolves
+every arch id of ``ARCH_IDS``.
 ``reduced(cfg)`` produces the CPU-smoke variant of the same family
 (2 layers, d_model <= 512, <= 4 experts), as in the reference.
 """
@@ -67,8 +66,7 @@ class AttentionConfig:
 class ModelConfig:
     name: str = "model"
     # family: 'dense' | 'moe' | 'ssm' (rwkv6) | 'hybrid' (jamba) |
-    #         'vlm' | 'audio' (enc-dec); hybrid, vlm and audio are not
-    #         ported yet
+    #         'vlm' | 'audio' (enc-dec)
     family: str = "dense"
     num_layers: int = 4
     d_model: int = 256
@@ -235,19 +233,11 @@ ARCH_IDS = (
     "llama4-maverick-400b-a17b",
 )
 
-# the arch ids whose config module is ported (and whose family runs)
-PORTED = ("smollm-135m", "rwkv6-3b", "gemma2-9b", "deepseek-coder-33b",
-          "granite-34b", "mixtral-8x22b", "llama4-maverick-400b-a17b")
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCH_IDS)}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP Queue 1 item 14: the model "
-            f"zoo's Mamba, hybrid, vlm and audio families); ported: "
-            f"{PORTED}")
     module = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
 

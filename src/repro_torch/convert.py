@@ -17,7 +17,13 @@ module needs neither JAX nor the reference package:
   ``tmix``) lands on ``blocks.{i}.tmix.wr`` and so on, and its fp32 leaves
   (``decay_base``, ``bonus_u``, ``ln_x``) stay fp32 in a bf16 model; an MoE
   layer's ``blocks[i]["moe"]`` lands on ``blocks.{i}.moe.router`` (fp32,
-  bit for bit) and ``moe.up``/``gate``/``down`` (the model dtype);
+  bit for bit) and ``moe.up``/``gate``/``down`` (the model dtype); a Mamba
+  layer's ``blocks[i]["ssm"]`` on ``blocks.{i}.ssm.in_proj`` and so on
+  (``dt_proj``, ``dt_bias``, ``a_log``, ``d_skip`` fp32, bit for bit); a
+  cross layer's ``lnc``, ``cross.*`` and the fp32 ``cross_gate``
+  (``[n_periods]``); the vlm's ``image_proj``; the audio encoder's
+  ``encoder.*`` (stacked ``[encoder_layers, ...]``), ``enc_norm`` and
+  ``audio_proj``;
 - ``fed_state_from_jax(np_state, layout, scheme)``: a reference ``FedState``
   (an object with its fields, numpy leaves, leading ``[B]`` axis on every
   leaf, e.g. from a vmapped init) -> the port's ``FedState``, so a test can

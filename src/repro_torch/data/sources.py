@@ -159,8 +159,8 @@ def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
     """
     if memory_shape is not None:
         raise NotImplementedError(
-            "memory leaves (vlm/audio) wait for the model zoo (ROADMAP "
-            "Queue 1 item 14)")
+            "memory leaves (vlm/audio) wait for the training of those "
+            "families (ROADMAP Queue 1 item 16)")
     half = vocab // 2
 
     def init(lo=None):

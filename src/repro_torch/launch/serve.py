@@ -1,5 +1,5 @@
 """Serving launcher (port of ``repro.launch.serve``): batched greedy
-decoding with the KV cache (dense family) or the RWKV state.
+decoding with the KV cache, the Mamba carry or the RWKV state.
 
   python -m repro_torch.launch.serve --full --batch 8 --prompt-len 128 \
       --gen 64                      # SmolLM-135M, the default --arch
@@ -7,29 +7,38 @@ decoding with the KV cache (dense family) or the RWKV state.
       --batch 8 --prompt-len 128 --gen 64
   python -m repro_torch.launch.serve --arch gemma2-9b --full \
       --batch 8 --prompt-len 64 --gen 32
+  python -m repro_torch.launch.serve --arch seamless-m4t-medium --full \
+      --batch 8 --prompt-len 64 --gen 32
 
-``--arch`` takes every ported arch id (``configs.base.PORTED``: the dense
-smollm-135m, gemma2-9b, deepseek-coder-33b and granite-34b, the MoE
-mixtral-8x22b and llama4-maverick-400b-a17b, and rwkv6-3b), as the
-reference's launcher does; at ``--full`` the 33B-400B ones do not fit one
-80 GB card (``chip_smoke.py`` runs the MoE ones at full width and reduced
-depth by calling ``decode_step`` itself).
+``--arch`` takes every arch id of ``configs.base.ARCH_IDS``, as the
+reference's launcher does: the dense smollm-135m, gemma2-9b,
+deepseek-coder-33b and granite-34b, the MoE mixtral-8x22b and
+llama4-maverick-400b-a17b, rwkv6-3b, the hybrid jamba-1.5-large-398b, the
+vlm llama-3.2-vision-90b and the audio seamless-m4t-medium. At ``--full``
+the 33B-400B ones do not fit one 80 GB card (``chip_smoke.py`` runs the
+MoE, hybrid and vlm ones at full width and reduced depth by calling
+``forward`` and ``decode_step`` itself).
 
 Runs on the card (``main(..., device="cpu")`` for the CPU; without CUDA the
 default raises). ``--reduced`` (the default) is the 2-layer, d_model-256
 variant in fp32; ``--full`` is the published widths in the config's dtype
 (bf16). Weights come from ``--seed`` (``models.model.init_leaves``) and the
 prompts from ``--seed + 1``, uniform over the vocabulary, unless
-``main`` is given them. As in the reference, the prompt is prefilled
-through sequential ``decode_step`` calls, then ``--gen`` tokens are decoded
+``main`` is given them. The vlm and audio families attend memory: as the
+reference launcher builds it, ``0.1 * ones([batch, num_image_tokens |
+num_audio_frames, d_model])`` in fp32, unless ``main`` is given one. As in
+the reference, the prompt is prefilled through sequential ``decode_step``
+calls (under ``torch.no_grad``), then ``--gen`` tokens are decoded
 greedily; the tokens/s printed counts prompt and generated tokens over the
-whole loop. A dense model's ``decode_step`` writes each layer's k/v into
-its cache (a ring buffer for windowed layers) and attends it with the
-plain ``decode_attention``, which launches no kernel, as the reference
-calls none there (an MoE model's likewise, its MoE layers routing each
-row's token in plain PyTorch); an RWKV6 model's runs each layer's WKV6
-recurrence as one launch of the CUDA kernel at T = 1, the state carried
-in the cache.
+whole loop. Attention layers write each token's k/v into their cache (a
+ring buffer for windowed layers) and attend it with the plain
+``decode_attention``, which launches no kernel, as the reference calls
+none there (MoE layers route each row's token, Mamba layers step their
+carry and cross layers attend the memory, all in plain PyTorch); the
+memory is projected (vlm) or encoded (audio: one flash launch per encoder
+layer) again at every step, as in the reference; an RWKV6 model runs each
+layer's WKV6 recurrence as one launch of the CUDA kernel at T = 1, the
+state carried in the cache.
 """
 from __future__ import annotations
 
@@ -54,7 +63,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[List[str]] = None, *, device=None, prompts=None,
-         params=None, keep_logits: bool = False) -> Dict:
+         params=None, memory=None, keep_logits: bool = False) -> Dict:
     """Run the launcher; returns ``{"ids" [batch, gen], "prompts"
     [batch, prompt_len], "seconds", "prefill_seconds", "tokens_per_s",
     "logits"}`` (ids and prompts on the CPU; ``seconds`` the whole loop,
@@ -62,6 +71,8 @@ def main(argv: Optional[List[str]] = None, *, device=None, prompts=None,
     ``prompts``: int ``[batch, prompt_len]`` in place of the drawn ones;
     ``params``: the model's named leaves (``models.model.init_leaves``,
     ``convert.lm_leaves_from_jax``) in place of the seeded init;
+    ``memory``: the vlm's image tokens or the audio frames ``[batch, M,
+    d_model]`` in place of the launcher's constant 0.1;
     ``keep_logits``: also return each step's last-position logits
     (``[batch, V]`` fp32 on the CPU, prefill steps included)."""
     args = parse_args(argv)
@@ -91,10 +102,19 @@ def main(argv: Optional[List[str]] = None, *, device=None, prompts=None,
     if tuple(prompts.shape) != (args.batch, args.prompt_len):
         raise ValueError(f"prompts {tuple(prompts.shape)}, expected "
                          f"{(args.batch, args.prompt_len)}")
+    if memory is None and cfg.family in ("vlm", "audio"):
+        m = (cfg.num_image_tokens if cfg.family == "vlm"
+             else cfg.num_audio_frames)
+        memory = torch.full((args.batch, m, cfg.d_model), 0.1,
+                            dtype=torch.float32)
+    if memory is not None:
+        memory = torch.as_tensor(memory).to(dev)
     kept = []
 
+    @torch.no_grad()
     def step(tok, cache, pos):
-        logits, cache = decode_step(params, cfg, tok, cache, pos)
+        logits, cache = decode_step(params, cfg, tok, cache, pos,
+                                    memory=memory)
         if keep_logits:
             kept.append(logits[:, -1].cpu())
         return logits, cache

@@ -10,9 +10,9 @@ backward (the reference recomputes them under ``jax.checkpoint``).
 
 Masks: causal full, sliding-window (swa) and block-local (chunked); logit
 softcap; GQA by repeating KV heads. ``decode_attention`` is one query token
-against a KV cache, plain torch as in the reference (which has no kernel
-there). ``cross_attention`` waits for the model zoo's vlm and audio
-families (ROADMAP Queue 1 item 14).
+against a KV cache, and ``cross_attention`` non-causal attention against
+fixed memory (image tokens, encoder frames): both plain torch, as in the
+reference, which has no kernel there.
 """
 from __future__ import annotations
 
@@ -97,6 +97,26 @@ def attention_ref(q, k, v, *, kind="full", window=4096, logit_softcap=0.0,
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def cross_attention(q, k, v, *, q_chunk=512):
+    """Non-causal attention against fixed memory: ``q [B, Tq, H, D]``,
+    ``k, v [B, Tk, KV, D]`` -> ``[B, Tq, H, D]`` in ``q.dtype``. GQA by
+    repeating KV heads; fp32 scores (``q`` cast to fp32, then scaled by
+    ``D ** -0.5``) and a full softmax over the memory, one chunk of
+    ``q_chunk`` queries at a time, so the scores stay ``[B, H, q_chunk,
+    Tk]`` (a ragged last chunk at its own length; the reference pads it and
+    slices the pad off, the same rows)."""
+    d = q.shape[-1]
+    n_rep = q.shape[2] // k.shape[2]
+    kf = repeat_kv(k, n_rep).float().permute(0, 2, 3, 1)    # [B, H, D, Tk]
+    vf = repeat_kv(v, n_rep).float().transpose(1, 2)        # [B, H, Tk, D]
+    outs = []
+    for start in range(0, q.shape[1], q_chunk):
+        qc = (q[:, start:start + q_chunk].float() * d ** -0.5).transpose(1, 2)
+        p = torch.softmax(qc @ kf, -1)
+        outs.append((p @ vf).transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, 1)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, kind="full",

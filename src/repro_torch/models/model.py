@@ -1,15 +1,15 @@
-"""Model assembly (port of ``repro.models.model``): the dense, MoE and
-RWKV6 families.
+"""Model assembly (port of ``repro.models.model``): every family of the
+model zoo.
 
 Design, as in the reference:
 - the layer stack is organised in *periods*, the smallest repeating pattern
-  of layer kinds (plain dense and RWKV: 1; local/global alternation: 2), and
-  each period position's parameters are stacked on a leading
+  of layer kinds (plain dense and RWKV: 1; local/global alternation: 2;
+  jamba: 8; the vlm: ``cross_attn_every``), and each period position's parameters are stacked on a leading
   ``[n_periods]`` axis (the reference's ``blocks`` tuple);
 - ``forward``: train/prefill over the full sequence; ``loss_fn``: chunked
   cross-entropy; ``decode_step``: one token against the cache (serve path:
-  the dense and MoE families' KV cache, ring buffers for windowed layers,
-  through the plain ``decode_attention``; RWKV6's state).
+  the KV cache, ring buffers for windowed layers, through the plain
+  ``decode_attention``; the Mamba carry; RWKV6's state).
 
 What differs: the parameters are the named views of one flat buffer
 (``param_layout``; ``repro_torch.core.params``) with any leading model
@@ -35,8 +35,23 @@ stack with ``moe.*`` leaves in place of ``ffn.*`` on the layers of
 ``cfg._is_moe_layer`` (``models/moe.py``: plain torch, as the reference
 has no kernel there). Its router stays fp32 in a bf16 model, so it too is
 held leaf by leaf: ``forward`` and ``decode_step`` run, training does not
-(ROADMAP Queue 1 item 15). Other families raise ``NotImplementedError``
-(ROADMAP Queue 1 item 14: the rest of the model zoo).
+(ROADMAP Queue 1 item 15).
+
+The hybrid (jamba), vlm (llama-3.2-vision) and audio (seamless-m4t)
+families run one model, no leading axes, and serve only (training is
+ROADMAP Queue 1 item 16). Their period (``period_length``) holds layers
+of three kinds: ``attn``; ``ssm``, a Mamba block (``ssm.*`` leaves,
+``models/ssm.py``, plain torch as in the reference) in place of the
+self-attention; ``cross``, the self-attention followed by a gated
+cross-attention block (``lnc``, ``cross.*``, the 0-d fp32 ``cross_gate``)
+against ``memory``: image tokens through ``image_proj`` (vlm) or audio
+frames through the encoder (``encoder.*`` stacked ``[encoder_layers,
+...]``, ``enc_norm``, ``audio_proj``; its self-attention is causal, as
+the reference's). As in ``jnp``, a product of memory-derived activations
+with the model's weights runs in the promoted dtype (``_mm``): with the
+reference launcher's fp32 memory the vlm projections and the whole audio
+encoder run in fp32 (its attention through the fp32 flash kernel), and the
+cross-attention's output is cast back to the model's dtype.
 """
 from __future__ import annotations
 
@@ -50,7 +65,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import ParamLayout
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import (attention, cross_attention,
+                                          decode_attention)
 from repro_torch.models.layers import (
     apply_rope,
     dtype_of,
@@ -64,29 +81,34 @@ from repro_torch.models.layers import (
 Params = Dict[str, torch.Tensor]
 
 
-# the families ported so far: dense transformers, MoE and RWKV6 ("ssm")
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the families that run one model, without leading model axes
+ONE_MODEL = ("ssm", "hybrid", "vlm", "audio")
 
 
-def _ported(cfg: ModelConfig):
+def _known(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-            f"14: the model zoo's Mamba, hybrid, vlm and audio families); "
-            f"the port runs {FAMILIES}")
+        raise ValueError(f"unknown family {cfg.family!r}; the port runs "
+                         f"{FAMILIES}")
 
 
+_ITEM_16 = ("ROADMAP Queue 1 item 16: its fp32 leaves need an fp32 buffer "
+            "beside the bf16 one, as items 10 and 15 do, and the training "
+            "path needs memory batches and leading model axes")
 # why a family's training is not ported yet, by family
 _NOT_TRAINABLE = {
     "ssm": "ROADMAP Queue 1 item 10: RWKV6 training needs a hand-written "
            "WKV6 backward and an fp32 buffer for its fp32 leaves",
     "moe": "ROADMAP Queue 1 item 15: the fp32 router leaf needs an fp32 "
            "buffer beside the bf16 one, as item 10's leaves do",
+    "hybrid": _ITEM_16,
+    "vlm": _ITEM_16,
+    "audio": _ITEM_16,
 }
 
 
 def _trainable(cfg: ModelConfig):
-    _ported(cfg)
+    _known(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported yet "
@@ -95,11 +117,20 @@ def _trainable(cfg: ModelConfig):
 
 
 def period_length(cfg: ModelConfig) -> int:
-    """The smallest repeating pattern of layer kinds: 2 for local/global
-    alternation, times the MoE interleave (the lcm with ``moe_every``)."""
-    _ported(cfg)
-    p = 2 if cfg.attention.pattern == "local_global" else 1
-    if cfg.moe:
+    """The smallest repeating pattern of layer kinds: for the hybrid the
+    lcm of ``attn_every`` and ``moe_every``; for the vlm
+    ``cross_attn_every``; 2 for local/global alternation; times the MoE
+    interleave (the lcm with ``moe_every``) outside the hybrid."""
+    _known(cfg)
+    p = 1
+    if cfg.family == "hybrid":
+        p = math.lcm(max(cfg.attn_every, 1),
+                     max(cfg.moe_every, 1) if cfg.moe else 1)
+    elif cfg.family == "vlm" and cfg.cross_attn_every:
+        p = cfg.cross_attn_every
+    elif cfg.attention.pattern == "local_global":
+        p = 2
+    if cfg.moe and cfg.family != "hybrid":
         p = math.lcm(p, max(cfg.moe_every, 1))
     assert cfg.num_layers % p == 0, (cfg.name, cfg.num_layers, p)
     return p
@@ -112,49 +143,84 @@ def attn_kind(cfg: ModelConfig, layer_idx: int) -> str:
     return pat
 
 
+def _attn_leaves(cfg: ModelConfig, pre: str):
+    d, hd, a = cfg.d_model, cfg.head_dim, cfg.attention
+    return [(f"{pre}.wq", (d, a.num_heads * hd)),
+            (f"{pre}.wk", (d, a.num_kv_heads * hd)),
+            (f"{pre}.wv", (d, a.num_kv_heads * hd)),
+            (f"{pre}.wo", (a.num_heads * hd, d))]
+
+
+def _mlp_leaves(cfg: ModelConfig, pre: str):
+    d = cfg.d_model
+    out = [(f"{pre}.up", (d, cfg.d_ff)), (f"{pre}.down", (cfg.d_ff, d))]
+    if cfg.gated_mlp:
+        out.append((f"{pre}.gate", (d, cfg.d_ff)))
+    return out
+
+
 def _layer_leaves(cfg: ModelConfig, i: int = 0):
     """(name, shape) of the parameters of the layer at period position
-    ``i``, the reference's nesting joined with dots (``moe.*`` in place of
-    ``ffn.*`` on an MoE layer)."""
-    d, hd, a = cfg.d_model, cfg.head_dim, cfg.attention
-    if cfg.layer_kind(0) == "rwkv":
+    ``i``, the reference's nesting joined with dots: ``ssm.*`` in place of
+    ``attn.*`` on an SSM layer, the cross block's ``lnc``, ``cross.*`` and
+    0-d ``cross_gate`` after the self-attention on a cross layer, and
+    ``moe.*`` in place of ``ffn.*`` on an MoE layer."""
+    d = cfg.d_model
+    kind = cfg.layer_kind(i)
+    if kind == "rwkv":
         return ([("ln1", (d,))]
                 + [(f"tmix.{n}", s) for n, s in rwkv_mod.rwkv_leaves(cfg)]
                 + [("ln2", (d,))])
-    out = [("ln1", (d,)),
-           ("attn.wq", (d, a.num_heads * hd)),
-           ("attn.wk", (d, a.num_kv_heads * hd)),
-           ("attn.wv", (d, a.num_kv_heads * hd)),
-           ("attn.wo", (a.num_heads * hd, d)),
-           ("ln2", (d,))]
+    out = [("ln1", (d,))]
+    if kind == "ssm":
+        out += [(f"ssm.{n}", s) for n, s in ssm_mod.ssm_leaves(cfg)]
+    else:
+        out += _attn_leaves(cfg, "attn")
+    if kind == "cross":
+        out += ([("lnc", (d,))] + _attn_leaves(cfg, "cross")
+                + [("cross_gate", ())])
+    out.append(("ln2", (d,)))
     if cfg._is_moe_layer(i):
         return out + [(f"moe.{n}", s) for n, s in moe_mod.moe_leaves(cfg)]
-    out += [("ffn.up", (d, cfg.d_ff)), ("ffn.down", (cfg.d_ff, d))]
-    if cfg.gated_mlp:
-        out.append(("ffn.gate", (d, cfg.d_ff)))
-    return out
+    return out + _mlp_leaves(cfg, "ffn")
+
+
+def _fp32_leaf(name: str) -> bool:
+    """A leaf kept in fp32 in any model: RWKV6's, the MoE router, the
+    SSM's and the cross gate."""
+    short = name.rsplit(".", 1)[-1]
+    return ((".tmix." in name and short in rwkv_mod.FP32_LEAVES)
+            or (".moe." in name and short in moe_mod.FP32_LEAVES)
+            or (".ssm." in name and short in ssm_mod.FP32_LEAVES)
+            or short == "cross_gate")
 
 
 def param_layout(cfg: ModelConfig) -> ParamLayout:
     """The model's leaves: ``embed``, ``blocks.{i}.<layer leaf>`` stacked
     ``[n_periods, ...]`` for each period position ``i``, ``final_norm``,
-    and ``lm_head`` unless the embedding is tied; RWKV6's fp32 leaves and
-    the MoE router are the layout's ``fp32``."""
+    ``lm_head`` unless the embedding is tied, then the vlm's
+    ``image_proj`` or the audio encoder's ``encoder.*`` (stacked
+    ``[encoder_layers, ...]``), ``enc_norm`` and ``audio_proj``; the fp32
+    leaves (``_fp32_leaf``) are the layout's ``fp32``."""
     P = period_length(cfg)
     n_periods = cfg.num_layers // P
-    leaves = [("embed", (cfg.vocab_size, cfg.d_model))]
+    d = cfg.d_model
+    leaves = [("embed", (cfg.vocab_size, d))]
     for i in range(P):
         leaves += [(f"blocks.{i}.{name}", (n_periods,) + shape)
                    for name, shape in _layer_leaves(cfg, i)]
-    leaves.append(("final_norm", (cfg.d_model,)))
+    leaves.append(("final_norm", (d,)))
     if not cfg.tie_embeddings:
-        leaves.append(("lm_head", (cfg.d_model, cfg.vocab_size)))
-    fp32 = frozenset(
-        name for name, _ in leaves
-        if (".tmix." in name
-            and name.rsplit(".", 1)[-1] in rwkv_mod.FP32_LEAVES)
-        or (".moe." in name
-            and name.rsplit(".", 1)[-1] in moe_mod.FP32_LEAVES))
+        leaves.append(("lm_head", (d, cfg.vocab_size)))
+    if cfg.family == "vlm":
+        leaves.append(("image_proj", (d, d)))
+    if cfg.family == "audio":
+        enc = ([("ln1", (d,))] + _attn_leaves(cfg, "attn") + [("ln2", (d,))]
+               + _mlp_leaves(cfg, "ffn"))
+        leaves += [(f"encoder.{name}", (cfg.encoder_layers,) + shape)
+                   for name, shape in enc]
+        leaves += [("enc_norm", (d,)), ("audio_proj", (d, d))]
+    fp32 = frozenset(name for name, _ in leaves if _fp32_leaf(name))
     return ParamLayout(tuple(leaves), fp32)
 
 
@@ -162,29 +228,30 @@ def init_leaves(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """One model's named leaves on the generator's device, each in its
     dtype (``cfg.dtype``; fp32 for the layout's ``fp32`` leaves): the
     reference's init laws (embedding N(0, 0.02^2), dense N(0, 1/d_in),
-    norms zero, RWKV's as ``models.rwkv.init_leaf``, MoE's as
-    ``models.moe.init_leaf``), drawn from ``gen`` (other numbers than
-    ``jax.random``'s)."""
+    norms zero, the cross gate 2.0 for audio and 0.0 for the vlm, RWKV's,
+    MoE's and the SSM's as their modules' ``init_leaf``), drawn from
+    ``gen`` (other numbers than ``jax.random``'s)."""
     dt = dtype_of(cfg)
     dev = gen.device
+    stacked = {".tmix.": rwkv_mod, ".moe.": moe_mod, ".ssm.": ssm_mod}
     out = {}
     for name, shape in param_layout(cfg).leaves:
+        short = name.rsplit(".", 1)[-1]
+        mod = next((m for k, m in stacked.items() if k in name), None)
         if name == "embed":
             leaf = (torch.randn(shape, generator=gen, device=dev)
                     * 0.02).to(dt)
-        elif name.endswith(("ln1", "ln2", "final_norm")):
+        elif short in ("ln1", "ln2", "lnc", "final_norm", "enc_norm"):
             leaf = torch.zeros(shape, dtype=dt, device=dev)
-        elif name == "lm_head":
+        elif short == "cross_gate":
+            leaf = torch.full(shape, 2.0 if cfg.family == "audio" else 0.0,
+                              dtype=torch.float32, device=dev)
+        elif name in ("lm_head", "image_proj", "audio_proj"):
             leaf = init_dense(gen, *shape, dt)
-        elif ".tmix." in name:                  # [n_periods, ...]
-            leaf = torch.stack([
-                rwkv_mod.init_leaf(gen, name.rsplit(".", 1)[-1], shape[1:],
-                                   dt) for _ in range(shape[0])])
-        elif ".moe." in name:                   # [n_periods, ...]
-            leaf = torch.stack([
-                moe_mod.init_leaf(gen, name.rsplit(".", 1)[-1], shape[1:],
-                                  dt) for _ in range(shape[0])])
-        else:                                   # [n_periods, d_in, d_out]
+        elif mod is not None:                   # [n_periods, ...]
+            leaf = torch.stack([mod.init_leaf(gen, short, shape[1:], dt)
+                                for _ in range(shape[0])])
+        else:                                   # [layers, d_in, d_out]
             leaf = torch.stack([init_dense(gen, *shape[1:], dt)
                                 for _ in range(shape[0])])
         out[name] = leaf
@@ -263,6 +330,80 @@ def _models(params: Params, tokens: torch.Tensor) -> Tuple[Params, int]:
     return {k: v.reshape((G,) + v.shape[n:]) for k, v in params.items()}, G
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype, as ``jnp`` promotes ``fp32 @
+    bf16`` to fp32 (torch raises on mixed dtypes)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def _one(p: Params) -> Params:
+    """A one-model layer's ``[1, ...]`` leaves without the model axis."""
+    return {k: v[0] for k, v in p.items()}
+
+
+def _ssm_block(p: Params, x, cfg: ModelConfig, state=None):
+    """``x + mamba(norm(x))`` for ``x [b, T, d]`` and one model's layer
+    leaves; returns ``(x, new_state)``."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    ssm = {n: p[f"ssm.{n}"] for n, _ in ssm_mod.ssm_leaves(cfg)}
+    o, st = ssm_mod.ssm_apply(ssm, h, cfg, state=state)
+    return x + o, st
+
+
+def _cross_block(p: Params, x, cfg: ModelConfig, memory):
+    """The gated cross-attention block: ``x [b, T, d]`` (one model's layer
+    leaves) against ``memory [b, M, d]`` (projected or encoded); ``k`` and
+    ``v`` in the promoted dtype, the output cast back to ``x.dtype``."""
+    a = cfg.attention
+    hd = cfg.head_dim
+    b, t, _ = x.shape
+    m = memory.shape[1]
+    h = rms_norm(x, p["lnc"], cfg.norm_eps)
+    q = (h @ p["cross.wq"]).reshape(b, t, a.num_heads, hd)
+    k = _mm(memory, p["cross.wk"]).reshape(b, m, a.num_kv_heads, hd)
+    v = _mm(memory, p["cross.wv"]).reshape(b, m, a.num_kv_heads, hd)
+    o = cross_attention(q, k, v)
+    gate = torch.tanh(p["cross_gate"]).to(x.dtype)
+    return x + gate * (o.reshape(b, t, -1) @ p["cross.wo"])
+
+
+def _encode_audio(params: Params, cfg: ModelConfig, frames, backend=None):
+    """The audio encoder over ``frames [b, F, d]``: ``audio_proj``, then
+    ``encoder_layers`` of causal self-attention and MLP, then ``enc_norm``,
+    each layer's weights promoted to the frames' dtype (fp32 frames: the
+    whole encoder in fp32, its attention through the fp32 flash kernel,
+    one launch a layer)."""
+    x = _mm(frames, params["audio_proj"])
+    b, f, d = x.shape
+    positions = torch.arange(f, device=x.device)
+    x = x.reshape(1, b * f, d)
+    names = [k for k in params if k.startswith("encoder.")]
+    for layer in range(cfg.encoder_layers):
+        lp = {k[len("encoder."):]: params[k][layer][None].to(
+            torch.promote_types(params[k].dtype, x.dtype)) for k in names}
+        x = _self_attn_block(lp, x, cfg, "full", b, positions, backend)
+        ffn = {n[len("ffn."):]: v for n, v in lp.items()
+               if n.startswith("ffn.")}
+        x = x + mlp_apply(ffn, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                          cfg.gated_mlp)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps).reshape(b, f, d)
+
+
+def _memory(params: Params, cfg: ModelConfig, memory, backend=None):
+    """The memory the cross layers attend: the vlm's image tokens through
+    ``image_proj``, the audio frames through the encoder; None for the
+    other families."""
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    if memory is None:
+        raise ValueError(f"the {cfg.family} family attends memory: pass "
+                         f"memory [b, M, d_model]")
+    if cfg.family == "vlm":
+        return _mm(memory, params["image_proj"])
+    return _encode_audio(params, cfg, memory, backend)
+
+
 def _rwkv_layer(params: Params, cfg: ModelConfig, i: int, layer: int):
     """Period position ``i``, period ``layer``: ``(ln1, ln2, tmix)``, the
     time- and channel-mix leaves by their reference names."""
@@ -294,18 +435,25 @@ def _rwkv_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   *, backend=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   *, memory=None, backend=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``params`` leaves ``[*L, ...]``, ``tokens [*L, b, T]`` -> ``(the
     final normed hidden states [*L, b, T, d], aux [*L])``, the LM head not
-    applied (the rwkv family takes no ``L``); aux is the MoE balance loss
-    summed over layers, zero for the dense and rwkv families. ``backend``:
+    applied (the ``ONE_MODEL`` families take no ``L``); aux is the MoE
+    balance loss summed over layers, zero without MoE layers. ``memory``:
+    ``[b, M, d]`` image tokens (vlm) or audio frames (audio). ``backend``:
     ``None`` (the kernels for CUDA tensors) or ``"torch"`` (the plain
     versions on any device), see ``repro_torch.kernels.dispatch``."""
     if cfg.family == "ssm":
         return (_rwkv_hidden(params, cfg, tokens, backend),
                 torch.zeros((), dtype=torch.float32, device=tokens.device))
+    if cfg.family in ONE_MODEL and tokens.dim() != 2:
+        raise NotImplementedError(
+            f"the {cfg.family} family runs one model: tokens [b, T], got "
+            f"{tuple(tokens.shape)} (leading model axes: {_ITEM_16})")
     P = period_length(cfg)
     n_periods = cfg.num_layers // P
+    memory = _memory(params, cfg, memory, backend)
     p, G = _models(params, tokens)
     b, t = tokens.shape[-2:]
     tok = tokens.reshape(G, b * t).long()
@@ -317,8 +465,16 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         for i in range(P):
             lp = {name: p[f"blocks.{i}.{name}"][:, layer]
                   for name, _ in _layer_leaves(cfg, i)}
-            x = _self_attn_block(lp, x, cfg, attn_kind(cfg, i), b, positions,
-                                 backend)
+            kind = cfg.layer_kind(i)
+            if kind == "ssm":                   # one model: G = 1
+                x = _ssm_block(_one(lp), x.reshape(b, t, -1),
+                               cfg)[0].reshape(x.shape)
+            else:
+                x = _self_attn_block(lp, x, cfg, attn_kind(cfg, i), b,
+                                     positions, backend)
+            if kind == "cross":
+                x = _cross_block(_one(lp), x.reshape(b, t, -1), cfg,
+                                 memory).reshape(x.shape)
             x, a = _ffn_block(lp, x, cfg, b)
             aux = aux + a
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
@@ -334,11 +490,13 @@ def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            backend=None):
+            memory=None, backend=None):
     """tokens ``[*L, b, T]`` -> ``(logits [*L, b, T, V] fp32, aux [*L])``
-    (aux, the MoE balance loss summed over layers, is zero for the dense
-    and rwkv families; the train/prefill entry)."""
-    hidden, aux = hidden_forward(params, cfg, tokens, backend=backend)
+    (aux, the MoE balance loss summed over layers, is zero without MoE
+    layers; ``memory`` as in ``hidden_forward``; the train/prefill
+    entry)."""
+    hidden, aux = hidden_forward(params, cfg, tokens, memory=memory,
+                                 backend=backend)
     G = math.prod(tokens.shape[:-2])
     h = hidden.reshape(G, -1, cfg.d_model)
     logits = h @ _head(params, cfg).reshape(G, cfg.d_model, -1)
@@ -416,9 +574,12 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     zero, per period position: the dense family's ``k`` / ``v
     [n_periods, batch, eff, KV, hd]`` in ``cfg.dtype``, ``eff = max_len``
     or, for swa and chunked layers, the ring buffer's ``min(max_len,
-    window)``; RWKV6's ``s [n_periods, batch, H, D, D]`` fp32 state and the
-    token-shift carries ``last`` / ``clast [n_periods, batch, 1, d]`` in
-    ``cfg.dtype`` (its state does not grow with ``max_len``)."""
+    window)``, also for the self-attention of a cross layer; an SSM
+    layer's ``conv [n_periods, batch, cw - 1, di]`` in ``cfg.dtype`` and
+    ``h [n_periods, batch, di, N]`` fp32; RWKV6's ``s [n_periods, batch, H,
+    D, D]`` fp32 state and the token-shift carries ``last`` / ``clast
+    [n_periods, batch, 1, d]`` in ``cfg.dtype`` (the SSM and RWKV states do
+    not grow with ``max_len``)."""
     P = period_length(cfg)
     n_periods = cfg.num_layers // P
     dt = dtype_of(cfg)
@@ -442,7 +603,14 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
         return torch.zeros(n_periods, batch, eff, a.num_kv_heads,
                            cfg.head_dim, dtype=dt, device=device)
 
-    return tuple({"k": kv(i), "v": kv(i)} for i in range(P))
+    def layer(i):
+        if cfg.layer_kind(i) == "ssm":
+            st = ssm_mod.ssm_init_state(cfg, batch, device)
+            return {k: v.expand((n_periods,) + v.shape).contiguous()
+                    for k, v in st.items()}
+        return {"k": kv(i), "v": kv(i)}
+
+    return tuple(layer(i) for i in range(P))
 
 
 def _decode_attn_layer(p: Params, x, cfg: ModelConfig, kind: str, k_cache,
@@ -487,37 +655,53 @@ def _decode_attn_layer(p: Params, x, cfg: ModelConfig, kind: str, k_cache,
     return x + o.reshape(b, 1, -1) @ p["attn.wo"], ck, cv
 
 
-def _decode_dense(params: Params, cfg: ModelConfig, x, cache, pos):
+def _decode_layers(params: Params, cfg: ModelConfig, x, cache, pos,
+                   memory):
+    """One token through every layer but RWKV6's: an attention layer's KV
+    cache, an SSM layer's carry, a cross layer's KV cache and then its
+    cross block against ``memory``. Returns ``(x, per-layer cache parts)``."""
     pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
     P = period_length(cfg)
-    new = [{"k": [], "v": []} for _ in range(P)]
+    new = [{k: [] for k in c} for c in cache]
     for layer in range(cfg.num_layers // P):
         for i in range(P):
             lp = {name: params[f"blocks.{i}.{name}"][layer]
                   for name, _ in _layer_leaves(cfg, i)}
-            x, ck, cv = _decode_attn_layer(
-                lp, x, cfg, attn_kind(cfg, i), cache[i]["k"][layer],
-                cache[i]["v"][layer], pos)
+            c = {k: v[layer] for k, v in cache[i].items()}
+            kind = cfg.layer_kind(i)
+            if kind == "ssm":
+                x, c = _ssm_block(lp, x, cfg, state=c)
+            else:
+                x, ck, cv = _decode_attn_layer(lp, x, cfg, attn_kind(cfg, i),
+                                               c["k"], c["v"], pos)
+                c = {"k": ck, "v": cv}
+            if kind == "cross":
+                x = _cross_block(lp, x, cfg, memory)
             x, _ = _ffn_block(lp, x, cfg)
-            new[i]["k"].append(ck)
-            new[i]["v"].append(cv)
+            for k, v in c.items():
+                new[i][k].append(v)
     return x, new
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                cache, pos, *, backend=None):
+                cache, pos, *, memory=None, backend=None):
     """``token [B, 1]`` int; ``cache`` from ``make_cache``; ``pos`` (an int
-    or a 0-d tensor) the tokens already in the cache (the RWKV state
-    carries it). Returns ``(logits [B, 1, V] fp32, new_cache)``; the cache
-    given is not changed. The dense and MoE families run the plain
-    ``decode_attention`` (no kernel launch, as the reference calls none
-    there; an MoE layer routes each row's one token, so at capacity 1 an
-    expert is never over-full); RWKV6 one WKV6 launch per layer at T = 1
-    (``backend`` as in ``forward``)."""
-    _ported(cfg)
+    or a 0-d tensor) the tokens already in the cache (the RWKV and SSM
+    states carry it); ``memory [B, M, d]`` for the vlm and audio families.
+    Returns ``(logits [B, 1, V] fp32, new_cache)``; the cache given is not
+    changed. Attention layers run the plain ``decode_attention`` (no kernel
+    launch, as the reference calls none there; an MoE layer routes each
+    row's one token, so at capacity 1 an expert is never over-full), SSM
+    layers the Mamba step at T = 1 and cross layers the plain
+    ``cross_attention``; as in the reference the memory is projected
+    (vlm) or encoded (audio: one flash launch per encoder layer) again at
+    every step; RWKV6 one WKV6 launch per layer at T = 1 (``backend`` as
+    in ``forward``)."""
+    _known(cfg)
     x = params["embed"][token.long()].to(dtype_of(cfg))
     if cfg.family != "ssm":
-        x, new = _decode_dense(params, cfg, x, cache, pos)
+        memory = _memory(params, cfg, memory, backend)
+        x, new = _decode_layers(params, cfg, x, cache, pos, memory)
         return _decode_logits(params, cfg, x), _stacked(new)
     P = period_length(cfg)
     new = [{"s": [], "last": [], "clast": []} for _ in range(P)]

@@ -1,0 +1,170 @@
+"""Mamba-style selective SSM block (port of ``repro.models.ssm``), used by
+the jamba hybrid.
+
+The recurrence ``h_t = a_t * h_{t-1} + b_t`` (elementwise over ``[d_inner,
+N]``) runs chunk by chunk, carrying the state: inside a chunk of ``chunk``
+steps it is an inclusive doubling (Hillis-Steele) scan, ``log2(chunk)``
+elementwise steps over ``[B, C, d_inner, N]`` fp32 applying the
+reference's combine ``(a2 a1, a2 b1 + b2)``; the reference walks the same
+chunks with ``lax.associative_scan``. So the ``[B, T, d_inner, N]`` decay
+and input tensors exist one chunk at a time, and the output contraction
+with ``C`` happens in the same chunk. A ragged last chunk is scanned at its
+own length (the reference pads it with ``dt = 0``, which leaves the state
+unchanged: the same result).
+
+The reference has no Pallas kernel here (a ``jnp`` scan), so the port is
+plain torch. ``selective_scan_steps`` is the plain step-by-step
+recurrence, kept for the tests.
+
+Leaves as the reference's ``ssm_init``, one model, no leading axes;
+``dt_proj``, ``dt_bias``, ``a_log`` and ``d_skip`` are fp32 in any model.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import dtype_of, init_dense
+
+# the leaves kept in fp32 whatever the model's dtype
+FP32_LEAVES = ("dt_proj", "dt_bias", "a_log", "d_skip")
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    di = cfg.d_model * s.expand
+    dtr = s.dt_rank or -(-cfg.d_model // 16)
+    return di, s.state_dim, dtr, s.conv_width
+
+
+def ssm_leaves(cfg: ModelConfig):
+    """(name, shape) of one SSM block's leaves, in the reference's
+    ``ssm_init`` order."""
+    d = cfg.d_model
+    di, n, dtr, cw = _dims(cfg)
+    return [("in_proj", (d, 2 * di)), ("conv", (cw, di)),
+            ("conv_bias", (di,)), ("x_proj", (di, dtr + 2 * n)),
+            ("dt_proj", (dtr, di)), ("dt_bias", (di,)), ("a_log", (di, n)),
+            ("d_skip", (di,)), ("out_proj", (di, d))]
+
+
+def init_leaf(gen: torch.Generator, name: str, shape, dtype) -> torch.Tensor:
+    """One ``ssm_leaves`` leaf by the reference's init law, drawn from
+    ``gen``: dense N(0, 1/d_in) (``dt_proj`` in fp32), ``conv`` N(0,
+    0.2^2), ``conv_bias`` zero, and in fp32 ``dt_bias = log(expm1(0.01))``,
+    ``a_log = log(1..N)`` on every row, ``d_skip`` ones."""
+    dev = gen.device
+    if name == "conv":
+        return (torch.randn(shape, generator=gen, device=dev) * 0.2).to(dtype)
+    if name == "conv_bias":
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if name == "dt_bias":
+        return torch.log(torch.expm1(torch.full(
+            shape, 0.01, dtype=torch.float32, device=dev)))
+    if name == "a_log":
+        row = torch.log(torch.arange(1, shape[1] + 1, dtype=torch.float32,
+                                     device=dev))
+        return row.expand(shape).contiguous()
+    if name == "d_skip":
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+    return init_dense(gen, *shape,
+                      torch.float32 if name in FP32_LEAVES else dtype)
+
+
+def ssm_init(gen: torch.Generator, cfg: ModelConfig
+             ) -> Dict[str, torch.Tensor]:
+    """One SSM block's leaves (other numbers than the reference's
+    ``jax.random``)."""
+    dt = dtype_of(cfg)
+    return {name: init_leaf(gen, name, shape, dt)
+            for name, shape in ssm_leaves(cfg)}
+
+
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan along axis 1 under ``(a1, b1) . (a2, b2) = (a2 a1,
+    a2 b1 + b2)``: ``log2(C)`` doubling steps, each combining every
+    element with the one ``s`` steps back."""
+    s = 1
+    while s < a.shape[1]:
+        b = torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:],
+                                               b[:, :-s])], 1)
+        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], 1)
+        s *= 2
+    return a, b
+
+
+def selective_scan(xc, dt, b_in, c_in, a, h0, chunk: int = 128):
+    """The reference's ``_fused_scan``: ``xc, dt [B, T, di]``, ``b_in, c_in
+    [B, T, N]``, ``a [di, N]``, ``h0 [B, di, N]``, all fp32 -> ``(y [B, T,
+    di], h_T)``. Each chunk's ``abar = exp(dt a)`` and ``bbar = dt b x``
+    ``[B, C, di, N]`` are scanned, offset by the carried state, and
+    contracted with ``c``."""
+    t = xc.shape[1]
+    chunk = min(chunk, t)
+    h, ys = h0, []
+    for s in range(0, t, chunk):
+        dt_c, b_c, c_c, x_c = (z[:, s:s + chunk] for z in (dt, b_in, c_in,
+                                                            xc))
+        abar = torch.exp(dt_c[..., None] * a)
+        bbar = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
+        aa, bb = _doubling_scan(abar, bbar)
+        h_all = aa * h[:, None] + bb
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_all, c_c))
+        h = h_all[:, -1]
+    return torch.cat(ys, 1), h
+
+
+def selective_scan_steps(xc, dt, b_in, c_in, a, h0):
+    """The plain recurrence one step at a time (for the tests): ``h_t =
+    exp(dt_t a) h_{t-1} + dt_t b_t x_t``, ``y_t = h_t c_t``."""
+    h, ys = h0, []
+    for t in range(xc.shape[1]):
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + dt[:, t, :, None] * b_in[:, t, None, :] * xc[:, t, :, None])
+        ys.append((h * c_in[:, t, None, :]).sum(-1))
+    return torch.stack(ys, 1), h
+
+
+def ssm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+              state: Optional[Dict[str, torch.Tensor]] = None,
+              chunk: int = 128):
+    """``x [B, T, d]``; ``state``: None (prefill) or ``{"conv" [B, cw - 1,
+    di], "h" [B, di, N] fp32}`` (the decode carry). Returns ``(out [B, T,
+    d] in x.dtype, new_state)``: the depthwise causal conv over the carried
+    or zero-padded inputs, the selective scan from the carried or zero
+    state, the skip and the ``silu(z)`` gate."""
+    t = x.shape[1]
+    di, n, dtr, cw = _dims(cfg)
+    xs, z = (x @ p["in_proj"]).split(di, -1)
+    if state is None:
+        conv_in = F.pad(xs, (0, 0, cw - 1, 0))
+    else:
+        conv_in = torch.cat([state["conv"], xs], 1)
+    w = p["conv"].float()
+    xc = p["conv_bias"].float() + sum(conv_in[:, i:i + t].float() * w[i]
+                                      for i in range(cw))
+    xc = F.silu(xc).to(x.dtype)
+    dt_in, b_in, c_in = (xc @ p["x_proj"]).split([dtr, n, n], -1)
+    dt = F.softplus(dt_in.float() @ p["dt_proj"] + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    h0 = state["h"] if state is not None else torch.zeros(
+        x.shape[0], di, n, dtype=torch.float32, device=x.device)
+    xf = xc.float()
+    y, h_t = selective_scan(xf, dt, b_in.float(), c_in.float(), a, h0, chunk)
+    y = (y + p["d_skip"] * xf) * F.silu(z.float())
+    out = y.to(x.dtype) @ p["out_proj"]
+    return out, {"conv": conv_in[:, t:], "h": h_t}
+
+
+def ssm_init_state(cfg: ModelConfig, batch: int, device=None
+                   ) -> Dict[str, torch.Tensor]:
+    """The zero decode carry: ``conv [batch, cw - 1, di]`` in the model's
+    dtype, ``h [batch, di, N]`` fp32."""
+    di, n, _, cw = _dims(cfg)
+    return {"conv": torch.zeros(batch, cw - 1, di, dtype=dtype_of(cfg),
+                                device=device),
+            "h": torch.zeros(batch, di, n, dtype=torch.float32,
+                             device=device)}

@@ -582,3 +582,63 @@ def test_dense_decode_on_the_card_matches_the_cpu_and_launches_no_kernel(
         dec = torch.stack(outs, 1)
         rel = float((dec - ref).abs().max() / ref.abs().max())
         assert rel < 2e-3, (pattern, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_memory_families_on_the_card_match_the_cpu(cuda, arch):
+    """The hybrid, vlm and audio families reduced (fp32, head dim 64, the
+    MoE dropless at capacity factor 8, the vlm's ``cross_gate`` set to 1.0,
+    seeded ``0.1 * N(0, 1)`` memory of 16 tokens): ``forward`` on the card
+    through the flash kernel (one launch per self-attention layer and per
+    encoder layer) against the plain forward on the CPU, and every
+    ``decode_step`` on the card (one launch per encoder layer a step, as
+    the reference encodes the memory again at every step) against the CPU's,
+    fp32 1e-4 (as the dense decode test above); ``backend="torch"`` launches
+    nothing, in ``decode_step`` too."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    leaves = tmodel.init_leaves(torch.Generator().manual_seed(0), cfg)
+    for k in leaves:
+        if k.endswith("cross_gate"):
+            leaves[k] = torch.ones_like(leaves[k])
+    on_card = {k: v.to(cuda) for k, v in leaves.items()}
+    T = 64
+    toks = torch.randint(0, cfg.vocab_size, (2, T),
+                         generator=torch.Generator().manual_seed(1))
+    mem = None
+    if cfg.family in ("vlm", "audio"):
+        m = (cfg.num_image_tokens if cfg.family == "vlm"
+             else cfg.num_audio_frames)
+        mem = 0.1 * torch.randn(2, m, cfg.d_model,
+                                generator=torch.Generator().manual_seed(2))
+    mem_card = None if mem is None else mem.to(cuda)
+    enc = cfg.encoder_layers if cfg.family == "audio" else 0
+    layers = sum(cfg.layer_kind(i) != "ssm" for i in range(cfg.num_layers))
+    with torch.no_grad():
+        want, _ = tmodel.forward(leaves, cfg, toks, memory=mem)
+        for backend, launches in ((None, layers + enc), ("torch", 0)):
+            tflash.flash_attention_fwd.launches = 0
+            got, _ = tmodel.forward(on_card, cfg, toks.to(cuda),
+                                    memory=mem_card, backend=backend)
+            assert tflash.flash_attention_fwd.launches == launches
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-4)
+        steps = 8
+        for backend, launches in ((None, enc * steps), ("torch", 0)):
+            caches = [tmodel.make_cache(cfg, 2, steps),
+                      tmodel.make_cache(cfg, 2, steps, device=cuda)]
+            tflash.flash_attention_fwd.launches = 0
+            for t in range(steps):
+                lc, caches[0] = tmodel.decode_step(
+                    leaves, cfg, toks[:, t:t + 1], caches[0], t, memory=mem)
+                lg, caches[1] = tmodel.decode_step(
+                    on_card, cfg, toks[:, t:t + 1].to(cuda), caches[1], t,
+                    memory=mem_card, backend=backend)
+                torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4,
+                                           atol=1e-4)
+            assert tflash.flash_attention_fwd.launches == launches

@@ -30,12 +30,14 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
             "repro_torch.scale.sparse_state"} <= set(mods)
     assert {"repro_torch.experiments.search",
             "repro_torch.paper.asha"} <= set(mods)
+    assert "repro_torch.models.ssm" in mods
     # the LM sweep task and dense decode
     names = {"repro_torch.data.sources": ["traced_lm_source"],
              "repro_torch.experiments.tasks": ["LMTask",
                                                "make_traced_lm_task"],
              "repro_torch.experiments.grid": ["get_task"],
-             "repro_torch.models.attention": ["decode_attention"],
+             "repro_torch.models.attention": ["decode_attention",
+                                              "cross_attention"],
              # the model zoo's dense and MoE families, the flash padding
              "repro_torch.models.moe": ["moe_init", "moe_apply",
                                         "_capacity"],
@@ -48,7 +50,17 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
              "repro_torch.configs.mixtral_8x22b": ["CONFIG"],
              "repro_torch.configs.llama4_maverick_400b_a17b": ["CONFIG"],
              "repro_torch.kernels.flash_attention": ["padded_head_dim",
-                                                     "MAX_HEAD_DIM"]}
+                                                     "MAX_HEAD_DIM"],
+             # the hybrid, vlm and audio families
+             "repro_torch.models.ssm": ["ssm_leaves", "init_leaf",
+                                        "ssm_apply", "ssm_init_state",
+                                        "selective_scan",
+                                        "selective_scan_steps",
+                                        "FP32_LEAVES"],
+             "repro_torch.models.model": ["FAMILIES", "ONE_MODEL"],
+             "repro_torch.configs.jamba_1_5_large_398b": ["CONFIG"],
+             "repro_torch.configs.llama_3_2_vision_90b": ["CONFIG"],
+             "repro_torch.configs.seamless_m4t_medium": ["CONFIG"]}
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -36,7 +36,7 @@ from repro.models import model as jmodel  # noqa: E402
 from repro.optim import paper_decay as jdecay, sgd as jsgd  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import FederationConfig as TFed  # noqa: E402
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, reduced  # noqa: E402
 from repro_torch.core import federated as tfed  # noqa: E402
 from repro_torch.core import make_algorithm_spec, make_link_process  # noqa: E402
 from repro_torch.data import lm_source  # noqa: E402
@@ -84,8 +84,9 @@ def test_configs_match_reference():
     assert tc.param_count() == jc.param_count() == 134_515_008
     for kw in (dict(), dict(d_model=64, layers=2)):
         _same_fields(reduced(tc, **kw), jreduced(jc, **kw))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        get_config("jamba-1.5-large-398b")
+    # every arch of the reference resolves on the port (the model zoo)
+    for arch in ARCH_IDS:
+        _same_fields(get_config(arch), jget_config(arch))
     with pytest.raises(KeyError):
         get_config("nope")
 

@@ -32,6 +32,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from _torch_parity import np_tree  # noqa: E402
+from repro.configs import ARCH_IDS as JARCH_IDS  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced as jreduced  # noqa: E402
 from repro.kernels.ref import rwkv6_chunk_ref as jrwkv6_chunk_ref  # noqa: E402
@@ -39,7 +40,7 @@ from repro.kernels.rwkv6_chunk import rwkv6_chunk as jrwkv6_chunk  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.models import rwkv as jrwkv  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, reduced  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels import rwkv6_chunk as kwkv  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
@@ -374,9 +375,12 @@ def test_serve_matches_the_reference_greedy_loop():
 
 
 def test_serve_refuses_families_without_a_ported_decode():
-    """The dense and MoE families decode (tests/test_torch_decode.py,
-    tests/test_torch_zoo.py); an arch of the model zoo's unported families
-    still raises, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        serve.main(["--arch", "jamba-1.5-large-398b", "--batch", "1",
-                    "--prompt-len", "2", "--gen", "1"], device="cpu")
+    """Every family of the model zoo decodes now (tests/test_torch_decode.py,
+    tests/test_torch_zoo.py), so the launcher takes every arch id of the
+    reference and refuses only an unknown one."""
+    assert ARCH_IDS == JARCH_IDS
+    for arch in ARCH_IDS:
+        assert get_config(arch).name == arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        serve.main(["--arch", "nope", "--batch", "1", "--prompt-len", "2",
+                    "--gen", "1"], device="cpu")
