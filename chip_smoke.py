@@ -293,6 +293,31 @@ and teacher forcing on ``[1, 64]`` (the vlm at one period, jamba with the
 capacity factor at E / k), measured. Phase 16 is held to
 ``PHASE16_LIMIT_S``.
 
+Phase 17 trains the MoE, hybrid, vlm and audio families, bf16 models whose
+fp32 leaves (routers, Mamba leaves, cross gates) make a second parameter
+group. (d) first: the flash kernels, forward and backward, at the training
+path's shapes (``TRAIN_FLASH``: seamless's fp32 encoder ``[128, 1024,
+64]``, its bf16 decoder ``[128, 512, 64]``) against the plain version
+within ``FLASH_TOL``, timed beside SDPA's forward and backward and their
+bounds; the aggregation at both groups' shapes (``[1, 4, 878,143,488]``
+bf16, more than 2^31 elements, and ``[1, 4, 12]`` fp32) against its plain
+version, timed beside ``torch.bmm``. (a) seamless-m4t-medium at full width
+and depth through ``repro_torch.launch.train --full`` (``SEAMLESS_TRAIN``:
+4 clients, 2 local steps, batch 2, 512 tokens, 5 timed rounds and one
+profiled), the fused aggregation on: every loss finite; each flash kernel
+launched (rounds) x (local steps) x 12 times at the bf16 decoder shape and
+as often at the fp32 encoder shape; the aggregation twice a round, once
+per group; the cross gates fp32 in server and clients and moved in every
+client; tokens/s (``rounds · m · s · b · T`` over the loop's wall), peak
+memory, the profiled round (kernels, device ms, idle share). (b) the same
+at 2 + 2 layers down the kernel path and the plain path (``backend=
+"torch"``, branch aggregation): the clients' updates within ``PATHS_TOL``
+relative over all parameters, each attention projection and the fp32
+group. (c) ``TRAIN_ZOO_ARCHS`` at ``reduced()`` in bf16 (``TRAIN_ZOO``),
+kernel path against plain path: finite losses, every fp32 leaf fp32 and
+moved, the MoE archs' aux finite and positive, the clients' updates within
+``PATHS_TOL``. Phase 17 is held to ``PHASE17_LIMIT_S``.
+
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
@@ -300,7 +325,7 @@ Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
 seconds, launches, family batches and results), a ``{"scale": {...}}``
 line (phase 10's), a ``{"search": {...}}`` line (phase 11's), a
 ``{"lm_sweep": {...}}`` line (phase 12's cells), a ``{"serve": {...}}``
-line (phase 13's), a ``{"zoo": {...}}`` line (phases 14, 15 and 16), then a
+line (phase 13's), a ``{"zoo": {...}}`` line (phases 14 to 17), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
 11's as ``search_launches``, phase 12's by cell as ``lm_sweep_launches``
@@ -311,7 +336,9 @@ errors by checked shape, its timings at the new head dims as
 ``head_dim_shapes``, its phase-12 launches by cell and timings at D = 16
 and 128 (fp32), its launches in phase 13's serve run as
 ``serve_launches`` and in phases 14-16 as ``zoo_launches``, the forward's
-timings at phase 16's shapes as ``zoo_shapes``; the WKV6 wrapper once per
+timings at phase 16's shapes as ``zoo_shapes``, each flash kernel's and
+the aggregation's phase-17 launches by shape as ``train_zoo_launches`` and
+timings at its shapes as ``train_zoo_shapes``; the WKV6 wrapper once per
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
 ptxas by head dim), the card's name and power limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -732,6 +759,30 @@ ZOO_PEAK_GIB = 72.0
 ZOO_FLASH = ((8, 16, 1024, 64, "float32"), (4, 16, 2048, 64, "bfloat16"),
              (4, 64, 2048, 128, "bfloat16"))
 PHASE16_LIMIT_S = 150.0
+# Phase 17, training of the MoE, hybrid, vlm and audio families (bf16 models
+# with fp32 leaves, held in two parameter groups). seamless-m4t-medium not
+# cut, through launch/train.py --full at SEAMLESS_TRAIN (clients, local
+# steps, batch, sequence, timed rounds; one more round is profiled), with
+# the launcher's 0.1 fp32 frames (its encoder runs in fp32: the fp32 flash
+# kernels at [G*b*16, 1024, 64]; its decoder the bf16 ones at [G*b*16, T,
+# 64]) and the fused aggregation, launched once per group a round (bf16
+# [1, m, 878,143,488] and fp32 [1, m, 12], the 12 cross gates); then at
+# 2 + 2 layers down the kernel path and the plain path (phase 6's bar
+# PATHS_TOL on the clients' updates: over all parameters, on each attention
+# projection and on the fp32 group); then TRAIN_ZOO_ARCHS at reduced() in
+# bf16 (two groups) with TRAIN_ZOO (clients, local steps, batch, sequence,
+# rounds), kernel vs plain within PATHS_TOL; and the flash kernels at the
+# path's shapes (TRAIN_FLASH, (bh, t, d, dtype)) and the aggregation at both
+# groups' shapes, checked and timed
+SEAMLESS_TRAIN = dict(clients=4, steps=2, batch=2, seq=512, rounds=5)
+SEAMLESS_BF16_N = 878_143_488
+TRAIN_ZOO_ARCHS = ("mixtral-8x22b", "llama4-maverick-400b-a17b",
+                   "jamba-1.5-large-398b", "llama-3.2-vision-90b")
+TRAIN_ZOO = dict(clients=2, steps=2, batch=2, seq=64, rounds=2)
+TRAIN_FLASH = ((128, 1024, 64, "float32"), (128, 512, 64, "bfloat16"))
+PHASE17_LIMIT_S = 150.0
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkdv")
 
 
 def fail(msg):
@@ -3907,6 +3958,394 @@ def phase16_zoo(torch, fa, ref, card, bw, bf16_peak, fp32_peak):
     return res
 
 
+class _ByShape:
+    """Inside ``with``: each of ``mod``'s ``names`` counts its calls by the
+    dtype and shape of its first argument, ``counts[name]["<dtype> [..]"]``
+    (keys only: no tensor is kept); the wrappers' own ``launches`` count
+    as ever."""
+
+    def __init__(self, mod, names):
+        self.mod, self.names = mod, names
+        self.counts = {n: {} for n in names}
+
+    def __enter__(self):
+        self.real = {n: getattr(self.mod, n) for n in self.names}
+        for n, real in self.real.items():
+            setattr(self.mod, n, self._Wrapper(self.counts[n], real))
+        return self.counts
+
+    class _Wrapper:
+        """Calls ``real``, counting by its first argument; ``launches``
+        reads and writes ``real``'s (the wrapper stands in for it under
+        its module name, which ``real`` counts its launches by)."""
+
+        def __init__(self, counts, real):
+            self.counts, self.real = counts, real
+
+        def __call__(self, x, *a, **kw):
+            key = f"{str(x.dtype).replace('torch.', '')} {list(x.shape)}"
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self.real(x, *a, **kw)
+
+        @property
+        def launches(self):
+            return self.real.launches
+
+        @launches.setter
+        def launches(self, value):
+            self.real.launches = value
+
+    def __exit__(self, *exc):
+        for n, real in self.real.items():
+            setattr(self.mod, n, real)
+
+
+def _train_args(arch, t, *extra):
+    return ["--arch", arch, "--clients", str(t["clients"]), "--local-steps",
+            str(t["steps"]), "--batch", str(t["batch"]), "--seq",
+            str(t["seq"]), "--rounds", str(t["rounds"]), "--log-every", "1",
+            *extra]
+
+
+def _client_updates(out):
+    """The clients' models less the initial server model, fp32, per group
+    ``[1, m, n_g]`` (every client trains every round; the active ones then
+    hold the new server model)."""
+    from repro_torch.core.params import gmap
+
+    return gmap(lambda c, i: c.float() - i.float()[:, None],
+                out["state"].clients, out["initial"])
+
+
+def _fp32_moved(torch, layout, out, label):
+    """The layout's fp32 leaves are fp32 in the server and the clients and
+    every client's has moved; returns their count."""
+    fp32 = sorted(layout.fp32)
+    server = layout.views(out["state"].server)
+    clients = layout.views(out["state"].clients)
+    initial = layout.views(out["initial"])
+    bad = [k for k in fp32 if server[k].dtype != torch.float32
+           or clients[k].dtype != torch.float32]
+    still = [k for k in fp32 if any(torch.equal(c, initial[k][0])
+                                    for c in clients[k][0])]
+    if not fp32 or bad or still:
+        fail(f"{label}: fp32 leaves {len(fp32)}, not fp32 {bad}, not moved "
+             f"in some client {still}")
+    return len(fp32)
+
+
+def _paths_distance(torch, layout, updates, groups):
+    """``||u_kernel - u_plain|| / ||u_plain||`` over all parameters, over
+    the fp32 group and over the leaves of each suffix in ``groups``; 0 where
+    neither path moves them (the cross-attention's ``wq`` and ``wk`` under
+    the launcher's constant memory: every key is alike, so the softmax is
+    flat whatever the query and their gradient is exactly zero), inf where
+    only the kernel path does."""
+    def rel(a, b):
+        if b.norm() == 0:
+            return 0.0 if a.norm() == 0 else math.inf
+        return ((a - b).norm() / b.norm()).item()
+
+    k, p = updates["kernel"], updates["plain"]
+    out = {"all": rel(torch.cat([x.reshape(-1) for x in k]),
+                      torch.cat([x.reshape(-1) for x in p])),
+           "fp32 group": rel(k[1], p[1])}
+    kv, pv = layout.views(k), layout.views(p)
+    for g in groups:
+        names = [n for n in kv if n.endswith(g)]
+        if names:
+            out[g] = rel(torch.cat([kv[n].reshape(-1) for n in names]),
+                         torch.cat([pv[n].reshape(-1) for n in names]))
+    return out
+
+
+def _two_paths(torch, train, fa, args, want_flash, label):
+    """``train.main(args)`` down the kernel path (flash kernels, fused
+    aggregation) and the plain path (``backend="torch"``, the branch
+    aggregation) from the same generators; each path's flash launches
+    checked (``want_flash`` each on the kernel path, none on the plain
+    one). Returns ``({path: out}, {path: seconds})``."""
+    counters = [getattr(fa, n) for n in FLASH_NAMES]
+    outs, secs = {}, {}
+    try:
+        for path, backend, agg in (("kernel", None, "1"),
+                                   ("plain", "torch", "0")):
+            os.environ["REPRO_USE_KERNEL"] = agg
+            out, secs[path], launches, _ = _counted(
+                torch, counters, lambda: train.main(args, backend=backend))
+            want = [want_flash if path == "kernel" else 0] * 3
+            losses = np.asarray(out["losses"])
+            print(f"{label} {path} path: losses "
+                  f"{[round(float(x), 4) for x in losses]}, flash launches "
+                  f"{launches} (want {want}), {secs[path]:.2f} s",
+                  flush=True)
+            if launches != want or not np.isfinite(losses).all():
+                fail(f"{label}: the {path} path launched {launches} (not "
+                     f"{want}) or logged a non-finite loss")
+            outs[path] = out
+    finally:
+        os.environ.pop("REPRO_USE_KERNEL", None)
+    return outs, secs
+
+
+def phase17_kernels(torch, fa, masked, ref, bw, bf16_peak, fp32_peak, n):
+    """The flash kernels at the training path's shapes (``TRAIN_FLASH``,
+    forward and backward) against the plain version and its autograd
+    within ``FLASH_TOL``, timed (SDPA forward and backward the library);
+    the aggregation at both parameter groups' shapes, ``[1, m, n]`` bf16
+    and ``[1, m, 12]`` fp32 (OP_MEAN, two of m active), against its plain
+    version, timed beside ``torch.bmm``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    flash = {}
+    for bh, t, d, dtype in TRAIN_FLASH:
+        err = check_flash_shape(torch, fa, ref, gen,
+                                (bh // 16, 16, t, d, 0, 0.0, dtype, True),
+                                "phase17d")
+        peak = bf16_peak if dtype == "bfloat16" else fp32_peak
+        r = flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak,
+                         "phase17d")
+        for kk, e in (("fwd", err["o"]), ("dq", err["dq"]),
+                      ("dkdv", max(err["dk"], err["dv"]))):
+            r[kk]["max_abs_err"] = e
+        flash[f"{dtype} [{bh}, {t}, {d}]"] = r
+        torch.cuda.empty_cache()
+    m = SEAMLESS_TRAIN["clients"]
+    agg = {}
+    for width, dtype, tol in ((n, torch.bfloat16, BF16_TOL),
+                              (12, torch.float32, FP32_TOL)):
+        x = torch.randn(1, m, width, generator=gen, device=dev).to(dtype)
+        mask = torch.zeros(1, m, dtype=torch.bool, device=dev)
+        mask[0, :2] = True
+        op = torch.zeros(1, dtype=torch.int32, device=dev)
+        prev = torch.randn(1, width, generator=gen, device=dev)
+        p = torch.rand(1, m, generator=gen, device=dev)
+        args = (x, mask, op, prev, p)
+        got = masked.fused_masked_agg(*args)
+        want = ref.fused_masked_agg_ref(*args)
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=tol, atol=tol) and \
+            torch.isfinite(got).all().item()
+        del got, want
+        torch.cuda.empty_cache()
+        key = f"{str(dtype).replace('torch.', '')} {[1, m, width]}"
+        r = time_agg(torch, masked, ref, args, bw, fp32_peak, iters=10)
+        r["max_abs_err"] = err
+        agg[key] = r
+        print(f"phase17d aggregation {key}: max_abs_err {err:.3e} tol "
+              f"{tol:g} {'ok' if ok else 'MISMATCH'}; kernel "
+              f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, torch.bmm "
+              f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bytes']} bytes)", flush=True)
+        if not ok:
+            fail(f"the aggregation disagrees with its plain version at {key}")
+        del x, mask, op, prev, p, args
+        torch.cuda.empty_cache()
+    return {"flash": flash, "agg": agg}
+
+
+def phase17_seamless(torch, fa, masked, train, card):
+    """seamless-m4t-medium at full width and depth through the training
+    launcher: ``SEAMLESS_TRAIN`` timed rounds and one profiled, the fused
+    aggregation on; flash launches by dtype and shape, aggregation launches
+    by group, the cross gates fp32 and moved, tokens/s, peak memory."""
+    from unittest import mock
+
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    t = SEAMLESS_TRAIN
+    arch = "seamless-m4t-medium"
+    cfg = get_config(arch)
+    layout = model.param_layout(cfg)
+    sizes = layout.sizes(torch.bfloat16)
+    if sizes != (SEAMLESS_BF16_N, cfg.num_layers):
+        fail(f"{arch}'s parameter groups are {sizes}, not "
+             f"({SEAMLESS_BF16_N}, {cfg.num_layers})")
+    rounds = t["rounds"] + 1
+    prof = {}
+    real_make = core.make_run_rounds
+
+    def make(*a, **kw):
+        run, calls = real_make(*a, **kw), [0]
+
+        def run_rounds(st, ds, draws, k):
+            calls[0] += 1
+            if calls[0] <= t["rounds"]:
+                return run(st, ds, draws, k)
+            box = []
+            prof.update(profile_window(
+                torch, f"phase17a {arch} train, one round",
+                lambda: box.append(run(st, ds, draws, k)), k, "round"))
+            return box[0]
+
+        return run_rounds
+
+    counters = [getattr(fa, n) for n in FLASH_NAMES] + [
+        masked.fused_masked_agg]
+    args = _train_args(arch, dict(t, rounds=rounds), "--full")
+    os.environ["REPRO_USE_KERNEL"] = "1"
+    try:
+        with mock.patch.object(core, "make_run_rounds", make), \
+                _ByShape(fa, FLASH_NAMES) as flash, \
+                _ByShape(masked, ("fused_masked_agg",)) as agg:
+            out, sec, launches, peak = _counted(
+                torch, counters, lambda: train.main(args))
+    finally:
+        os.environ.pop("REPRO_USE_KERNEL", None)
+    losses = np.asarray(out["losses"])
+    stamps = out["round_seconds"]
+    loop_s = stamps[t["rounds"] - 1]
+    tokens = t["rounds"] * t["clients"] * t["steps"] * t["batch"] * t["seq"]
+    steady = (t["rounds"] - 1) / (loop_s - stamps[0])
+    g = t["clients"] * t["batch"] * cfg.attention.num_heads
+    per = rounds * t["steps"] * cfg.num_layers
+    want_flash = {n: {f"bfloat16 [{g}, {t['seq']}, {cfg.head_dim}]": per,
+                      f"float32 [{g}, {cfg.num_audio_frames}, "
+                      f"{cfg.head_dim}]": per} for n in FLASH_NAMES}
+    want_agg = {f"bfloat16 [1, {t['clients']}, {sizes[0]}]": rounds,
+                f"float32 [1, {t['clients']}, {sizes[1]}]": rounds}
+    n_fp32 = _fp32_moved(torch, layout, out, f"phase17a {arch}")
+    server_moved = not all(torch.equal(a, b) for a, b in
+                           zip(out["state"].server, out["initial"]))
+    print(f"phase17a train {arch} --full (12 + 12 layers, d_model 1024, "
+          f"vocab 256,206, bf16; groups {list(sizes)}: the fp32 one the "
+          f"cross gates, {n_fp32} leaf) m={t['clients']} s={t['steps']} "
+          f"b={t['batch']} "
+          f"T={t['seq']} on {card}: {t['rounds']} rounds in {loop_s:.3f} s "
+          f"= {tokens / loop_s:.1f} tokens/s, {t['rounds'] / loop_s:.4f} "
+          f"rounds/s (after the first round {steady:.4f} rounds/s, "
+          f"{steady * tokens / t['rounds']:.1f} tokens/s; first round "
+          f"{stamps[0]:.3f} s); call {sec:.2f} s with the init and the "
+          f"profiled round; peak memory {peak / 2 ** 30:.3f} GiB; losses "
+          f"{[round(float(x), 4) for x in losses]}; server moved "
+          f"{server_moved}", flush=True)
+    print(f"phase17a launches: flash fwd/dq/dkdv {launches[:3]} (want "
+          f"{2 * per} each) by shape {json.dumps(flash)}; fused_masked_agg "
+          f"{launches[3]} (want {2 * rounds}) by shape {json.dumps(agg)}",
+          flush=True)
+    if len(losses) != rounds or not np.isfinite(losses).all():
+        fail(f"{arch}: a training loss is not finite")
+    if flash != want_flash or launches[:3] != [2 * per] * 3:
+        fail(f"{arch}: flash launches {flash}, not {want_flash}")
+    if agg != {"fused_masked_agg": want_agg} or launches[3] != 2 * rounds:
+        fail(f"{arch}: aggregation launches {agg}, not {want_agg}")
+    if not all(torch.isfinite(x).all().item() for x in out["state"].server):
+        fail(f"{arch}: the server params are not finite")
+    res = dict(rounds=t["rounds"], loop_s=loop_s,
+               tokens_per_s=tokens / loop_s,
+               rounds_per_s=t["rounds"] / loop_s,
+               steady_rounds_per_s=steady,
+               steady_tokens_per_s=steady * tokens / t["rounds"],
+               first_round_s=stamps[0], call_s=sec,
+               peak_gib=peak / 2 ** 30, losses=losses.tolist(),
+               flash_launches=flash, agg_launches=agg["fused_masked_agg"],
+               groups=list(sizes), profile=prof, server_moved=server_moved)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) 2 + 2 layers, full width: the kernel path against the plain path
+    cut = dict(t, rounds=2)
+    args = _train_args(arch, cut, "--full", "--layers", "2",
+                       "--encoder-layers", "2")
+    outs, secs = _two_paths(torch, train, fa, args,
+                            cut["rounds"] * cut["steps"] * 4,
+                            "phase17b 2 + 2 layers")
+    c2 = dataclasses.replace(cfg, num_layers=2, encoder_layers=2)
+    updates = {k: _client_updates(v) for k, v in outs.items()}
+    rel = _paths_distance(torch, model.param_layout(c2), updates,
+                          ("attn.wq", "attn.wk", "attn.wv", "attn.wo",
+                           "cross.wq", "cross.wk", "cross.wv", "cross.wo"))
+    print(f"phase17b kernel vs plain path, full width, 2 + 2 layers, T="
+          f"{cut['seq']}, {cut['rounds']} rounds: relative client-update "
+          f"distance " + " ".join(f"{k} {v:.4e}" for k, v in rel.items())
+          + f" (limit {PATHS_TOL:g})", flush=True)
+    if not all(v <= PATHS_TOL for v in rel.values()):
+        fail(f"{arch}: the kernel and plain training paths diverge")
+    res["paths_2_2_layers"] = rel
+    del outs, updates
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase17_zoo(torch, fa, train, card):
+    """``TRAIN_ZOO_ARCHS`` at ``reduced()`` in bf16 through the training
+    launcher, kernel path against plain path: finite losses, every fp32
+    leaf fp32 and moved, MoE aux finite and positive on the trained
+    server, the clients' updates within ``PATHS_TOL``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model
+
+    t = TRAIN_ZOO
+    res = {}
+    for arch in TRAIN_ZOO_ARCHS:
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  dtype="bfloat16")
+        layout = model.param_layout(cfg)
+        per_fwd, _ = _flash_launches(model, cfg)
+        args = _train_args(arch, t, "--dtype", "bfloat16")
+        outs, secs = _two_paths(torch, train, fa, args,
+                                t["rounds"] * t["steps"] * per_fwd,
+                                f"phase17c {arch}")
+        n_fp32 = _fp32_moved(torch, layout, outs["kernel"],
+                             f"phase17c {arch}")
+        aux = None
+        if cfg.moe:
+            server = layout.views(outs["kernel"]["state"].server)
+            toks = torch.randint(0, cfg.vocab_size, (1, t["batch"], t["seq"]),
+                                 generator=torch.Generator().manual_seed(17)
+                                 ).cuda()
+            with torch.no_grad():
+                _, a = model.forward(server, cfg, toks)
+            aux = a.item()
+            if not (math.isfinite(aux) and aux > 0):
+                fail(f"{arch}: the trained model's aux {aux} is not finite "
+                     f"and positive")
+        updates = {k: _client_updates(v) for k, v in outs.items()}
+        rel = _paths_distance(torch, layout, updates, ())
+        print(f"phase17c {arch} reduced bf16 ({cfg.num_layers} layers, "
+              f"d_model {cfg.d_model}, groups "
+              f"{list(layout.sizes(torch.bfloat16))}, {n_fp32} fp32 "
+              f"leaves, all moved) m={t['clients']} s={t['steps']} "
+              f"b={t['batch']} T={t['seq']} {t['rounds']} rounds on {card}: "
+              f"aux {aux}; kernel vs plain relative client-update distance "
+              + " ".join(f"{k} {v:.4e}" for k, v in rel.items())
+              + f" (limit {PATHS_TOL:g} on all)", flush=True)
+        if not rel["all"] <= PATHS_TOL:
+            fail(f"{arch}: the kernel and plain training paths diverge")
+        res[arch] = dict(paths=rel, aux=aux, seconds=secs,
+                         flash_launches=t["rounds"] * t["steps"] * per_fwd,
+                         losses={k: v["losses"] for k, v in outs.items()})
+        del outs, updates
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase17_train_zoo(torch, fa, masked, ref, train, card, bw, bf16_peak,
+                      fp32_peak):
+    """Training of the MoE, hybrid, vlm and audio families: the kernels at
+    the path's shapes, seamless-m4t-medium at full width and depth, the
+    other four at reduced width in bf16; held to ``PHASE17_LIMIT_S``."""
+    t_phase = time.perf_counter()
+    res = {"kernels": phase17_kernels(torch, fa, masked, ref, bw, bf16_peak,
+                                      fp32_peak, SEAMLESS_BF16_N)}
+    res["seamless-m4t-medium"] = phase17_seamless(torch, fa, masked, train,
+                                                  card)
+    res["reduced_bf16"] = phase17_zoo(torch, fa, train, card)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase17 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE17_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE17_LIMIT_S:
+        fail(f"phase 17 took {res['seconds']:.1f} s, over its "
+             f"{PHASE17_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3967,6 +4406,8 @@ def main():
     gemma = phase14_gemma2(torch, fa, card)
     moe = phase15_moe(torch, fa, card)
     mem_zoo = phase16_zoo(torch, fa, ref, card, bw, bf16_peak, fp32_peak)
+    train_zoo = phase17_train_zoo(torch, fa, masked, ref, train, card, bw,
+                                  bf16_peak, fp32_peak)
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
           f"s)", flush=True)
@@ -4001,7 +4442,10 @@ def main():
               "fig3_shape": paper["kernel"]["fig3_timing"],
               "lm_sweep_launches": {c: v[3] for c, v in
                                     cell_launches.items()},
-              "lm_sweep_shapes": lm_sweep["kernels"]["fused_masked_agg"]}
+              "lm_sweep_shapes": lm_sweep["kernels"]["fused_masked_agg"],
+              "train_zoo_launches": train_zoo["seamless-m4t-medium"][
+                  "agg_launches"],
+              "train_zoo_shapes": train_zoo["kernels"]["agg"]}
     kernels = [kernel]
     source = "src/repro_torch/kernels/csrc/flash_attention.cu"
     replaces = "src/repro/kernels/flash_attention.py:76 (flash_attention -> _kernel"
@@ -4040,6 +4484,11 @@ def main():
                    for a, _, _ in MEMORY_CASES
                    for part in ("prefill", "decode")}})
     kernels[1]["zoo_shapes"] = mem_zoo["flash"]
+    for i, (key, name) in enumerate(zip(("fwd", "dq", "dkdv"), FLASH_NAMES)):
+        kernels[1 + i]["train_zoo_launches"] = \
+            train_zoo["seamless-m4t-medium"]["flash_launches"][name]
+        kernels[1 + i]["train_zoo_shapes"] = {
+            sh: v[key] for sh, v in train_zoo["kernels"]["flash"].items()}
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err
@@ -4074,7 +4523,9 @@ def main():
     print(json.dumps({"zoo": {
         "gemma2-9b": gemma, "moe": moe,
         "memory_families": {k: v for k, v in mem_zoo.items()
-                            if k != "flash"}}}), flush=True)
+                            if k != "flash"},
+        "training": {k: v for k, v in train_zoo.items()
+                     if k != "kernels"}}}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

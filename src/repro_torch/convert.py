@@ -5,12 +5,14 @@ module needs neither JAX nor the reference package:
 
 - ``params_from_jax(np_tree, layout)``: a parameter tree (nested dicts and
   tuples, leaves with any leading axes ``L``) -> the port's flat ``[*L, n]``
-  buffer in layout order; nesting becomes dotted leaf names, so the LM's
+  buffer in layout order (``ParamLayout.pack``: for a layout with fp32
+  leaves in a narrower dtype, the ``Groups`` of the two buffers, the fp32
+  leaves bit for bit); nesting becomes dotted leaf names, so the LM's
   ``blocks`` tuple (one layer dict per period position, each leaf stacked
   ``[n_periods, ...]``) lands on ``blocks.{i}.attn.wq`` and so on;
 - ``lm_params_from_jax(np_params, cfg)``: the same for an LM at its
   ``ModelConfig`` (its layout and dtype; the tied embedding is the one
-  ``embed`` leaf);
+  ``embed`` leaf; a bf16 model with fp32 leaves gives two groups);
 - ``lm_leaves_from_jax(np_params, cfg)``: an LM's params as named tensors,
   each in its dtype, for any ported family: the reference's RWKV6 tree
   (``blocks[i]["tmix"][...]``, with the channel mix's leaves inside
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch.core.algorithms import AlgoState
 from repro_torch.core.federated import FedState
-from repro_torch.core.params import ParamLayout
+from repro_torch.core.params import Groups, ParamLayout, gmap
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
@@ -57,18 +59,22 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
 
 
 def params_from_jax(np_tree, layout: ParamLayout, device=None,
-                    dtype=torch.float32) -> torch.Tensor:
-    """A tree of ``[*L, *shape]`` leaves -> flat ``[*L, n]`` of ``dtype``."""
+                    dtype=torch.float32, cast=None):
+    """A tree of ``[*L, *shape]`` leaves -> flat ``[*L, n]`` of ``dtype``,
+    or the ``Groups`` of a grouped layout (``ParamLayout.pack``; ``cast``
+    stores every group in that dtype)."""
     flat = flatten_tree(np_tree)
     first_name, first_shape = layout.leaves[0]
     lead = np.shape(flat[first_name])[:np.ndim(flat[first_name])
                                       - len(first_shape)]
-    return layout.flatten(flat, lead=tuple(lead), device=device, dtype=dtype)
+    return layout.pack(flat, lead=tuple(lead), device=device, dtype=dtype,
+                       cast=cast)
 
 
-def lm_params_from_jax(np_params, cfg, device=None) -> torch.Tensor:
+def lm_params_from_jax(np_params, cfg, device=None):
     """The reference LM's params (``repro.models.model.init_params``,
-    numpy leaves) -> the port's flat buffer in ``cfg.dtype``."""
+    numpy leaves) -> the port's flat buffer in ``cfg.dtype`` (two
+    ``Groups`` for a bf16 model with fp32 leaves)."""
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.model import param_layout
 
@@ -118,24 +124,28 @@ def fed_state_from_jax(np_state, layout: ParamLayout, scheme: str,
     opt = {"step": _t(np_state.opt_state["step"], device, torch.int32)}
     for k, v in np_state.opt_state.items():
         if k != "step":
-            opt[k] = params_from_jax(v, layout, device)
+            opt[k] = params_from_jax(v, layout, device, dtype,
+                                     cast=torch.float32)
     a = np_state.algo_state
-    B, m = clients.shape[:2]
+    B, m = np_state.last_active.shape
 
-    def tree(field, rows, dt):
+    def tree(field, rows, cast):
         leaves = getattr(a, field)
         lead = np.shape(flatten_tree(leaves)[layout.leaves[0][0]])[1]
         if lead == 0:
-            return torch.zeros((B, 0, layout.size), dtype=dt, device=device)
-        return params_from_jax(leaves, layout, device, dt).reshape(
-            B, rows, -1)
+            empty = [torch.zeros((B, 0, n), dtype=cast or dt, device=device)
+                     for n, dt in zip(layout.sizes(dtype),
+                                      (dtype, torch.float32))]
+            return Groups(empty) if len(empty) > 1 else empty[0]
+        return gmap(lambda x: x.reshape(B, rows, -1), params_from_jax(
+            leaves, layout, device, dtype, cast=cast))
 
     algo = AlgoState(
         gap=_t(a.gap, device, torch.float32),
         sum_gaps=_t(a.sum_gaps, device, torch.float32),
         n_gaps=_t(a.n_gaps, device, torch.float32),
         lam=_t(a.lam, device, torch.float32),
-        mem=tree("mem", m, dtype),
+        mem=tree("mem", m, None),
         mom=tree("mom", 1, torch.float32))
     rounds = np.asarray(np_state.round).reshape(-1)
     # one round for the batch: an int; trajectories at different rounds

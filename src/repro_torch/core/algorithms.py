@@ -16,6 +16,15 @@ and the FedPBC-M extension.
 
 All per-algorithm state lives in ONE superset container, :class:`AlgoState`;
 fields a family never uses are zero-sized (``[B, 0, ...]``).
+
+A model held in two parameter groups (``repro_torch.core.params.Groups``:
+a bf16 model's bf16 and fp32 buffers) has ``server``, ``clients``,
+``x_star`` and the state's ``mem`` / ``mom`` as ``Groups``. Every rule
+then runs once per group (``client_start``, ``aggregate``), the
+reference's ``jax.tree.map`` over its mixed-dtype pytree: the rules are
+elementwise in the parameters, and their per-client fields (FedAU's gaps,
+F3AST's ``lam``) come from the masks alone, the same in every group. The
+fused aggregation is then one launch per group per round.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import Callable, Dict, FrozenSet, Tuple, Union
 import torch
 
 from repro_torch.configs import FederationConfig
+from repro_torch.core.params import Groups, gmap
 
 AlgoId = Union[int, torch.Tensor]
 
@@ -71,8 +81,21 @@ class AlgoState:
     mem: torch.Tensor        # [B, m, n] last updates (MIFA)
     mom: torch.Tensor        # [B, 1, n] server momentum (FedPBC-M)
 
+    def group(self, g: int) -> "AlgoState":
+        """The state of parameter group ``g`` (``mem`` and ``mom`` of a
+        grouped model are ``Groups``)."""
+        return dataclasses.replace(self, mem=self.mem[g], mom=self.mom[g])
+
 
 _FIELDS = ("gap", "sum_gaps", "n_gaps", "lam", "mem", "mom")
+
+
+def _merge_groups(states) -> AlgoState:
+    """Per-group states -> one: the mask-derived fields of the first (every
+    group computes the same), ``mem`` and ``mom`` as ``Groups``."""
+    return dataclasses.replace(states[0],
+                               mem=Groups(a.mem for a in states),
+                               mom=Groups(a.mom for a in states))
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +308,12 @@ class AlgorithmSpec:
                              f"{self.names}")
         return self.names.index(name)
 
-    def init(self, server: torch.Tensor, m: int) -> AlgoState:
+    def init(self, server, m: int) -> AlgoState:
         """The family's unified state for ``server [B, n]``: needed fields
-        at full size, the rest zero-sized."""
+        at full size, the rest zero-sized (``mem`` / ``mom`` grouped as a
+        grouped ``server``)."""
+        if isinstance(server, Groups):
+            return _merge_groups([self.init(x, m) for x in server])
         u = self.needs
         B, n = server.shape
         dev = server.device
@@ -305,6 +331,9 @@ class AlgorithmSpec:
                             dtype=torch.float32, device=dev))
 
     def client_start(self, algo_id: AlgoId, algo_state, server, clients):
+        if isinstance(server, Groups):
+            return gmap(lambda x, c: self.client_start(
+                algo_id, algo_state, x, c), server, clients)
         m = clients.shape[1]
         if _is_static(algo_id) or len(self.names) == 1:
             idx = int(algo_id) if _is_static(algo_id) else 0
@@ -359,6 +388,13 @@ class AlgorithmSpec:
     def aggregate(self, algo_id: AlgoId, algo_state, server, clients, x_star,
                   active, p_t, t, use_kernel: bool = False,
                   fused=None) -> tuple:
+        if isinstance(server, Groups):
+            outs = [self.aggregate(algo_id, algo_state.group(g), server[g],
+                                   clients[g], x_star[g], active, p_t, t,
+                                   use_kernel, fused)
+                    for g in range(len(server))]
+            return (_merge_groups([o[0] for o in outs]),
+                    Groups(o[1] for o in outs), Groups(o[2] for o in outs))
         if use_kernel and self.fusable:
             return self._aggregate_fused(algo_id, algo_state, server,
                                          x_star, active, p_t, fused)

@@ -26,6 +26,11 @@ over rounds is a Python loop here (``run_rounds_loop``).
 
 The model is the caller's: ``loss_fn(params [B, m, n], batch) -> [B, m]``
 per-client mean losses over a batch pytree with leading ``[B, m, ...]`` axes.
+A model with fp32 leaves in a narrower dtype is held in two parameter
+groups (``repro_torch.core.params.Groups``): ``server``, ``clients``, the
+optimizer's moments and ``x_star`` are then ``Groups`` of ``[B, n_g]`` /
+``[B, m, n_g]`` buffers, ``loss_fn`` takes the groups, and each step's
+gradient is one buffer per group. The scale engines take one group only.
 
 Cross-device scale (``repro_torch.scale``; ``make_round_fn(strategy=...,
 cohort_size=...)``): a buffered round folds arrivals into a
@@ -50,6 +55,7 @@ from repro_torch.core.algorithms import (
     bcast_where,
 )
 from repro_torch.core.connectivity import LinkProcess
+from repro_torch.core.params import Groups, first, gmap
 from repro_torch.device import resolve_device, set_fp32_matmul_precision
 from repro_torch.scale.buffer import (
     BufferState,
@@ -162,10 +168,14 @@ class GeneratorDraws:
         """Count one draw (an init draw or a round) on every bundle."""
         self.made = [k + 1 for k in self.made]
 
-    def params(self, init_params: Callable) -> torch.Tensor:
-        """``[B, n]`` initial server params, ``init_params(generator)``."""
+    def params(self, init_params: Callable):
+        """``[B, n]`` initial server params, ``init_params(generator)`` (a
+        model's ``Groups``, each group stacked)."""
         self._drew()
-        return self._stack([init_params(g["params"]) for g in self.bundles])
+        outs = [init_params(g["params"]) for g in self.bundles]
+        if isinstance(outs[0], Groups):
+            return Groups(self._stack(list(parts)) for parts in zip(*outs))
+        return self._stack(outs)
 
     def link_init(self) -> torch.Tensor:
         self._drew()
@@ -267,15 +277,19 @@ def init_fed_state(link_u: torch.Tensor, server_params: torch.Tensor,
     ``opt_state`` is ``{}``; every sampled client trains from the server
     model with a fresh optimizer, so a round's client memory is O(C).
     ``buffered``: carry a ``BufferState`` (``repro_torch.scale.buffer``)
-    for the semi-async engine."""
+    for the semi-async engine. ``server_params`` may be ``Groups`` (a
+    model in two parameter groups); the scale engines refuse them."""
     algorithm = as_algorithm(algorithm)
     m = fed_cfg.num_clients
-    B, n = server_params.shape
+    if stateless_clients or buffered:
+        one_group(server_params, "the cohort and buffered engines")
+    B = first(server_params).shape[0]
     if stateless_clients:
-        clients = server_params.new_empty((B, 0, n))
+        clients = server_params.new_empty((B, 0, server_params.shape[-1]))
         opt_state = {}
     else:
-        clients = server_params.unsqueeze(1).expand(B, m, -1).clone()
+        clients = gmap(lambda x: x.unsqueeze(1).expand(B, m, -1).clone(),
+                       server_params)
         opt_state = optimizer.init(clients)
     return FedState(
         server=server_params,
@@ -285,29 +299,42 @@ def init_fed_state(link_u: torch.Tensor, server_params: torch.Tensor,
         link_state=link.init(link_u),
         round=0,
         last_active=torch.full((B, m), -1, dtype=torch.int32,
-                               device=server_params.device),
+                               device=first(server_params).device),
         buffer=init_buffer_state(server_params, m) if buffered else None,
     )
 
 
-def local_steps(loss_fn, optimizer, params: torch.Tensor, opt_state,
-                batches, s: int):
+def one_group(params, what: str):
+    """Raise for a model in two parameter groups where ``what`` takes one
+    flat buffer."""
+    if isinstance(params, Groups):
+        raise NotImplementedError(
+            f"{what} take a model in one parameter buffer; this one has "
+            f"{len(params)} groups (fp32 leaves in a narrower model): the "
+            "scale engines' buffer fold and sparse cohort state are not "
+            "mapped over parameter groups yet")
+
+
+def local_steps(loss_fn, optimizer, params, opt_state, batches, s: int):
     """Run ``s`` local optimizer steps for every client model at once.
 
-    ``params [B, m, n]``; ``batches`` leaves ``[B, m, s, ...]`` (one
-    mini-batch per local step). Each client's gradient is the autograd
-    gradient of the SUM of the per-client mean losses: clients share no
-    parameters, so that sum's gradient row is each client's own gradient.
-    Returns ``(params', opt_state', mean_loss [B, m])``.
+    ``params [B, m, n]`` (or its ``Groups``); ``batches`` leaves ``[B, m,
+    s, ...]`` (one mini-batch per local step). Each client's gradient is
+    the autograd gradient of the SUM of the per-client mean losses: clients
+    share no parameters, so that sum's gradient row is each client's own
+    gradient (one buffer per group). Returns ``(params', opt_state',
+    mean_loss [B, m])``.
     """
     losses = []
     for k in range(s):
         batch = {key: v[:, :, k] for key, v in batches.items()}
         with torch.enable_grad():
-            leaf = params.detach().requires_grad_(True)
+            leaf = gmap(lambda x: x.detach().requires_grad_(True), params)
             per_client = loss_fn(leaf, batch)
-            (grad,) = torch.autograd.grad(per_client.sum(), leaf)
-        params, opt_state = optimizer.update(params.detach(), opt_state, grad)
+            grad = torch.autograd.grad(per_client.sum(), leaf)
+        grad = Groups(grad) if isinstance(leaf, Groups) else grad[0]
+        params, opt_state = optimizer.update(gmap(torch.Tensor.detach,
+                                                  params), opt_state, grad)
         losses.append(per_client.detach())
     return params, opt_state, torch.stack(losses).mean(0)
 
@@ -535,7 +562,7 @@ def make_round_step(round_fn, source):
 
 def _empty_metrics(state: FedState, metric_keys) -> Dict[str, torch.Tensor]:
     B, m = state.last_active.shape
-    dev = state.server.device
+    dev = state.last_active.device
     shapes = {"loss": ((B, 0), torch.float32),
               "num_active": ((B, 0), torch.int64),
               "active": ((B, 0, m), torch.bool),
@@ -590,9 +617,9 @@ def make_run_rounds(loss_fn: Callable, optimizer, algorithm,
     step = make_round_step(round_fn, source)
 
     def run_rounds(state: FedState, ds_state, draw, num_rounds: int):
-        if state.server.device.type != dev.type:
-            raise ValueError(f"state is on {state.server.device}, the runner "
-                             f"on {dev}")
+        on = first(state.server).device
+        if on.type != dev.type:
+            raise ValueError(f"state is on {on}, the runner on {dev}")
         return run_rounds_loop(state, ds_state, draw, num_rounds,
                                metric_keys=metric_keys, step=step)
 

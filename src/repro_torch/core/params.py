@@ -9,18 +9,48 @@ reference's shape (``w1 [dim, hidden]`` stays ``[dim, hidden]``), in the
 order the layout lists them.
 
 Some leaves keep fp32 whatever the model's dtype (``ParamLayout.fp32``:
-RWKV6's decay base, bonus and ``ln_x``, as in the reference). One buffer of
-one dtype cannot hold them, so such a model is held leaf by leaf
-(``ParamLayout.tensors``: a dict of named tensors, each in its own dtype);
-``flatten`` refuses to round them.
+RWKV6's decay base, bonus and ``ln_x``, the MoE router, the Mamba
+``dt_proj``, ``dt_bias``, ``a_log`` and ``d_skip``, the cross gate, as in
+the reference). One buffer of one dtype cannot hold them, so a narrower
+model with such leaves is held in two *parameter groups*
+(``ParamLayout.pack``): a ``Groups`` of two flat buffers ``[..., n_0]`` in
+the model's dtype and ``[..., n_1]`` in fp32, each leaf in its dtype's
+buffer in layout order. Every other model (no fp32 leaf, or an fp32 model)
+keeps ONE buffer, a plain tensor, as before. The round engine maps its
+parameter arithmetic over the groups (``gmap``), the reference's
+``jax.tree.map`` over a pytree of mixed dtypes. ``flatten`` asks for a
+single buffer and refuses to round the fp32 leaves; ``tensors`` gives the
+leaves one by one, each in its own dtype.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, FrozenSet, Mapping, Tuple
+from typing import Callable, Dict, FrozenSet, Mapping, Tuple, Union
 
 import numpy as np
 import torch
+
+
+class Groups(tuple):
+    """A model's parameter groups: flat buffers ``[..., n_g]``, the model
+    dtype's first, then fp32's."""
+
+
+Flat = Union[torch.Tensor, Groups]
+
+
+def gmap(fn: Callable, x: Flat, *others: Flat) -> Flat:
+    """``fn`` over the groups of ``x`` (and ``others``, grouped alike), or
+    ``fn(x, *others)`` on a single buffer."""
+    if isinstance(x, Groups):
+        return Groups(fn(*parts) for parts in zip(x, *others))
+    return fn(x, *others)
+
+
+def first(x: Flat) -> torch.Tensor:
+    """The first buffer (the only one of a single-buffer model): its leading
+    axes, device and the model's dtype."""
+    return x[0] if isinstance(x, Groups) else x
 
 
 @dataclass(frozen=True)
@@ -44,18 +74,50 @@ class ParamLayout:
             yield name, shape, off, off + k
             off += k
 
-    def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Named views ``[..., *shape]`` into ``flat [..., n]`` (no copies;
-        gradients flow back into ``flat``)."""
+    def grouped(self, dtype: torch.dtype) -> bool:
+        """Whether a model of ``dtype`` takes two groups: it has fp32 leaves
+        and is narrower than fp32."""
+        return bool(self.fp32) and dtype != torch.float32
+
+    def groups(self) -> Tuple["ParamLayout", "ParamLayout"]:
+        """The two groups' layouts: the leaves of the model's dtype, then
+        the fp32 leaves, each in layout order."""
+        return (ParamLayout(tuple(x for x in self.leaves
+                                  if x[0] not in self.fp32)),
+                ParamLayout(tuple(x for x in self.leaves if x[0] in self.fp32),
+                            self.fp32))
+
+    def sizes(self, dtype: torch.dtype) -> Tuple[int, ...]:
+        """Each buffer's length in a model of ``dtype``."""
+        if not self.grouped(dtype):
+            return (self.size,)
+        return tuple(g.size for g in self.groups())
+
+    def _merged(self, parts) -> Dict[str, torch.Tensor]:
+        """Leaves of the groups' dicts, in layout order."""
+        out = {}
+        for part in parts:
+            out.update(part)
+        return {name: out[name] for name, _ in self.leaves}
+
+    def views(self, flat: Flat) -> Dict[str, torch.Tensor]:
+        """Named views ``[..., *shape]`` into ``flat [..., n]`` or into its
+        groups (no copies; gradients flow back into the buffers)."""
+        if isinstance(flat, Groups):
+            return self._merged(g.views(x)
+                                for g, x in zip(self.groups(), flat))
         lead = flat.shape[:-1]
         return {name: flat[..., a:b].reshape(lead + tuple(shape))
                 for name, shape, a, b in self.spans()}
 
-    def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Like :meth:`views`, but the gradient of ``flat`` is assembled in
-        ONE buffer: autograd would otherwise give every leaf's slice a
+    def unflatten(self, flat: Flat) -> Dict[str, torch.Tensor]:
+        """Like :meth:`views`, but the gradient of each buffer is assembled
+        in ONE buffer: autograd would otherwise give every leaf's slice a
         full-size zero gradient of ``flat`` and add them all up (for a
         bf16 LM, a few hundred passes over the whole client buffer)."""
+        if isinstance(flat, Groups):
+            return self._merged(g.unflatten(x)
+                                for g, x in zip(self.groups(), flat))
         if not flat.requires_grad:
             return self.views(flat)
         return dict(zip([name for name, _ in self.leaves],
@@ -93,6 +155,19 @@ class ParamLayout:
         parts = [leaf.reshape(tuple(lead) + (-1,)) for leaf in
                  self.tensors(tree, lead, dtype=dtype).values()]
         return torch.cat(parts, -1).contiguous().to(device)
+
+    def pack(self, tree: Mapping[str, object], lead: Tuple[int, ...] = (),
+             device=None, dtype=torch.float32, cast=None) -> Flat:
+        """Leaves (as for :meth:`tensors`) -> the buffers of a model of
+        ``dtype``: one ``[*lead, n]`` buffer (:meth:`flatten`), or, where
+        :meth:`grouped`, ``Groups`` of the ``dtype`` leaves and the fp32
+        leaves, the latter carried bit for bit. ``cast``: store every
+        group in this dtype instead (fp32 optimizer moments)."""
+        if not self.grouped(dtype):
+            return self.flatten(tree, lead, device, cast or dtype)
+        return Groups(g.flatten(tree, lead, device, cast or gdt)
+                      for g, gdt in zip(self.groups(),
+                                        (dtype, torch.float32)))
 
 
 class _Unflatten(torch.autograd.Function):

@@ -156,26 +156,35 @@ def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
     ``num_clients`` is the reference's signature; the shapes come with the
     draws. ``sample_cohort(ds_state, t, cohort, pick)`` takes the cohort
     ``[B, C]`` and its clients' token draw ``[B, C, s, b, T]``.
+
+    ``memory_shape`` (the vlm's image tokens, the audio family's frames,
+    ``(batch, M, d_model)``) adds the reference's constant ``memory`` leaf
+    ``0.1 * ones([B, m or C, s, *memory_shape])`` in fp32, as an
+    ``expand`` of one value (nothing of that size is stored).
     """
-    if memory_shape is not None:
-        raise NotImplementedError(
-            "memory leaves (vlm/audio) wait for the training of those "
-            "families (ROADMAP Queue 1 item 16)")
     half = vocab // 2
 
     def init(lo=None):
         return {"lo": lo}
 
+    def batches(toks):
+        out = {"tokens": toks, "labels": toks.roll(-1, -1)}
+        if memory_shape is not None:
+            out["memory"] = torch.full((), 0.1, dtype=torch.float32,
+                                       device=toks.device).expand(
+                toks.shape[:3] + tuple(memory_shape))
+        return out
+
     def sample(ds_state, t, pick):
         lo = ds_state["lo"]
         toks = pick if lo is None else lo[:, :, None, None, None] + pick
-        return {"tokens": toks, "labels": toks.roll(-1, -1)}, ds_state
+        return batches(toks), ds_state
 
     def sample_cohort(ds_state, t, cohort, pick):
         lo = ds_state["lo"]
         toks = pick if lo is None else \
             lo.gather(1, cohort)[:, :, None, None, None] + pick
-        return {"tokens": toks, "labels": toks.roll(-1, -1)}, ds_state
+        return batches(toks), ds_state
 
     return DataSource(init, sample, "lm", (local_steps, batch, seq, half),
                       half if client_shift else None,

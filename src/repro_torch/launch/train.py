@@ -7,11 +7,24 @@ Runs the FedPBC round engine (``repro_torch.core.make_run_rounds``) over
 the selected architecture on the card (``--device cpu`` for the CPU; the
 default is the card and raises without CUDA). ``--reduced`` (the default)
 is the 2-layer, d_model-256 variant in fp32; ``--full`` is the published
-widths in the config's dtype (bf16). Token batches come from the
+widths in the config's dtype (bf16); ``--dtype`` overrides either, and
+``--layers`` / ``--encoder-layers`` cut the depth. Token batches come from the
 ``lm_source`` (each client's half-vocab slice); every draw comes from the
 per-seed generators of ``repro_torch.experiments.sweep.seed_generators``
 (params seed+1, link seed+2, source offsets seed+3, tokens seed+4, the
 reference's key offsets).
+
+It trains every ``--arch`` of ``repro_torch.configs.ARCH_IDS`` but
+rwkv6-3b (ROADMAP Queue 1 item 10): the dense family (smollm-135m,
+gemma2-9b, deepseek-coder-33b, granite-34b), the MoE family
+(mixtral-8x22b, llama4-maverick-400b-a17b), the hybrid
+(jamba-1.5-large-398b), the vlm (llama-3.2-vision-90b) and the audio
+family (seamless-m4t-medium). As in the reference's launcher, the vlm and
+audio batches carry the constant memory ``0.1 * ones([batch, M,
+d_model])`` fp32 (``M`` image tokens or audio frames), which runs their
+memory path in fp32. A bf16 model with fp32 leaves (the MoE router, the
+Mamba leaves, the cross gate) trains in two parameter groups
+(``repro_torch.core.params.Groups``), its fp32 leaves never rounded.
 
 Kernels on this path: attention runs the CUDA flash kernel, forward and
 backward, for CUDA tensors (``main(..., backend="torch")`` runs
@@ -52,6 +65,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="cuda (the default) or cpu")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths stay)")
+    ap.add_argument("--encoder-layers", type=int, default=None,
+                    help="cut the audio encoder to this many layers")
+    ap.add_argument("--dtype", default=None,
+                    help="the model's dtype (default: float32 with "
+                         "--reduced, the config's with --full)")
     return ap.parse_args(argv)
 
 
@@ -60,8 +78,8 @@ def main(argv: Optional[List[str]] = None, *,
     """Run the launcher; returns ``{"losses", "round_seconds",
     "log_rounds", "initial", "state"}``: every round's mean client loss,
     the wall clock at each log line (after the rounds up to
-    ``log_rounds[i]``), a copy of the initial server params and the final
-    ``FedState``. ``backend``: ``None`` (the kernel on the card)
+    ``log_rounds[i]``), a copy of the initial server params (``Groups``
+    for a model in two parameter groups) and the final ``FedState``. ``backend``: ``None`` (the kernel on the card)
     or ``"torch"`` (the plain attention), see
     ``repro_torch.kernels.dispatch.attention``."""
     args = parse_args(argv)
@@ -74,6 +92,7 @@ def main(argv: Optional[List[str]] = None, *,
     from repro_torch.core import (
         GeneratorDraws,
         build_base_probs,
+        gmap,
         init_fed_state,
         make_algorithm_spec,
         make_link_process,
@@ -92,6 +111,10 @@ def main(argv: Optional[List[str]] = None, *,
         cfg = dataclasses.replace(reduced(cfg), dtype="float32")
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if args.encoder_layers:
+        cfg = dataclasses.replace(cfg, encoder_layers=args.encoder_layers)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     print(f"arch={cfg.name} family={cfg.family} params~"
           f"{cfg.param_count() / 1e6:.1f}M reduced={args.reduced} "
           f"layers={cfg.num_layers} dtype={cfg.dtype} device={dev}",
@@ -107,8 +130,15 @@ def main(argv: Optional[List[str]] = None, *,
     algo = make_algorithm_spec((fed.algorithm,), fed)
     link = make_link_process(torch.as_tensor(p, device=dev)[None], fed)
     opt = sgd(paper_decay(args.lr))
+    if cfg.family == "vlm":
+        memory_shape = (args.batch, cfg.num_image_tokens, cfg.d_model)
+    elif cfg.family == "audio":
+        memory_shape = (args.batch, cfg.num_audio_frames, cfg.d_model)
+    else:
+        memory_shape = None
     source = lm_source(num_clients=m, local_steps=args.local_steps,
-                       batch=args.batch, seq=args.seq, vocab=cfg.vocab_size)
+                       batch=args.batch, seq=args.seq, vocab=cfg.vocab_size,
+                       memory_shape=memory_shape)
     run_rounds = make_run_rounds(make_loss(cfg, backend), opt,
                                  algo, link, fed, source,
                                  use_kernel=resolve_use_kernel(),
@@ -116,7 +146,7 @@ def main(argv: Optional[List[str]] = None, *,
     draws = GeneratorDraws([seed_generators(args.seed, dev)], num_clients=m,
                            pick_spec=source.pick_spec)
     server = draws.params(lambda g: init_params(g, cfg))
-    initial = server.clone()
+    initial = gmap(torch.clone, server)
     st = init_fed_state(draws.link_init(), server, fed, algo, link, opt)
     ds_state = source.init(draws.source_init(source.init_high))
 

@@ -33,16 +33,24 @@ it needs a WKV6 backward).
 The MoE family (``family="moe"``; mixtral, llama4-maverick) is the dense
 stack with ``moe.*`` leaves in place of ``ffn.*`` on the layers of
 ``cfg._is_moe_layer`` (``models/moe.py``: plain torch, as the reference
-has no kernel there). Its router stays fp32 in a bf16 model, so it too is
-held leaf by leaf: ``forward`` and ``decode_step`` run, training does not
-(ROADMAP Queue 1 item 15).
+has no kernel there); ``loss_fn`` adds ``0.01 * aux``, the balance loss,
+as the reference's does.
+
+Fp32 leaves in a bf16 model (the MoE router, the Mamba ``dt_proj``,
+``dt_bias``, ``a_log``, ``d_skip``, the cross gate) make two parameter
+groups (``init_params``, ``ParamLayout.pack``): the round engine holds
+such a model as ``Groups`` of a bf16 and an fp32 buffer, and ``make_loss``
+takes them; serving holds it leaf by leaf (``init_leaves``).
 
 The hybrid (jamba), vlm (llama-3.2-vision) and audio (seamless-m4t)
-families run one model, no leading axes, and serve only (training is
-ROADMAP Queue 1 item 16). Their period (``period_length``) holds layers
-of three kinds: ``attn``; ``ssm``, a Mamba block (``ssm.*`` leaves,
-``models/ssm.py``, plain torch as in the reference) in place of the
-self-attention; ``cross``, the self-attention followed by a gated
+families train and serve with leading model axes like the dense stack:
+the Mamba block, the cross block and the audio encoder run ``G`` models
+at once, the encoder's and the cross block's attention folding them into
+the batch (one flash launch per encoder layer). ``memory`` carries the
+models' axes too, ``[*L, b, M, d]``. Their period (``period_length``)
+holds layers of three kinds: ``attn``; ``ssm``, a Mamba block (``ssm.*``
+leaves, ``models/ssm.py``, plain torch as in the reference) in place of
+the self-attention; ``cross``, the self-attention followed by a gated
 cross-attention block (``lnc``, ``cross.*``, the 0-d fp32 ``cross_gate``)
 against ``memory``: image tokens through ``image_proj`` (vlm) or audio
 frames through the encoder (``encoder.*`` stacked ``[encoder_layers,
@@ -82,8 +90,6 @@ Params = Dict[str, torch.Tensor]
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-# the families that run one model, without leading model axes
-ONE_MODEL = ("ssm", "hybrid", "vlm", "audio")
 
 
 def _known(cfg: ModelConfig):
@@ -92,24 +98,16 @@ def _known(cfg: ModelConfig):
                          f"{FAMILIES}")
 
 
-_ITEM_16 = ("ROADMAP Queue 1 item 16: its fp32 leaves need an fp32 buffer "
-            "beside the bf16 one, as items 10 and 15 do, and the training "
-            "path needs memory batches and leading model axes")
 # why a family's training is not ported yet, by family
 _NOT_TRAINABLE = {
     "ssm": "ROADMAP Queue 1 item 10: RWKV6 training needs a hand-written "
-           "WKV6 backward and an fp32 buffer for its fp32 leaves",
-    "moe": "ROADMAP Queue 1 item 15: the fp32 router leaf needs an fp32 "
-           "buffer beside the bf16 one, as item 10's leaves do",
-    "hybrid": _ITEM_16,
-    "vlm": _ITEM_16,
-    "audio": _ITEM_16,
+           "WKV6 backward and leading model axes through the WKV6 stack",
 }
 
 
 def _trainable(cfg: ModelConfig):
     _known(cfg)
-    if cfg.family != "dense":
+    if cfg.family in _NOT_TRAINABLE:
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported yet "
             f"({_NOT_TRAINABLE[cfg.family]}); its forward and decode_step "
@@ -258,12 +256,13 @@ def init_leaves(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return out
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> torch.Tensor:
+def init_params(gen: torch.Generator, cfg: ModelConfig):
     """One model's flat params ``[n]`` in ``cfg.dtype`` on the generator's
-    device (``init_leaves`` in layout order), for the round engine; raises
-    for a layout with fp32 leaves in a narrower model (RWKV6 in bf16)."""
-    return param_layout(cfg).flatten(init_leaves(gen, cfg), device=gen.device,
-                                     dtype=dtype_of(cfg))
+    device (``init_leaves`` in layout order), for the round engine; for a
+    layout with fp32 leaves in a narrower model, the ``Groups`` of its
+    ``cfg.dtype`` and fp32 buffers (``ParamLayout.pack``)."""
+    return param_layout(cfg).pack(init_leaves(gen, cfg), device=gen.device,
+                                  dtype=dtype_of(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -337,14 +336,17 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(dt) @ w.to(dt)
 
 
-def _one(p: Params) -> Params:
-    """A one-model layer's ``[1, ...]`` leaves without the model axis."""
-    return {k: v[0] for k, v in p.items()}
+def _fold(p: Params, names, lead_of: str) -> Tuple[Params, int]:
+    """The leaves ``names`` of ``p`` with their leading model axes (those
+    of ``p[lead_of]`` beyond its own two) folded into one axis G."""
+    n = p[lead_of].dim() - 2
+    G = math.prod(p[lead_of].shape[:n])
+    return {k: p[k].reshape((G,) + p[k].shape[n:]) for k in names}, G
 
 
 def _ssm_block(p: Params, x, cfg: ModelConfig, state=None):
-    """``x + mamba(norm(x))`` for ``x [b, T, d]`` and one model's layer
-    leaves; returns ``(x, new_state)``."""
+    """``x + mamba(norm(x))`` for ``x [*L, b, T, d]`` and layer leaves
+    ``[*L, ...]`` (one model: no ``L``); returns ``(x, new_state)``."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     ssm = {n: p[f"ssm.{n}"] for n, _ in ssm_mod.ssm_leaves(cfg)}
     o, st = ssm_mod.ssm_apply(ssm, h, cfg, state=state)
@@ -352,56 +354,72 @@ def _ssm_block(p: Params, x, cfg: ModelConfig, state=None):
 
 
 def _cross_block(p: Params, x, cfg: ModelConfig, memory):
-    """The gated cross-attention block: ``x [b, T, d]`` (one model's layer
-    leaves) against ``memory [b, M, d]`` (projected or encoded); ``k`` and
+    """The gated cross-attention block of G models (leaves ``[*L, ...]``;
+    one model: no ``L``): ``x`` (``[*L, b * T, d]``, or one model's ``[b,
+    T, d]``) against ``memory [*L, b, M, d]`` (projected or encoded), the
+    models folded into the batch of one ``cross_attention``; ``k`` and
     ``v`` in the promoted dtype, the output cast back to ``x.dtype``."""
     a = cfg.attention
     hd = cfg.head_dim
-    b, t, _ = x.shape
-    m = memory.shape[1]
-    h = rms_norm(x, p["lnc"], cfg.norm_eps)
-    q = (h @ p["cross.wq"]).reshape(b, t, a.num_heads, hd)
-    k = _mm(memory, p["cross.wk"]).reshape(b, m, a.num_kv_heads, hd)
-    v = _mm(memory, p["cross.wv"]).reshape(b, m, a.num_kv_heads, hd)
+    names = ("lnc", "cross.wq", "cross.wk", "cross.wv", "cross.wo",
+             "cross_gate")
+    q_, G = _fold(p, names, "cross.wq")
+    b, m, d = memory.shape[-3:]
+    xg = x.reshape(G, -1, d)
+    t = xg.shape[1] // b
+    h = rms_norm(xg, q_["lnc"], cfg.norm_eps)
+    q = (h @ q_["cross.wq"]).reshape(G * b, t, a.num_heads, hd)
+    mem = memory.reshape(G, b * m, d)
+    k = _mm(mem, q_["cross.wk"]).reshape(G * b, m, a.num_kv_heads, hd)
+    v = _mm(mem, q_["cross.wv"]).reshape(G * b, m, a.num_kv_heads, hd)
     o = cross_attention(q, k, v)
-    gate = torch.tanh(p["cross_gate"]).to(x.dtype)
-    return x + gate * (o.reshape(b, t, -1) @ p["cross.wo"])
+    gate = torch.tanh(q_["cross_gate"]).to(x.dtype).reshape(G, 1, 1)
+    return (xg + gate * (o.reshape(G, b * t, -1) @ q_["cross.wo"])
+            ).reshape(x.shape)
 
 
 def _encode_audio(params: Params, cfg: ModelConfig, frames, backend=None):
-    """The audio encoder over ``frames [b, F, d]``: ``audio_proj``, then
-    ``encoder_layers`` of causal self-attention and MLP, then ``enc_norm``,
-    each layer's weights promoted to the frames' dtype (fp32 frames: the
-    whole encoder in fp32, its attention through the fp32 flash kernel,
-    one launch a layer)."""
-    x = _mm(frames, params["audio_proj"])
-    b, f, d = x.shape
+    """The audio encoder of G models (leaves ``[*L, ...]``) over ``frames
+    [*L, b, F, d]``: ``audio_proj``, then ``encoder_layers`` of causal
+    self-attention and MLP, then ``enc_norm``, each layer's weights
+    promoted to the frames' dtype (fp32 frames: the whole encoder in fp32,
+    its attention through the fp32 flash kernel, one launch a layer for
+    all G models)."""
+    names = ["audio_proj", "enc_norm"] + [k for k in params
+                                          if k.startswith("encoder.")]
+    p, G = _fold(params, names, "audio_proj")
+    b, f, d = frames.shape[-3:]
+    x = _mm(frames.reshape(G, b * f, d), p["audio_proj"])
     positions = torch.arange(f, device=x.device)
-    x = x.reshape(1, b * f, d)
-    names = [k for k in params if k.startswith("encoder.")]
     for layer in range(cfg.encoder_layers):
-        lp = {k[len("encoder."):]: params[k][layer][None].to(
-            torch.promote_types(params[k].dtype, x.dtype)) for k in names}
+        lp = {k[len("encoder."):]: p[k][:, layer].to(
+            torch.promote_types(p[k].dtype, x.dtype))
+            for k in names[2:]}
         x = _self_attn_block(lp, x, cfg, "full", b, positions, backend)
         ffn = {n[len("ffn."):]: v for n, v in lp.items()
                if n.startswith("ffn.")}
         x = x + mlp_apply(ffn, rms_norm(x, lp["ln2"], cfg.norm_eps),
                           cfg.gated_mlp)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps).reshape(b, f, d)
+    return rms_norm(x, p["enc_norm"], cfg.norm_eps).reshape(frames.shape[:-3]
+                                                            + (b, f, d))
 
 
 def _memory(params: Params, cfg: ModelConfig, memory, backend=None):
-    """The memory the cross layers attend: the vlm's image tokens through
-    ``image_proj``, the audio frames through the encoder; None for the
-    other families."""
+    """The memory the cross layers attend, ``[*L, b, M, d]`` for G models
+    (leaves ``[*L, ...]``; one model: ``[b, M, d]``): the vlm's image
+    tokens through ``image_proj``, the audio frames through the encoder;
+    None for the other families."""
     if cfg.family not in ("vlm", "audio"):
         return None
     if memory is None:
         raise ValueError(f"the {cfg.family} family attends memory: pass "
                          f"memory [b, M, d_model]")
-    if cfg.family == "vlm":
-        return _mm(memory, params["image_proj"])
-    return _encode_audio(params, cfg, memory, backend)
+    if cfg.family == "audio":
+        return _encode_audio(params, cfg, memory, backend)
+    p, G = _fold(params, ["image_proj"], "image_proj")
+    b, m, d = memory.shape[-3:]
+    return _mm(memory.reshape(G, b * m, d), p["image_proj"]).reshape(
+        memory.shape)
 
 
 def _rwkv_layer(params: Params, cfg: ModelConfig, i: int, layer: int):
@@ -439,18 +457,18 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``params`` leaves ``[*L, ...]``, ``tokens [*L, b, T]`` -> ``(the
     final normed hidden states [*L, b, T, d], aux [*L])``, the LM head not
-    applied (the ``ONE_MODEL`` families take no ``L``); aux is the MoE
-    balance loss summed over layers, zero without MoE layers. ``memory``:
-    ``[b, M, d]`` image tokens (vlm) or audio frames (audio). ``backend``:
-    ``None`` (the kernels for CUDA tensors) or ``"torch"`` (the plain
-    versions on any device), see ``repro_torch.kernels.dispatch``."""
+    applied (RWKV6, ``family="ssm"``, runs one model: no ``L``); aux is the
+    MoE balance loss summed over layers, zero without MoE layers.
+    ``memory``: ``[*L, b, M, d]`` image tokens (vlm) or audio frames
+    (audio). ``backend``: ``None`` (the kernels for CUDA tensors) or
+    ``"torch"`` (the plain versions on any device), see
+    ``repro_torch.kernels.dispatch``."""
     if cfg.family == "ssm":
         return (_rwkv_hidden(params, cfg, tokens, backend),
                 torch.zeros((), dtype=torch.float32, device=tokens.device))
-    if cfg.family in ONE_MODEL and tokens.dim() != 2:
-        raise NotImplementedError(
-            f"the {cfg.family} family runs one model: tokens [b, T], got "
-            f"{tuple(tokens.shape)} (leading model axes: {_ITEM_16})")
+    if memory is not None and memory.shape[:-2] != tokens.shape[:-1]:
+        raise ValueError(f"memory {tuple(memory.shape)} vs tokens "
+                         f"{tuple(tokens.shape)}: memory is [*L, b, M, d]")
     P = period_length(cfg)
     n_periods = cfg.num_layers // P
     memory = _memory(params, cfg, memory, backend)
@@ -466,15 +484,14 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             lp = {name: p[f"blocks.{i}.{name}"][:, layer]
                   for name, _ in _layer_leaves(cfg, i)}
             kind = cfg.layer_kind(i)
-            if kind == "ssm":                   # one model: G = 1
-                x = _ssm_block(_one(lp), x.reshape(b, t, -1),
+            if kind == "ssm":
+                x = _ssm_block(lp, x.reshape(G, b, t, -1),
                                cfg)[0].reshape(x.shape)
             else:
                 x = _self_attn_block(lp, x, cfg, attn_kind(cfg, i), b,
                                      positions, backend)
             if kind == "cross":
-                x = _cross_block(_one(lp), x.reshape(b, t, -1), cfg,
-                                 memory).reshape(x.shape)
+                x = _cross_block(lp, x, cfg, memory)
             x, a = _ffn_block(lp, x, cfg, b)
             aux = aux + a
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
@@ -515,8 +532,11 @@ def _chunk_ce(h, y, head, cap: float):
 
 def loss_fn(params: Params, cfg: ModelConfig, batch, *,
             ce_chunk: int = 512, backend=None) -> torch.Tensor:
-    """``batch``: ``{"tokens", "labels"}``, each ``[*L, b, T]`` -> the
-    per-model mean next-token cross-entropy ``[*L]``.
+    """``batch``: ``{"tokens", "labels"}``, each ``[*L, b, T]``, and for the
+    vlm and audio families ``"memory" [*L, b, M, d]`` -> the per-model
+    mean next-token cross-entropy ``[*L]``, plus ``0.01 * aux`` (the MoE
+    balance loss) for a model with MoE layers, as the reference adds it
+    (without them aux is zero and nothing is added).
 
     The cross-entropy runs over token chunks of ``ce_chunk`` under
     activation checkpointing (the reference's ``jax.checkpoint``), so only
@@ -526,9 +546,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
     """
     _trainable(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
-    # aux is zero for the dense family: the reference's `+ 0.01 * aux`
-    # adds nothing
-    hidden, _ = hidden_forward(params, cfg, tokens, backend=backend)
+    hidden, aux = hidden_forward(params, cfg, tokens,
+                                 memory=batch.get("memory"), backend=backend)
     lead = tokens.shape[:-2]
     G = math.prod(lead)
     b, t = tokens.shape[-2:]
@@ -540,19 +559,22 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
     if t % ce_chunk:
         ce = _chunk_ce(hidden.reshape(G, b * t, d), labels.reshape(G, -1),
                        head, cfg.final_softcap) / (b * t)
-        return ce.reshape(lead)
-    tot = torch.zeros(G, dtype=torch.float32, device=tokens.device)
-    for s in range(0, t, ce_chunk):
-        h = hidden[:, :, s:s + ce_chunk].reshape(G, -1, d)
-        y = labels[:, :, s:s + ce_chunk].reshape(G, -1)
-        tot = tot + checkpoint(_chunk_ce, h, y, head, cfg.final_softcap,
-                               use_reentrant=False)
-    return (tot / (b * t)).reshape(lead)
+    else:
+        tot = torch.zeros(G, dtype=torch.float32, device=tokens.device)
+        for s in range(0, t, ce_chunk):
+            h = hidden[:, :, s:s + ce_chunk].reshape(G, -1, d)
+            y = labels[:, :, s:s + ce_chunk].reshape(G, -1)
+            tot = tot + checkpoint(_chunk_ce, h, y, head, cfg.final_softcap,
+                                   use_reentrant=False)
+        ce = tot / (b * t)
+    if cfg.moe:
+        ce = ce + 0.01 * aux.reshape(G)
+    return ce.reshape(lead)
 
 
 def make_loss(cfg: ModelConfig, backend=None):
-    """The round engine's loss: ``(flat [*L, n], batch) -> [*L]``;
-    ``backend="torch"`` runs the plain attention on the card."""
+    """The round engine's loss: ``(flat [*L, n] or its Groups, batch) ->
+    [*L]``; ``backend="torch"`` runs the plain attention on the card."""
     _trainable(cfg)
     layout = param_layout(cfg)
 

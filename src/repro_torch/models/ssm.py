@@ -14,17 +14,27 @@ unchanged: the same result).
 
 The reference has no Pallas kernel here (a ``jnp`` scan), so the port is
 plain torch. ``selective_scan_steps`` is the plain step-by-step
-recurrence, kept for the tests.
+recurrence, kept for the tests. Under autograd each chunk runs under
+activation checkpointing, as the reference's ``jax.checkpoint(step)``: the
+backward keeps only the chunk's inputs and carried state and recomputes
+its ``log2(chunk)`` doubling steps, so they are never all saved at once.
 
-Leaves as the reference's ``ssm_init``, one model, no leading axes;
-``dt_proj``, ``dt_bias``, ``a_log`` and ``d_skip`` are fp32 in any model.
+Leaves as the reference's ``ssm_init``; ``dt_proj``, ``dt_bias``,
+``a_log`` and ``d_skip`` are fp32 in any model. ``ssm_apply`` takes the
+leaves of one model, or of ``G`` models with leading model axes ``[*L,
+...]`` and activations ``[*L, b, T, d]`` (the round engine's clients):
+each product is one batched matmul over the models, and the scan runs the
+``G * b`` rows together.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dtype_of, init_dense
@@ -96,24 +106,34 @@ def _doubling_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
+def _scan_chunk(h, dt_c, b_c, c_c, x_c, a):
+    """One chunk from the carried state ``h``: ``(y_c [B, C, di], h')``."""
+    abar = torch.exp(dt_c[..., None] * a)
+    bbar = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
+    aa, bb = _doubling_scan(abar, bbar)
+    h_all = aa * h[:, None] + bb
+    return torch.einsum("bcdn,bcn->bcd", h_all, c_c), h_all[:, -1]
+
+
 def selective_scan(xc, dt, b_in, c_in, a, h0, chunk: int = 128):
     """The reference's ``_fused_scan``: ``xc, dt [B, T, di]``, ``b_in, c_in
-    [B, T, N]``, ``a [di, N]``, ``h0 [B, di, N]``, all fp32 -> ``(y [B, T,
-    di], h_T)``. Each chunk's ``abar = exp(dt a)`` and ``bbar = dt b x``
-    ``[B, C, di, N]`` are scanned, offset by the carried state, and
-    contracted with ``c``."""
+    [B, T, N]``, ``a [di, N]`` (or ``[B, 1, di, N]``, each row's own),
+    ``h0 [B, di, N]``, all fp32 -> ``(y [B, T, di], h_T)``. Each chunk's
+    ``abar = exp(dt a)`` and ``bbar = dt b x`` ``[B, C, di, N]`` are
+    scanned, offset by the carried state, and contracted with ``c``; under
+    autograd each chunk is checkpointed."""
     t = xc.shape[1]
     chunk = min(chunk, t)
+    grad = torch.is_grad_enabled() and any(
+        z.requires_grad for z in (xc, dt, b_in, c_in, a, h0))
     h, ys = h0, []
     for s in range(0, t, chunk):
-        dt_c, b_c, c_c, x_c = (z[:, s:s + chunk] for z in (dt, b_in, c_in,
-                                                            xc))
-        abar = torch.exp(dt_c[..., None] * a)
-        bbar = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
-        aa, bb = _doubling_scan(abar, bbar)
-        h_all = aa * h[:, None] + bb
-        ys.append(torch.einsum("bcdn,bcn->bcd", h_all, c_c))
-        h = h_all[:, -1]
+        parts = [z[:, s:s + chunk] for z in (dt, b_in, c_in, xc)]
+        if grad:
+            y, h = checkpoint(_scan_chunk, h, *parts, a, use_reentrant=False)
+        else:
+            y, h = _scan_chunk(h, *parts, a)
+        ys.append(y)
     return torch.cat(ys, 1), h
 
 
@@ -131,32 +151,56 @@ def selective_scan_steps(xc, dt, b_in, c_in, a, h0):
 def ssm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
               state: Optional[Dict[str, torch.Tensor]] = None,
               chunk: int = 128):
-    """``x [B, T, d]``; ``state``: None (prefill) or ``{"conv" [B, cw - 1,
-    di], "h" [B, di, N] fp32}`` (the decode carry). Returns ``(out [B, T,
-    d] in x.dtype, new_state)``: the depthwise causal conv over the carried
-    or zero-padded inputs, the selective scan from the carried or zero
-    state, the skip and the ``silu(z)`` gate."""
-    t = x.shape[1]
+    """``x [*L, b, T, d]`` for leaves ``[*L, ...]`` (``L`` the leading model
+    axes, none for one model); ``state``: None (prefill, training) or
+    ``{"conv" [*L, b, cw - 1, di], "h" [*L, b, di, N] fp32}`` (the decode
+    carry). Returns ``(out [*L, b, T, d] in x.dtype, new_state)``: the
+    depthwise causal conv over the carried or zero-padded inputs, the
+    selective scan from the carried or zero state, the skip and the
+    ``silu(z)`` gate."""
+    lead = p["in_proj"].shape[:-2]
+    G = math.prod(lead)
+    *_, b, t, d = x.shape
     di, n, dtr, cw = _dims(cfg)
-    xs, z = (x @ p["in_proj"]).split(di, -1)
+    q = {k: v.reshape((G,) + v.shape[len(lead):]) for k, v in p.items()}
+
+    def mm(z, w):                   # [G, b, T, k] @ [G, k, j] per model
+        return (z.reshape(G, b * z.shape[2], -1) @ w).reshape(
+            G, b, z.shape[2], -1)
+
+    def per_model(v):               # [G, k] -> [G, 1, 1, k]
+        return v[:, None, None]
+
+    xs, z = mm(x.reshape(G, b, t, d), q["in_proj"]).split(di, -1)
     if state is None:
         conv_in = F.pad(xs, (0, 0, cw - 1, 0))
     else:
-        conv_in = torch.cat([state["conv"], xs], 1)
-    w = p["conv"].float()
-    xc = p["conv_bias"].float() + sum(conv_in[:, i:i + t].float() * w[i]
-                                      for i in range(cw))
+        conv_in = torch.cat([state["conv"].reshape(G, b, cw - 1, di), xs], 2)
+    w = q["conv"].float()
+    xc = per_model(q["conv_bias"].float()) + sum(
+        conv_in[:, :, i:i + t].float() * per_model(w[:, i]) for i in range(cw))
     xc = F.silu(xc).to(x.dtype)
-    dt_in, b_in, c_in = (xc @ p["x_proj"]).split([dtr, n, n], -1)
-    dt = F.softplus(dt_in.float() @ p["dt_proj"] + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
-    h0 = state["h"] if state is not None else torch.zeros(
-        x.shape[0], di, n, dtype=torch.float32, device=x.device)
+    dt_in, b_in, c_in = mm(xc, q["x_proj"]).split([dtr, n, n], -1)
+    dt = F.softplus(mm(dt_in.float(), q["dt_proj"])
+                    + per_model(q["dt_bias"]))
+    a = -torch.exp(q["a_log"])                                # [G, di, N]
+    a = a[0] if G == 1 else a[:, None].expand(G, b, di, n).reshape(
+        G * b, 1, di, n)
+    h0 = state["h"].reshape(G * b, di, n) if state is not None else \
+        torch.zeros(G * b, di, n, dtype=torch.float32, device=x.device)
     xf = xc.float()
-    y, h_t = selective_scan(xf, dt, b_in.float(), c_in.float(), a, h0, chunk)
-    y = (y + p["d_skip"] * xf) * F.silu(z.float())
-    out = y.to(x.dtype) @ p["out_proj"]
-    return out, {"conv": conv_in[:, t:], "h": h_t}
+
+    def rows(v):                    # [G, b, T, k] -> [G * b, T, k]
+        return v.reshape(G * b, t, v.shape[-1])
+
+    y, h_t = selective_scan(rows(xf), rows(dt), rows(b_in.float()),
+                            rows(c_in.float()), a, h0, chunk)
+    y = (y.reshape(G, b, t, di) + per_model(q["d_skip"]) * xf) \
+        * F.silu(z.float())
+    out = mm(y.to(x.dtype), q["out_proj"])
+    return out.reshape(x.shape), {
+        "conv": conv_in[:, :, t:].reshape(lead + (b, cw - 1, di)),
+        "h": h_t.reshape(lead + (b, di, n))}
 
 
 def ssm_init_state(cfg: ModelConfig, batch: int, device=None

@@ -6,6 +6,8 @@ the state holds a per-client ``step`` counter ``[B, m]`` int32 plus the
 moment buffers. The counter is carried across rounds in ``FedState``, so a
 schedule decays with the client's total local steps, as in the reference.
 ``lr`` is a number, a ``[B]`` tensor, or a schedule ``step [B, m] -> [B, m]``.
+A model in two parameter groups (``repro_torch.core.params.Groups``) has its
+update and moments mapped over the groups, one ``step`` counter for both.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.params import first, gmap
 from repro_torch.optim.schedules import constant
 
 
@@ -28,8 +31,13 @@ def _schedule(lr):
 
 
 def _step0(params):
-    return torch.zeros(params.shape[:-1], dtype=torch.int32,
-                       device=params.device)
+    lead = first(params)
+    return torch.zeros(lead.shape[:-1], dtype=torch.int32,
+                       device=lead.device)
+
+
+def _zeros32(params):
+    return gmap(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 def sgd(lr, momentum: float = 0.0) -> Optimizer:
@@ -38,17 +46,19 @@ def sgd(lr, momentum: float = 0.0) -> Optimizer:
     def init(params):
         st = {"step": _step0(params)}
         if momentum:
-            st["mu"] = torch.zeros_like(params, dtype=torch.float32)
+            st["mu"] = _zeros32(params)
         return st
 
     def update(params, state, grads):
         eta = sched(state["step"]).unsqueeze(-1)
         step = state["step"] + 1
         if momentum:
-            mu = momentum * state["mu"] + grads.float()
-            return (params - eta * mu).to(params.dtype), {"step": step,
-                                                          "mu": mu}
-        return (params - eta * grads).to(params.dtype), {"step": step}
+            mu = gmap(lambda m, g: momentum * m + g.float(), state["mu"],
+                      grads)
+            return gmap(lambda p, u: (p - eta * u).to(p.dtype), params,
+                        mu), {"step": step, "mu": mu}
+        return gmap(lambda p, g: (p - eta * g).to(p.dtype), params,
+                    grads), {"step": step}
 
     return Optimizer(init, update)
 
@@ -57,23 +67,26 @@ def adam(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
     sched = _schedule(lr)
 
     def init(params):
-        return {"step": _step0(params),
-                "m": torch.zeros_like(params, dtype=torch.float32),
-                "v": torch.zeros_like(params, dtype=torch.float32)}
+        return {"step": _step0(params), "m": _zeros32(params),
+                "v": _zeros32(params)}
 
     def update(params, state, grads):
         step = state["step"] + 1
         eta = sched(step).unsqueeze(-1)
-        g = grads.float()
-        m = b1 * state["m"] + (1 - b1) * g
-        v = b2 * state["v"] + (1 - b2) * torch.square(g)
         sf = step.to(torch.float32).unsqueeze(-1)
         bc1 = 1 - torch.pow(b1, sf)
         bc2 = 1 - torch.pow(b2, sf)
-        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if weight_decay:
-            u = u + weight_decay * params.float()
-        return (params - eta * u).to(params.dtype), {"step": step, "m": m,
-                                                     "v": v}
+        m = gmap(lambda m_, g: b1 * m_ + (1 - b1) * g.float(), state["m"],
+                 grads)
+        v = gmap(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(g.float()),
+                 state["v"], grads)
+
+        def step_one(p, m_, v_):
+            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            if weight_decay:
+                u = u + weight_decay * p.float()
+            return (p - eta * u).to(p.dtype)
+
+        return gmap(step_one, params, m, v), {"step": step, "m": m, "v": v}
 
     return Optimizer(init, update)

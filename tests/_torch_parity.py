@@ -308,3 +308,25 @@ class JaxKeyDraws:
         return drawers[0]._of(*(torch.cat([getattr(d, a) for d in drawers])
                                 for a in ("_params", "_init_u", "_u",
                                           "_pick")))
+
+
+def lm_round_draws(vocab, seed, rounds, m, s, batch, seq):
+    """The reference launcher's own LM draws for ``rounds`` rounds, as the
+    port's ``RoundDraws`` ``[1, ...]``: link uniforms from its state key
+    (``init_fed_state``'s split of ``PRNGKey(seed + 2)``), token draws from
+    ``fold_in(PRNGKey(seed + 4), round)``; and the source offsets ``lo``
+    of ``PRNGKey(seed + 3)``."""
+    half = vocab // 2
+    _, key = jax.random.split(jax.random.PRNGKey(seed + 2))
+    data_key = jax.random.PRNGKey(seed + 4)
+    lo = np.array(jax.random.randint(jax.random.PRNGKey(seed + 3), (m,), 0,
+                                     half))
+    draws = []
+    for t in range(rounds):
+        key, k_link = jax.random.split(key)
+        u = np.array(jax.random.uniform(k_link, (m,)))
+        pick = np.array(jax.random.randint(
+            jax.random.fold_in(data_key, t), (m, s, batch, seq), 0, half))
+        draws.append(tfed.RoundDraws(torch.as_tensor(u)[None],
+                                     torch.as_tensor(pick)[None]))
+    return lo, draws

@@ -642,3 +642,49 @@ def test_memory_families_on_the_card_match_the_cpu(cuda, arch):
                 torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4,
                                            atol=1e-4)
             assert tflash.flash_attention_fwd.launches == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "jamba-1.5-large-398b",
+                                  "seamless-m4t-medium"])
+def test_zoo_training_on_the_card_matches_the_plain_path(cuda, arch,
+                                                         monkeypatch):
+    """``launch/train.py`` at ``reduced()`` on the card, 2 clients, 2
+    rounds: in fp32 the kernel path (flash forward and backward once per
+    attention layer and local step, the fused aggregation) against the
+    plain path (``backend="torch"``, the branch aggregation) from the same
+    generators, every client parameter within fp32 1e-3 (the flash
+    kernels' online softmax, ~1e-6 a step, through 4 local SGD steps, as
+    ``chip_smoke.py``'s LM sweep bar); in bf16 two parameter groups, the
+    fused aggregation launched once per group a round, the fp32 leaves
+    fp32."""
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+    layers = sum(cfg.layer_kind(i) != "ssm" for i in range(cfg.num_layers))
+    layers += cfg.encoder_layers if cfg.family == "audio" else 0
+    args = ["--arch", arch, "--clients", "2", "--rounds", "2", "--seq", "64",
+            "--log-every", "2"]
+    outs = {}
+    for path, backend, agg in (("kernel", None, "1"), ("plain", "torch", "0")):
+        monkeypatch.setenv("REPRO_USE_KERNEL", agg)
+        tflash.flash_attention_fwd.launches = 0
+        tflash.flash_attention_bwd_dq.launches = 0
+        outs[path] = train.main(args, backend=backend)
+        want = 2 * 2 * layers if path == "kernel" else 0
+        assert tflash.flash_attention_fwd.launches == want
+        assert tflash.flash_attention_bwd_dq.launches == want
+    torch.testing.assert_close(outs["kernel"]["state"].clients,
+                               outs["plain"]["state"].clients, rtol=1e-3,
+                               atol=1e-3)
+    monkeypatch.setenv("REPRO_USE_KERNEL", "1")
+    tmasked.fused_masked_agg.launches = 0
+    out = train.main(args + ["--dtype", "bfloat16"])
+    assert tmasked.fused_masked_agg.launches == 2 * 2
+    layout = tmodel.param_layout(cfg)
+    assert [x.dtype for x in out["state"].server] == [torch.bfloat16,
+                                                      torch.float32]
+    views = layout.views(out["state"].clients)
+    assert layout.fp32 and all(views[k].dtype == torch.float32
+                               for k in layout.fp32)
+    assert all(torch.isfinite(x).all() for x in out["state"].clients)

@@ -57,10 +57,13 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                                         "selective_scan",
                                         "selective_scan_steps",
                                         "FP32_LEAVES"],
-             "repro_torch.models.model": ["FAMILIES", "ONE_MODEL"],
+             "repro_torch.models.model": ["FAMILIES"],
              "repro_torch.configs.jamba_1_5_large_398b": ["CONFIG"],
              "repro_torch.configs.llama_3_2_vision_90b": ["CONFIG"],
-             "repro_torch.configs.seamless_m4t_medium": ["CONFIG"]}
+             "repro_torch.configs.seamless_m4t_medium": ["CONFIG"],
+             # parameter groups: the zoo's training
+             "repro_torch.core.params": ["Groups", "gmap", "first"],
+             "repro_torch.core.federated": ["one_group"]}
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -252,7 +252,8 @@ def test_time_and_channel_mix_match_reference(with_state):
 def test_converted_fp32_leaves_are_bit_equal_in_a_bf16_model():
     """A bf16 reference model: every leaf converts exactly, and the fp32
     leaves (decay base, bonus, ln_x) stay fp32, bit for bit; one flat bf16
-    buffer would round them, so ``flatten`` refuses."""
+    buffer would round them, so ``flatten`` refuses, and the engine's
+    conversion gives two parameter groups, the fp32 one bit for bit."""
     jcfg, tcfg, jparams, leaves = _ref_params("bfloat16")
     rng = np.random.default_rng(1)
     for name in ("decay_base", "bonus_u", "ln_x"):          # not bf16-exact
@@ -276,7 +277,13 @@ def test_converted_fp32_leaves_are_bit_equal_in_a_bf16_model():
     assert {n.rsplit(".", 1)[-1] for n in layout.fp32} == {
         "decay_base", "bonus_u", "ln_x"}
     with pytest.raises(ValueError, match="fp32 leaves"):
-        convert.lm_params_from_jax(np_tree(jparams), tcfg)
+        layout.flatten(ref, dtype=torch.bfloat16)
+    groups = convert.lm_params_from_jax(np_tree(jparams), tcfg)
+    assert [g.dtype for g in groups] == [torch.bfloat16, torch.float32]
+    for name, got in layout.views(groups).items():
+        if name in layout.fp32:
+            assert np.array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(ref[name]).view(np.uint32)), name
     with pytest.raises(NotImplementedError, match="WKV6 backward"):
         tmodel.make_loss(tcfg)
 

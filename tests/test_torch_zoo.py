@@ -233,28 +233,48 @@ def test_decode_step_in_bf16_matches_reference(arch):
 
 
 def test_moe_training_and_unported_families_are_refused():
-    """MoE training waits for item 15; the training of the hybrid, vlm and
-    audio families, their leading model axes and the memory leaves of
-    ``lm_source`` for item 16 (their forward and decode_step run)."""
+    """What was refused before the zoo's training was ported now runs:
+    MoE training (ROADMAP item 15: ``make_loss``, and ``init_params`` in
+    bf16 as two parameter groups, the fp32 router in the fp32 one); the
+    hybrid, vlm and audio families' training (item 16: ``make_loss``, two
+    models at once with their leading model axis, each equal to its own
+    one-model forward, and ``lm_source``'s memory leaves). RWKV6's
+    training stays refused (item 10)."""
     cfg = reduced(get_config("mixtral-8x22b"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tmodel.make_loss(cfg)
-    # the fp32 router cannot be rounded into one bf16 buffer
-    with pytest.raises(ValueError, match="moe.router"):
-        tmodel.init_params(torch.Generator().manual_seed(0), cfg)
+    assert callable(tmodel.make_loss(cfg))
+    groups = tmodel.init_params(torch.Generator().manual_seed(0), cfg)
+    assert [g.dtype for g in groups] == [torch.bfloat16, torch.float32]
+    layout = tmodel.param_layout(cfg)
+    assert all(v.dtype == torch.float32 for k, v in
+               layout.views(groups).items() if k.endswith("moe.router"))
     for arch in MEMORY_ARCHS:
         cfg = reduced(get_config(arch))
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tmodel.make_loss(cfg)
+        assert callable(tmodel.make_loss(cfg))
         leaves = tmodel.init_leaves(torch.Generator().manual_seed(0), cfg)
-        two = {k: torch.stack([v, v]) for k, v in leaves.items()}
-        _, mem = _memory(cfg, 1)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tmodel.forward(two, cfg, torch.zeros(2, 1, 4, dtype=torch.long),
-                           memory=mem)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        lm_source(num_clients=2, local_steps=1, batch=1, seq=4, vocab=16,
-                  memory_shape=(4, 8))
+        for k in leaves:
+            if k.endswith("cross_gate"):
+                leaves[k] = torch.ones_like(leaves[k])
+        second = {k: v * 1.5 if v.dim() > 1 else v for k, v in leaves.items()}
+        two = {k: torch.stack([v, second[k]]) for k, v in leaves.items()}
+        toks = torch.randint(0, cfg.vocab_size, (2, 1, 8),
+                             generator=torch.Generator().manual_seed(1))
+        _, mem = _memory(cfg, 2)
+        mem2 = None if mem is None else mem[:, None]
+        with torch.no_grad():
+            got, _ = tmodel.forward(two, cfg, toks, memory=mem2)
+            for i, p in enumerate((leaves, second)):
+                want, _ = tmodel.forward(p, cfg, toks[i],
+                                         memory=None if mem is None
+                                         else mem[i:i + 1])
+                torch.testing.assert_close(got[i].float(), want.float(),
+                                           rtol=2e-2, atol=2e-2)
+    src = lm_source(num_clients=2, local_steps=1, batch=1, seq=4, vocab=16,
+                    memory_shape=(1, 4, 8))
+    batch, _ = src.sample(src.init(torch.zeros(1, 2, dtype=torch.long)), 0,
+                          torch.zeros(1, 2, 1, 1, 4, dtype=torch.long))
+    assert tuple(batch["memory"].shape) == (1, 2, 1, 1, 4, 8)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tmodel.make_loss(reduced(get_config("rwkv6-3b")))
 
 
 @pytest.mark.parametrize("arch", MEMORY_ARCHS)
