@@ -318,6 +318,38 @@ kernel path against plain path: finite losses, every fp32 leaf fp32 and
 moved, the MoE archs' aux finite and positive, the clients' updates within
 ``PATHS_TOL``. Phase 17 is held to ``PHASE17_LIMIT_S``.
 
+Phase 18, launch and checkpointing. (a) SmolLM-135M at full width and
+depth in bf16 through ``launch/train.py --full`` (``CKPT_LM``: 8 clients, 2
+local steps, batch 2, T = 512), the fused aggregation on: A, 4 rounds
+uninterrupted; B, 2 rounds saved with ``--ckpt-dir``; C, ``--rounds 4``
+from B's directory, which restores round 2. C's final server, clients,
+optimizer state and losses of rounds 3-4 must equal A's bit for bit (if
+they do not, A runs again: if two uninterrupted runs also differ, C is
+held to A within their distance and the card is named nondeterministic;
+otherwise the checkpoint is at fault), and C launches each flash kernel
+2 · 2 · 30 times and the aggregation twice; the checkpoint's bytes and
+each save's and restore's seconds are printed. The checkpoints go to a
+temporary directory under ``build/``, deleted after. (b) The same A/B/C
+on jamba-1.5-large at ``reduced()`` in bf16 (two parameter groups, as
+phase 17c): bitwise, every fp32 leaf fp32 after the restore. (c) The ops
+wrappers (``kernels/ops.py``) against their plain versions on the card:
+``masked_agg_pytree`` on a SmolLM-shaped dict of fp32 leaves of 8 clients,
+3 active with ``prev`` and without (the reference's ``masked_agg``
+``:109`` and ``:96``) within fp32 1e-5, none active returning ``prev``
+exactly, one launch a leaf; ``gqa_flash_attention`` at SmolLM's ``[2,
+2048, 9, 64]`` on 3 KV heads in bf16 within ``FLASH_TOL``. (d) The
+roofline's share of the whole step: phase 5's steady rounds/s times
+``launch.roofline.model_flops_for`` of its round (6 · N · m · s · b · T)
+over the card's bf16 peak, printed beside the card's name and power
+limit. (e) A dry-run row on the meta device (``launch/dryrun.py``) for
+smollm-135m × train_4k, printed with its ``useful_fraction``, and the
+counted FLOPs of phase 5's round at its own shape held within 2 % of the
+analytic count (three forwards outside attention a client and local
+step, the head once more, and attention as the flash kernels' work on the
+causal pairs: 4 flops a pair and head dim forward, 14 backward). Phase 18
+is held
+to ``PHASE18_LIMIT_S``.
+
 Both CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
@@ -325,7 +357,8 @@ Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
 seconds, launches, family batches and results), a ``{"scale": {...}}``
 line (phase 10's), a ``{"search": {...}}`` line (phase 11's), a
 ``{"lm_sweep": {...}}`` line (phase 12's cells), a ``{"serve": {...}}``
-line (phase 13's), a ``{"zoo": {...}}`` line (phases 14 to 17), then a
+line (phase 13's), a ``{"launch": {...}}`` line (phase 18's), a
+``{"zoo": {...}}`` line (phases 14 to 17), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
 11's as ``search_launches``, phase 12's by cell as ``lm_sweep_launches``
@@ -338,7 +371,10 @@ and 128 (fp32), its launches in phase 13's serve run as
 ``serve_launches`` and in phases 14-16 as ``zoo_launches``, the forward's
 timings at phase 16's shapes as ``zoo_shapes``, each flash kernel's and
 the aggregation's phase-17 launches by shape as ``train_zoo_launches`` and
-timings at its shapes as ``train_zoo_shapes``; the WKV6 wrapper once per
+timings at its shapes as ``train_zoo_shapes``, phase 18's launches in
+the resumed runs as ``ckpt_resume_launches``, the aggregation's through
+``masked_agg_pytree`` and the flash forward's through
+``gqa_flash_attention``; the WKV6 wrapper once per
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
 ptxas by head dim), the card's name and power limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -783,20 +819,18 @@ TRAIN_FLASH = ((128, 1024, 64, "float32"), (128, 512, 64, "bfloat16"))
 PHASE17_LIMIT_S = 150.0
 FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkdv")
+# Phase 18, launch and checkpointing: the resumed SmolLM-135M run (full
+# width and depth, bf16) and the two-group run (jamba at reduced() in bf16)
+CKPT_LM = dict(clients=8, steps=2, batch=2, seq=512, rounds=4)
+CKPT_GROUPS = dict(clients=2, steps=2, batch=2, seq=64, rounds=4)
+# gqa_flash_attention at SmolLM's shape: [B, T, H, D] on KV heads
+GQA_SHAPE = (2, 2048, 9, 64, 3)
+DRYRUN_TOL = 0.02
+PHASE18_LIMIT_S = 90.0
 
 
 def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def peak_rates(name):
-    """(bytes/s, fp32 flop/s, bf16 dense tensor-core flop/s) of the card
-    from its data sheet."""
-    if "PCIe" in name:
-        return 2.0e12, 51e12, 756e12
-    if "NVL" in name:
-        return 3.9e12, 60e12, 835e12
-    return 3.35e12, 67e12, 989e12          # H100 SXM
 
 
 def _graph(fn, iters):
@@ -989,6 +1023,8 @@ def phase1_kernel(torch, masked, ref):
 
     # timing at the main path's shape
     name = torch.cuda.get_device_name(0)
+    from repro_torch.launch.roofline import peak_rates
+
     bw, flops, _ = peak_rates(name)
     t = time_agg(torch, masked, ref, main, bw, flops)
 
@@ -1078,13 +1114,6 @@ def phase3_paths_agree(torch, grid, spec):
           f"{err:.3e} (atol 1e-5)", flush=True)
     if not err <= 1e-5:
         fail("kernel and plain aggregation paths diverge")
-
-
-def _attention_pairs(t, window):
-    """Allowed (query, key) pairs of one head under the causal mask and
-    the window: sum over queries q of min(q + 1, window)."""
-    q = np.arange(t)
-    return int(np.minimum(q + 1, window if window else t).sum())
 
 
 def print_ptxas(phase, log):
@@ -1185,6 +1214,8 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     differentiates)."""
     import torch.nn.functional as F
 
+    from repro_torch.launch.roofline import flash_work
+
     dev = gen.device
     dt = getattr(torch, dtype)
     kw = dict(causal=True, window=window, logit_softcap=cap)
@@ -1240,13 +1271,9 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
         sdpa_ms.update(dq=lib_b, dkdv=lib_b)
     note = "" if same else (" (causal only: SDPA has no window and no "
                             "softcap, so not the same function)")
-    pairs = bh * _attention_pairs(t, window)
-    flops = {"fwd": 4 * pairs * d, "dq": 6 * pairs * d,
-             "dkdv": 8 * pairs * d}
-    row, mat = bh * t * 4, bh * t * d * q.element_size()
-    nbytes = {"fwd": 3 * mat + mat + row,                # q,k,v -> o, lse
-              "dq": 5 * mat + row + mat + row,           # +o,do,lse -> dq,delta
-              "dkdv": 4 * mat + 2 * row + 2 * mat}       # -> dk, dv
+    work = flash_work(bh, t, d, window, q.element_size())
+    flops = {kk: f for kk, (f, _) in work.items()}
+    nbytes = {kk: n for kk, (_, n) in work.items()}
     bound = {kk: max(nbytes[kk] / bw, flops[kk] / peak) * 1e3 for kk in ms}
     by = {kk: "operations" if flops[kk] / peak > nbytes[kk] / bw
           else "bytes" for kk in ms}
@@ -1953,6 +1980,8 @@ def fig3_shape_timing(torch, masked, ref, gen):
     plain_ms = time_ms(lambda: ref.fused_masked_agg_ref(*two))
     w = mask.float()[:, None, :]
     library_ms = time_ms(lambda: torch.bmm(w, x))
+    from repro_torch.launch.roofline import peak_rates
+
     bw, flops, _ = peak_rates(torch.cuda.get_device_name(0))
     nbytes, nops = agg_work(x, mask, op)
     bound_ms = max(nbytes / bw, nops / flops) * 1e3
@@ -4346,6 +4375,320 @@ def phase17_train_zoo(torch, fa, masked, ref, train, card, bw, bf16_peak,
     return res
 
 
+def _timed_checkpoints(torch, log):
+    """Wrap ``repro_torch.checkpointing``'s ``save`` and ``restore`` (the
+    launcher imports them from there at each call) to append ``(what,
+    seconds, bytes)`` to ``log``; returns a function that undoes it."""
+    import repro_torch.checkpointing as ck
+
+    save, restore = ck.save, ck.restore
+
+    def timed_save(path, step, tree):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fname = save(path, step, tree)
+        log.append(("save", time.perf_counter() - t0,
+                    os.path.getsize(fname)))
+        return fname
+
+    def timed_restore(path, step, template):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = restore(path, step, template)
+        torch.cuda.synchronize()
+        log.append(("restore", time.perf_counter() - t0, os.path.getsize(
+            os.path.join(path, f"ckpt_{step:08d}.npz"))))
+        return out
+
+    ck.save, ck.restore = timed_save, timed_restore
+
+    def undo():
+        ck.save, ck.restore = save, restore
+    return undo
+
+
+def _state_distance(torch, a, b):
+    """The largest |a - b| over the server, clients and optimizer state
+    (every group), and whether all of them are equal bit for bit."""
+    from repro_torch.core.params import Groups
+
+    def parts(out):
+        st = out["state"]
+        xs = [st.server, st.clients] + [st.opt_state[k]
+                                        for k in sorted(st.opt_state)]
+        return [y for x in xs for y in (x if isinstance(x, Groups) else
+                                        (x,))]
+
+    pa, pb = parts(a), parts(b)
+    equal = all(torch.equal(x, y) for x, y in zip(pa, pb))
+    dist = max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(pa, pb))
+    return dist, equal and a["losses"][-len(b["losses"]):] == b["losses"]
+
+
+def _nondeterministic_ops(torch, run):
+    """The ops that torch reports as nondeterministic while ``run()`` runs
+    (its alerts under ``use_deterministic_algorithms(True,
+    warn_only=True)``), each named once."""
+    import warnings
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return sorted({str(w.message).split(" does not have")[0][:120]
+                   for w in caught if "determinis" in str(w.message)})
+
+
+def _resume(torch, fa, masked, train, args, label, want_flash, t):
+    """A: ``t["rounds"]`` rounds; B: half of them saved to a checkpoint
+    directory; C: all of them from B's directory. Returns C against A:
+    bitwise, or within the distance of a second uninterrupted run (then
+    the card is nondeterministic somewhere); checkpoint bytes and the
+    seconds of each save and restore; C's launches."""
+    import tempfile
+
+    counters = [getattr(fa, n) for n in FLASH_NAMES] + [
+        masked.fused_masked_agg]
+    rounds, half = t["rounds"], t["rounds"] // 2
+    log = []
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    os.environ["REPRO_USE_KERNEL"] = "1"
+    undo = _timed_checkpoints(torch, log)
+    try:
+        a, a_s, _, _ = _counted(torch, counters, lambda: train.main(
+            args + ["--rounds", str(rounds)]))
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as d:
+            ck = ["--ckpt-dir", d, "--ckpt-every", str(half)]
+            _, b_s, _, _ = _counted(torch, counters, lambda: train.main(
+                args + ["--rounds", str(half)] + ck))
+            c, c_s, launches, peak = _counted(
+                torch, counters, lambda: train.main(
+                    args + ["--rounds", str(rounds)] + ck))
+        dist, bitwise = _state_distance(torch, a, c)
+        a2_dist, ops = None, None
+        if not bitwise:
+            a2 = train.main(args + ["--rounds", str(rounds)])
+            a2_dist, same = _state_distance(torch, a, a2)
+            if same:
+                fail(f"{label}: the resumed run differs from the "
+                     f"uninterrupted one (max |d| {dist:.3e}) while two "
+                     "uninterrupted runs agree bit for bit: a checkpoint "
+                     "fault")
+            ops = _nondeterministic_ops(torch, lambda: train.main(
+                args + ["--rounds", str(rounds)]))
+            if dist > a2_dist:
+                fail(f"{label}: resumed vs uninterrupted {dist:.3e}, over "
+                     f"the {a2_dist:.3e} between two uninterrupted runs")
+    finally:
+        undo()
+        os.environ.pop("REPRO_USE_KERNEL", None)
+    want = [want_flash] * 3 + [half * (2 if isinstance(
+        c["state"].server, tuple) else 1)]
+    saves = [x for x in log if x[0] == "save"]
+    restores = [x for x in log if x[0] == "restore"]
+    print(f"{label}: A {rounds} rounds {a_s:.2f} s, B {half} rounds + save "
+          f"{b_s:.2f} s, C restore + {rounds - half} rounds + save "
+          f"{c_s:.2f} s; C vs A " + ("bit for bit" if bitwise else
+          f"max |d| {dist:.3e} within two uninterrupted runs' {a2_dist:.3e}"
+          f" (nondeterministic card path; torch names {ops or 'no op'}, "
+          "and the hand-written kernels are not on its list: log the op "
+          "in ROADMAP Queue 3)") + f"; checkpoint "
+          f"{saves[0][2]:,} bytes, saves "
+          f"{[round(x[1], 3) for x in saves]} s, restore "
+          f"{[round(x[1], 3) for x in restores]} s; C launches flash "
+          f"fwd/dq/dkdv {launches[:3]}, aggregation {launches[3]} (want "
+          f"{want}); C's peak {peak / 2 ** 30:.2f} GiB; losses A "
+          f"{[round(x, 4) for x in a['losses']]} C "
+          f"{[round(x, 4) for x in c['losses']]}", flush=True)
+    if launches != want or len(restores) != 1:
+        fail(f"{label}: C launched {launches}, expected {want}, restored "
+             f"{len(restores)} times")
+    return c, dict(bitwise=bitwise, max_abs_diff=dist,
+                   uninterrupted_diff=a2_dist, nondeterministic_ops=ops,
+                   ckpt_bytes=saves[0][2],
+                   save_s=[x[1] for x in saves],
+                   restore_s=[x[1] for x in restores],
+                   seconds={"A": a_s, "B": b_s, "C": c_s},
+                   launches=launches, peak_gib=peak / 2 ** 30)
+
+
+def phase18_ops(torch, masked, fa, ref):
+    """The ops wrappers on the card against their plain versions:
+    ``masked_agg_pytree`` over a SmolLM-shaped dict of fp32 leaves of
+    ``LM_CLIENTS`` clients (3 active with ``prev``: the reference's
+    ``:109``; without: ``:96``; none active with ``prev``: ``prev``
+    exactly), one launch a leaf; ``gqa_flash_attention`` at
+    ``GQA_SHAPE`` in bf16 within ``FLASH_TOL``, one forward launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import param_layout
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    m = LM_CLIENTS
+    leaves = param_layout(get_config("smollm-135m")).leaves
+    tree = {n: torch.randn((m,) + tuple(s), generator=gen, device=dev)
+            for n, s in leaves}
+    prev = {n: torch.randn(tuple(s), generator=gen, device=dev)
+            for n, s in leaves}
+    three = torch.arange(m, device=dev) < 3
+    none = torch.zeros(m, dtype=torch.bool, device=dev)
+    launches, err = {}, {}
+    for case, mask, pv in ((":109 (prev), 3 active", three, prev),
+                           (":96 (no prev), 3 active", three, None),
+                           (":109 (prev), none active", none, prev)):
+        masked.fused_masked_agg.launches = 0
+        got = ops.masked_agg_pytree(tree, mask, pv)
+        torch.cuda.synchronize()
+        launches[case] = masked.fused_masked_agg.launches
+        e = 0.0
+        for n in tree:
+            want = ref.masked_agg_ref(tree[n].reshape(m, -1), mask,
+                                      None if pv is None else
+                                      pv[n].reshape(-1)).reshape(
+                                          got[n].shape)
+            e = max(e, (got[n] - want).abs().max().item())
+            ok = (torch.equal(got[n], pv[n]) if mask is none else
+                  torch.allclose(got[n], want, rtol=FP32_TOL, atol=FP32_TOL))
+            if not ok:
+                fail(f"masked_agg_pytree {case}: leaf {n} disagrees with "
+                     f"the plain version")
+        err[case] = e
+        if launches[case] != len(leaves):
+            fail(f"masked_agg_pytree {case} launched {launches[case]} "
+                 f"times for {len(leaves)} leaves")
+    del tree, prev
+    b, t, h, d, kv = GQA_SHAPE
+    q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, t, kv, d, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    fa.flash_attention_fwd.launches = 0
+    got = ops.gqa_flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    gqa_launches = fa.flash_attention_fwd.launches
+    rep = h // kv
+    want = ref.flash_attention_ref(
+        q.float().transpose(1, 2),
+        k.float().transpose(1, 2).repeat_interleave(rep, 1),
+        v.float().transpose(1, 2).repeat_interleave(rep, 1)).transpose(1, 2)
+    atol, rtol = FLASH_TOL["bfloat16"]
+    gqa_err = (got.float() - want).abs().max().item()
+    print(f"phase18c masked_agg_pytree over {len(leaves)} SmolLM leaves of "
+          f"{m} clients (fp32): max |err| " + ", ".join(
+              f"{c} {x:.3e}" for c, x in err.items())
+          + f" (tol {FP32_TOL:g}; none active: prev exactly); launches "
+          f"{launches}; gqa_flash_attention {list(GQA_SHAPE)} bf16: max "
+          f"|err| {gqa_err:.3e} (atol {atol:g} rtol {rtol:g}), flash fwd "
+          f"launches {gqa_launches}", flush=True)
+    if gqa_launches != 1 or not torch.allclose(got.float(), want,
+                                               rtol=rtol, atol=atol):
+        fail("gqa_flash_attention disagrees with its plain version or "
+             f"launched {gqa_launches} forward kernels")
+    return dict(masked_agg_pytree_launches=launches,
+                masked_agg_pytree_max_abs_err=err, gqa_launches=gqa_launches,
+                gqa_max_abs_err=gqa_err)
+
+
+def _dense_flops(cfg, b, t):
+    """``(weights, attention)``: the matmul FLOPs of one dense forward on
+    ``[b, T]`` outside attention (every stacked weight once per token, the
+    tied head), and ``b * H * pairs * D * L`` for the causal mask's ``T (T +
+    1) / 2`` pairs, of which the flash forward takes 4 and its backward 14
+    (``dq`` 6, ``dkdv`` 8)."""
+    from repro_torch.models.model import param_layout
+
+    weights = sum(math.prod(s) for _, s in param_layout(cfg).leaves
+                  if len(s) == 3)
+    attn = (b * cfg.attention.num_heads * (t * (t + 1) // 2)
+            * cfg.head_dim * cfg.num_layers)
+    return 2 * b * t * (weights + cfg.d_model * cfg.vocab_size), attn
+
+
+def phase18_launch(torch, fa, masked, ref, train, card, lm, bf16_peak):
+    """Launch and checkpointing (the module docstring's phase 18)."""
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import model_flops_for
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    res = {}
+    t = CKPT_LM
+    args = ["--full", "--arch", "smollm-135m", "--clients",
+            str(t["clients"]), "--local-steps", str(t["steps"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--log-every", "1"]
+    half = t["rounds"] // 2
+    _, res["smollm"] = _resume(torch, fa, masked, train, args,
+                               "phase18a smollm-135m full (30 layers, bf16)",
+                               half * t["steps"] * LM_LAYERS, t)
+    t = CKPT_GROUPS
+    arch = "jamba-1.5-large-398b"
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="bfloat16")
+    per_fwd, _ = _flash_launches(model, cfg)
+    args = ["--arch", arch, "--clients", str(t["clients"]),
+            "--local-steps", str(t["steps"]), "--batch", str(t["batch"]),
+            "--seq", str(t["seq"]), "--log-every", "1", "--dtype",
+            "bfloat16"]
+    c, res["jamba_groups"] = _resume(
+        torch, fa, masked, train, args,
+        f"phase18b {arch} reduced bf16 (two groups)",
+        t["rounds"] // 2 * t["steps"] * per_fwd, t)
+    n_fp32 = _fp32_moved(torch, model.param_layout(cfg), c, "phase18b")
+    res["jamba_groups"]["fp32_leaves"] = n_fp32
+    res["ops"] = phase18_ops(torch, masked, fa, ref)
+    # (d) the share of the bf16 peak that phase 5's steady round reaches
+    shape = ShapeConfig("phase5", LM_SEQ,
+                        LM_CLIENTS * LM_STEPS * lm["batch"], "train")
+    smollm = get_config("smollm-135m")
+    per_round = model_flops_for(smollm, shape, mode="train")
+    mfu = lm["steady_rounds_per_s"] * per_round / bf16_peak
+    print(f"phase18d model FLOPs utilisation of phase 5's steady rounds: "
+          f"{lm['steady_rounds_per_s']:.4f} rounds/s x {per_round:.4e} "
+          f"model FLOPs a round (6 N m s b T) / {bf16_peak:.4g} bf16 "
+          f"FLOP/s = {mfu:.4f} on {card}", flush=True)
+    res["mfu"] = dict(value=mfu, model_flops_per_round=per_round,
+                      steady_rounds_per_s=lm["steady_rounds_per_s"])
+    # (e) the dry run on meta
+    row = dryrun.lower_pair("smollm-135m", "train_4k", verbose=False)
+    print("phase18e dry run " + json.dumps(
+        {k: v for k, v in row.items() if k != "trace"}), flush=True)
+    if row["status"] != "ok":
+        fail(f"the dry run of smollm-135m x train_4k failed: {row}")
+    t0 = time.perf_counter()
+    counted = dryrun.count_step(
+        smollm, ShapeConfig("phase5", LM_SEQ, LM_CLIENTS * lm["batch"],
+                            "train"),
+        num_clients=LM_CLIENTS, local_steps=LM_STEPS)["flops"]
+    dense, attn = _dense_flops(smollm, lm["batch"], LM_SEQ)
+    head = 2 * lm["batch"] * LM_SEQ * smollm.d_model * smollm.vocab_size
+    analytic = LM_CLIENTS * LM_STEPS * (3 * dense + head + 18 * attn)
+    rel = abs(counted - analytic) / analytic
+    print(f"phase18e phase 5's round on meta (m={LM_CLIENTS}, s={LM_STEPS}, "
+          f"b={lm['batch']}, T={LM_SEQ}): counted {counted:.6e} FLOPs, "
+          f"analytic {analytic:.6e} (relative {rel:.3e}, limit "
+          f"{DRYRUN_TOL:g}); its model FLOPs {per_round:.6e} are "
+          f"{per_round / counted:.4f} of it; {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    if rel > DRYRUN_TOL:
+        fail("the dry run's counted FLOPs miss the analytic count")
+    res["dryrun"] = dict(row={k: v for k, v in row.items() if k != "trace"},
+                         phase5_counted=counted, phase5_analytic=analytic)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase18 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE18_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE18_LIMIT_S:
+        fail(f"phase 18 took {res['seconds']:.1f} s, over its "
+             f"{PHASE18_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4374,6 +4717,7 @@ def main():
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_chunk as rk
     from repro_torch.launch import train
+    from repro_torch.launch.roofline import peak_rates
 
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -4408,6 +4752,8 @@ def main():
     mem_zoo = phase16_zoo(torch, fa, ref, card, bw, bf16_peak, fp32_peak)
     train_zoo = phase17_train_zoo(torch, fa, masked, ref, train, card, bw,
                                   bf16_peak, fp32_peak)
+    launch = phase18_launch(torch, fa, masked, ref, train, card, lm,
+                            bf16_peak)
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
           f"s)", flush=True)
@@ -4445,7 +4791,12 @@ def main():
               "lm_sweep_shapes": lm_sweep["kernels"]["fused_masked_agg"],
               "train_zoo_launches": train_zoo["seamless-m4t-medium"][
                   "agg_launches"],
-              "train_zoo_shapes": train_zoo["kernels"]["agg"]}
+              "train_zoo_shapes": train_zoo["kernels"]["agg"],
+              "ckpt_resume_launches": {
+                  k: launch[k]["launches"][3]
+                  for k in ("smollm", "jamba_groups")},
+              "masked_agg_pytree_launches": launch["ops"][
+                  "masked_agg_pytree_launches"]}
     kernels = [kernel]
     source = "src/repro_torch/kernels/csrc/flash_attention.cu"
     replaces = "src/repro/kernels/flash_attention.py:76 (flash_attention -> _kernel"
@@ -4489,6 +4840,10 @@ def main():
             train_zoo["seamless-m4t-medium"]["flash_launches"][name]
         kernels[1 + i]["train_zoo_shapes"] = {
             sh: v[key] for sh, v in train_zoo["kernels"]["flash"].items()}
+    for i in range(3):
+        kernels[1 + i]["ckpt_resume_launches"] = {
+            k: launch[k]["launches"][i] for k in ("smollm", "jamba_groups")}
+    kernels[1]["gqa_launches"] = launch["ops"]["gqa_launches"]
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err
@@ -4520,6 +4875,7 @@ def main():
     print(json.dumps({"lm_sweep": {k2: v for k2, v in lm_sweep.items()
                                    if k2 != "kernels"}}), flush=True)
     print(json.dumps({"serve": dense}), flush=True)
+    print(json.dumps({"launch": launch}), flush=True)
     print(json.dumps({"zoo": {
         "gemma2-9b": gemma, "moe": moe,
         "memory_families": {k: v for k, v in mem_zoo.items()

@@ -212,6 +212,23 @@ class GeneratorDraws:
                 for g in self.bundles])
         return RoundDraws(u, pick, cohort)
 
+    # -- checkpoints -----------------------------------------------------------
+
+    def state(self) -> Dict[str, Any]:
+        """What a checkpoint holds of this drawer: each bundle's generators
+        (``repro_torch.checkpointing`` stores their ``get_state()``), tag
+        and draws made."""
+        return {"bundles": self.bundles, "tags": list(self.tags),
+                "made": list(self.made)}
+
+    def restored(self, state: Dict[str, Any]) -> "GeneratorDraws":
+        """A drawer of this one's rows and round shape at ``state`` (as
+        :meth:`state` gave it, its generators restored)."""
+        return GeneratorDraws(state["bundles"], self.rows, num_clients=self.m,
+                              pick_spec=self.pick_spec,
+                              cohort_size=self.cohort_size,
+                              tags=state["tags"], made=state["made"])
+
     # -- re-packing (the adaptive search) -----------------------------------
 
     def _key(self, i: int):

@@ -4,6 +4,7 @@ from repro_torch.data.sources import (
     classification_source,
     fixed_source,
     lm_source,
+    memory_shape,
     traced_classification_source,
 )
 from repro_torch.data.synthetic import make_classification_data
@@ -15,5 +16,6 @@ __all__ = [
     "classification_source",
     "fixed_source",
     "lm_source",
+    "memory_shape",
     "traced_classification_source",
 ]

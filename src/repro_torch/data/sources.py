@@ -142,6 +142,17 @@ def traced_lm_source(shared, *, local_steps: int, batch_size: int,
                       sample_cohort=sample_cohort)
 
 
+def memory_shape(cfg, batch: int) -> Optional[Tuple[int, int, int]]:
+    """``(batch, M, d_model)`` of the memory the reference's launchers give
+    a vlm (its ``num_image_tokens``) or an audio model (its
+    ``num_audio_frames``), else ``None`` (the LM families have none)."""
+    if cfg.family == "vlm":
+        return (batch, cfg.num_image_tokens, cfg.d_model)
+    if cfg.family == "audio":
+        return (batch, cfg.num_audio_frames, cfg.d_model)
+    return None
+
+
 def lm_source(*, num_clients: int, local_steps: int, batch: int, seq: int,
               vocab: int, client_shift: bool = True,
               memory_shape: Optional[Tuple[int, ...]] = None) -> DataSource:

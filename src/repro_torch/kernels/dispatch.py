@@ -32,9 +32,9 @@ import torch
 
 from repro_torch.kernels.ref import OP_ALL, OP_KNOWN_P, OP_MEAN
 
-__all__ = ["BACKENDS", "FUSED_OPS", "attention", "fused_agg",
-           "resolve_backend", "resolve_use_kernel", "use_kernel_default",
-           "wkv6"]
+__all__ = ["BACKENDS", "FUSED_OPS", "attention", "flash_shape_ok",
+           "fused_agg", "resolve_backend", "resolve_use_kernel",
+           "use_kernel_default", "wkv6"]
 
 BACKENDS = ("kernel", "torch")
 
@@ -98,6 +98,14 @@ def fused_agg(x: torch.Tensor, mask: torch.Tensor, op: torch.Tensor,
     return fused_masked_agg(x, mask, op, prev, p)
 
 
+def flash_shape_ok(kind: str, tq: int, tk: int, q_offset: int) -> bool:
+    """Whether the flash kernels cover an attention call: self-attention
+    (``tq == tk``, ``q_offset == 0``), ``kind`` full or swa, and ``tq %
+    min(128, tq) == 0``."""
+    return (kind in ("full", "swa") and q_offset == 0 and tq == tk
+            and tq % min(128, tq) == 0)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               kind: str = "full", window: int = 4096,
               logit_softcap: float = 0.0, chunk: int = 1024,
@@ -107,9 +115,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layout (``repro_torch.models.attention.attention``'s signature; that
     entry routes here).
 
-    The kernel covers the reference's kernel shapes: self-attention
-    (``Tq == Tk``, ``q_offset == 0``), ``kind`` full or swa, and
-    ``T % min(128, T) == 0``. Every other shape (block-local "chunked"
+    The kernel covers the reference's kernel shapes
+    (:func:`flash_shape_ok`). Every other shape (block-local "chunked"
     masks, decode/prefill offsets, ragged lengths) takes the plain chunked
     version on any device, as in the reference; so do CPU tensors.
     ``backend``: ``None`` follows the tensor (:func:`resolve_backend`);
@@ -124,15 +131,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from repro_torch.models import attention as ref
 
     backend = _backend(backend, q, "attention")
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    kernel_ok = (kind in ("full", "swa") and q_offset == 0 and tq == tk
-                 and tq % min(128, tq) == 0)
-    if not kernel_ok or backend == "torch":
+    if not flash_shape_ok(kind, q.shape[1], k.shape[1], q_offset) \
+            or backend == "torch":
         return ref.attention_ref(q, k, v, kind=kind, window=window,
                                  logit_softcap=logit_softcap, chunk=chunk,
                                  q_offset=q_offset)
-    n_rep = h // k.shape[2]
+    n_rep = q.shape[2] // k.shape[2]
     kr = ref.repeat_kv(k, n_rep).transpose(1, 2)
     vr = ref.repeat_kv(v, n_rep).transpose(1, 2)
     out = fa.flash_attention(q.transpose(1, 2), kr, vr, causal=True,

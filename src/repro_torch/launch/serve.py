@@ -78,6 +78,7 @@ def main(argv: Optional[List[str]] = None, *, device=None, prompts=None,
     args = parse_args(argv)
 
     from repro_torch.configs import get_config, reduced
+    from repro_torch.data import memory_shape
     from repro_torch.device import resolve_device, set_fp32_matmul_precision
     from repro_torch.models.model import decode_step, init_leaves, make_cache
 
@@ -102,11 +103,9 @@ def main(argv: Optional[List[str]] = None, *, device=None, prompts=None,
     if tuple(prompts.shape) != (args.batch, args.prompt_len):
         raise ValueError(f"prompts {tuple(prompts.shape)}, expected "
                          f"{(args.batch, args.prompt_len)}")
-    if memory is None and cfg.family in ("vlm", "audio"):
-        m = (cfg.num_image_tokens if cfg.family == "vlm"
-             else cfg.num_audio_frames)
-        memory = torch.full((args.batch, m, cfg.d_model), 0.1,
-                            dtype=torch.float32)
+    shape = memory_shape(cfg, args.batch)
+    if memory is None and shape is not None:
+        memory = torch.full(shape, 0.1, dtype=torch.float32)
     if memory is not None:
         memory = torch.as_tensor(memory).to(dev)
     kept = []

@@ -26,6 +26,13 @@ memory path in fp32. A bf16 model with fp32 leaves (the MoE router, the
 Mamba leaves, the cross gate) trains in two parameter groups
 (``repro_torch.core.params.Groups``), its fp32 leaves never rounded.
 
+Checkpoints (``--ckpt-dir``, every ``--ckpt-every`` rounds, as in the
+reference): each holds ``(FedState, ds_state, drawer)``, the drawer's
+generator states and draw counts included, so a rerun with the same
+arguments restores the latest one into the freshly built state and goes on
+with the trajectory of one uninterrupted run, bit for bit. Log and
+checkpoint boundaries end the chunks of rounds run between log lines.
+
 Kernels on this path: attention runs the CUDA flash kernel, forward and
 backward, for CUDA tensors (``main(..., backend="torch")`` runs
 the plain chunked version instead, to compare the two paths);
@@ -76,18 +83,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None, *,
          backend: Optional[str] = None) -> Dict:
     """Run the launcher; returns ``{"losses", "round_seconds",
-    "log_rounds", "initial", "state"}``: every round's mean client loss,
+    "log_rounds", "initial", "state"}``: the mean client loss of every
+    round this call ran (after a restore, the rounds past the checkpoint),
     the wall clock at each log line (after the rounds up to
     ``log_rounds[i]``), a copy of the initial server params (``Groups``
-    for a model in two parameter groups) and the final ``FedState``. ``backend``: ``None`` (the kernel on the card)
-    or ``"torch"`` (the plain attention), see
-    ``repro_torch.kernels.dispatch.attention``."""
+    for a model in two parameter groups) and the final ``FedState``.
+    ``backend``: ``None`` (the kernel on the card) or ``"torch"`` (the
+    plain attention), see ``repro_torch.kernels.dispatch.attention``."""
     args = parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP Queue 1 item 8: "
-            "launch and checkpointing)")
 
+    from repro_torch.checkpointing import latest_step, restore, save
     from repro_torch.configs import FederationConfig, get_config, reduced
     from repro_torch.core import (
         GeneratorDraws,
@@ -98,7 +103,7 @@ def main(argv: Optional[List[str]] = None, *,
         make_link_process,
         make_run_rounds,
     )
-    from repro_torch.data import lm_source
+    from repro_torch.data import lm_source, memory_shape
     from repro_torch.device import resolve_device
     from repro_torch.experiments.sweep import seed_generators
     from repro_torch.kernels.dispatch import resolve_use_kernel
@@ -130,15 +135,9 @@ def main(argv: Optional[List[str]] = None, *,
     algo = make_algorithm_spec((fed.algorithm,), fed)
     link = make_link_process(torch.as_tensor(p, device=dev)[None], fed)
     opt = sgd(paper_decay(args.lr))
-    if cfg.family == "vlm":
-        memory_shape = (args.batch, cfg.num_image_tokens, cfg.d_model)
-    elif cfg.family == "audio":
-        memory_shape = (args.batch, cfg.num_audio_frames, cfg.d_model)
-    else:
-        memory_shape = None
     source = lm_source(num_clients=m, local_steps=args.local_steps,
                        batch=args.batch, seq=args.seq, vocab=cfg.vocab_size,
-                       memory_shape=memory_shape)
+                       memory_shape=memory_shape(cfg, args.batch))
     run_rounds = make_run_rounds(make_loss(cfg, backend), opt,
                                  algo, link, fed, source,
                                  use_kernel=resolve_use_kernel(),
@@ -150,11 +149,34 @@ def main(argv: Optional[List[str]] = None, *,
     st = init_fed_state(draws.link_init(), server, fed, algo, link, opt)
     ds_state = source.init(draws.source_init(source.init_high))
 
+    if args.ckpt_dir:
+        last = latest_step(args.ckpt_dir)
+        if last is not None:
+            try:
+                st, ds_state, drawn = restore(args.ckpt_dir, last,
+                                              (st, ds_state, draws.state()))
+            except (KeyError, ValueError) as e:
+                raise SystemExit(
+                    f"checkpoint {args.ckpt_dir}/ckpt_{last:08d}.npz does "
+                    "not match the current (FedState, ds_state, drawer) "
+                    "layout — likely a different --arch/--clients setting. "
+                    f"Delete or move --ckpt-dir to start fresh. ({e})")
+            draws = draws.restored(drawn)
+            print(f"restored round {int(st.round)} from {args.ckpt_dir}",
+                  flush=True)
+
+    def next_boundary(t: int) -> int:
+        """Next log or checkpoint boundary after round t (a chunk's end)."""
+        nxt = min(t - t % args.log_every + args.log_every, args.rounds)
+        if args.ckpt_dir:
+            nxt = min(nxt, t - t % args.ckpt_every + args.ckpt_every)
+        return nxt
+
     losses, stamps, log_rounds = [], [], []
     t0 = time.time()
-    t = 0
+    start_round = t = int(st.round)
     while t < args.rounds:
-        chunk = min(t - t % args.log_every + args.log_every, args.rounds) - t
+        chunk = next_boundary(t) - t
         st, ds_state, mets = run_rounds(st, ds_state, draws, chunk)
         t += chunk
         losses += mets["loss"][0].tolist()
@@ -166,8 +188,10 @@ def main(argv: Optional[List[str]] = None, *,
               f"mean_staleness "
               f"{float(mets['staleness'][0, -1].mean()):.1f} "
               f"({stamps[-1]:.1f}s)", flush=True)
-    print(f"done: {args.rounds} rounds in {time.time() - t0:.1f}s",
-          flush=True)
+        if args.ckpt_dir and t % args.ckpt_every == 0:
+            save(args.ckpt_dir, t, (st, ds_state, draws.state()))
+    print(f"done: {args.rounds - start_round} rounds in "
+          f"{time.time() - t0:.1f}s", flush=True)
     return {"losses": losses, "round_seconds": stamps,
             "log_rounds": log_rounds, "initial": initial, "state": st}
 

@@ -688,3 +688,76 @@ def test_zoo_training_on_the_card_matches_the_plain_path(cuda, arch,
     assert layout.fp32 and all(views[k].dtype == torch.float32
                                for k in layout.fp32)
     assert all(torch.isfinite(x).all() for x in out["state"].clients)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launcher_resume_through_the_kernels_is_bitwise(cuda, tmp_path,
+                                                        monkeypatch, dtype):
+    """``launch/train.py`` on the card through the flash kernels and the
+    fused aggregation: 2 rounds saved and 2 more resumed from
+    ``--ckpt-dir`` equal 4 uninterrupted rounds bit for bit (losses,
+    server, clients, optimizer state), and the resumed call launches each
+    flash kernel once per layer and local step of its own rounds only."""
+    from repro_torch.launch import train
+
+    monkeypatch.setenv("REPRO_USE_KERNEL", "1")
+    base = ["--clients", "2", "--seq", "64", "--log-every", "2",
+            "--ckpt-every", "2", "--dtype", dtype]
+    a = train.main(base + ["--rounds", "4"])
+    d = str(tmp_path)
+    train.main(base + ["--rounds", "2", "--ckpt-dir", d])
+    tflash.flash_attention_fwd.launches = 0
+    tmasked.fused_masked_agg.launches = 0
+    c = train.main(base + ["--rounds", "4", "--ckpt-dir", d])
+    assert tflash.flash_attention_fwd.launches == 2 * 2 * 2
+    assert tmasked.fused_masked_agg.launches == 2
+    assert c["losses"] == a["losses"][2:]
+    for f in ("server", "clients"):
+        assert torch.equal(getattr(a["state"], f), getattr(c["state"], f))
+    for k in a["state"].opt_state:
+        assert torch.equal(a["state"].opt_state[k], c["state"].opt_state[k])
+
+
+@pytest.mark.gpu
+def test_ops_wrappers_on_the_card_match_their_plain_versions(cuda):
+    """``kernels/ops.py`` on CUDA tensors launches the kernels and agrees
+    with the same wrappers on CPU tensors (the plain versions):
+    ``masked_agg_pytree`` within fp32 1e-5, a round with none active
+    returning ``prev`` exactly, one launch per leaf; ``gqa_flash_attention``
+    within the flash tolerances, one forward launch."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(18)
+    m = 8
+    tree = {"embed": torch.randn(m, 64, 16, generator=gen),
+            "blocks": {"wq": torch.randn(m, 2, 16, 16, generator=gen)}}
+    prev = {"embed": torch.randn(64, 16, generator=gen),
+            "blocks": {"wq": torch.randn(2, 16, 16, generator=gen)}}
+
+    def to(t):
+        return {k: to(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in t.items()}
+
+    for active in (torch.arange(m) < 3, torch.zeros(m, dtype=torch.bool)):
+        tmasked.fused_masked_agg.launches = 0
+        got = ops.masked_agg_pytree(to(tree), active.to(cuda), to(prev))
+        assert tmasked.fused_masked_agg.launches == 2
+        want = ops.masked_agg_pytree(tree, active, prev)
+        for g, w in ((got["embed"], want["embed"]),
+                     (got["blocks"]["wq"], want["blocks"]["wq"])):
+            if active.any():
+                torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(g.cpu(), w)
+    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, None)):
+        q = torch.randn(2, 256, 9, 64, generator=gen).to(dtype)
+        k = torch.randn(2, 256, 3, 64, generator=gen).to(dtype)
+        v = torch.randn(2, 256, 3, 64, generator=gen).to(dtype)
+        tflash.flash_attention_fwd.launches = 0
+        got = ops.gqa_flash_attention(q.to(cuda), k.to(cuda), v.to(cuda))
+        assert tflash.flash_attention_fwd.launches == 1
+        want = ops.gqa_flash_attention(q, k, v)
+        rtol, atol = (tol, tol) if tol else (3e-2, 1e-2)
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   rtol=rtol, atol=atol)

@@ -31,6 +31,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     assert {"repro_torch.experiments.search",
             "repro_torch.paper.asha"} <= set(mods)
     assert "repro_torch.models.ssm" in mods
+    assert {"repro_torch.checkpointing",
+            "repro_torch.checkpointing.checkpoint", "repro_torch.kernels.ops",
+            "repro_torch.launch.roofline", "repro_torch.launch.steps",
+            "repro_torch.launch.dryrun"} <= set(mods)
     # the LM sweep task and dense decode
     names = {"repro_torch.data.sources": ["traced_lm_source"],
              "repro_torch.experiments.tasks": ["LMTask",
@@ -63,7 +67,18 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
              "repro_torch.configs.seamless_m4t_medium": ["CONFIG"],
              # parameter groups: the zoo's training
              "repro_torch.core.params": ["Groups", "gmap", "first"],
-             "repro_torch.core.federated": ["one_group"]}
+             "repro_torch.core.federated": ["one_group"],
+             # launch and checkpointing
+             "repro_torch.checkpointing": ["save", "restore", "latest_step"],
+             "repro_torch.kernels.ops": ["masked_agg_pytree",
+                                         "gqa_flash_attention"],
+             "repro_torch.launch.roofline": ["Roofline", "model_flops_for",
+                                             "peak_rates"],
+             "repro_torch.launch.steps": ["make_train_step",
+                                          "make_prefill_step",
+                                          "make_serve_step",
+                                          "train_input_specs"],
+             "repro_torch.launch.dryrun": ["count_step", "lower_pair"]}
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

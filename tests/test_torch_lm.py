@@ -13,6 +13,7 @@ Tolerances, each with its reason:
   without re-syncing: 1e-4 (the same, compounded).
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -328,16 +329,18 @@ def test_engine_three_rounds_without_resync_match_reference():
 # ---------------------------------------------------------------------------
 
 
-def test_train_launcher_runs_on_cpu_and_raises_without_cuda(monkeypatch):
+def test_train_launcher_runs_on_cpu_and_raises_without_cuda(monkeypatch,
+                                                            tmp_path):
     monkeypatch.setenv("REPRO_USE_KERNEL", "1")
     out = train.main(["--device", "cpu", "--rounds", "3", "--log-every",
-                      "2", "--seq", "16", "--clients", "3"])
+                      "2", "--seq", "16", "--clients", "3", "--ckpt-dir",
+                      str(tmp_path), "--ckpt-every", "2"])
     assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+    # log and checkpoint boundaries end the chunks; round 2 is saved
     assert out["log_rounds"] == [2, 3]
+    assert os.listdir(tmp_path) == ["ckpt_00000002.npz"]
     assert out["state"].server.dtype == torch.float32
     assert out["state"].round == 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train.main(["--device", "cpu", "--ckpt-dir", "ckpt"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--rounds", "1"])
