@@ -350,7 +350,36 @@ causal pairs: 4 flops a pair and head dim forward, 14 backward). Phase 18
 is held
 to ``PHASE18_LIMIT_S``.
 
-Both CUDA sources are built at the start, one ``nvcc`` each, started
+Phase 19, RWKV6 training. (a) The WKV6 backward (``csrc/rwkv6_chunk_bwd.cu``:
+``wkv6_bwd_state`` then ``wkv6_bwd_chunk``, from the chunked forward's
+chunk-start states) through ``rwkv6_chunk_autograd``: its ptxas report
+(registers, spills: a spill fails the phase), all six gradients (dr, dk,
+dv, dw, du, ds0) for the output's and the final state's gradients against
+the autograd of the plain chunked version (and of the step scan up to T =
+128) at ``WKV_BWD_SHAPES`` (the prefill shape, strong decay over 4096
+steps, ragged T, D = 128) and two models of 40 heads folded into the head
+axis with a bonus each, within ``WKV_BWD_TOL`` (each gradient scaled by its
+largest magnitude, dlog w as it is) and finite; its time at ``[4, 40, 4096,
+64]`` (CUDA-graph replays) beside the chunked forward's, the plain
+version's autograd backward (CUDA events) and its bound
+(``roofline.wkv6_work``: the function's bytes, or its step recurrence's
+flops at the fp32 peak). (b) ``reduced()`` rwkv6 through
+``launch/train.py`` (``RWKV_TRAIN_REDUCED``), the kernel path (the WKV6
+kernels, the fused aggregation) against the plain path from the same
+generators: fp32 client updates within ``RWKV_TRAIN_FP32_TOL`` relative
+(over all, the fp32 leaves, each time-mix projection), bf16 in two groups
+within ``PATHS_TOL``, the WKV6 forward and backward once per layer and
+local step, the aggregation once per group a round. (c) rwkv6-3b at full
+width and depth (3,073,313,280 parameters, 245,760 of them fp32 in the
+second group) through ``launch/train.py --full`` (``RWKV_TRAIN``,
+``REPRO_USE_KERNEL=1``), the clients halved while the run runs out of
+memory: every loss finite, each WKV6 direction ``rounds · s · 32`` times,
+the aggregation once per group a round, the fp32 leaves fp32 and moved,
+peak ≤ 80 GB; tokens/s (all rounds and after the first) and one round
+profiled (device ms by family and the eight longest kernels, idle share).
+Phase 19 is held to ``PHASE19_LIMIT_S``.
+
+The three CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
 Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
@@ -358,6 +387,7 @@ seconds, launches, family batches and results), a ``{"scale": {...}}``
 line (phase 10's), a ``{"search": {...}}`` line (phase 11's), a
 ``{"lm_sweep": {...}}`` line (phase 12's cells), a ``{"serve": {...}}``
 line (phase 13's), a ``{"launch": {...}}`` line (phase 18's), a
+``{"rwkv_train": {...}}`` line (phase 19's), a
 ``{"zoo": {...}}`` line (phases 14 to 17), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
@@ -376,7 +406,9 @@ the resumed runs as ``ckpt_resume_launches``, the aggregation's through
 ``masked_agg_pytree`` and the flash forward's through
 ``gqa_flash_attention``; the WKV6 wrapper once per
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
-ptxas by head dim), the card's name and power limit from nvidia-smi, and as the last
+ptxas by head dim and the chunked route's phase-19 launches as
+``train_launches``; the WKV6 backward, ``rwkv6_chunk_bwd``, with its
+launches in phase 19c), the card's name and power limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
 result line. Without CUDA, or without the repository beside it, it exits
 non-zero at once.
@@ -827,6 +859,36 @@ CKPT_GROUPS = dict(clients=2, steps=2, batch=2, seq=64, rounds=4)
 GQA_SHAPE = (2, 2048, 9, 64, 3)
 DRYRUN_TOL = 0.02
 PHASE18_LIMIT_S = 90.0
+# Phase 19, RWKV6 training (ROADMAP item 10). (a) the WKV6 backward kernels
+# (wkv6_bwd_state + wkv6_bwd_chunk, under the chunked forward) against the
+# autograd of the plain chunked version at (b, h, t, d, decay): the prefill
+# shape, strong decay over 4096 steps, ragged T, D = 128; then 40 heads of
+# two models folded into the head axis, each model with its own bonus u, as
+# the model stack lays them out
+WKV_BWD_SHAPES = [(4, 40, 4096, 64, "ref"), (1, 4, 4096, 64, "strong"),
+                  (2, 4, 63, 64, "ref"), (2, 4, 65, 64, "strong"),
+                  (2, 4, 100, 64, "ref"), (2, 8, 512, 128, "ref")]
+WKV_BWD_FOLDED = (1, 2, 40, 512, 64)      # (b, models, heads, t, d)
+# every gradient divided by its largest magnitude, and dlog w = dw * w as it
+# is, within fp32 atol = rtol of the plain version's autograd; dw itself is
+# dlog w / w, whose fp32 rounding the division magnifies where w is small
+# (strong decay: the plain version's own dw lies up to 7.7e-5 of its largest
+# from the float64 function, the kernel's 1.0e-4; 0.5 relative at a small
+# element)
+WKV_BWD_TOL = 1e-3
+# (b) reduced() rwkv6 through the kernels against the plain path: fp32 client
+# updates within RWKV_TRAIN_FP32_TOL relative (the WKV6 kernels' ~4e-5
+# forward and ~1e-6 backward errors through 2 local steps), bf16 in two
+# groups within PATHS_TOL (phase 17's bar)
+RWKV_TRAIN_REDUCED = dict(clients=2, steps=2, batch=2, seq=128, rounds=2)
+RWKV_TRAIN_FP32_TOL = 1e-3
+# (c) rwkv6-3b at full width and depth through launch/train.py --full:
+# clients (halved while the run does not fit), local steps, batch, sequence,
+# timed rounds (one more is profiled)
+RWKV_TRAIN = dict(clients=4, steps=2, batch=1, seq=1024, rounds=4)
+RWKV_PARAMS = 3_073_313_280
+RWKV_FP32_PARAMS = 245_760
+PHASE19_LIMIT_S = 150.0
 
 
 def fail(msg):
@@ -1488,16 +1550,17 @@ def phase6_paths_agree(torch, train, fa):
     return rel
 
 
-def wkv_work(b, h, t, d):
-    """(bytes, flops) one WKV6 call needs: r, k, v, w read and o written
-    once (fp32), u, s0 read and S_T written once; the flops of the step
-    recurrence (``ref.rwkv6_chunk_ref``), per (b, h) and step 5 D^2 + 5 D:
-    r_t S (2 D^2), diag(w_t) S (D^2), S + k_t^T v_t (2 D^2) and the bonus
-    (r_t . (u * k_t)) v_t added to o_t (5 D). The chunked form the kernel
-    runs does more (pairwise scores, exponentials); that is its cost, not
-    the function's."""
-    nbytes = 4 * (5 * b * h * t * d + h * d + 2 * b * h * d * d)
-    return nbytes, b * h * t * (5 * d * d + 5 * d)
+def wkv_work(b, h, t, d, direction="fwd"):
+    """(bytes, flops) one WKV6 call needs (``roofline.wkv6_work``): each
+    input read and each output written once, the flops of the step
+    recurrence (forward: 5 D^2 + 5 D per (b, h) and step; backward: 14 D^2
+    + 13 D). The chunked form the kernels run does more (pairwise scores,
+    exponentials, the chunk-state workspaces); that is its cost, not the
+    function's."""
+    from repro_torch.launch.roofline import wkv6_work
+
+    flops, nbytes = wkv6_work(b * h, t, d, heads=h)[direction]
+    return nbytes, flops
 
 
 def wkv_ptxas(log, kernels):
@@ -1508,7 +1571,7 @@ def wkv_ptxas(log, kernels):
     table, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d(wkv6_[a-z]+)ILi(\d+)E", line)
+            m = re.search(r"\d(wkv6_[a-z_]+)ILi(\d+)E", line)
             key = None if m is None or m.group(1) not in kernels else (
                 m.group(1), int(m.group(2)))
             if key:
@@ -1647,6 +1710,8 @@ def _family(name):
         return "fused_masked_agg (Triton)"
     if "flash_" in n:
         return "flash attention (CUDA)"
+    if "wkv6_bwd" in n:
+        return "wkv6 backward (CUDA)"
     if "wkv6_state" in n or "wkv6_output" in n:
         return "wkv6 chunked route (CUDA)"
     if "wkv6_step" in n:
@@ -1661,12 +1726,13 @@ def _family(name):
     return "elementwise / reductions"
 
 
-def profile_window(torch, label, fn, per, unit):
+def profile_window(torch, label, fn, per, unit, top=0):
     """``fn`` once under ``torch.profiler`` (CPU and CUDA activities):
     wall and device kernel time per ``unit`` (``per`` of them in one call),
     the device's idle share (1 - kernel time / wall time; the kernels run
     on one stream), kernels and ``aten`` operator calls per unit, and the
-    device time per unit by kernel family."""
+    device time per unit by kernel family (and, with ``top``, of that many
+    kernels, the longest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1677,7 +1743,7 @@ def profile_window(torch, label, fn, per, unit):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_family, device_us, kernels, aten = {}, 0.0, 0, 0
+    by_family, by_kernel, device_us, kernels, aten = {}, {}, 0.0, 0, 0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             aten += ev.count if ev.key.startswith("aten::") else 0
@@ -1687,6 +1753,7 @@ def profile_window(torch, label, fn, per, unit):
             us = ev.self_cuda_time_total
         fam = _family(ev.key)
         by_family[fam] = by_family.get(fam, 0.0) + us
+        by_kernel[ev.key[:120]] = by_kernel.get(ev.key[:120], 0.0) + us
         device_us += us
         kernels += ev.count
     out = {f"wall_ms_per_{unit}": 1e3 * wall / per,
@@ -1697,15 +1764,19 @@ def profile_window(torch, label, fn, per, unit):
            f"device_ms_per_{unit}_by_family": {
                k: v / 1e3 / per for k, v in sorted(
                    by_family.items(), key=lambda kv: -kv[1])}}
+    if top:
+        out[f"device_ms_per_{unit}_by_kernel"] = {
+            k: v / 1e3 / per for k, v in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:top]}
     print(f"{label} profiled (torch.profiler): " + json.dumps(out),
           flush=True)
     return out
 
 
 def reset_wkv_counts(rk):
-    """The WKV6 wrapper's counts to 0: calls, and calls by route."""
-    rk.rwkv6_chunk.launches = 0
-    rk.rwkv6_chunk.launches_by_route = dict.fromkeys(rk.ROUTES, 0)
+    """The WKV6 wrapper's counts to 0: calls, and calls by route and the
+    backward's."""
+    rk.reset_counts()
 
 
 def phase8_serving(torch, rk, card):
@@ -4689,6 +4760,360 @@ def phase18_launch(torch, fa, masked, ref, train, card, lm, bf16_peak):
     return res
 
 
+def _wkv_bwd_inputs(torch, gen, b, h, t, d, decay):
+    """WKV6 inputs as phase 7's, and the output gradients: do ~ N(0, 1),
+    dS_T ~ 0.1 N."""
+    dev = torch.device("cuda")
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    r, k, v = (0.5 * rand(b, h, t, d) for _ in range(3))
+    if decay == "ref":
+        w = torch.exp(-torch.exp(-3.0 + 0.5 * rand(b, h, t, d)))
+    else:
+        w = 1e-3 + (0.1 - 1e-3) * torch.rand(b, h, t, d, generator=gen,
+                                               device=dev)
+    ins = [r, k, v, w, 0.3 * rand(h, d), 0.1 * rand(b, h, d, d)]
+    return ins, rand(b, h, t, d), 0.1 * rand(b, h, d, d)
+
+
+def _wkv_bwd_check(torch, rk, ref, ins, do, ds_t, label):
+    """The backward through ``rwkv6_chunk_autograd`` (one chunked forward,
+    one backward) against the plain version's autograd (and the step
+    scan's at T <= 128): each gradient's largest error, its largest error
+    over its largest magnitude and the atol it needs at rtol WKV_BWD_TOL as
+    it is; fails past WKV_BWD_TOL (module constants) or on a non-finite
+    gradient. Returns the largest error over all gradients."""
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    before = dict(rk.rwkv6_chunk.launches_by_route)
+    o, s_t = rk.rwkv6_chunk_autograd(*leaves)
+    got = torch.autograd.grad([o, s_t], leaves, [do, ds_t])
+    torch.cuda.synchronize()
+    counts = {k: n - before[k] for k, n in
+              rk.rwkv6_chunk.launches_by_route.items()}
+    if counts != {"chunked": 1, "step": 0, "backward": 1}:
+        fail(f"{label}: the autograd WKV6 call counted {counts}")
+    wants = {"plain": ref.rwkv6_chunk_grads(*ins, do, ds_t)}
+    if ins[0].shape[2] <= 128:
+        wants["step scan"] = ref.rwkv6_chunk_grads(
+            *ins, do, ds_t, fn=ref.rwkv6_chunk_ref)
+    worst, parts, ok = 0.0, [], True
+    for which, want in wants.items():
+        for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                              want):
+            finite = bool(torch.isfinite(g).all())
+            err = (g - x).abs().max().item()
+            scale = x.abs().max().item()
+            need = ((g - x).abs() - WKV_BWD_TOL * x.abs()).max().item()
+            good = finite and torch.allclose(
+                g / scale, x / scale, rtol=WKV_BWD_TOL, atol=WKV_BWD_TOL)
+            ok = ok and good
+            worst = max(worst, err)
+            parts.append(f"{name} {err:.3e} ({err / scale:.2e} of "
+                         f"{scale:.3g}; atol needed as is {need:.2e})"
+                         + ("" if finite else " NOT FINITE"))
+        dlogw = (got[3] - want[3]) * ins[3]
+        need = (dlogw.abs() - WKV_BWD_TOL * (want[3] * ins[3]).abs()).max()
+        ok = ok and bool(need.item() <= WKV_BWD_TOL)
+        parts.append(f"dlog w: atol needed as is {need.item():.2e}")
+        print(f"{label} vs {which} autograd: " + "; ".join(parts)
+              + f"; tol {WKV_BWD_TOL:g} {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        parts = []
+    if not ok:
+        fail(f"{label}: the WKV6 backward disagrees with its plain version")
+    return worst
+
+
+def phase19_wkv_bwd(torch, rk, ref, bw, fp32_peak, build_log):
+    """(a) the WKV6 backward kernels: ptxas, checks at ``WKV_BWD_SHAPES``
+    and ``WKV_BWD_FOLDED``, the time at the prefill shape against the
+    plain version's autograd and the bound."""
+    print_ptxas("phase19a", build_log)
+    ptxas = wkv_ptxas(build_log, rk.BWD_KERNELS)
+    for name in rk.BWD_KERNELS:
+        by_d = ptxas.get(name, {})
+        print(f"phase19a ptxas {name} by head dim: " + "; ".join(
+            f"D={dd}: {vv.get('registers')} registers, spill stores "
+            f"{vv.get('spill_stores')} B, loads {vv.get('spill_loads')} B, "
+            f"shared {vv.get('smem')} B static + "
+            f"{rk.shared_bytes(name, dd)} B dynamic"
+            for dd, vv in sorted(by_d.items())), flush=True)
+        if sorted(by_d) != list(rk.HEAD_DIMS) or any(
+                vv.get("spill_stores") or vv.get("spill_loads")
+                for vv in by_d.values()):
+            fail(f"ptxas reports spills in {name}, or misses a head dim")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    worst = 0.0
+    for shape in WKV_BWD_SHAPES:
+        ins, do, ds_t = _wkv_bwd_inputs(torch, gen, *shape)
+        worst = max(worst, _wkv_bwd_check(torch, rk, ref, ins, do, ds_t,
+                                          f"phase19a wkv6 backward "
+                                          f"{list(shape)}"))
+        del ins, do, ds_t
+        torch.cuda.empty_cache()
+    # two models of 40 heads folded into the head axis, another u each
+    b, g, h, t, d = WKV_BWD_FOLDED
+    parts = [_wkv_bwd_inputs(torch, gen, b, h, t, d, "ref")
+             for _ in range(g)]
+    ins = [torch.cat([p[0][i] for p in parts], 0 if i == 4 else 1)
+           for i in range(6)]
+    do = torch.cat([p[1] for p in parts], 1)
+    ds_t = torch.cat([p[2] for p in parts], 1)
+    worst = max(worst, _wkv_bwd_check(
+        torch, rk, ref, ins, do, ds_t, f"phase19a wkv6 backward folded "
+        f"[{b}, {g}x{h}, {t}, {d}] (u per model)"))
+    for i, (ins_g, do_g, ds_g) in enumerate(parts):   # each model alone
+        _wkv_bwd_check(torch, rk, ref, ins_g, do_g, ds_g,
+                       f"phase19a wkv6 backward model {i} alone")
+    del parts, ins, do, ds_t
+    torch.cuda.empty_cache()
+
+    shape = WKV_BWD_SHAPES[0]
+    ins, do, ds_t = _wkv_bwd_inputs(torch, gen, *shape)
+    _, _, ws = rk._forward(*ins, "chunked")
+    ms = time_ms(lambda: rk.rwkv6_chunk_backward(*ins[:5], ws, do, ds_t),
+                 iters=10)
+    fwd_ms = time_ms(lambda: rk.rwkv6_chunk(*ins, route="chunked"), iters=10)
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    o, s_t = ref.rwkv6_chunk_plain(*leaves)
+    plain_ms = time_ms_events(lambda: torch.autograd.grad(
+        [o, s_t], leaves, [do, ds_t], retain_graph=True), iters=2)
+    del o, s_t, leaves, ws
+    nbytes, flops = wkv_work(*shape[:4], direction="bwd")
+    bound_ms = max(nbytes / bw, flops / fp32_peak) * 1e3
+    by = "operations" if flops / fp32_peak > nbytes / bw else "bytes"
+    print(f"phase19a timing wkv6 backward {list(shape[:4])} fp32 (two "
+          f"launches: wkv6_bwd_state, wkv6_bwd_chunk; CUDA-graph replays): "
+          f"kernel {ms:.5f} ms (the chunked forward {fwd_ms:.5f} ms), plain "
+          f"autograd backward {plain_ms:.5f} ms (CUDA events), library none "
+          f"(no single PyTorch call computes WKV6's backward), bound "
+          f"{bound_ms:.5f} ms by {by} ({nbytes} bytes at {bw / 1e12:g} "
+          f"TB/s; {flops:.4e} flop at {fp32_peak / 1e12:g} TFLOP/s fp32)",
+          flush=True)
+    del ins, do, ds_t
+    torch.cuda.empty_cache()
+    return dict(ms=ms, forward_ms=fwd_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=flops,
+                max_abs_err=worst, shape=list(shape[:4]), ptxas=ptxas)
+
+
+def _rwkv_updates(torch, layout, outs):
+    """``||u_kernel - u_plain|| / ||u_plain||`` of the clients' updates
+    over all parameters, over the fp32 leaves and over the time mix's
+    projections (``wr``, ``wk``, ``wv``, ``wo``), for one buffer or two
+    groups."""
+    from repro_torch.core.params import gmap
+
+    ups = {k: gmap(lambda c, i: c.float() - i.float()[:, None],
+                   v["state"].clients, v["initial"]) for k, v in outs.items()}
+    views = {k: layout.views(v) for k, v in ups.items()}
+
+    def rel(names):
+        a = torch.cat([views["kernel"][n].reshape(-1) for n in names])
+        b = torch.cat([views["plain"][n].reshape(-1) for n in names])
+        return ((a - b).norm() / b.norm()).item()
+
+    names = [n for n, _ in layout.leaves]
+    out = {"all": rel(names),
+           "fp32 leaves": rel([n for n in names if n in layout.fp32])}
+    for suffix in ("wr", "wk", "wv", "wo"):
+        out[f"tmix.{suffix}"] = rel([n for n in names
+                                     if n.endswith(f"tmix.{suffix}")])
+    return out
+
+
+def phase19_reduced(torch, rk, masked, train, card):
+    """(b) reduced() rwkv6 through the kernels against the plain path, in
+    fp32 (one buffer) and bf16 (two groups)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model
+
+    t = RWKV_TRAIN_REDUCED
+    res = {}
+    for dtype, tol in (("float32", RWKV_TRAIN_FP32_TOL),
+                       ("bfloat16", PATHS_TOL)):
+        cfg = dataclasses.replace(reduced(get_config("rwkv6-3b")),
+                                  dtype=dtype)
+        layout = model.param_layout(cfg)
+        per = t["rounds"] * t["steps"] * cfg.num_layers
+        groups = 1 if dtype == "float32" else 2
+        args = _train_args("rwkv6-3b", t, "--dtype", dtype)
+        outs = {}
+        try:
+            for path, backend, agg in (("kernel", None, "1"),
+                                       ("plain", "torch", "0")):
+                os.environ["REPRO_USE_KERNEL"] = agg
+                reset_wkv_counts(rk)
+                masked.fused_masked_agg.launches = 0
+                outs[path] = train.main(args, backend=backend)
+                counts = dict(rk.rwkv6_chunk.launches_by_route)
+                n_agg = masked.fused_masked_agg.launches
+                want = {"chunked": per if path == "kernel" else 0,
+                        "step": 0,
+                        "backward": per if path == "kernel" else 0}
+                want_agg = groups * t["rounds"] if path == "kernel" else 0
+                losses = np.asarray(outs[path]["losses"])
+                print(f"phase19b {dtype} {path} path: losses "
+                      f"{[round(float(x), 4) for x in losses]}, wkv6 "
+                      f"launches {counts} (want {want}), aggregation "
+                      f"{n_agg} (want {want_agg})", flush=True)
+                if counts != want or n_agg != want_agg \
+                        or not np.isfinite(losses).all():
+                    fail(f"phase19b {dtype} {path} path: launches {counts}"
+                         f", {n_agg} or a non-finite loss")
+        finally:
+            os.environ.pop("REPRO_USE_KERNEL", None)
+        rel = _rwkv_updates(torch, layout, outs)
+        n_fp32 = _fp32_moved(torch, layout, outs["kernel"],
+                             f"phase19b {dtype}") if groups == 2 else 0
+        print(f"phase19b reduced rwkv6 {dtype} ({cfg.num_layers} layers, "
+              f"d_model {cfg.d_model}, {groups} group(s)) m={t['clients']} "
+              f"s={t['steps']} b={t['batch']} T={t['seq']} {t['rounds']} "
+              f"rounds on {card}: kernel vs plain relative client-update "
+              f"distance " + " ".join(f"{k} {v:.4e}" for k, v in rel.items())
+              + f" (limit {tol:g} on each)", flush=True)
+        if not all(v <= tol for v in rel.values()):
+            fail(f"phase19b {dtype}: the kernel and plain training paths "
+                 "diverge")
+        res[dtype] = dict(paths=rel, fp32_leaves_moved=n_fp32,
+                          losses={k: v["losses"] for k, v in outs.items()},
+                          wkv6_launches_per_direction=per)
+        del outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase19_full(torch, rk, masked, train, card):
+    """(c) rwkv6-3b at full width and depth through the training launcher:
+    ``RWKV_TRAIN`` timed rounds and one profiled, the fused aggregation on,
+    the clients halved while the run does not fit the card."""
+    from unittest import mock
+
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    cfg = get_config("rwkv6-3b")
+    layout = model.param_layout(cfg)
+    sizes = layout.sizes(torch.bfloat16)
+    if layout.size != RWKV_PARAMS or sizes[1] != RWKV_FP32_PARAMS:
+        fail(f"rwkv6-3b has {layout.size} parameters in groups {sizes}, "
+             f"not {RWKV_PARAMS} with {RWKV_FP32_PARAMS} fp32")
+    t = dict(RWKV_TRAIN)
+    rounds = t["rounds"] + 1
+    tried = []
+    while True:
+        prof = {}
+        real_make = core.make_run_rounds
+
+        def make(*a, **kw):
+            run, calls = real_make(*a, **kw), [0]
+
+            def run_rounds(st, ds, draws, k):
+                calls[0] += 1
+                if calls[0] <= t["rounds"]:
+                    return run(st, ds, draws, k)
+                box = []
+                prof.update(profile_window(
+                    torch, "phase19c rwkv6-3b train, one round",
+                    lambda: box.append(run(st, ds, draws, k)), k, "round",
+                    top=8))
+                return box[0]
+
+            return run_rounds
+
+        args = _train_args("rwkv6-3b", dict(t, rounds=rounds), "--full")
+        os.environ["REPRO_USE_KERNEL"] = "1"
+        try:
+            with mock.patch.object(core, "make_run_rounds", make):
+                reset_wkv_counts(rk)
+                out, sec, launches, peak = _counted(
+                    torch, [masked.fused_masked_agg], lambda: train.main(args))
+            break
+        except torch.OutOfMemoryError as e:
+            # the next try's _counted frees this one's tensors, once the
+            # traceback that holds them is gone
+            tried.append(t["clients"])
+            print(f"phase19c out of memory at {t['clients']} clients "
+                  f"({str(e).splitlines()[0][:160]}); halving them",
+                  flush=True)
+            if t["clients"] == 1:
+                fail("rwkv6-3b does not train on one card at one client")
+            t["clients"] //= 2
+        finally:
+            os.environ.pop("REPRO_USE_KERNEL", None)
+    counts = dict(rk.rwkv6_chunk.launches_by_route)
+    losses = np.asarray(out["losses"])
+    stamps = out["round_seconds"]
+    loop_s = stamps[t["rounds"] - 1]
+    tokens = t["rounds"] * t["clients"] * t["steps"] * t["batch"] * t["seq"]
+    steady = (t["rounds"] - 1) / (loop_s - stamps[0])
+    per = rounds * t["steps"] * cfg.num_layers
+    want = {"chunked": per, "step": 0, "backward": per}
+    n_fp32 = _fp32_moved(torch, layout, out, "phase19c rwkv6-3b")
+    print(f"phase19c train rwkv6-3b --full ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, bf16; {layout.size} parameters in groups "
+          f"{list(sizes)}: the fp32 one decay base, bonus and ln_x, "
+          f"{n_fp32} leaves) m={t['clients']} (out of memory at {tried}) "
+          f"s={t['steps']} b={t['batch']} T={t['seq']} on {card}: "
+          f"{t['rounds']} rounds in {loop_s:.3f} s = "
+          f"{tokens / loop_s:.1f} tokens/s, {t['rounds'] / loop_s:.4f} "
+          f"rounds/s (after the first round {steady:.4f} rounds/s, "
+          f"{steady * tokens / t['rounds']:.1f} tokens/s; first round "
+          f"{stamps[0]:.3f} s); call {sec:.2f} s with the init and the "
+          f"profiled round; peak memory {peak / 2 ** 30:.3f} GiB; losses "
+          f"{[round(float(x), 4) for x in losses]}", flush=True)
+    print(f"phase19c launches: wkv6 {counts} (want {want}); "
+          f"fused_masked_agg {launches[0]} (want {2 * rounds})", flush=True)
+    if len(losses) != rounds or not np.isfinite(losses).all():
+        fail("rwkv6-3b: a training loss is not finite")
+    if counts != want:
+        fail(f"rwkv6-3b: wkv6 launches {counts}, not {want}")
+    if launches[0] != 2 * rounds:
+        fail(f"rwkv6-3b: aggregation launches {launches[0]}, not "
+             f"{2 * rounds}")
+    if peak > 80e9:
+        fail(f"rwkv6-3b: peak memory {peak} bytes is over 80 GB")
+    if not all(torch.isfinite(x).all().item() for x in out["state"].server):
+        fail("rwkv6-3b: the server params are not finite")
+    res = dict(clients=t["clients"], out_of_memory_at=tried,
+               rounds=t["rounds"], loop_s=loop_s,
+               tokens_per_s=tokens / loop_s,
+               rounds_per_s=t["rounds"] / loop_s,
+               steady_rounds_per_s=steady,
+               steady_tokens_per_s=steady * tokens / t["rounds"],
+               first_round_s=stamps[0], call_s=sec,
+               peak_gib=peak / 2 ** 30, losses=losses.tolist(),
+               wkv6_launches=counts, agg_launches=launches[0],
+               groups=list(sizes), profile=prof)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase19_rwkv_train(torch, rk, masked, ref, train, card, bw, fp32_peak,
+                       build_log):
+    """RWKV6 training: the backward kernels, reduced() kernel vs plain,
+    rwkv6-3b at full width and depth; held to ``PHASE19_LIMIT_S``."""
+    t_phase = time.perf_counter()
+    res = {"backward": phase19_wkv_bwd(torch, rk, ref, bw, fp32_peak,
+                                       build_log)}
+    res["reduced"] = phase19_reduced(torch, rk, masked, train, card)
+    res["rwkv6-3b"] = phase19_full(torch, rk, masked, train, card)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase19 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE19_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE19_LIMIT_S:
+        fail(f"phase 19 took {res['seconds']:.1f} s, over its "
+             f"{PHASE19_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4727,12 +5152,14 @@ def main():
     # both CUDA sources build (one nvcc each) while phase 1 builds the
     # Triton kernel
     with ThreadPoolExecutor(1) as pool:
-        nvcc = pool.submit(build.compile_all, [fa.SOURCE, rk.SOURCE])
+        nvcc = pool.submit(build.compile_all,
+                           [fa.SOURCE, rk.SOURCE, rk.BWD_SOURCE])
         k = phase1_kernel(torch, masked, ref)
         logs = nvcc.result()
-    print(f"nvcc builds of {fa.SOURCE.name} and {rk.SOURCE.name} (in "
-          f"parallel, beside phase 1) done at {time.perf_counter() - t0:.1f}"
-          f" s; " + "; ".join(log.splitlines()[0] for log in logs.values()),
+    print(f"nvcc builds of {fa.SOURCE.name}, {rk.SOURCE.name} and "
+          f"{rk.BWD_SOURCE.name} (in parallel, beside phase 1) done at "
+          f"{time.perf_counter() - t0:.1f} s; "
+          + "; ".join(log.splitlines()[0] for log in logs.values()),
           flush=True)
     spec, launches, rounds_per_s = phase2_main_path(torch, masked, grid)
     phase3_paths_agree(torch, grid, spec)
@@ -4754,6 +5181,8 @@ def main():
                                   bf16_peak, fp32_peak)
     launch = phase18_launch(torch, fa, masked, ref, train, card, lm,
                             bf16_peak)
+    rwkv_train = phase19_rwkv_train(torch, rk, masked, ref, train, card, bw,
+                                    fp32_peak, logs[rk.BWD_SOURCE.name])
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
           f"s)", flush=True)
@@ -4868,7 +5297,29 @@ def main():
                 k2: v2 for k2, v2 in wkv["ptxas"].items()
                 if (k2 == "wkv6_step") == (key == "decode")}})
     kernels[-2]["rwkv_slice"] = rwkv
+    kernels[-2]["train_launches"] = {
+        k2: v["wkv6_launches"]["chunked"] if k2 == "rwkv6-3b" else
+        v["wkv6_launches_per_direction"]
+        for k2, v in (("rwkv6-3b", rwkv_train["rwkv6-3b"]),
+                      ("reduced_float32", rwkv_train["reduced"]["float32"]),
+                      ("reduced_bfloat16",
+                       rwkv_train["reduced"]["bfloat16"]))}
     kernels[-1]["crossover_ms"] = wkv["crossover_ms"]
+    r = rwkv_train["backward"]
+    kernels.append({
+        "name": "rwkv6_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_chunk_bwd.cu",
+        "replaces": replaces + "; its VJP, which the TPU kernel lacks: "
+                    "wkv6_bwd_state, wkv6_bwd_chunk)",
+        "launches": rwkv_train["rwkv6-3b"]["wkv6_launches"]["backward"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None, "flops": r["flops"],
+        "bytes": r["bytes"], "shape": r["shape"],
+        "forward_ms": r["forward_ms"], "ptxas_by_head_dim": r["ptxas"],
+        "reduced_launches": {
+            dt: rwkv_train["reduced"][dt]["wkv6_launches_per_direction"]
+            for dt in ("float32", "bfloat16")}})
     print(json.dumps({"paper": paper}), flush=True)
     print(json.dumps({"scale": scale}), flush=True)
     print(json.dumps({"search": found}), flush=True)
@@ -4876,6 +5327,8 @@ def main():
                                    if k2 != "kernels"}}), flush=True)
     print(json.dumps({"serve": dense}), flush=True)
     print(json.dumps({"launch": launch}), flush=True)
+    print(json.dumps({"rwkv_train": {k2: v for k2, v in rwkv_train.items()
+                                     if k2 != "backward"}}), flush=True)
     print(json.dumps({"zoo": {
         "gemma2-9b": gemma, "moe": moe,
         "memory_families": {k: v for k, v in mem_zoo.items()

@@ -152,15 +152,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, T, D]`` fp32, ``u [H, D]``, ``s0 [B, H, D, D]`` -> ``(o
     [B, H, T, D], S_T [B, H, D, D])``.
 
-    ``backend``: ``None`` follows the tensor (:func:`resolve_backend`: one
-    launch of the CUDA kernel for CUDA tensors, the plain chunked version
-    for CPU tensors); ``"torch"`` takes the plain version on the card too
-    (to compare the two paths); ``"kernel"`` insists on the kernel. Both
-    walk chunks of ``rwkv6_chunk.CHUNK`` steps.
+    ``backend``: ``None`` follows the tensor (:func:`resolve_backend`: the
+    CUDA kernels for CUDA tensors, the plain chunked version for CPU
+    tensors); ``"torch"`` takes the plain version on the card too, under
+    autograd as well (to compare the two paths); ``"kernel"`` insists on
+    the kernels. On CUDA tensors a call under autograd (grad enabled and an
+    input that requires grad) takes ``rwkv6_chunk_autograd``: the chunked
+    forward and, in the backward, the two backward kernels; any other call
+    takes ``rwkv6_chunk``, one forward route by T. All walk chunks of
+    ``rwkv6_chunk.CHUNK`` steps.
     """
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_chunk as rk
 
     if _backend(backend, r, "wkv6") == "torch":
         return ref.rwkv6_chunk_plain(r, k, v, w, u, s0, chunk=rk.CHUNK)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, w, u, s0)):
+        return rk.rwkv6_chunk_autograd(r, k, v, w, u, s0)
     return rk.rwkv6_chunk(r, k, v, w, u, s0)

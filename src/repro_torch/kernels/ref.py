@@ -9,7 +9,7 @@ card.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -143,3 +143,21 @@ def rwkv6_chunk_plain(r, k, v, w, u, s0, *, chunk: int = 64):
         s = (torch.exp(total).transpose(-1, -2) * s
              + (kb * torch.exp(total - q_inc)).transpose(-1, -2) @ vb)
     return torch.cat(outs, 2), s
+
+
+def rwkv6_chunk_grads(r, k, v, w, u, s0, do, ds_t=None, *,
+                      fn: Optional[Callable] = None):
+    """The WKV6 backward's yardstick: ``(dr, dk, dv, dw, du, ds0)``, the
+    autograd of ``fn`` (default :func:`rwkv6_chunk_plain`; or
+    :func:`rwkv6_chunk_ref`, the step scan) at the inputs of
+    :func:`rwkv6_chunk_ref`, for the output gradient ``do [B, H, T, D]``
+    and ``ds_t [B, H, D, D]`` (None: ``S_T`` unused), all fp32."""
+    leaves = [x.detach().float().requires_grad_(True)
+              for x in (r, k, v, w, u, s0)]
+    with torch.enable_grad():
+        o, s_t = (fn or rwkv6_chunk_plain)(*leaves)
+        outs, grads = [o], [do.float()]
+        if ds_t is not None:
+            outs.append(s_t)
+            grads.append(ds_t.float())
+        return torch.autograd.grad(outs, leaves, grads)

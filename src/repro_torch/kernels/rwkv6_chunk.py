@@ -1,12 +1,14 @@
-"""The WKV6 recurrence as hand-written CUDA kernels for Hopper, forward
-only: a chunk-parallel route on the tensor cores for prefill and a step
-route for decode.
+"""The WKV6 recurrence as hand-written CUDA kernels for Hopper: a
+chunk-parallel forward on the tensor cores for prefill and training, a step
+forward for decode, and the chunked forward's backward.
 
 Replaces ``repro/kernels/rwkv6_chunk.py``: ``rwkv6_chunk`` -> ``_kernel``
-(the TPU kernel, which has no backward either). The CUDA source is
-``csrc/rwkv6_chunk.cu``; its header says what the kernels compute, how they
-avoid the TPU kernel's fp32 overflow at strong decay, what bounds them and
-how they are laid out.
+(the TPU kernel, which is forward only; the reference trains through the
+autodiff of its jnp chunk scan). The CUDA sources are
+``csrc/rwkv6_chunk.cu`` (forward) and ``csrc/rwkv6_chunk_bwd.cu``
+(backward); their headers say what the kernels compute, how they avoid the
+TPU kernel's fp32 overflow at strong decay, what bounds them and how they
+are laid out.
 
 ``rwkv6_chunk(r, k, v, w, u, s0)`` on ``[B, H, T, D]`` fp32 (the
 reference's entry) returns ``(o [B, H, T, D], S_T [B, H, D, D])``. On CPU
@@ -16,10 +18,18 @@ and a build or launch failure raises. The route follows T (``route_for``):
 ``T <= STEP_MAX_T`` takes ``"step"`` (one CUDA launch, ``wkv6_step``), a
 longer T ``"chunked"`` (two CUDA launches, ``wkv6_state`` then
 ``wkv6_output``, over a ``[B * H, ceil(T / CHUNK), D, D]`` fp32 workspace
-allocated here with ``torch.empty``). Either route takes any ``T >= 1``;
-``route=`` forces one. Each call counts one in ``rwkv6_chunk.launches``
-and one in ``rwkv6_chunk.launches_by_route[route]``, whatever the number of
-CUDA launches. Head dims 64 and 128.
+allocated here with ``torch.empty``: the state entering each chunk). Either
+route takes any ``T >= 1``; ``route=`` forces one. Each call counts one in
+``rwkv6_chunk.launches`` and one in ``rwkv6_chunk.launches_by_route[route]``,
+whatever the number of CUDA launches. Head dims 64 and 128.
+
+``rwkv6_chunk_autograd`` is the same function under autograd: on CUDA
+tensors its forward is the chunked route whatever T is, and it keeps the
+workspace; its backward (``rwkv6_chunk_backward``, two CUDA launches,
+``wkv6_bwd_state`` then ``wkv6_bwd_chunk``) reads the chunk-start states
+from it instead of recomputing them and returns the gradients of all six
+inputs. Each backward counts one in ``launches_by_route["backward"]``. On
+CPU tensors it is the plain version under autograd.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.kernels.ref import rwkv6_chunk_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_chunk.cu"
+BWD_SOURCE = SOURCE.with_name("rwkv6_chunk_bwd.cu")
 HEAD_DIMS = (64, 128)
 CHUNK = 64
 # the longest T that takes the step route: at [8, 40, T, 64] on an H100 the
@@ -43,8 +54,10 @@ CHUNK = 64
 STEP_MAX_T = 8
 ROUTES = ("chunked", "step")
 
-__all__ = ["CHUNK", "HEAD_DIMS", "KERNELS", "ROUTES", "STEP_MAX_T",
-           "route_for", "rwkv6_chunk", "shared_bytes"]
+__all__ = ["BWD_KERNELS", "CHUNK", "COUNTED", "HEAD_DIMS", "KERNELS",
+           "ROUTES", "STEP_MAX_T", "reset_counts", "route_for",
+           "rwkv6_chunk", "rwkv6_chunk_autograd", "rwkv6_chunk_backward",
+           "shared_bytes"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # chunked: r, k, v, w, u, s0, o, s_out, workspace; step: without it
@@ -53,12 +66,27 @@ _SIGNATURES = {"rwkv6_chunk_fwd": [_P] * 9 + [_I] * 4 + [_P],
                "rwkv6_shared_bytes": [_I, _I]}
 # the kernels, in the order of rwkv6_shared_bytes's first argument
 KERNELS = ("wkv6_state", "wkv6_output", "wkv6_step")
+# backward: r, k, v, w, u, ws, do, dS_T, dws, dr, dk, dv, dw, du partials,
+# ds0
+_BWD_SIGNATURES = {"rwkv6_chunk_bwd": [_P] * 15 + [_I] * 4 + [_P],
+                   "rwkv6_bwd_shared_bytes": [_I, _I]}
+# the backward's kernels, in the order of rwkv6_bwd_shared_bytes's first
+# argument
+BWD_KERNELS = ("wkv6_bwd_state", "wkv6_bwd_chunk")
+# the keys of launches_by_route: the forward routes, then the backward
+COUNTED = ROUTES + ("backward",)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (once per source version and card) and load the kernel."""
     return build.load(SOURCE, _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    """Build (once per source version and card) and load the backward."""
+    return build.load(BWD_SOURCE, _BWD_SIGNATURES)
 
 
 def _check(name: str, t: torch.Tensor, r: torch.Tensor, shape):
@@ -74,14 +102,61 @@ def _check(name: str, t: torch.Tensor, r: torch.Tensor, shape):
 
 
 def shared_bytes(kernel: str, d: int) -> int:
-    """The dynamic shared memory of ``kernel`` (one of ``KERNELS``) at head
-    dim ``d``, from the built library."""
+    """The dynamic shared memory of ``kernel`` (one of ``KERNELS`` or
+    ``BWD_KERNELS``) at head dim ``d``, from the built library."""
+    if kernel in BWD_KERNELS:
+        return _bwd_library().rwkv6_bwd_shared_bytes(
+            BWD_KERNELS.index(kernel), d)
     return _library().rwkv6_shared_bytes(KERNELS.index(kernel), d)
 
 
 def route_for(t_len: int) -> str:
     """The route a sequence of ``t_len`` steps takes."""
     return "step" if t_len <= STEP_MAX_T else "chunked"
+
+
+def _check_inputs(r, k, v, w, u, s0=None):
+    """The kernels' inputs: ``r, k, v, w [B, H, T >= 1, D]`` with ``D`` in
+    ``HEAD_DIMS``, ``u [H, D]``, ``s0 [B, H, D, D]`` (where given)."""
+    if r.dim() != 4 or r.shape[-1] not in HEAD_DIMS or r.shape[2] < 1:
+        raise ValueError(f"r must be [B, H, T >= 1, D] with D in "
+                         f"{HEAD_DIMS}, got {tuple(r.shape)}")
+    b, h, t, d = r.shape
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
+        _check(name, x, r, r.shape)
+    _check("u", u, r, (h, d))
+    if s0 is not None:
+        _check("s0", s0, r, (b, h, d, d))
+
+
+def _raise(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"rwkv6 {what} failed to launch: "
+                           + ("unsupported head dim" if err == -1
+                              else f"cudaError_t {err}"))
+
+
+def _forward(r, k, v, w, u, s0, route: str):
+    """The kernels of ``route`` on checked CUDA inputs: ``(o, S_T,
+    workspace)``, the workspace None for the step route."""
+    b, h, t, d = r.shape
+    o = torch.empty_like(r)
+    s_out = torch.empty_like(s0)
+    ws = None
+    ptrs = [x.data_ptr() for x in (r, k, v, w, u, s0, o, s_out)]
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        if route == "chunked":
+            ws = torch.empty((b * h, -(-t // CHUNK), d, d),
+                             dtype=torch.float32, device=r.device)
+            err = _library().rwkv6_chunk_fwd(*ptrs, ws.data_ptr(), b * h, h,
+                                             t, d, stream)
+        else:
+            err = _library().rwkv6_step_fwd(*ptrs, b * h, h, t, d, stream)
+    _raise(err, f"{route} route")
+    rwkv6_chunk.launches += 1
+    rwkv6_chunk.launches_by_route[route] += 1
+    return o, s_out, ws
 
 
 def rwkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,35 +171,75 @@ def rwkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if resolve_backend(r) == "torch":
         return rwkv6_chunk_plain(r, k, v, w, u, s0, chunk=CHUNK)
-    if r.dim() != 4 or r.shape[-1] not in HEAD_DIMS or r.shape[2] < 1:
-        raise ValueError(f"r must be [B, H, T >= 1, D] with D in "
-                         f"{HEAD_DIMS}, got {tuple(r.shape)}")
-    b, h, t, d = r.shape
-    for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
-        _check(name, x, r, r.shape)
-    _check("u", u, r, (h, d))
-    _check("s0", s0, r, (b, h, d, d))
-    route = route or route_for(t)
-    o = torch.empty_like(r)
-    s_out = torch.empty_like(s0)
-    ptrs = [x.data_ptr() for x in (r, k, v, w, u, s0, o, s_out)]
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        if route == "chunked":
-            ws = torch.empty((b * h, -(-t // CHUNK), d, d),
-                             dtype=torch.float32, device=r.device)
-            err = _library().rwkv6_chunk_fwd(*ptrs, ws.data_ptr(), b * h, h,
-                                             t, d, stream)
-        else:
-            err = _library().rwkv6_step_fwd(*ptrs, b * h, h, t, d, stream)
-    if err != 0:
-        raise RuntimeError(f"rwkv6 {route} route failed to launch: "
-                           + ("unsupported head dim" if err == -1
-                              else f"cudaError_t {err}"))
-    rwkv6_chunk.launches += 1
-    rwkv6_chunk.launches_by_route[route] += 1
+    _check_inputs(r, k, v, w, u, s0)
+    o, s_out, _ = _forward(r, k, v, w, u, s0, route or route_for(r.shape[2]))
     return o, s_out
 
 
+def rwkv6_chunk_backward(r, k, v, w, u, ws, do, ds_t):
+    """The gradients of the chunked route: ``r, k, v, w [B, H, T, D]``,
+    ``u [H, D]``, the forward's workspace ``ws [B * H, ceil(T / CHUNK), D,
+    D]``, the gradients ``do [B, H, T, D]`` of ``o`` and ``ds_t [B, H, D,
+    D]`` of ``S_T`` (zeros where it is unused), all fp32 on the card ->
+    ``(dr, dk, dv, dw, du [H, D], ds0 [B, H, D, D])``. Two CUDA launches;
+    ``du`` sums the kernel's per-(batch * head, chunk) partials here, in a
+    fixed order."""
+    _check_inputs(r, k, v, w, u)
+    b, h, t, d = r.shape
+    n_chunks = -(-t // CHUNK)
+    _check("ws", ws, r, (b * h, n_chunks, d, d))
+    do = do.float().contiguous()
+    _check("do", do, r, r.shape)
+    ds_t = ds_t.float().contiguous()
+    _check("ds_t", ds_t, r, (b, h, d, d))
+    grads = [torch.empty_like(r) for _ in range(4)]
+    du_part = torch.empty((b * h, n_chunks, d), dtype=torch.float32,
+                          device=r.device)
+    ds0 = torch.empty_like(ds_t)
+    dws = torch.empty_like(ws)
+    ptrs = [x.data_ptr() for x in (r, k, v, w, u, ws, do, ds_t, dws,
+                                   *grads, du_part, ds0)]
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = _bwd_library().rwkv6_chunk_bwd(*ptrs, b * h, h, t, d, stream)
+    _raise(err, "backward")
+    rwkv6_chunk.launches_by_route["backward"] += 1
+    du = du_part.view(b, h, n_chunks, d).sum((0, 2))
+    return (*grads, du, ds0)
+
+
+class _ChunkedWKV6(torch.autograd.Function):
+    """The chunked route forward, its workspace kept for the backward
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        o, s_out, ws = _forward(r, k, v, w, u, s0, "chunked")
+        ctx.save_for_backward(r, k, v, w, u, ws)
+        return o, s_out
+
+    @staticmethod
+    def backward(ctx, do, ds_t):         # an unused output's gradient: zeros
+        r, k, v, w, u, ws = ctx.saved_tensors
+        return rwkv6_chunk_backward(r, k, v, w, u, ws, do, ds_t)
+
+
+def rwkv6_chunk_autograd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rwkv6_chunk`` under autograd: CUDA tensors take the chunked route
+    (any T) and the backward kernels; CPU tensors the plain version."""
+    if resolve_backend(r) == "torch":
+        return rwkv6_chunk_plain(r, k, v, w, u, s0, chunk=CHUNK)
+    _check_inputs(r, k, v, w, u, s0)
+    return _ChunkedWKV6.apply(r, k, v, w, u, s0)
+
+
+def reset_counts():
+    """Every count to 0: calls, and calls by route and the backward's."""
+    rwkv6_chunk.launches = 0
+    rwkv6_chunk.launches_by_route = dict.fromkeys(COUNTED, 0)
+
+
 rwkv6_chunk.launches = 0
-rwkv6_chunk.launches_by_route = dict.fromkeys(ROUTES, 0)
+rwkv6_chunk.launches_by_route = dict.fromkeys(COUNTED, 0)

@@ -25,12 +25,13 @@ kernels (GQA's repeat, the transposes, the wrapper's contiguous copies)
 run on meta and each of the three kernels adds its work
 (``roofline.flash_work``: the causal pairs only, each operand moved
 once), so no ``T x T`` score tensor is counted; every other shape takes
-the plain version, as on the card. The
+the plain version, as on the card. The WKV6 recurrence (the rwkv rows)
+likewise: ``dispatch.wkv6`` is swapped for ``_card_wkv6``, whose forward
+and backward add ``roofline.wkv6_work`` and raise for a head dim the
+kernels do not take (``rwkv6_chunk.HEAD_DIMS``), as the card does. The
 steps ask for the plain versions (``steps.BACKEND``: no kernel has a meta
-mode), so the WKV6 recurrence (the rwkv rows) is counted through its plain
-chunked version, which the card does not run; the row's
-``counted_through`` says so. The aggregation is the engine's branch path,
-the launcher's default. Eager counting sees every loop trip, so the
+mode), which these swaps stand in for. The aggregation is the engine's
+branch path, the launcher's default. Eager counting sees every loop trip, so the
 reference's depth extrapolation (``_extrapolate`` over unrolled 1- and
 2-period programs, ``models/flags.py``) has no counterpart. An arch ×
 shape that cannot run on meta is a ``FAIL`` row with its error.
@@ -65,17 +66,22 @@ from repro_torch.configs import (
 )
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import padded_head_dim
+from repro_torch.kernels.rwkv6_chunk import HEAD_DIMS as WKV6_HEAD_DIMS
 from repro_torch.launch import steps
-from repro_torch.launch.roofline import Roofline, flash_work, model_flops_for
+from repro_torch.launch.roofline import (
+    Roofline,
+    flash_work,
+    model_flops_for,
+    wkv6_work,
+)
 from repro_torch.models.attention import attention_ref, repeat_kv
 
 MESH = "1xH100"
 CARD_BYTES = 80e9
 COUNTED_THROUGH = ("attention at the flash kernels' shapes as the kernels' "
-                   "work (causal pairs, operands moved once); the "
-                   "aggregation as the engine's branch path")
-WKV6_PLAIN = ("; the WKV6 recurrence through its plain chunked version "
-              "(the card launches the WKV6 kernels)")
+                   "work (causal pairs, operands moved once); the WKV6 "
+                   "recurrence as its kernels' work (roofline.wkv6_work); "
+                   "the aggregation as the engine's branch path")
 _ATEN = torch.ops.aten
 # ops that move no bytes: allocation without a write
 _NO_BYTES = {_ATEN.empty.memory_format, _ATEN.empty_strided.default,
@@ -162,6 +168,56 @@ def _card_attention(tally: FlashTally):
     return attention
 
 
+class WKV6Tally:
+    """The WKV6 kernels' work in a counted step: flops, bytes and launches
+    by direction."""
+
+    def __init__(self):
+        self.flops = 0
+        self.bytes = 0
+        self.launches = {"fwd": 0, "bwd": 0}
+
+    def add(self, r: torch.Tensor, heads: int, direction: str):
+        b, h, t, d = r.shape
+        flops, nbytes = wkv6_work(b * h, t, d, heads)[direction]
+        self.flops += flops
+        self.bytes += nbytes
+        self.launches[direction] += 1
+
+
+class _WKV6Work(torch.autograd.Function):
+    """The WKV6 kernels on meta ``[B, H, T, D]``: empty outputs of their
+    shapes, their work added to a ``WKV6Tally``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, tally):
+        ctx.tally, ctx.heads = tally, u.shape[0]
+        tally.add(r, u.shape[0], "fwd")
+        return torch.empty_like(r), torch.empty_like(s0)
+
+    @staticmethod
+    def backward(ctx, do, ds_t):
+        do = do.contiguous()                # as the wrapper's backward
+        ctx.tally.add(do, ctx.heads, "bwd")
+        b, h, _, d = do.shape
+        empty = [torch.empty_like(do) for _ in range(4)]
+        return (*empty, do.new_empty((ctx.heads, d)),
+                do.new_empty((b, h, d, d)), None)
+
+
+def _card_wkv6(tally: WKV6Tally):
+    """``dispatch.wkv6`` as the card runs it, on meta: the kernels' work,
+    and the card's refusal of another head dim; ``backend`` is ignored."""
+
+    def wkv6(r, k, v, w, u, s0, *, backend=None):
+        if r.shape[-1] not in WKV6_HEAD_DIMS:
+            raise ValueError(f"the WKV6 kernels take head dims "
+                             f"{WKV6_HEAD_DIMS}, got {r.shape[-1]}")
+        return _WKV6Work.apply(r, k, v, w, u, s0, tally)
+
+    return wkv6
+
+
 def _tree_bytes(tree) -> int:
     if dataclasses.is_dataclass(tree):
         tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
@@ -175,8 +231,9 @@ def _tree_bytes(tree) -> int:
 def count_step(cfg, shape: ShapeConfig, *, num_clients: int = 1,
                local_steps: int = 1, algorithm: str = "fedpbc") -> dict:
     """Run one step of ``shape.mode`` on meta; returns ``{"flops", "bytes",
-    "ops", "input_bytes", "flash_launches"}``: FlopCounterMode's flops and
-    the aten ops' bytes, each with the flash kernels' work added."""
+    "ops", "input_bytes", "flash_launches", "wkv6_launches"}``:
+    FlopCounterMode's flops and the aten ops' bytes, each with the flash
+    and WKV6 kernels' work added."""
     with torch.no_grad():
         if shape.mode == "train":
             args = steps.train_input_specs(
@@ -191,14 +248,17 @@ def count_step(cfg, shape: ShapeConfig, *, num_clients: int = 1,
         else:
             args = steps.serve_input_specs(cfg, shape)
             step = steps.make_serve_step(cfg)
-    counter, flash = ByteCounter(), FlashTally()
+    counter, flash, wkv = ByteCounter(), FlashTally(), WKV6Tally()
     with FlopCounterMode(display=False) as flops, counter, \
-            mock.patch.object(dispatch, "attention", _card_attention(flash)):
+            mock.patch.object(dispatch, "attention", _card_attention(flash)), \
+            mock.patch.object(dispatch, "wkv6", _card_wkv6(wkv)):
         step(*args)
-    return {"flops": float(flops.get_total_flops() + flash.flops),
-            "bytes": float(counter.bytes + flash.bytes), "ops": counter.ops,
-            "input_bytes": _tree_bytes(args),
-            "flash_launches": dict(flash.launches)}
+    return {"flops": float(flops.get_total_flops() + flash.flops
+                           + wkv.flops),
+            "bytes": float(counter.bytes + flash.bytes + wkv.bytes),
+            "ops": counter.ops, "input_bytes": _tree_bytes(args),
+            "flash_launches": dict(flash.launches),
+            "wkv6_launches": dict(wkv.launches)}
 
 
 def param_bytes(cfg) -> int:
@@ -233,8 +293,8 @@ def lower_pair(arch: str, shape_name: str, *, verbose: bool = True,
         "fits_one_card": c["input_bytes"] <= CARD_BYTES,
         "temp_bytes_per_device": None, "collectives": {},
         "flash_launches": c["flash_launches"],
-        "counted_through": COUNTED_THROUGH + (
-            WKV6_PLAIN if cfg.family == "ssm" else ""), **rf.row(),
+        "wkv6_launches": c["wkv6_launches"],
+        "counted_through": COUNTED_THROUGH, **rf.row(),
     }
     if verbose:
         print(f"== {arch} x {shape_name} mesh={MESH} ==")

@@ -64,6 +64,32 @@ def flash_work(bh: int, t: int, d: int, window: int, itemsize: int):
             "dkdv": (8 * pairs * d, 4 * mat + 2 * row + 2 * mat)}
 
 
+def wkv6_work(bh: int, t: int, d: int, heads: int):
+    """``{"fwd", "bwd"}: (flops, bytes)`` of the WKV6 function on ``r, k,
+    v, w [bh, t, d]`` fp32 with ``u [heads, d]`` and ``s0 [bh, d, d]``
+    (``repro_torch.kernels.rwkv6_chunk``):
+    each input read once and each output written once, and the flops of
+    the step recurrence (``ref.rwkv6_chunk_ref``), per (bh, step):
+
+    - ``fwd``: reads r, k, v, w, u, s0, writes o and S_T; ``r_t S`` (2
+      d^2), ``diag(w_t) S`` (d^2), ``S + k_t^T v_t`` (2 d^2) and the bonus
+      ``(r_t . (u * k_t)) v_t`` added to ``o_t`` (5 d);
+    - ``bwd``: reads r, k, v, w, u, s0, do and dS_T, writes dr, dk, dv,
+      dw, du and ds0; the state recomputed (3 d^2), ``dr_t = S do_t``,
+      ``dk_t = dS v_t``, ``dv_t = k_t dS`` and ``dw_t = rowsum(dS . S)``
+      (2 d^2 each), ``dS <- diag(w_t) dS + r_t^T do_t`` (3 d^2), and the
+      bonus's four gradients (13 d).
+
+    The chunked kernels do more flops (pairwise decays, exponentials) and
+    move more bytes (the chunk-state workspaces); that is their cost, not
+    the function's."""
+    steps, mat, state = bh * t, 4 * bh * t * d, 4 * bh * d * d
+    return {"fwd": (steps * (5 * d * d + 5 * d),
+                    5 * mat + 4 * heads * d + 2 * state),
+            "bwd": (steps * (14 * d * d + 13 * d),
+                    9 * mat + 8 * heads * d + 3 * state)}
+
+
 @dataclass
 class Roofline:
     """The three terms of one step on ``chips`` cards, each in seconds:

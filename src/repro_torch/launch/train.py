@@ -14,16 +14,16 @@ per-seed generators of ``repro_torch.experiments.sweep.seed_generators``
 (params seed+1, link seed+2, source offsets seed+3, tokens seed+4, the
 reference's key offsets).
 
-It trains every ``--arch`` of ``repro_torch.configs.ARCH_IDS`` but
-rwkv6-3b (ROADMAP Queue 1 item 10): the dense family (smollm-135m,
-gemma2-9b, deepseek-coder-33b, granite-34b), the MoE family
-(mixtral-8x22b, llama4-maverick-400b-a17b), the hybrid
-(jamba-1.5-large-398b), the vlm (llama-3.2-vision-90b) and the audio
-family (seamless-m4t-medium). As in the reference's launcher, the vlm and
+It trains every ``--arch`` of ``repro_torch.configs.ARCH_IDS``: the dense
+family (smollm-135m, gemma2-9b, deepseek-coder-33b, granite-34b), the MoE
+family (mixtral-8x22b, llama4-maverick-400b-a17b), RWKV6 (rwkv6-3b), the
+hybrid (jamba-1.5-large-398b), the vlm (llama-3.2-vision-90b) and the
+audio family (seamless-m4t-medium). As in the reference's launcher, the vlm and
 audio batches carry the constant memory ``0.1 * ones([batch, M,
 d_model])`` fp32 (``M`` image tokens or audio frames), which runs their
 memory path in fp32. A bf16 model with fp32 leaves (the MoE router, the
-Mamba leaves, the cross gate) trains in two parameter groups
+Mamba leaves, the cross gate, RWKV6's decay base, bonus and ``ln_x``)
+trains in two parameter groups
 (``repro_torch.core.params.Groups``), its fp32 leaves never rounded.
 
 Checkpoints (``--ckpt-dir``, every ``--ckpt-every`` rounds, as in the
@@ -34,8 +34,9 @@ with the trajectory of one uninterrupted run, bit for bit. Log and
 checkpoint boundaries end the chunks of rounds run between log lines.
 
 Kernels on this path: attention runs the CUDA flash kernel, forward and
-backward, for CUDA tensors (``main(..., backend="torch")`` runs
-the plain chunked version instead, to compare the two paths);
+backward, and RWKV6's WKV6 recurrence the chunked CUDA forward and the
+CUDA backward, for CUDA tensors (``main(..., backend="torch")`` runs the
+plain chunked versions instead, to compare the two paths);
 ``REPRO_USE_KERNEL=1`` routes the server update through the fused
 aggregation kernel, as the knob does for the port's sweep.
 """
@@ -88,8 +89,8 @@ def main(argv: Optional[List[str]] = None, *,
     the wall clock at each log line (after the rounds up to
     ``log_rounds[i]``), a copy of the initial server params (``Groups``
     for a model in two parameter groups) and the final ``FedState``.
-    ``backend``: ``None`` (the kernel on the card) or ``"torch"`` (the
-    plain attention), see ``repro_torch.kernels.dispatch.attention``."""
+    ``backend``: ``None`` (the kernels on the card) or ``"torch"`` (the
+    plain attention and WKV6), see ``repro_torch.kernels.dispatch``."""
     args = parse_args(argv)
 
     from repro_torch.checkpointing import latest_step, restore, save

@@ -21,14 +21,15 @@ model, and attention folds models, batch and heads into the flash kernel's
 batch axis: one launch per layer. The reference's scan over periods is a
 Python loop.
 
-The RWKV6 family (``family="ssm"``) runs one model, no leading axes: its
-leaves are the reference's ``blocks[i]["tmix"]`` dict (the channel mix's
-leaves inside it, as there) plus ``ln1``/``ln2``, and its fp32 leaves
-(``decay_base``, ``bonus_u``, ``ln_x``) keep fp32 in a bf16 model, so it
-is held leaf by leaf (``init_leaves``; ``ParamLayout.fp32``), not in one
-buffer; each layer's WKV6 recurrence is one launch of the CUDA kernel
-(``models/rwkv.py``). Its training is not ported (ROADMAP Queue 1 item 10:
-it needs a WKV6 backward).
+The RWKV6 family (``family="ssm"``) trains and serves like the dense stack:
+its leaves are the reference's ``blocks[i]["tmix"]`` dict (the channel
+mix's leaves inside it, as there) plus ``ln1``/``ln2``, stacked with any
+leading model axes; its fp32 leaves (``decay_base``, ``bonus_u``,
+``ln_x``) keep fp32 in a bf16 model, which makes two parameter groups as
+below. Each layer's WKV6 recurrence is one call of the CUDA kernels for all
+G models, folded into the head axis (``models/rwkv.py``); under autograd
+the chunked forward and the hand-written backward. ``decode_step`` and
+``make_cache`` stay one model.
 
 The MoE family (``family="moe"``; mixtral, llama4-maverick) is the dense
 stack with ``moe.*`` leaves in place of ``ffn.*`` on the layers of
@@ -37,7 +38,7 @@ has no kernel there); ``loss_fn`` adds ``0.01 * aux``, the balance loss,
 as the reference's does.
 
 Fp32 leaves in a bf16 model (the MoE router, the Mamba ``dt_proj``,
-``dt_bias``, ``a_log``, ``d_skip``, the cross gate) make two parameter
+``dt_bias``, ``a_log``, ``d_skip``, the cross gate, RWKV6's) make two parameter
 groups (``init_params``, ``ParamLayout.pack``): the round engine holds
 such a model as ``Groups`` of a bf16 and an fp32 buffer, and ``make_loss``
 takes them; serving holds it leaf by leaf (``init_leaves``).
@@ -96,22 +97,6 @@ def _known(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; the port runs "
                          f"{FAMILIES}")
-
-
-# why a family's training is not ported yet, by family
-_NOT_TRAINABLE = {
-    "ssm": "ROADMAP Queue 1 item 10: RWKV6 training needs a hand-written "
-           "WKV6 backward and leading model axes through the WKV6 stack",
-}
-
-
-def _trainable(cfg: ModelConfig):
-    _known(cfg)
-    if cfg.family in _NOT_TRAINABLE:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet "
-            f"({_NOT_TRAINABLE[cfg.family]}); its forward and decode_step "
-            f"are")
 
 
 def period_length(cfg: ModelConfig) -> int:
@@ -433,23 +418,37 @@ def _rwkv_layer(params: Params, cfg: ModelConfig, i: int, layer: int):
 
 def _rwkv_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  backend=None) -> torch.Tensor:
-    """The RWKV6 stack over ``tokens [b, T]`` (one model) -> the final
-    normed hidden states ``[b, T, d]``; one WKV6 launch per layer."""
-    if tokens.dim() != 2:
-        raise ValueError(f"the rwkv family runs one model: tokens [b, T], "
-                         f"got {tuple(tokens.shape)}")
-    x = params["embed"][tokens.long()].to(dtype_of(cfg))
+    """The RWKV6 stack of G models (leaves ``[*L, ...]``, ``G = prod(L)``)
+    over ``tokens [*L, b, T]`` -> the final normed hidden states ``[*L, b,
+    T, d]``: each product one batched matmul over the models, one WKV6
+    call per layer with the models folded into its head axis."""
+    p, G = _models(params, tokens)
+    b, t = tokens.shape[-2:]
+    tok = tokens.reshape(G, b, t).long()
+    rows = torch.arange(G, device=tok.device)[:, None, None]
+    x = p["embed"][rows, tok].to(dtype_of(cfg))           # [G, b, T, d]
     P = period_length(cfg)
+    names = ["ln1", "ln2"] + [f"tmix.{name}"
+                              for name, _ in rwkv_mod.rwkv_leaves(cfg)]
+    # each stacked leaf split into its layers once: one gradient assembly
+    # a leaf, where indexing it layer by layer would give every layer a
+    # full-size zero gradient of the stack
+    layers = [{name: p[f"blocks.{i}.{name}"].unbind(1) for name in names}
+              for i in range(P)]
     for layer in range(cfg.num_layers // P):
         for i in range(P):
-            ln1, ln2, tmix = _rwkv_layer(params, cfg, i, layer)
+            lp = {name: v[layer] for name, v in layers[i].items()}
+            tmix = {name[len("tmix."):]: v for name, v in lp.items()
+                    if name.startswith("tmix.")}
             h, _ = rwkv_mod.rwkv_time_mix(
-                tmix, rms_norm(x, ln1, cfg.norm_eps), cfg, backend=backend)
+                tmix, rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                backend=backend)
             x = x + h
-            h, _ = rwkv_mod.rwkv_channel_mix(tmix,
-                                             rms_norm(x, ln2, cfg.norm_eps))
+            h, _ = rwkv_mod.rwkv_channel_mix(
+                tmix, rms_norm(x, lp["ln2"], cfg.norm_eps))
             x = x + h
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    return x.reshape(tokens.shape + (cfg.d_model,))
 
 
 def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -465,7 +464,8 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``repro_torch.kernels.dispatch``."""
     if cfg.family == "ssm":
         return (_rwkv_hidden(params, cfg, tokens, backend),
-                torch.zeros((), dtype=torch.float32, device=tokens.device))
+                torch.zeros(tokens.shape[:-2], dtype=torch.float32,
+                            device=tokens.device))
     if memory is not None and memory.shape[:-2] != tokens.shape[:-1]:
         raise ValueError(f"memory {tuple(memory.shape)} vs tokens "
                          f"{tuple(tokens.shape)}: memory is [*L, b, M, d]")
@@ -544,7 +544,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
     ``ce_chunk`` does not divide ``T`` the whole sequence is one chunk, as
     in the reference's padded branch.
     """
-    _trainable(cfg)
+    _known(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     hidden, aux = hidden_forward(params, cfg, tokens,
                                  memory=batch.get("memory"), backend=backend)
@@ -574,8 +574,9 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
 
 def make_loss(cfg: ModelConfig, backend=None):
     """The round engine's loss: ``(flat [*L, n] or its Groups, batch) ->
-    [*L]``; ``backend="torch"`` runs the plain attention on the card."""
-    _trainable(cfg)
+    [*L]``; ``backend="torch"`` runs the plain attention and WKV6 on the
+    card."""
+    _known(cfg)
     layout = param_layout(cfg)
 
     def loss(flat: torch.Tensor, batch) -> torch.Tensor:

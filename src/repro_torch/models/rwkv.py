@@ -7,12 +7,19 @@ Recurrence per head (k-dim K, v-dim V):
 with w_t = exp(-exp(decay(x_t))) in (0,1)^K, data-dependent via a LoRA.
 
 The recurrence goes through ``repro_torch.kernels.dispatch.wkv6`` in the
-kernel's ``[B, H, T, D]`` layout: one launch of the CUDA WKV6 chunk kernel
-per call for CUDA tensors, the plain chunked version for CPU tensors or
+kernel's ``[B, H, T, D]`` layout: one call of the CUDA WKV6 kernels per
+layer for CUDA tensors (under autograd, the chunked forward and the
+backward kernels), the plain chunked version for CPU tensors or
 ``backend="torch"``. The reference's own chunked scan (``_wkv_chunk_scan``)
 is that plain version here, not a second path. Leaves as the reference's
-``rwkv_init``: one model, no leading axes; ``decay_base``, ``bonus_u`` and
-``ln_x`` are fp32 in any model.
+``rwkv_init``; ``decay_base``, ``bonus_u`` and ``ln_x`` are fp32 in any
+model.
+
+Both mixes take one model (``x [b, T, d]``, leaves without leading axes:
+serving) or G models at once (``x [G, b, T, d]``, every leaf ``[G, ...]``:
+training), each product one batched matmul over the models. The time mix
+folds the models into the head axis of its one WKV6 call, ``[b, G * H, T,
+D]`` with ``u [G * H, D]``, so each model's bonus reaches its own heads.
 """
 from __future__ import annotations
 
@@ -66,52 +73,90 @@ def init_leaf(gen: torch.Generator, name: str, shape, dtype) -> torch.Tensor:
             * shape[0] ** -0.5).to(dtype)
 
 
+def _per_model(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``w [*L, d]`` broadcast against ``x [*L, ..., d]``."""
+    return w.reshape(w.shape[:-1] + (1,) * (x.dim() - w.dim())
+                     + w.shape[-1:])
+
+
 def _token_shift(x, mix, last=None):
-    """x [B,T,D]; returns lerp(x_{t-1}, x_t, mix). last: [B,1,D] carry or
-    None (zeros before the first step)."""
+    """x [*L, B, T, D]; returns lerp(x_{t-1}, x_t, mix). last: [*L, B, 1, D]
+    carry or None (zeros before the first step)."""
     if last is None:
-        prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+        prev = F.pad(x, (0, 0, 1, 0))[..., :-1, :]
     else:
-        prev = torch.cat([last, x[:, :-1]], 1)
-    return x + (prev - x) * (1.0 - mix)
+        prev = torch.cat([last, x[..., :-1, :]], -2)
+    return x + (prev - x) * (1.0 - _per_model(mix, x))
+
+
+def _models(p: Dict[str, torch.Tensor], x: torch.Tensor, state):
+    """One model's leaves and ``x [b, T, d]`` lifted to one model of G
+    (``[1, ...]``): ``(p, x, last, one)``; G models' are returned as
+    they are."""
+    last = state["last"] if state is not None else None
+    if x.dim() == 4:
+        return p, x, last, False
+    p = {k: v[None] for k, v in p.items()}
+    return p, x[None], None if last is None else last[None], True
 
 
 def rwkv_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor,
                   cfg: ModelConfig, state=None, *,
                   backend: Optional[str] = None):
-    """x [B,T,D]. state: None or {'s': [B,H,D,D] fp32, 'last': [B,1,D]}.
-    Returns ``(out [B,T,D], {'s', 'last'})``. ``backend``: the WKV6
-    recurrence's (``dispatch.wkv6``)."""
-    b, t, d = x.shape
+    """x ``[b, T, d]`` (one model) or ``[G, b, T, d]`` (G models, leaves
+    ``[G, ...]``). state: None or {'s': [b, H, D, D] fp32, 'last':
+    [b, 1, d]} (one model). Returns ``(out like x, {'s': [b, G * H, D, D],
+    'last'})``. ``backend``: the WKV6 recurrence's (``dispatch.wkv6``)."""
+    p, x, last, one = _models(p, x, state)
+    G, b, t, d = x.shape
     nh, hd = _dims(cfg)
-    last = state["last"] if state is not None else None
     xr, xk, xv, xw, xg = (_token_shift(x, p[f"mix_{c}"], last)
                           for c in "rkvwg")
 
-    def heads(y):                               # [B,T,D] -> [B,H,T,hd] fp32
-        return y.reshape(b, t, nh, hd).transpose(1, 2).float().contiguous()
+    def mm(y, w):                               # [G,b,T,.] @ [G,.,e]
+        return y.reshape(G, b * t, -1) @ w
 
-    r, k, v = heads(xr @ p["wr"]), heads(xk @ p["wk"]), heads(xv @ p["wv"])
-    g = F.silu((xg @ p["wg"]).float())
-    decay = p["decay_base"] + (torch.tanh((xw @ p["decay_a"]).float())
-                               @ p["decay_b"].float())
+    def heads(y):                       # [G,b*T,d] -> [b,G*H,T,hd] fp32
+        return y.reshape(G, b, t, nh, hd).permute(1, 0, 3, 2, 4).contiguous(
+        ).float().reshape(b, G * nh, t, hd)
+
+    r, k, v = heads(mm(xr, p["wr"])), heads(mm(xk, p["wk"])), \
+        heads(mm(xv, p["wv"]))
+    g = F.silu(mm(xg, p["wg"]).float())
+    decay = _per_model(p["decay_base"], g) + (
+        torch.tanh(mm(xw, p["decay_a"]).float()) @ p["decay_b"].float())
     w = heads(torch.exp(-torch.exp(decay)))     # in (0,1)
+    u = p["bonus_u"].reshape(G * nh, hd).float()
+    if u.data_ptr() % 16:          # a view into a parameter buffer
+        u = u.clone()
     s0 = state["s"] if state is not None else torch.zeros(
-        b, nh, hd, hd, dtype=torch.float32, device=x.device)
-    o, s_t = dispatch.wkv6(r, k, v, w, p["bonus_u"], s0, backend=backend)
-    o = o.transpose(1, 2).reshape(b, t, d)
+        b, G * nh, hd, hd, dtype=torch.float32, device=x.device)
+    o, s_t = dispatch.wkv6(r, k, v, w, u, s0, backend=backend)
+    o = o.reshape(b, G, nh, t, hd).permute(1, 0, 3, 2, 4).reshape(
+        G, b * t, d)
     o = rms_norm(o, p["ln_x"], eps=1e-5) * g
-    out = o.to(x.dtype) @ p["wo"]
-    return out, {"s": s_t, "last": x[:, -1:]}
+    out = (o.to(x.dtype) @ p["wo"]).reshape(G, b, t, d)
+    new_last = x[..., -1:, :]
+    if one:
+        return out[0], {"s": s_t, "last": new_last[0]}
+    return out, {"s": s_t, "last": new_last}
 
 
 def rwkv_channel_mix(p: Dict[str, torch.Tensor], x: torch.Tensor,
                      state=None):
-    """x [B,T,D]; state: None or the last input ``[B,1,D]``. Returns
-    ``(out [B,T,D], x[:, -1:])``."""
-    xk = _token_shift(x, p["cmix_k"], state)
-    xr = _token_shift(x, p["cmix_r"], state)
-    k = torch.square(torch.relu(xk @ p["ck"]))
+    """x ``[b, T, d]`` (one model) or ``[G, b, T, d]`` (leaves ``[G,
+    ...]``); state: None or the last input ``[b, 1, d]`` (one model).
+    Returns ``(out like x, x[..., -1:, :])``."""
+    p, x, last, one = _models(p, x, None if state is None
+                              else {"last": state})
+    G, b, t, d = x.shape
+    xk = _token_shift(x, p["cmix_k"], last)
+    xr = _token_shift(x, p["cmix_r"], last)
+    k = torch.square(torch.relu(xk.reshape(G, b * t, d) @ p["ck"]))
     kv = k @ p["cv"]
-    return (torch.sigmoid((xr @ p["cr"]).float()).to(x.dtype) * kv,
-            x[:, -1:])
+    out = (torch.sigmoid((xr.reshape(G, b * t, d) @ p["cr"]).float()
+                         ).to(x.dtype) * kv).reshape(G, b, t, d)
+    new_last = x[..., -1:, :]
+    if one:
+        return out[0], new_last[0]
+    return out, new_last

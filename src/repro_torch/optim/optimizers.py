@@ -40,6 +40,25 @@ def _zeros32(params):
     return gmap(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
+# the update of a large buffer runs over slices of this many parameters a
+# row, so that its fp32 temporaries stay small beside the model's buffers
+# (each element's arithmetic is the same as in one call)
+_SLICE = 1 << 26
+
+
+def _sliced(fn, p, *xs):
+    """``fn(p, *xs).to(p.dtype)``, over slices of the last axis where it
+    is longer than ``_SLICE``."""
+    n = p.shape[-1]
+    if n <= _SLICE:
+        return fn(p, *xs).to(p.dtype)
+    out = torch.empty_like(p)
+    for i in range(0, n, _SLICE):
+        cols = slice(i, i + _SLICE)
+        out[..., cols] = fn(p[..., cols], *(x[..., cols] for x in xs))
+    return out
+
+
 def sgd(lr, momentum: float = 0.0) -> Optimizer:
     sched = _schedule(lr)
 
@@ -55,10 +74,11 @@ def sgd(lr, momentum: float = 0.0) -> Optimizer:
         if momentum:
             mu = gmap(lambda m, g: momentum * m + g.float(), state["mu"],
                       grads)
-            return gmap(lambda p, u: (p - eta * u).to(p.dtype), params,
-                        mu), {"step": step, "mu": mu}
-        return gmap(lambda p, g: (p - eta * g).to(p.dtype), params,
-                    grads), {"step": step}
+            return gmap(lambda p, u: _sliced(lambda a, b: a - eta * b, p,
+                                             u), params, mu), \
+                {"step": step, "mu": mu}
+        return gmap(lambda p, g: _sliced(lambda a, b: a - eta * b, p, g),
+                    params, grads), {"step": step}
 
     return Optimizer(init, update)
 

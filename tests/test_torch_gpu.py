@@ -21,7 +21,15 @@ kernels (both routes: the chunked one's products in 3xTF32) vs the plain
 chunked version and the step scan, fp32 atol and rtol 1e-4 (as their
 emulated build; the reference's kernel tolerance is 3e-3), at the
 serving shapes 1e-3 (64 chunks of a 4096-step sequence, and ``__expf``
-on the card).
+on the card); the WKV6 backward kernels vs the autograd of the plain
+chunked version, fp32 atol and rtol 1e-3 on each gradient divided by its
+largest magnitude, and on dlog w = dw * w as it is, ``chip_smoke.py``
+phase 19a's bar (dw = dlog w / w magnifies dlog w's fp32 rounding where w
+is small: at strong decay the plain version's own dw lies up to 7.7e-5 of
+its largest magnitude from the float64 function, 0.5 relative at a small
+element, and the kernel's up to 1.0e-4, while both dlog w lie within
+7.3e-6 of its largest); reduced rwkv6 trained through the
+WKV6 kernels vs the plain path, fp32 1e-3 as the zoo's.
 """
 import dataclasses
 
@@ -265,7 +273,7 @@ def _check_wkv(cuda, b, h, t, d, decay, tol, route):
     assert trwkv.rwkv6_chunk.launches - before == 1
     assert {k: n - by_route[k] for k, n in
             trwkv.rwkv6_chunk.launches_by_route.items()} == {
-        k: int(k == want_route) for k in trwkv.ROUTES}
+        k: int(k == want_route) for k in trwkv.COUNTED}
     assert torch.isfinite(o).all() and torch.isfinite(s).all()
     wants = [tref.rwkv6_chunk_plain(*ins)]
     if t <= 512:
@@ -273,6 +281,91 @@ def _check_wkv(cuda, b, h, t, d, decay, tol, route):
     for want_o, want_s in wants:
         torch.testing.assert_close(o, want_o, rtol=tol, atol=tol)
         torch.testing.assert_close(s, want_s, rtol=tol, atol=tol)
+
+
+# the WKV6 backward: (b, h, t, d, decay); one chunk, ragged T, strong decay
+# over 8 chunks, D = 128, and T = 8, which the forward's step route would
+# take outside autograd
+WKV_BWD_CASES = [
+    (2, 2, 64, 64, "ref"),
+    (1, 3, 100, 64, "ref"),
+    (2, 2, 130, 64, "strong"),
+    (1, 2, 512, 64, "strong"),
+    (1, 2, 200, 128, "ref"),
+    (2, 2, 8, 64, "ref"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d,decay", WKV_BWD_CASES)
+def test_wkv6_backward_matches_autograd_of_plain_version(cuda, b, h, t, d,
+                                                         decay):
+    """``dispatch.wkv6`` under autograd: one chunked forward and one
+    backward call (two CUDA launches each), all six gradients finite and
+    within 1e-3 (scaled) of the autograd of the plain chunked version, and
+    dlog w within 1e-3 as it is, for the output and the final state's
+    gradients."""
+    from repro_torch.kernels import dispatch
+
+    ins = _wkv_inputs(b, h, t, d, decay, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    do = torch.randn(b, h, t, d, generator=gen, device=cuda)
+    ds_t = 0.1 * torch.randn(b, h, d, d, generator=gen, device=cuda)
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    by_route = dict(trwkv.rwkv6_chunk.launches_by_route)
+    o, s = dispatch.wkv6(*leaves)
+    got = torch.autograd.grad([o, s], leaves, [do, ds_t])
+    torch.cuda.synchronize()
+    assert {k: n - by_route[k] for k, n in
+            trwkv.rwkv6_chunk.launches_by_route.items()} == {
+        "chunked": 1, "step": 0, "backward": 1}
+    want = tref.rwkv6_chunk_grads(*ins, do, ds_t)
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert torch.isfinite(g).all(), name
+        scale = x.abs().max()
+        torch.testing.assert_close(g / scale, x / scale, rtol=1e-3,
+                                   atol=1e-3, msg=lambda m: f"{name}: {m}")
+    torch.testing.assert_close(got[3] * ins[3], want[3] * ins[3], rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_rwkv_training_through_the_kernels_matches_the_plain_path(
+        cuda, monkeypatch):
+    """``launch/train.py --arch rwkv6-3b`` at ``reduced()`` on the card, 2
+    clients, 2 local steps, 2 rounds, T = 64: in fp32 the kernel path (one
+    chunked WKV6 forward and one backward per layer and local step for
+    both clients at once, the fused aggregation) against the plain path
+    from the same generators, every client parameter within 1e-3; in bf16
+    two groups, the aggregation once per group a round, the fp32 leaves
+    fp32."""
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(reduced(get_config("rwkv6-3b")),
+                              dtype="float32")
+    args = ["--arch", "rwkv6-3b", "--clients", "2", "--rounds", "2",
+            "--seq", "64", "--log-every", "2"]
+    outs = {}
+    for path, backend, agg in (("kernel", None, "1"), ("plain", "torch", "0")):
+        monkeypatch.setenv("REPRO_USE_KERNEL", agg)
+        trwkv.reset_counts()
+        outs[path] = train.main(args, backend=backend)
+        per = 2 * 2 * cfg.num_layers if path == "kernel" else 0
+        assert trwkv.rwkv6_chunk.launches_by_route == {
+            "chunked": per, "step": 0, "backward": per}
+    torch.testing.assert_close(outs["kernel"]["state"].clients,
+                               outs["plain"]["state"].clients, rtol=1e-3,
+                               atol=1e-3)
+    monkeypatch.setenv("REPRO_USE_KERNEL", "1")
+    tmasked.fused_masked_agg.launches = 0
+    out = train.main(args + ["--dtype", "bfloat16"])
+    assert tmasked.fused_masked_agg.launches == 2 * 2
+    layout = tmodel.param_layout(cfg)
+    assert [x.dtype for x in out["state"].server] == [torch.bfloat16,
+                                                      torch.float32]
+    views = layout.views(out["state"].clients)
+    assert all(views[k].dtype == torch.float32 for k in layout.fp32)
+    assert np.isfinite(out["losses"]).all()
 
 
 @pytest.mark.gpu

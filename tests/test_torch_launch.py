@@ -15,6 +15,7 @@ Tolerances, each with its reason:
   bits and generator states);
 - counted FLOPs: exact (matmul shapes only).
 """
+import dataclasses
 import json
 import os
 
@@ -291,15 +292,19 @@ def test_dryrun_flops_match_the_analytic_count(mode):
 
 def test_dryrun_rows_print_in_benchmarks_roofline(tmp_path, capsys):
     """An ``ok`` row (reduced smollm at train_4k), a ``FAIL`` row with its
-    error (rwkv6's training is not ported) and a ``skip`` row (smollm has
-    full attention: no long_500k) carry the reference's keys, and
+    error (a reduced rwkv6 at head dim 32, which the WKV6 kernels refuse,
+    on the card as in the count) and a ``skip`` row (smollm has full
+    attention: no long_500k) carry the reference's keys, and
     ``benchmarks/roofline.run`` prints them."""
     from benchmarks import roofline as broof
 
     ok = dryrun.lower_pair("smollm-135m", "train_4k", verbose=False,
                            cfg=reduced(get_config("smollm-135m")))
+    rwkv = reduced(get_config("rwkv6-3b"))
+    rwkv = dataclasses.replace(rwkv, rwkv=dataclasses.replace(
+        rwkv.rwkv, head_dim=32))
     fail = dryrun.lower_pair("rwkv6-3b", "train_4k", verbose=False,
-                             cfg=reduced(get_config("rwkv6-3b")))
+                             cfg=rwkv)
     skip = dryrun.lower_pair("smollm-135m", "long_500k", verbose=False)
     assert ok["status"] == "ok" and ok["mesh"] == "1xH100"
     assert {"mode", "t_compute_s", "t_memory_s", "t_collective_s",
@@ -307,7 +312,7 @@ def test_dryrun_rows_print_in_benchmarks_roofline(tmp_path, capsys):
             "argument_bytes", "fits_one_card",
             "counted_through"} <= set(ok)
     assert ok["t_collective_s"] == 0.0 and 0 < ok["useful_fraction"] < 1
-    assert fail["status"] == "FAIL" and "item 10" in fail["error"]
+    assert fail["status"] == "FAIL" and "head dims" in fail["error"]
     assert skip["status"] == "skip"
     path = tmp_path / "dryrun.json"
     path.write_text(json.dumps([ok, fail, skip]))

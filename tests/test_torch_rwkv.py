@@ -253,7 +253,8 @@ def test_converted_fp32_leaves_are_bit_equal_in_a_bf16_model():
     """A bf16 reference model: every leaf converts exactly, and the fp32
     leaves (decay base, bonus, ln_x) stay fp32, bit for bit; one flat bf16
     buffer would round them, so ``flatten`` refuses, and the engine's
-    conversion gives two parameter groups, the fp32 one bit for bit."""
+    conversion gives two parameter groups, the fp32 one bit for bit, which
+    the training loss takes: finite, its gradient in each group's dtype."""
     jcfg, tcfg, jparams, leaves = _ref_params("bfloat16")
     rng = np.random.default_rng(1)
     for name in ("decay_base", "bonus_u", "ln_x"):          # not bf16-exact
@@ -284,8 +285,14 @@ def test_converted_fp32_leaves_are_bit_equal_in_a_bf16_model():
         if name in layout.fp32:
             assert np.array_equal(got.numpy().view(np.uint32),
                                   np.asarray(ref[name]).view(np.uint32)), name
-    with pytest.raises(NotImplementedError, match="WKV6 backward"):
-        tmodel.make_loss(tcfg)
+    toks = torch.as_tensor(rng.integers(0, tcfg.vocab_size, (1, 2, 16)))
+    leaf = type(groups)(g[None].requires_grad_(True) for g in groups)
+    loss = tmodel.make_loss(tcfg)(leaf, {"tokens": toks,
+                                         "labels": toks.roll(-1, -1)})
+    assert loss.shape == (1,) and torch.isfinite(loss).all()
+    grads = torch.autograd.grad(loss.sum(), list(leaf))
+    assert [g.dtype for g in grads] == [torch.bfloat16, torch.float32]
+    assert all(torch.isfinite(g.float()).all() for g in grads)
 
 
 def test_forward_logits_match_reference():

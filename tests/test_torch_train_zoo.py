@@ -12,7 +12,8 @@ included); three engine rounds on the reference launcher's own draws
 (``tests/_torch_parity.py``'s ``lm_round_draws``), re-synced from the
 reference's state every round, with the launcher's constant memory. The
 reference's ``test_one_federated_train_step`` contract holds on the port
-for every arch but rwkv6-3b, whose training still raises. ``lm_source``'s
+for every arch (rwkv6-3b's training is ``tests/test_torch_train_rwkv.py``'s
+subject). ``lm_source``'s
 memory leaves equal the reference's. In bf16 the fp32 leaves make two
 parameter groups: the layout round trip is exact and keeps an fp32 value
 bf16 cannot hold bit for bit, and one engine round keeps them fp32.
@@ -465,14 +466,9 @@ def test_unflatten_assembles_each_groups_gradient():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_one_federated_train_step(arch):
     """``tests/test_arch_smoke.py``'s contract on the port: one FedPBC round
-    over the reduced arch (fp32), loss finite, params move; rwkv6-3b's
-    training raises and cites ROADMAP item 10."""
+    over the reduced arch (fp32), loss finite, params move."""
     cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
     m, s, B, Tt = 2, 1, 2, 16
-    if cfg.family == "ssm":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tmodel.make_loss(cfg)
-        return
     fed = TFed(algorithm="fedpbc", num_clients=m, local_steps=s)
     algo = make_algorithm_spec(("fedpbc",), fed)
     link = make_link_process(torch.ones(1, m), fed)      # always on
