@@ -29,9 +29,10 @@ branch path from the same generators; the server params must agree to 1e-5.
 
 Phase 4 builds the CUDA flash-attention kernels (``nvcc`` into
 ``build/cuda/``), prints each kernel's registers and spills from the
-``-Xptxas -v`` report (and, for the tensor-core kernels of ``FLASH_TC``,
-by head dim, of both designs; the build's head dims must be the
-wrapper's ``HEAD_DIMS``), and holds forward and dq/dk/dv against the plain
+``-Xptxas -v`` report (and by head dim, of the bf16 kernels of
+``FLASH_TC`` and the fp32 ones of ``FLASH_F32``; the build's head dims must
+be the wrapper's ``HEAD_DIMS``; a spill in the fp32 forward fails the
+phase), and holds forward and dq/dk/dv against the plain
 version and its autograd at the reference's kernel-test shapes, at bf16
 shapes of the tensor-core backward (D = 128, a ragged T at D = 32, not
 causal), at D = 144 and 256 in both dtypes (gemma2-9b's window and
@@ -41,7 +42,8 @@ softcap, and its layer's prefill ``[16, 8192, 256]``), at D = 40
 (``FLASH_TOL``: fp32 atol and rtol 2e-3, the reference's; bf16 atol 1e-2
 with the reference's rtol 3e-2, set from the measured errors), naming the
 kernels each shape took (``FLASH_DESIGN``: bf16 takes the tensor-core
-forward and backward, fp32 the CUDA-core ones) and the atol each output
+forward and backward, fp32 the 3xTF32 tensor-core forward and the
+CUDA-core backward) and the atol each output
 needs; it times the three kernels and the forward of
 ``scaled_dot_product_attention`` (the yardstick; the port never calls it)
 with CUDA-graph replays, the plain version and the yardstick's backward
@@ -53,7 +55,11 @@ new head dims (``FLASH_HEAD_DIM_TIMED``): gemma2-9b's prefill ``[16,
 only, as it has neither: not the same function, so no library time) and
 ``[256, 256, 144]`` fp32 (the LM sweep at 576) and ``[144, 2048, 40]``
 bf16 (zero-padded to 64), each bound at its dtype's peak for the pairs
-its masks allow and its true head dim. Phase 5
+its masks allow and its true head dim. Every fp32 timing (here and in
+phases 12a, 16 and 17d) also prints the tensor-core bound, the larger of
+the bytes at the memory rate and three times the flops at the card's dense
+TF32 rate (``tf32_peak``: half the bf16 one): what a 3xTF32 design could
+reach. Phase 5
 drives the LM slice: ``repro_torch.launch.train --full`` (SmolLM-135M,
 30 layers, 8 clients, 2 local steps, batch 2, 2048 tokens, 10 rounds,
 fedpbc over bernoulli links, the fused aggregation on); every loss must be
@@ -193,8 +199,8 @@ the arms of ``benchmarks/lm_sweep.py``'s full mode. (a) The aggregation
 against its plain version at the sweep's shapes, lm-family's ``[8, 4,
 106816]`` and lm-wide's ``[4, 8, 9.70M]`` (every op, half and no clients
 active, ``FP32_TOL``, ``prev`` exact when none is active), and the fp32
-CUDA-core flash kernels forward and backward at the LM's ``[G*b*H, T,
-D]``, ``[256, 32, 16]`` and ``[256, 256, 128]`` (``FLASH_TOL``), each
+flash kernels (the 3xTF32 tensor-core forward, the CUDA-core backward)
+at the LM's ``[G*b*H, T, D]``, ``[256, 32, 16]`` and ``[256, 256, 128]`` (``FLASH_TOL``), each
 timed beside its plain version, its library call and its bound (fp32
 peak). (b) lm-family (``LM_SWEEP``: the quartet over bernoulli_ti, lrs
 0.05 and 0.1, m = 4, reduced(smollm-135m) at d_model 64 and 2 layers,
@@ -361,9 +367,10 @@ steps, ragged T, D = 128) and two models of 40 heads folded into the head
 axis with a bonus each, within ``WKV_BWD_TOL`` (each gradient scaled by its
 largest magnitude, dlog w as it is) and finite; its time at ``[4, 40, 4096,
 64]`` (CUDA-graph replays) beside the chunked forward's, the plain
-version's autograd backward (CUDA events) and its bound
+version's autograd backward (CUDA events) and its bounds
 (``roofline.wkv6_work``: the function's bytes, or its step recurrence's
-flops at the fp32 peak). (b) ``reduced()`` rwkv6 through
+flops at the fp32 peak; and the tensor-core bound, three times those flops
+at ``tf32_peak``). (b) ``reduced()`` rwkv6 through
 ``launch/train.py`` (``RWKV_TRAIN_REDUCED``), the kernel path (the WKV6
 kernels, the fused aggregation) against the plain path from the same
 generators: fp32 client updates within ``RWKV_TRAIN_FP32_TOL`` relative
@@ -641,10 +648,10 @@ FLASH_DESIGN = {
     "bfloat16": {"fwd": "tensor-core bf16 (flash_fwd_tc)",
                  "bwd": "tensor-core bf16 (flash_bwd_dq_tc, "
                         "flash_bwd_dkdv_tc)"},
-    "float32": {"fwd": "CUDA-core fp32 (flash_fwd)",
+    "float32": {"fwd": "tensor-core 3xTF32 fp32 (flash_fwd)",
                 "bwd": "CUDA-core fp32 (flash_bwd_dq, flash_bwd_dkdv)"}}
-# the tensor-core kernel of each pass, whose ptxas report phase 4 prints
-# by head dim, and the CUDA-core one
+# the bf16 kernel of each pass, whose ptxas report phase 4 prints by head
+# dim, and the fp32 one
 FLASH_TC = {"fwd": "flash_fwd_tc", "dq": "flash_bwd_dq_tc",
             "dkdv": "flash_bwd_dkdv_tc"}
 FLASH_F32 = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
@@ -1214,6 +1221,15 @@ def ptxas_table(log):
     return table
 
 
+def tf32_peak(torch):
+    """The card's dense TF32 tensor-core rate (flop/s): half its bf16 one
+    (``roofline.peak_rates``), as NVIDIA's data sheets give it for all
+    three H100 variants."""
+    from repro_torch.launch.roofline import peak_rates
+
+    return peak_rates(torch.cuda.get_device_name(0))[2] / 2
+
+
 def check_flash_shape(torch, fa, ref, gen, shape, tag, forward_only=False):
     """Forward and dq/dk/dv of the kernels against the plain version and
     its autograd at ``shape`` (b, h, t, d, window, softcap, dtype, causal)
@@ -1269,7 +1285,8 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     ``scaled_dot_product_attention`` call forward and backward (the
     yardstick; the port never calls it); each pass's bound from its bytes
     at ``bw`` and its flops at ``peak`` (the dtype's rate) for the pairs
-    the causal mask and the window allow. SDPA has neither a window nor a
+    the causal mask and the window allow, and for fp32 the tensor-core
+    bound, bytes or three times the flops at ``tf32_peak`` (3xTF32). SDPA has neither a window nor a
     softcap: with either, its time is of plain causal attention (more
     pairs, no tanh), kept as ``sdpa_ms`` and not as ``library_ms``.
     ``forward_only``: the forward alone (a serving shape, which no path
@@ -1339,6 +1356,9 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     bound = {kk: max(nbytes[kk] / bw, flops[kk] / peak) * 1e3 for kk in ms}
     by = {kk: "operations" if flops[kk] / peak > nbytes[kk] / bw
           else "bytes" for kk in ms}
+    tf32 = tf32_peak(torch)
+    bound_tc = {kk: max(nbytes[kk] / bw, 3 * flops[kk] / tf32) * 1e3
+                if dtype == "float32" else None for kk in ms}
     short = "bf16" if dtype == "bfloat16" else "fp32"
     masks = "causal" + (f", window {window}" if window else "") + (
         f", softcap {cap:g}" if cap else "")
@@ -1350,8 +1370,12 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
               f"{'fwd' if kk == 'fwd' else 'bwd (dq+dk+dv)'} "
               f"{sdpa_ms[kk]:.5f} ms{note}, bound {bound[kk]:.5f} ms "
               f"({flops[kk]:.4e} flop at {peak / 1e12:g} TFLOP/s {short}; "
-              f"{nbytes[kk]} bytes), {flops[kk] / ms[kk] / 1e9:.2f} "
-              f"TFLOP/s achieved", flush=True)
+              f"{nbytes[kk]} bytes)"
+              + ("" if bound_tc[kk] is None else
+                 f", tensor-core bound {bound_tc[kk]:.5f} ms (3 x the flop "
+                 f"at {tf32 / 1e12:g} TFLOP/s tf32)")
+              + f", {flops[kk] / ms[kk] / 1e9:.2f} TFLOP/s achieved",
+              flush=True)
     if not forward_only:
         bwd = ms["dq"] + ms["dkdv"]
         print(f"{tag} backward total (dq + dkdv) vs SDPA backward{note}, "
@@ -1368,7 +1392,8 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     return {kk: dict(ms=ms[kk], plain_ms=plain[kk],
                      library_ms=sdpa_ms[kk] if same else None,
                      sdpa_ms=sdpa_ms[kk], bound_ms=bound[kk],
-                     bound_by=by[kk], flops=flops[kk], bytes=nbytes[kk],
+                     bound_by=by[kk], bound_tc_ms=bound_tc[kk],
+                     flops=flops[kk], bytes=nbytes[kk],
                      shape=[bh, t, d], dtype=dtype, window=window,
                      softcap=cap)
             for kk in ms}
@@ -1386,6 +1411,13 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, fp32_peak, build_log):
     if sorted({kk[1] for kk in ptxas}) != list(fa.HEAD_DIMS):
         fail(f"the build's head dims {sorted({kk[1] for kk in ptxas})} are "
              f"not the wrapper's {fa.HEAD_DIMS}")
+    fwd32 = {kk[1]: vv for kk, vv in ptxas.items()
+             if kk[0] == FLASH_F32["fwd"]}
+    if sorted(fwd32) != list(fa.HEAD_DIMS) or any(
+            vv.get("spill_stores") or vv.get("spill_loads")
+            for vv in fwd32.values()):
+        fail(f"ptxas reports spills in {FLASH_F32['fwd']}, or misses a head "
+             f"dim")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1406,17 +1438,17 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, fp32_peak, build_log):
         at_d[f"[{bh},{t2},{d2}] {dt2}"] = flash_timing(
             torch, fa, ref, gen, bh, t2, d2, dt2, bw, peak, "phase4",
             window=win2, cap=cap2)
-    # registers and spills by head dim, of both designs
+    # registers and spills by head dim, of the bf16 and the fp32 kernels
     design = {kk: {f"D={key[1]}": vv for key, vv in sorted(ptxas.items())
                    if key[0] == FLASH_TC[kk]} for kk in timed}
-    cores = {kk: {f"D={key[1]}": vv for key, vv in sorted(ptxas.items())
-                  if key[0] == FLASH_F32[kk]} for kk in timed}
+    f32 = {kk: {f"D={key[1]}": vv for key, vv in sorted(ptxas.items())
+                if key[0] == FLASH_F32[kk]} for kk in timed}
     for kk, r in timed.items():
         del r["shape"], r["dtype"], r["window"], r["softcap"]
         pick = (lambda e: e["o"]) if kk == "fwd" else (
             lambda e: e["dq"]) if kk == "dq" else (
             lambda e: max(e["dk"], e["dv"]))
-        r.update(ptxas=design[kk], ptxas_fp32=cores[kk],
+        r.update(ptxas=design[kk], ptxas_fp32=f32[kk],
                  max_abs_err=pick(errs),
                  max_abs_err_by_shape={sh: pick(e)
                                        for sh, e in by_shape.items()},
@@ -4885,18 +4917,22 @@ def phase19_wkv_bwd(torch, rk, ref, bw, fp32_peak, build_log):
     nbytes, flops = wkv_work(*shape[:4], direction="bwd")
     bound_ms = max(nbytes / bw, flops / fp32_peak) * 1e3
     by = "operations" if flops / fp32_peak > nbytes / bw else "bytes"
+    tf32 = tf32_peak(torch)
+    bound_tc = max(nbytes / bw, 3 * flops / tf32) * 1e3
     print(f"phase19a timing wkv6 backward {list(shape[:4])} fp32 (two "
           f"launches: wkv6_bwd_state, wkv6_bwd_chunk; CUDA-graph replays): "
           f"kernel {ms:.5f} ms (the chunked forward {fwd_ms:.5f} ms), plain "
           f"autograd backward {plain_ms:.5f} ms (CUDA events), library none "
           f"(no single PyTorch call computes WKV6's backward), bound "
           f"{bound_ms:.5f} ms by {by} ({nbytes} bytes at {bw / 1e12:g} "
-          f"TB/s; {flops:.4e} flop at {fp32_peak / 1e12:g} TFLOP/s fp32)",
-          flush=True)
+          f"TB/s; {flops:.4e} flop at {fp32_peak / 1e12:g} TFLOP/s fp32), "
+          f"tensor-core bound {bound_tc:.5f} ms (3 x the flop at "
+          f"{tf32 / 1e12:g} TFLOP/s tf32)", flush=True)
     del ins, do, ds_t
     torch.cuda.empty_cache()
     return dict(ms=ms, forward_ms=fwd_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=flops,
+                bound_ms=bound_ms, bound_by=by, bound_tc_ms=bound_tc,
+                bytes=nbytes, flops=flops,
                 max_abs_err=worst, shape=list(shape[:4]), ptxas=ptxas)
 
 
@@ -5316,6 +5352,7 @@ def main():
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "flops": r["flops"],
         "bytes": r["bytes"], "shape": r["shape"],
+        "bound_tc_ms": r["bound_tc_ms"],
         "forward_ms": r["forward_ms"], "ptxas_by_head_dim": r["ptxas"],
         "reduced_launches": {
             dt: rwkv_train["reduced"][dt]["wkv6_launches_per_direction"]

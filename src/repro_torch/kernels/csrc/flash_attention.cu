@@ -22,15 +22,37 @@
 // is 7.7e10 flops and the backward 2.7e11 against ~1e8 bytes of inputs and
 // outputs.
 //
-// fp32 inputs (flash_fwd, flash_bwd_dq, flash_bwd_dkdv): products as fp32
-// FMAs on the CUDA cores from fp32 copies of the tiles in shared memory
-// (tensor cores would round fp32 operands to TF32 or bf16): 64-row tiles
-// up to D = 128, 32-row tiles above (f32_rows: at 64 rows dq and dkdv would
-// pass 227 KB of shared memory at D = 144 and 256), 256 threads as a
-// 16 x 16 grid, each thread an R x R register micro-tile of the score tile
-// (R = rows / 16) and an R x (D/16) micro-tile of the output, operands read
-// as float4 (float2 at R = 2) from shared memory laid out so the inner
-// product's index runs along rows.
+// fp32 forward (flash_fwd): the tensor-core design of flash_fwd_tc below
+// (4 warps, 64 resident Q rows, K and V through a two-stage cp.async ring,
+// the online softmax in the accumulator layout, P fed from registers into
+// O += P V), with fp32 tiles and 3xTF32 products (mma3.cuh: each product
+// three mma.sync m16n8k8 tf32, fp32-accurate operands and fp32 sums). Tiles
+// are [rows][D + 4] fp32: D + 4 is 4 (mod 8) floats, so the A-type reads
+// X[g][t] of Q and K and the B-type reads V[2t][g] below hit 32 distinct
+// banks. Q stays in shared memory and each k step loads and splits its A
+// fragment (split in registers for the whole loop it would take D
+// registers). A C fragment holds columns 2t and 2t + 1 of an n8 tile,
+// where a tf32 A fragment wants k = t and t + 4: within each 8-key step of
+// O += P V the keys are taken in the order 2t -> k = t, 2t + 1 -> k = t + 4,
+// so P's accumulators are its A fragment as they are (no shuffle, no
+// shared memory), and V's B fragment is read in the same order (b0 from
+// key row 2t, b1 from 2t + 1). Key tiles 64 wide up to D = 128, 32 above.
+// On an H100 it takes 96 / 127 / 139 / 176 / 156 / 225 registers at D = 16
+// / 32 / 64 / 128 / 144 / 256 and spills nowhere (its S = Q K^T k loop is
+// kept rolled: unrolled twice, D = 16 spilled); dynamic shared memory 1
+// resident and 2 x 2 ring tiles of [rows][D + 4] fp32: 87,040 bytes at D =
+// 64 (two blocks an SM), 168,960 at D = 128, 113,664 at D = 144 and
+// 199,680 at D = 256.
+// fp32 backward (flash_bwd_dq, flash_bwd_dkdv): products as fp32 FMAs on
+// the CUDA cores from fp32 copies of the tiles in shared memory: 64-row
+// tiles up to D = 128, 32-row tiles above (f32_rows: at 64 rows dq and
+// dkdv would pass 227 KB of shared memory at D = 144 and 256), 256 threads
+// as a 16 x 16 grid, each thread an R x R register micro-tile of the score
+// tile (R = rows / 16) and an R x (D/16) micro-tile of the output, operands
+// read as float4 (float2 at R = 2) from shared memory laid out so the inner
+// product's index runs along rows. They recompute S on the CUDA cores and
+// read the forward's lse, whose 3xTF32 scores differ from theirs by about
+// 1e-6 relative.
 //
 // bf16 inputs (flash_fwd_tc, flash_bwd_dq_tc, flash_bwd_dkdv_tc): tensor
 // cores, mma.sync m16n8k16 bf16 -> fp32 (warp_mma.cuh). 4 warps; a block
@@ -97,6 +119,7 @@
 #include <stdint.h>
 
 #include "warp_mma.cuh"
+#include "mma3.cuh"
 
 namespace {
 
@@ -219,19 +242,6 @@ __device__ __forceinline__ void mm_rows(float (&acc)[R][DC], const float* p,
   }
 }
 
-// Sum / max over the 16 threads of a half warp that share a row group.
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
 struct Mask {
   int t_len, causal, window;
   __device__ __forceinline__ bool allow(int q, int k) const {
@@ -278,89 +288,6 @@ __device__ __forceinline__ float score(float dot, float scale, float cap,
   }
   *th = 0.f;
   return x;
-}
-
-template <int D>
-constexpr int fwd_smem_floats() {
-  constexpr int BT = f32_rows<D>();
-  return 2 * D * BT + BT * (D + 4) + BT * pt<BT>();
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o,
-          float* __restrict__ lse, int t_len, Mask mask, float scale,
-          float cap) {
-  constexpr int BT = f32_rows<D>(), R = BT / 16, PT = pt<BT>(), DC = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                 // [D][BT]
-  float* kt = qt + D * BT;          // [D][BT]
-  float* vs = kt + D * BT;          // [BT][D + 4]
-  float* ps = vs + BT * (D + 4);    // [BT][PT]: probabilities p[q][k]
-  const int bh = blockIdx.x;
-  const int n_tiles = gridDim.y;
-  const int iq = n_tiles - 1 - blockIdx.y;   // the heaviest tiles first
-  const int q0 = iq * BT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ra = ty * R, cb = tx * R;
-  const size_t base = (size_t)bh * t_len * D;
-
-  load_tile<D, BT>(q + base, q0, t_len, nullptr, qt);
-  float m_i[R], l_i[R], acc[R][DC];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-  }
-  const int lo = mask.key_tile_lo(q0, BT);
-  const int hi = mask.key_tile_hi(q0, BT, BT, n_tiles);
-  for (int ik = lo; ik <= hi; ++ik) {
-    const int k0 = ik * BT;
-    __syncthreads();
-    load_tile<D, BT>(k + base, k0, t_len, nullptr, kt);
-    load_tile<D, BT>(v + base, k0, t_len, vs, nullptr);
-    __syncthreads();
-    float s[R][R] = {};
-    mm_kmajor<D, BT>(s, qt, kt, ra, cb);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      float th, mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float x = score(s[i][j], scale, cap, &th);
-        s[i][j] = mask.allow(q0 + ra + i, k0 + cb + j) ? x : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_i[i], row_max(mx));
-      const float corr = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l_i[i] = l_i[i] * corr + row_sum(rs);
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= corr;
-      sts(ps + (ra + i) * PT + cb, s[i]);
-    }
-    __syncthreads();
-    mm_rows<D, DC, BT>(acc, ps, vs, ra, tx * DC);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = q0 + ra + i;
-    if (r >= t_len) continue;
-    const float den = fmaxf(l_i[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DC; ++j)
-      o[base + (size_t)r * D + tx * DC + j] = acc[i][j] / den;
-    if (tx == 0) lse[(size_t)bh * t_len + r] = m_i[i] + logf(l_i[i]);
-  }
 }
 
 template <int D>
@@ -574,18 +501,25 @@ __host__ __device__ constexpr int dq_tc_cols() { return tc_split<D, 144>(); }
 template <int D>
 __host__ __device__ constexpr int dkdv_tc_cols() { return tc_split<D, 128>(); }
 
-// Rows [row0, row0 + ROWS) of a [T, D] bf16 matrix into a [ROWS][D + 8]
-// tile by cp.async, 16 bytes a copy, consecutive threads along a row; rows
-// >= T are zero.
-template <int ROWS, int D>
-__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int row0,
+// row stride (elements) of a [rows][D] tile of T in shared memory: bf16
+// tc_stride, fp32 D + 4
+template <typename T, int D>
+__host__ __device__ constexpr int tile_stride() {
+  return sizeof(T) == 2 ? tc_stride<D>() : D + 4;
+}
+
+// Rows [row0, row0 + ROWS) of a [T, D] matrix (bf16 or fp32) into a [ROWS]
+// [tile_stride] tile by cp.async, 16 bytes a copy, consecutive threads
+// along a row; rows >= T are zero.
+template <int ROWS, int D, typename T>
+__device__ __forceinline__ void cp_tile(T* dst, const T* src, int row0,
                                         int t_len) {
-  constexpr int CH = D / 8;
+  constexpr int V = 16 / sizeof(T), CH = D / V;
   for (int idx = threadIdx.x; idx < ROWS * CH; idx += TC_NT) {
     const int r = idx / CH, c = idx % CH, row = row0 + r;
     const bool in = row < t_len;
-    cp_async16(dst + r * tc_stride<D>() + c * 8,
-               src + (size_t)(in ? row : 0) * D + c * 8, in);
+    cp_async16(dst + r * tile_stride<T, D>() + c * V,
+               src + (size_t)(in ? row : 0) * D + c * V, in);
   }
 }
 
@@ -679,10 +613,10 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&f)[N / 16][4],
 }
 
 // A 16 x DC strip of accumulators, times `mul`, into rows [row0, row0 + 16)
-// of a [T, D] bf16 matrix (`out` at the strip's first column; rows >= T
-// dropped).
-template <int D, int DC>
-__device__ __forceinline__ void store_strip(bf16* out,
+// of a [T, D] bf16 or fp32 matrix (`out` at the strip's first column; rows
+// >= T dropped).
+template <int D, int DC, typename T>
+__device__ __forceinline__ void store_strip(T* out,
                                             const float (&acc)[DC / 8][4],
                                             int row0, int t_len, float mul) {
   const int l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
@@ -691,9 +625,90 @@ __device__ __forceinline__ void store_strip(bf16* out,
     const int row = row0 + g + 8 * h;
     if (row >= t_len) continue;
 #pragma unroll
-    for (int j = 0; j < DC / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + (size_t)row * D + j * 8 + 2 * t4) =
-          pack_bf16x2(acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+    for (int j = 0; j < DC / 8; ++j) {
+      T* at = out + (size_t)row * D + j * 8 + 2 * t4;
+      const float lo = acc[j][2 * h] * mul, hi = acc[j][2 * h + 1] * mul;
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<uint32_t*>(at) = pack_bf16x2(lo, hi);
+      else
+        *reinterpret_cast<float2*>(at) = make_float2(lo, hi);
+    }
+  }
+}
+
+// The forward's online softmax over one key tile, in the accumulator
+// layout of the warp's 16 rows (row0 the first; the thread's rows g and
+// g + 8): the scores S = Q K^T of keys [k0, k0 + BN) become probabilities
+// in place (scale, softcap, the masks on an `edge` tile), the rows' (m, l)
+// are updated, and `corr` says by how much to rescale O. The 4 lanes of a
+// quad hold one row's columns and reduce its max and sum by two shuffles.
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 8][4],
+                                             float (&m_r)[2], float (&l_r)[2],
+                                             float (&corr)[2], int row0,
+                                             int k0, bool edge,
+                                             const Mask& mask, float scale,
+                                             float cap) {
+  const int l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + 8 * (i / 2);
+      const int c = k0 + j * 8 + 2 * t4 + i % 2;
+      float th;
+      const float x = score(s[j][i], scale, cap, &th);
+      s[j][i] = !edge || mask.allow(r, c) ? x : NEG_INF;
+      mx[i / 2] = fmaxf(mx[i / 2], s[j][i]);
+    }
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m_r[h], mx[h]);
+    corr[h] = __expf(m_r[h] - m_new);
+    m_r[h] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[j][i] = __expf(s[j][i] - m_r[i / 2]);
+      rs[i / 2] += s[j][i];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+    l_r[h] = l_r[h] * corr[h] + rs[h];
+  }
+}
+
+// The forward's epilogue: O / max(l, 1e-30) into rows [row0, row0 + 16) of
+// `o` and lse = m + log l into `lse` (the [BH, T] row of this head).
+template <int D, typename T>
+__device__ __forceinline__ void finish_rows(T* o, float* lse,
+                                            float (&acc)[D / 8][4],
+                                            const float (&m_r)[2],
+                                            const float (&l_r)[2], int row0,
+                                            int t_len) {
+  const int l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] /= fmaxf(l_r[i / 2], 1e-30f);
+  }
+  store_strip<D, D>(o, acc, row0, t_len, 1.f);
+  if (t4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + g + 8 * h;
+      if (row < t_len) lse[row] = m_r[h] + logf(l_r[h]);
+    }
   }
 }
 
@@ -724,7 +739,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* vs = ks + 2 * BN * S;                 // [2][BN][S]: the V ring
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+  const int w = threadIdx.x / 32;
   const size_t base = (size_t)bh * t_len * D;
   const int n_k = (t_len + BN - 1) / BN;
   const int lo = mask.key_tile_lo(q0, BN);
@@ -756,43 +771,9 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     } else {
       mma_abt<D, BN>(s, qs + w * 16 * S, ks + buf * BN * S);
     }
-    const bool edge = mask.partial(q0, TC_ROWS, k0, BN);
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = q0 + w * 16 + g + 8 * (i / 2);
-        const int c = k0 + j * 8 + 2 * t4 + i % 2;
-        float th;
-        const float x = score(s[j][i], scale, cap, &th);
-        s[j][i] = !edge || mask.allow(r, c) ? x : NEG_INF;
-        mx[i / 2] = fmaxf(mx[i / 2], s[j][i]);
-      }
-    }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_r[h], mx[h]);
-      corr[h] = __expf(m_r[h] - m_new);
-      m_r[h] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[j][i] = __expf(s[j][i] - m_r[i / 2]);
-        rs[i / 2] += s[j][i];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
-      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
-      l_r[h] = l_r[h] * corr[h] + rs[h];
-    }
+    float corr[2];
+    softmax_tile<BN>(s, m_r, l_r, corr, q0 + w * 16, k0,
+                     mask.partial(q0, TC_ROWS, k0, BN), mask, scale, cap);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
@@ -802,19 +783,92 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     to_a_frags<BN>(pf, s);
     mma_px<D, BN, D>(acc, pf, vs + buf * BN * S);   // O += P V
   }
+  finish_rows<D>(o + base, lse + (size_t)bh * t_len, acc, m_r, l_r,
+                 q0 + w * 16, t_len);
+}
+
+// The fp32 forward: flash_fwd_tc's design with fp32 tiles [rows][D + 4]
+// and 3xTF32 products (mma3), Q read and split at each k step.
+template <int D>
+constexpr int fwd_f32_smem_bytes() {
+  return (TC_ROWS + 4 * fwd_tc_cols<D>()) * (D + 4) * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int t_len, Mask mask, float scale,
+          float cap) {
+  constexpr int BN = fwd_tc_cols<D>(), S = D + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [TC_ROWS][S]
+  float* ks = qs + TC_ROWS * S;     // [2][BN][S]: the K ring
+  float* vs = ks + 2 * BN * S;      // [2][BN][S]: the V ring
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+  const size_t base = (size_t)bh * t_len * D;
+  const int n_k = (t_len + BN - 1) / BN;
+  const int lo = mask.key_tile_lo(q0, BN);
+  const int hi = mask.key_tile_hi(q0, TC_ROWS, BN, n_k);
+
+  cp_tile<TC_ROWS, D>(qs, q + base, q0, t_len);
+  cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
+  cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
+  cp_async_commit();
+  // a0 of the warp's Q fragment (row g, k t); a1 8 rows below, a2 and a3
+  // 4 columns right
+  const float* qa = qs + (w * 16 + g) * S + t4;
+  float acc[D / 8][4] = {};
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  for (int ik = lo; ik <= hi; ++ik) {
+    const int buf = (ik - lo) & 1, k0 = ik * BN;
+    cp_async_wait_all();
+    __syncthreads();   // tile ik landed; everyone is done with tile ik - 1
+    if (ik < hi) {
+      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + base, k0 + BN, t_len);
+      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + base, k0 + BN, t_len);
+    }
+    cp_async_commit();
+    // S = Q K^T: b0 = K[key g][d t], b1 = K[key g][d t + 4]
+    const float* kb = ks + buf * BN * S + g * S + t4;
+    float s[BN / 8][4] = {};
+#pragma unroll 1
+    for (int kk = 0; kk < D; kk += 8) {
+      const float a[4] = {qa[kk], qa[8 * S + kk], qa[kk + 4],
+                          qa[8 * S + kk + 4]};
+      uint32_t ah[4], al[4];
+      split4(a, ah, al);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j)
+        mma3(s[j], ah, al, kb[j * 8 * S + kk], kb[j * 8 * S + kk + 4]);
+    }
+    float corr[2];
+    softmax_tile<BN>(s, m_r, l_r, corr, q0 + w * 16, k0,
+                     mask.partial(q0, TC_ROWS, k0, BN), mask, scale, cap);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] /= fmaxf(l_r[i / 2], 1e-30f);
-  }
-  store_strip<D, D>(o + base, acc, q0 + w * 16, t_len, 1.f);
-  if (t4 == 0) {
+    for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q0 + w * 16 + g + 8 * h;
-      if (row < t_len) lse[(size_t)bh * t_len + row] = m_r[h] + logf(l_r[h]);
+      for (int i = 0; i < 4; ++i) acc[j][i] *= corr[i / 2];
+    }
+    // O += P V over each 8-key step with its keys in the order 2t (k = t),
+    // 2t + 1 (k = t + 4): P's accumulators c0 c2 c1 c3 are the A fragment,
+    // and b0 = V[key 2t][d g], b1 = V[key 2t + 1][d g]
+    const float* vb = vs + buf * BN * S + 2 * t4 * S + g;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float a[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+      uint32_t ah[4], al[4];
+      split4(a, ah, al);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        mma3(acc[n], ah, al, vb[j * 8 * S + n * 8],
+             vb[(j * 8 + 1) * S + n * 8]);
     }
   }
+  finish_rows<D>(o + base, lse + (size_t)bh * t_len, acc, m_r, l_r,
+                 q0 + w * 16, t_len);
 }
 
 template <int D>
@@ -1061,10 +1115,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const Mask mask{t_len, causal, window};
   cudaStream_t st = (cudaStream_t)stream;
 #define FWD(T, D)                                                          \
-  return launch<flash_fwd<D>, NT, f32_rows<D>()>(fwd_smem_floats<D>() * F32, \
-                bh, t_len, st,                                             \
-                (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, t_len,  \
-                mask, scale, cap)
+  return launch<flash_fwd<D>, TC_NT, TC_ROWS>(fwd_f32_smem_bytes<D>(),     \
+                bh, t_len, st, (const T*)q, (const T*)k, (const T*)v,      \
+                (T*)o, lse, t_len, mask, scale, cap)
 #define FWD_TC(T, D)                                                       \
   return launch<flash_fwd_tc<D>, TC_NT, TC_ROWS>(fwd_tc_smem_bytes<D>(),   \
                 bh, t_len, st, (const T*)q, (const T*)k, (const T*)v,      \

@@ -27,7 +27,7 @@
 //     applies the update as one tensor-core product over the chunk's 64
 //     steps, while the next chunk's k, w and v arrive through a two-stage
 //     cp.async ring. Its decays exp(q_last - q_t) are suffix products of w
-//     (suffix_prod8): no logarithm or exponential.
+//     (scan_prod8): no logarithm or exponential.
 // (2) wkv6_output: a block of 8 warps per (batch * head, chunk, 64 value
 //     columns), all in parallel; two warps serve each sub-chunk i of 16
 //     rows. q is recomputed from w, in base 2 (log_cumsum, ex2). A left of
@@ -45,10 +45,9 @@
 // (k exp(-q_inc)), which overflows fp32 once a chunk's cumulative
 // log-decay passes about -88.
 //
-// Products at fp32 accuracy on the tensor cores: 3xTF32 (mma3). Each
-// operand x is split into tf32 parts x = hi + lo (split_tf32, warp_mma.cuh)
-// and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated in fp32; plain
-// TF32 keeps about three decimal digits.
+// Products at fp32 accuracy on the tensor cores: 3xTF32 (mma3.cuh). The
+// state pass, the chunk, log_cumsum and the decay scans are shared with the
+// backward (wkv6_chunk.cuh).
 //
 // Step route, rwkv6_step_fwd: one launch, for short T (decode). A block of
 // 4 warps per (batch * head, 32 value columns); lane (row group lane / 8,
@@ -71,17 +70,12 @@
 #include <stdint.h>
 
 #include "warp_mma.cuh"
+#include "mma3.cuh"
+#include "wkv6_chunk.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int C = 64;              // time steps per chunk
 constexpr int SUB = 16;            // a sub-chunk: the rows of o of a warp
-constexpr int TILE = 32;           // state pass: tiles of S, 32 x 32
-constexpr int T_LD = TILE + 8;     // row stride of its [C][TILE] tiles
-constexpr int STAGE = 3 * C * T_LD;  // one stage of its ring: k, w (-> P), v
-constexpr int STATE_FLOATS = 2 * STAGE + TILE;   // two, and the decays
-constexpr int STATE_NT = 128;      // 4 warps, 16 x 16 of the tile each
 constexpr int DV = 64;             // output pass: value columns per block
 constexpr int V_LD = DV + 8;       // row stride of v and S_c [.][DV]
 constexpr int A_LD = C + 4;        // row stride of A [C][C]
@@ -106,200 +100,14 @@ struct Out {
   static constexpr int FLOATS = U_OFF + D;
 };
 
-// d += a b at fp32 accuracy from three tf32 products (small terms first);
-// a is split by the caller, once for all the n tiles it meets.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0,
-                                     float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
-
-__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&ah)[4],
-                                       uint32_t (&al)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
-}
-
-// In place over one chunk, for G groups of 8 channels of q [C][ld], group
-// j at channels ch0 + j * stride + [0, 8): w <- q[t] = sum_{t' <= t}
-// log2 w[t'] (base 2, for ex2), with log2 w = 0 at steps >= n. One warp:
-// lane (segment lane / 8, channel lane % 8) takes the logs of its 16 steps
-// (independent of each other), sums them in order, and the segments'
-// running totals pass up by __shfl_up_sync, each segment taking the
-// previous one's last value as it is; so q never increases, also as
-// rounded, and every exponent the kernels take stays <= 0.
-template <int G>
-__device__ __forceinline__ void log_cumsum(float* q, int ld, int n, int ch0,
-                                           int stride, int lane) {
-  const int seg = lane / 8;
-  float* col = q + seg * 16 * ld + ch0 + lane % 8;
-  float part[G][16];
-#pragma unroll
-  for (int j = 0; j < G; ++j)
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      part[j][i] = seg * 16 + i < n
-                       ? __log2f(fmaxf(col[j * stride + i * ld], 1e-12f))
-                       : 0.f;
-#pragma unroll
-  for (int j = 0; j < G; ++j)
-#pragma unroll
-    for (int i = 1; i < 16; ++i) part[j][i] += part[j][i - 1];
-  float before[G];
-#pragma unroll
-  for (int j = 0; j < G; ++j) before[j] = 0.f;
-#pragma unroll
-  for (int s = 1; s < 4; ++s)
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const float prev = __shfl_up_sync(FULL, part[j][15] + before[j], 8);
-      if (seg == s) before[j] = prev;
-    }
-#pragma unroll
-  for (int j = 0; j < G; ++j)
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      col[j * stride + i * ld] = part[j][i] + before[j];
-}
-
-// In place over one chunk, for channels ch0 .. ch0 + 7 of p [C][ld]: w <-
-// P[t] = prod_{t < t' < C} w[t'] = exp(q_last - q[t]), and decay[ch] <-
-// prod_t w[t] = exp(q_last), with w = 1 at steps >= n. Products of factors
-// in (0, 1): nothing overflows, and no logarithm or exponential is taken.
-// One warp: lane (segment lane / 8, channel lane % 8) multiplies its 16
-// steps from the end; the products of the later segments pass down by
-// __shfl_down_sync.
-__device__ __forceinline__ void suffix_prod8(float* p, float* decay, int ld,
-                                             int n, int ch0, int lane) {
-  const int seg = lane / 8;
-  float* col = p + seg * 16 * ld + ch0 + lane % 8;
-  float x[16], suf[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) x[i] = seg * 16 + i < n ? col[i * ld] : 1.f;
-  suf[15] = 1.f;
-#pragma unroll
-  for (int i = 14; i >= 0; --i) suf[i] = suf[i + 1] * x[i + 1];
-  float after = 1.f;                 // the product over the later segments
-#pragma unroll
-  for (int s = 2; s >= 0; --s) {
-    const float next = __shfl_down_sync(FULL, after * suf[0] * x[0], 8);
-    if (seg == s) after = next;
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) col[i * ld] = suf[i] * after;
-  if (seg == 0) decay[ch0 + lane] = after * suf[0] * x[0];
-}
-
-// The state pass. Block (tile, batch * head): rows d0 .. d0 + 31 (key
-// channels) and columns j0 .. j0 + 31 of S. Warp w owns rows d0 + 16 (w %
-// 2) .., the A operand's 16 rows, and columns j0 + 16 (w / 2) .. (2 n
-// tiles): element i of its n tile nt is S[d0 + 16 (w % 2) + g + 8 (i / 2)]
-// [j0 + 16 (w / 2) + 8 nt + 2 t4 + i % 2].
+// The state pass (wkv6_chunk.cuh): ws[c] = S_c, s_out = S_T.
 template <int D>
 __global__ void __launch_bounds__(STATE_NT)
 wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
            const float* __restrict__ w, const float* __restrict__ s0,
            float* __restrict__ ws, float* __restrict__ s_out, int t_len) {
   extern __shared__ __align__(16) float smem[];
-  float* decS = smem + 2 * STAGE;            // exp(q_last) by channel
-  constexpr int TILES = D / TILE;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int row = SUB * (warp % 2), cols = SUB * (warp / 2);
-  const int d0 = (blockIdx.x / TILES) * TILE, j0 = (blockIdx.x % TILES) * TILE;
-  const int bh = blockIdx.y;
-  const int n_chunks = (t_len + C - 1) / C;
-  const size_t base = (size_t)bh * t_len * D;
-  const size_t sbase = (size_t)bh * D * D;
-
-  // chunk c's k and w (channels d0 ..) and v (columns j0 ..) into stage
-  // c % 2, rows [C][T_LD], 16 bytes a copy; missing steps are zeros.
-  // Thread tid copies piece tid % 8 of rows tid / 8 + 16 j.
-  static_assert(STATE_NT == 128 && TILE == 32, "8 threads a row of 8 pieces");
-  auto load = [&](int c) {
-    float* st = smem + (c % 2) * STAGE + 4 * (tid % 8);
-    const int t0 = c * C, n = min(C, t_len - t0);
-#pragma unroll
-    for (int j = 0; j < C / 16; ++j) {
-      const int t = tid / 8 + 16 * j;
-      const bool in = t < n;
-      const size_t at = base + (size_t)(t0 + (in ? t : 0)) * D + 4 * (tid % 8);
-      cp_async16(st + t * T_LD, k + at + d0, in);
-      cp_async16(st + C * T_LD + t * T_LD, w + at + d0, in);
-      cp_async16(st + 2 * C * T_LD + t * T_LD, v + at + j0, in);
-    }
-    cp_async_commit();
-  };
-  // the offset in a [D, D] state of this warp's element pair (h, nt)
-  auto at = [&](int h, int nt) {
-    return (size_t)(d0 + row + g + 8 * h) * D + j0 + cols + 8 * nt + 2 * t4;
-  };
-
-  float acc[2][4];
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = s0[sbase + at(i / 2, nt) + i % 2];
-  load(0);
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait_all();
-    __syncthreads();              // chunk c has landed; c - 1 is done with
-    if (c + 1 < n_chunks) load(c + 1);                   // its stage
-    float* kS = smem + (c % 2) * STAGE;
-    float* pS = kS + C * T_LD;
-    const float* vS = kS + 2 * C * T_LD;
-
-    float* dst = ws + ((size_t)bh * n_chunks + c) * D * D;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(dst + at(h, nt)) =
-            make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-
-    // the decays, 8 channels a warp
-    suffix_prod8(pS, decS, T_LD, min(C, t_len - c * C), 8 * warp, lane);
-    __syncthreads();
-    const float decay[2] = {decS[row + g], decS[row + g + 8]};
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] *= decay[i / 2];
-    // S += A v, A[d][s] = k[s][d] P[s][d], K = the steps; odd k steps go to
-    // a second accumulator, halving the chain of mma
-    float odd[2][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < C; kk += 8) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int x = (kk + t4 + 4 * (i / 2)) * T_LD + row + g + 8 * (i % 2);
-        a[i] = kS[x] * pS[x];
-      }
-      uint32_t ah[4], al[4];
-      split4(a, ah, al);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        mma3(kk % 16 ? odd[nt] : acc[nt], ah, al,
-             vS[(kk + t4) * T_LD + cols + 8 * nt + g],
-             vS[(kk + t4 + 4) * T_LD + cols + 8 * nt + g]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] += odd[nt][i];
-  }
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(s_out + sbase + at(h, nt)) =
-          make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+  state_pass<D, false>(smem, k, v, w, s0, ws, s_out, t_len);
 }
 
 // The output pass. Block (chunk * D / DV + value tile, batch * head); warp

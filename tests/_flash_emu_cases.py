@@ -1,0 +1,160 @@
+"""The emulated flash-attention cases and their check, shared by
+``tests/test_torch_flash_emulated.py`` (fp32), ``..._bf16.py`` and
+``..._wide.py`` (head dims 144 and 256, and one the wrapper pads): the
+kernels' own source (``csrc/flash_attention.cu``), compiled for the host
+with ``g++`` against the stand-in for the CUDA runtime
+(``tests/_cuda_emu.py``, ``tests/cuda_emu``: one thread per CUDA thread, a
+barrier for ``__syncthreads``, warp collectives through a buffer) and
+called through the same C interface and ``ctypes`` signatures as on the
+card. Split over three files so that the test run's ``--dist loadfile``
+spreads them over workers.
+
+Routes: the fp32 forward and every bf16 kernel run on the tensor cores
+(128 threads and some ``mma`` calls: 3xTF32 ``mma_tf32`` for fp32, bf16
+``mma_bf16``); the fp32 ``flash_bwd_dq`` and ``flash_bwd_dkdv`` on the
+CUDA cores (256 threads, none).
+
+Tolerance vs the plain ``flash_attention_ref`` and its autograd: fp32 1e-5
+(fp32-accurate products: the forward's 3xTF32 keeps about 21 bits of each
+operand and sums in fp32, the backward's FMAs are fp32, summed in tiles;
+the stand-in reads each tf32 operand to its top 19 bits, as the card
+does); bf16 3e-2 (the reference's kernel tolerance: bf16 outputs, and P
+and dS rounded to bf16 before their products, in the forward as in the
+backward).
+"""
+import ctypes
+
+import torch
+
+import _cuda_emu
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels.ref import flash_attention_ref
+
+FP32 = [  # (bh, t, d, dtype, causal, window, softcap)
+    (2, 128, 64, "float32", True, 0, 0.0),
+    (1, 128, 128, "float32", True, 0, 0.0),
+    (1, 256, 64, "float32", True, 100, 0.0),      # window: skipped tiles
+    (1, 128, 64, "float32", True, 0, 50.0),       # softcap
+    (2, 80, 16, "float32", True, 0, 0.0),         # ragged T
+    (1, 96, 32, "float32", True, 0, 0.0),
+    (1, 40, 64, "float32", False, 0, 0.0),        # not causal, T < tile
+    (1, 192, 64, "float32", False, 70, 5.0),
+]
+BF16 = [  # the tensor-core kernels at every head dim up to 128
+    (1, 128, 64, "bfloat16", True, 0, 0.0),
+    (2, 80, 16, "bfloat16", True, 0, 0.0),        # ragged T
+    (1, 200, 32, "bfloat16", True, 0, 0.0),       # ragged T
+    (1, 256, 64, "bfloat16", True, 100, 0.0),     # window: skipped tiles
+    (1, 128, 64, "bfloat16", True, 0, 50.0),      # softcap
+    (1, 40, 64, "bfloat16", False, 0, 0.0),       # not causal, T < tile
+    (1, 192, 64, "bfloat16", False, 70, 5.0),     # not causal, window, cap
+    (1, 128, 128, "bfloat16", True, 0, 0.0),
+    (1, 200, 128, "bfloat16", False, 0, 0.0),     # ragged T, not causal
+    (1, 256, 128, "bfloat16", True, 100, 5.0),    # window, softcap
+    (2, 40, 16, "bfloat16", True, 0, 0.0),        # T < one 64-row tile
+]
+# D = 144 (the LM sweep at lm_d_model 576) and 256 (gemma2-9b): 32-key
+# forward tiles and 32-row fp32 backward tiles; bf16 Q reloaded from shared
+# memory in the forward and the backward's output columns split over grid z
+# (dq 144 | 128 + 128, dkdv 3 x 48 | 2 x 128); and a head dim padded inside
+# the wrapper
+WIDE = [
+    (1, 96, 144, "float32", True, 0, 0.0),
+    (1, 80, 144, "bfloat16", True, 0, 0.0),       # ragged T
+    (1, 72, 256, "float32", True, 40, 50.0),      # window, softcap, ragged
+    (1, 128, 256, "bfloat16", True, 50, 50.0),    # gemma2's masks
+    (1, 64, 40, "float32", True, 0, 0.0),         # padded to 64
+    (1, 72, 40, "bfloat16", False, 0, 5.0),       # padded to 64
+]
+
+
+def build(tmp_path_factory):
+    """The emulated library, with its route counters bound."""
+    lib = _cuda_emu.build(tflash.SOURCE, tflash._SIGNATURES,
+                          tmp_path_factory.mktemp("flash_emu"))
+    lib.emu_mma_calls.restype = ctypes.c_long
+    lib.emu_block_threads.restype = ctypes.c_int
+    return lib
+
+
+def _route(lib, launch):
+    """(threads per block, mma calls) of what ``launch()`` ran."""
+    before = lib.emu_mma_calls()
+    assert launch() == 0
+    return lib.emu_block_threads(), lib.emu_mma_calls() - before
+
+
+def run_kernels(lib, q, k, v, do, d, causal, window, cap):
+    """Forward, dq and dkdv through the C interface at the instantiated
+    head dim (inputs zero-padded as the wrapper pads, with the true D's
+    scale); returns (o, lse, dq, delta, dk, dv) and the three launches'
+    routes."""
+    bh, t = q.shape[:2]
+    dp = tflash.padded_head_dim(d)
+    q, k, v, do = (torch.nn.functional.pad(x, (0, dp - d)).contiguous()
+                   for x in (q, k, v, do))
+    common = (bh, t, dp, int(q.dtype == torch.bfloat16), int(causal), window,
+              cap, d ** -0.5, None)
+    o, lse = torch.empty_like(q), torch.empty(bh, t)
+    routes = [_route(lib, lambda: lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *common))]
+    dq, delta = torch.empty_like(q), torch.empty(bh, t)
+    routes.append(_route(lib, lambda: lib.flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *common)))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    routes.append(_route(lib, lambda: lib.flash_attention_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *common)))
+    # the padding columns of every output are zero
+    for got in (o, dq, dk, dv):
+        assert not got[..., d:].any()
+    o, dq, dk, dv = (x[..., :d] for x in (o, dq, dk, dv))
+    return (o, lse, dq, delta, dk, dv), routes
+
+
+def check_case(lib, bh, t, d, dtype, causal, window, cap):
+    """One case: the routes, then every output against the plain version
+    and its autograd at the true D."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(t + d + window)
+    q, k, v, do = (torch.randn(bh, t, d, generator=gen).to(dt)
+                   for _ in range(4))
+    (o, lse, dq, delta, dk, dv), routes = run_kernels(
+        lib, q, k, v, do, d, causal, window, cap)
+    # forward, dq, dkdv: tensor cores but for the fp32 backward
+    if dtype == "bfloat16":
+        assert all(th == 128 and mmas > 0 for th, mmas in routes), routes
+    else:
+        assert routes[0][0] == 128 and routes[0][1] > 0, routes
+        assert all(th == 256 and mmas == 0 for th, mmas in routes[1:]), \
+            routes
+    rs = [x.float().requires_grad_(True) for x in (q, k, v)]
+    want = flash_attention_ref(*rs, causal=causal, window=window,
+                               logit_softcap=cap)
+    grads = torch.autograd.grad(want, rs, do.float())
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for got, ref in zip((o, dq, dk, dv), (want,) + grads):
+        assert got.dtype == dt
+        torch.testing.assert_close(got.float(), ref.detach(), rtol=tol,
+                                   atol=tol)
+    # the log-sum-exp the backward reuses, and delta = rowsum(dO * O)
+    s = (rs[0] @ rs[1].transpose(-1, -2)).detach() * d ** -0.5
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    pos = torch.arange(t)
+    allow = torch.ones(t, t, dtype=torch.bool)
+    if causal:
+        allow &= pos[:, None] >= pos[None, :]
+    if window:
+        allow &= pos[:, None] - pos[None, :] < window
+    torch.testing.assert_close(lse, torch.logsumexp(
+        s.masked_fill(~allow, float("-inf")), -1), rtol=tol, atol=tol)
+    torch.testing.assert_close(delta, (do.float() * o.float()).sum(-1),
+                               rtol=tol, atol=tol)
+
+
+__all__ = ["BF16", "FP32", "WIDE", "build", "check_case", "run_kernels"]

@@ -37,6 +37,7 @@ def test_library_path_follows_the_source_and_its_headers(sources, edited,
 
 def test_dependencies_of_the_port_sources():
     names = [p.name for p in build.dependencies(tflash.SOURCE)]
-    assert names == ["flash_attention.cu", "warp_mma.cuh"]
-    assert [p.name for p in build.dependencies(trwkv.SOURCE)] == [
-        "rwkv6_chunk.cu", "warp_mma.cuh"]
+    assert names == ["flash_attention.cu", "warp_mma.cuh", "mma3.cuh"]
+    for source in (trwkv.SOURCE, trwkv.BWD_SOURCE):
+        assert [p.name for p in build.dependencies(source)] == [
+            source.name, "warp_mma.cuh", "mma3.cuh", "wkv6_chunk.cuh"]

@@ -7,8 +7,11 @@ writes to its workspace, as the autograd ``Function`` of
 ``kernels/rwkv6_chunk.py`` hands them over. This checks the two backward
 launches' chunking, indexing, masks and arithmetic on the CPU; whether they
 compile for ``sm_90a``, and their speed, only a card can show
-(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 19). Head dim 64
-only: D = 128 is checked on the card.
+(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 19). Both launches do
+their products on the tensor cores (3xTF32 ``mma_tf32``): the chunk pass
+runs 8 warps (256 threads) and makes ``mma`` calls, which the stand-in
+counts. Head dim 64 throughout, and one case at 128, where the chunk pass's
+shared memory is tightest.
 
 Inputs as ``tests/test_torch_rwkv_emulated.py``'s (r, k, v ~ 0.5 N(0, 1),
 w = exp(-exp(-3 + 0.5 N(0, 1))) or strong decay w uniform in [1e-3, 0.1],
@@ -20,21 +23,29 @@ Tolerance against the autograd of the plain chunked version
 (``ref.rwkv6_chunk_grads``), each gradient scaled by its largest
 magnitude: fp32 atol = rtol = 1e-4 for dr, dk, dv, du, ds0 and the
 log-decay gradient dw * w: the same fp32 arithmetic in another order, exact
-``exp2``/``log2`` for the card's ``ex2.approx``/``__log2f``, and the
-forward's 3xTF32 states, which the emulated tensor core rounds as the card
-does. dw itself is dlog w / w: at strong decay (w down to 1e-3) that
-division magnifies dlog w's fp32 rounding, in the plain version's own
-autograd too (its dw lies 3.5e-5 to 5.7e-5 of the largest |dw| from the
-same function in float64 in these cases, the kernel's 5.8e-5 to 8.5e-5,
-while their dlog w lie within 6.5e-6), so dw is held to the card's 1e-3
-(``chip_smoke.py`` phase 19a).
+``exp2``/``log2`` for the card's ``ex2.approx``/``__log2f``, and 3xTF32
+products in both directions, whose operands the emulated tensor core
+rounds as the card does. dw itself is dlog w / w: at strong decay (w down
+to 1e-3) that division magnifies dlog w's fp32 rounding, in the plain
+version's own autograd too (its dw lies 3.5e-5 to 5.7e-5 of the largest
+|dw| from the same function in float64 in these cases), so dw is held to
+the card's 1e-3 (``chip_smoke.py`` phase 19a). The same bars hold the
+backward against ``jax.vjp`` of the JAX reference's step scan
+(``repro.kernels.ref.rwkv6_chunk_ref``) on the same numpy inputs.
 """
 
+import ctypes
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
 import _cuda_emu  # noqa: E402
+from repro.kernels.ref import rwkv6_chunk_ref as jrwkv6_chunk_ref  # noqa: E402
 from repro_torch.kernels import rwkv6_chunk as trwkv  # noqa: E402
 from repro_torch.kernels.ref import rwkv6_chunk_grads  # noqa: E402
 
@@ -71,8 +82,10 @@ def wkv_inputs(b, h, t, d, decay, seed=0):
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     out = tmp_path_factory.mktemp("rwkv_bwd_emu")
-    return (_cuda_emu.build(trwkv.SOURCE, trwkv._SIGNATURES, out),
+    libs = (_cuda_emu.build(trwkv.SOURCE, trwkv._SIGNATURES, out),
             _cuda_emu.build(trwkv.BWD_SOURCE, trwkv._BWD_SIGNATURES, out))
+    libs[1].emu_mma_calls.restype = ctypes.c_long
+    return libs
 
 
 def run(libs, r, k, v, w, u, s0, do, ds_t):
@@ -114,17 +127,54 @@ def assert_grads_close(got, want, w, label):
             msg=lambda m: f"{label} {name} (scaled by {scale:.3g}): {m}")
 
 
+def check_against_plain(libs, b, h, t, d, decay, with_ds):
+    """All six gradients against the plain autograd; the chunk pass runs 8
+    warps a block and the backward makes mma calls."""
+    ins, do, ds_t = wkv_inputs(b, h, t, d, decay)
+    ds_t = ds_t if with_ds else None
+    want = rwkv6_chunk_grads(*ins, do, ds_t)
+    before = libs[1].emu_mma_calls()
+    err, got = run(libs, *ins, do, ds_t)
+    assert err == 0
+    assert libs[1].emu_block_threads() == 256
+    assert libs[1].emu_mma_calls() > before
+    assert_grads_close(got, want, ins[3], f"[{b}, {h}, {t}, {d}] {decay}")
+
+
 @pytest.mark.parametrize("b,h,t,decay,with_ds", CASES)
 def test_emulated_backward_matches_autograd_of_plain_version(
         emulated, b, h, t, decay, with_ds):
-    """All six gradients; the chunk pass runs 4 D = 256 threads a block."""
-    ins, do, ds_t = wkv_inputs(b, h, t, 64, decay)
-    ds_t = ds_t if with_ds else None
-    want = rwkv6_chunk_grads(*ins, do, ds_t)
-    err, got = run(emulated, *ins, do, ds_t)
+    check_against_plain(emulated, b, h, t, 64, decay, with_ds)
+
+
+def test_emulated_backward_at_head_dim_128(emulated):
+    """D = 128, a ragged last chunk at strong decay: the chunk pass's
+    205,312 bytes of shared memory, and its 16-row slabs of S_c and dS'
+    eight times over."""
+    check_against_plain(emulated, 1, 1, 100, 128, "strong", True)
+
+
+def test_emulated_backward_matches_jax_vjp_of_reference(emulated):
+    """``[1, 2, 100, 64]`` at the reference decay, numpy inputs: the six
+    gradients against ``jax.vjp`` of ``repro.kernels.ref.rwkv6_chunk_ref``
+    for the cotangents (do, dS_T), at the bars above."""
+    rng = np.random.default_rng(3)
+    b, h, t, d = 1, 2, 100, 64
+    r, k, v = (0.5 * rng.normal(size=(b, h, t, d)) for _ in range(3))
+    w = np.exp(-np.exp(-3.0 + 0.5 * rng.normal(size=(b, h, t, d))))
+    u = 0.3 * rng.normal(size=(h, d))
+    s0 = 0.1 * rng.normal(size=(b, h, d, d))
+    do = rng.normal(size=(b, h, t, d))
+    ds_t = 0.1 * rng.normal(size=(b, h, d, d))
+    ins = [x.astype(np.float32) for x in (r, k, v, w, u, s0)]
+    do, ds_t = do.astype(np.float32), ds_t.astype(np.float32)
+    _, vjp = jax.vjp(jrwkv6_chunk_ref, *map(jnp.asarray, ins))
+    want = [torch.as_tensor(np.array(x))
+            for x in vjp((jnp.asarray(do), jnp.asarray(ds_t)))]
+    err, got = run(emulated, *map(torch.as_tensor, ins),
+                   torch.as_tensor(do), torch.as_tensor(ds_t))
     assert err == 0
-    assert emulated[1].emu_block_threads() == 256
-    assert_grads_close(got, want, ins[3], f"[{b}, {h}, {t}] {decay}")
+    assert_grads_close(got, want, torch.as_tensor(ins[3]), "vs jax.vjp")
 
 
 def test_emulated_backward_folds_models_into_the_head_axis(emulated):
