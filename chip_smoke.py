@@ -31,8 +31,8 @@ Phase 4 builds the CUDA flash-attention kernels (``nvcc`` into
 ``build/cuda/``), prints each kernel's registers and spills from the
 ``-Xptxas -v`` report (and by head dim, of the bf16 kernels of
 ``FLASH_TC`` and the fp32 ones of ``FLASH_F32``; the build's head dims must
-be the wrapper's ``HEAD_DIMS``; a spill in the fp32 forward fails the
-phase), and holds forward and dq/dk/dv against the plain
+be the wrapper's ``HEAD_DIMS``; a spill in any of the three fp32 kernels,
+or a head dim missing from one, fails the phase), and holds forward and dq/dk/dv against the plain
 version and its autograd at the reference's kernel-test shapes, at bf16
 shapes of the tensor-core backward (D = 128, a ragged T at D = 32, not
 causal), at D = 144 and 256 in both dtypes (gemma2-9b's window and
@@ -42,8 +42,8 @@ softcap, and its layer's prefill ``[16, 8192, 256]``), at D = 40
 (``FLASH_TOL``: fp32 atol and rtol 2e-3, the reference's; bf16 atol 1e-2
 with the reference's rtol 3e-2, set from the measured errors), naming the
 kernels each shape took (``FLASH_DESIGN``: bf16 takes the tensor-core
-forward and backward, fp32 the 3xTF32 tensor-core forward and the
-CUDA-core backward) and the atol each output
+forward and backward, fp32 the 3xTF32 tensor-core forward and backward)
+and the atol each output
 needs; it times the three kernels and the forward of
 ``scaled_dot_product_attention`` (the yardstick; the port never calls it)
 with CUDA-graph replays, the plain version and the yardstick's backward
@@ -199,7 +199,7 @@ the arms of ``benchmarks/lm_sweep.py``'s full mode. (a) The aggregation
 against its plain version at the sweep's shapes, lm-family's ``[8, 4,
 106816]`` and lm-wide's ``[4, 8, 9.70M]`` (every op, half and no clients
 active, ``FP32_TOL``, ``prev`` exact when none is active), and the fp32
-flash kernels (the 3xTF32 tensor-core forward, the CUDA-core backward)
+flash kernels (the 3xTF32 tensor-core forward and backward)
 at the LM's ``[G*b*H, T, D]``, ``[256, 32, 16]`` and ``[256, 256, 128]`` (``FLASH_TOL``), each
 timed beside its plain version, its library call and its bound (fp32
 peak). (b) lm-family (``LM_SWEEP``: the quartet over bernoulli_ti, lrs
@@ -649,7 +649,8 @@ FLASH_DESIGN = {
                  "bwd": "tensor-core bf16 (flash_bwd_dq_tc, "
                         "flash_bwd_dkdv_tc)"},
     "float32": {"fwd": "tensor-core 3xTF32 fp32 (flash_fwd)",
-                "bwd": "CUDA-core fp32 (flash_bwd_dq, flash_bwd_dkdv)"}}
+                "bwd": "tensor-core 3xTF32 fp32 (flash_bwd_dq, "
+                       "flash_bwd_dkdv)"}}
 # the bf16 kernel of each pass, whose ptxas report phase 4 prints by head
 # dim, and the fp32 one
 FLASH_TC = {"fwd": "flash_fwd_tc", "dq": "flash_bwd_dq_tc",
@@ -1411,13 +1412,12 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, fp32_peak, build_log):
     if sorted({kk[1] for kk in ptxas}) != list(fa.HEAD_DIMS):
         fail(f"the build's head dims {sorted({kk[1] for kk in ptxas})} are "
              f"not the wrapper's {fa.HEAD_DIMS}")
-    fwd32 = {kk[1]: vv for kk, vv in ptxas.items()
-             if kk[0] == FLASH_F32["fwd"]}
-    if sorted(fwd32) != list(fa.HEAD_DIMS) or any(
-            vv.get("spill_stores") or vv.get("spill_loads")
-            for vv in fwd32.values()):
-        fail(f"ptxas reports spills in {FLASH_F32['fwd']}, or misses a head "
-             f"dim")
+    for name in FLASH_F32.values():
+        got = {kk[1]: vv for kk, vv in ptxas.items() if kk[0] == name}
+        if sorted(got) != list(fa.HEAD_DIMS) or any(
+                vv.get("spill_stores") or vv.get("spill_loads")
+                for vv in got.values()):
+            fail(f"ptxas reports spills in {name}, or misses a head dim")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

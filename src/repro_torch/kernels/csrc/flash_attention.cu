@@ -22,37 +22,46 @@
 // is 7.7e10 flops and the backward 2.7e11 against ~1e8 bytes of inputs and
 // outputs.
 //
-// fp32 forward (flash_fwd): the tensor-core design of flash_fwd_tc below
-// (4 warps, 64 resident Q rows, K and V through a two-stage cp.async ring,
-// the online softmax in the accumulator layout, P fed from registers into
-// O += P V), with fp32 tiles and 3xTF32 products (mma3.cuh: each product
-// three mma.sync m16n8k8 tf32, fp32-accurate operands and fp32 sums). Tiles
-// are [rows][D + 4] fp32: D + 4 is 4 (mod 8) floats, so the A-type reads
-// X[g][t] of Q and K and the B-type reads V[2t][g] below hit 32 distinct
-// banks. Q stays in shared memory and each k step loads and splits its A
-// fragment (split in registers for the whole loop it would take D
-// registers). A C fragment holds columns 2t and 2t + 1 of an n8 tile,
-// where a tf32 A fragment wants k = t and t + 4: within each 8-key step of
-// O += P V the keys are taken in the order 2t -> k = t, 2t + 1 -> k = t + 4,
-// so P's accumulators are its A fragment as they are (no shuffle, no
-// shared memory), and V's B fragment is read in the same order (b0 from
-// key row 2t, b1 from 2t + 1). Key tiles 64 wide up to D = 128, 32 above.
-// On an H100 it takes 96 / 127 / 139 / 176 / 156 / 225 registers at D = 16
-// / 32 / 64 / 128 / 144 / 256 and spills nowhere (its S = Q K^T k loop is
-// kept rolled: unrolled twice, D = 16 spilled); dynamic shared memory 1
+// fp32 inputs (flash_fwd, flash_bwd_dq, flash_bwd_dkdv): the tensor-core
+// designs of the bf16 kernels below (4 warps, 64 resident rows, the loop
+// operand through a two-stage cp.async ring, the softmax or the gradient in
+// the accumulator layout, P and dS fed from registers into the next
+// product), with fp32 tiles and 3xTF32 products (mma3.cuh: each product
+// three mma.sync m16n8k8 tf32, fp32-accurate operands and fp32 sums); P
+// and dS stay fp32. Tiles are [rows][D + 4] fp32: D + 4 is 4 (mod 8)
+// floats, so the A-type reads X[g][t] of the resident rows and the B-type
+// reads Y[g][t] (S = Q K^T, dP = dO V^T and their transposes) and Y[2t][g]
+// (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q) of a loop tile hit 32
+// distinct banks (mma3_abt, mma3_px). The resident rows stay in shared
+// memory and each k step loads and splits its A fragment (split in
+// registers for the whole loop it would take D registers). A C fragment
+// holds columns 2t and 2t + 1 of an n8 tile, where a tf32 A fragment
+// wants k = t and t + 4: within each 8-step of a product over the loop
+// tile's rows those rows are taken in the order 2t -> k = t, 2t + 1 -> k =
+// t + 4, so the accumulators of P (P^T, dS, dS^T) are its A fragment as
+// they are (c0 c2 c1 c3: no shuffle, no shared memory), and the B fragment
+// is read in the same order (b0 from row 2t, b1 from 2t + 1).
+// The forward: key tiles 64 wide up to D = 128, 32 above. On an H100 it
+// takes 96 / 125 / 127 / 180 / 167 / 220 registers at D = 16 / 32 / 64 /
+// 128 / 144 / 256 and spills nowhere (the S = Q K^T k loop is kept
+// rolled: unrolled twice, D = 16 spilled); dynamic shared memory 1
 // resident and 2 x 2 ring tiles of [rows][D + 4] fp32: 87,040 bytes at D =
 // 64 (two blocks an SM), 168,960 at D = 128, 113,664 at D = 144 and
 // 199,680 at D = 256.
-// fp32 backward (flash_bwd_dq, flash_bwd_dkdv): products as fp32 FMAs on
-// the CUDA cores from fp32 copies of the tiles in shared memory: 64-row
-// tiles up to D = 128, 32-row tiles above (f32_rows: at 64 rows dq and
-// dkdv would pass 227 KB of shared memory at D = 144 and 256), 256 threads
-// as a 16 x 16 grid, each thread an R x R register micro-tile of the score
-// tile (R = rows / 16) and an R x (D/16) micro-tile of the output, operands
-// read as float4 (float2 at R = 2) from shared memory laid out so the inner
-// product's index runs along rows. They recompute S on the CUDA cores and
-// read the forward's lse, whose 3xTF32 scores differ from theirs by about
-// 1e-6 relative.
+// The backward (bwd_f32_cols, dkdv_f32_cols): loop tiles 64 wide up to D
+// = 32, 32 at D = 64 and 16 from D = 128; dq accumulates all D columns in
+// one block, dkdv one slice of them up to D = 144 and two of 128 at D =
+// 256 (each slice's block recomputes S^T and dP^T). A thread of dkdv
+// holds dK and dV (2 x DC / 2 fp32) and S^T and dP^T (2 x BN / 2): at D =
+// 144 three slices of 48 ran 2.4x slower than one of 144. On an H100 dq
+// takes 125 / 149 / 109 / 125 / 126 / 222 registers at D = 16 / 32 / 64
+// / 128 / 144 / 256 and dkdv 125 / 158 / 162 / 214 / 230 / 214; neither
+// spills. Dynamic shared memory 2 resident and 2 x 2 ring tiles of
+// [rows][D + 4] fp32 and the row statistics: dq 31,232 / 55,808 / 70,144
+// / 101,888 / 114,176 / 200,192 bytes, dkdv 31,744 / 56,320 / 70,144 /
+// 101,632 / 113,920 / 199,936; three blocks an SM at D = 64, two at 128
+// and 144 (with 32-wide loop tiles one, and 1.2 to 1.3x slower), one at
+// 256.
 //
 // bf16 inputs (flash_fwd_tc, flash_bwd_dq_tc, flash_bwd_dkdv_tc): tensor
 // cores, mma.sync m16n8k16 bf16 -> fp32 (warp_mma.cuh). 4 warps; a block
@@ -123,124 +132,7 @@
 
 namespace {
 
-constexpr int NT = 256;          // threads per block, a 16 x 16 grid
 constexpr float NEG_INF = -1e30f;
-
-// rows per tile (queries and keys alike) of the fp32 kernels: 64, or 32
-// above D = 128, where 64-row tiles of dq and dkdv pass 227 KB of shared
-// memory
-template <int D>
-__host__ __device__ constexpr int f32_rows() { return D > 128 ? 32 : 64; }
-// padded row stride of a [BT][BT] score tile
-template <int BT>
-__host__ __device__ constexpr int pt() { return BT + 4; }
-
-// N consecutive floats from shared memory (16-byte aligned for N % 4 == 0,
-// 8-byte for N % 2 == 0).
-template <int N>
-__device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(src + i);
-      dst[i] = t.x; dst[i + 1] = t.y; dst[i + 2] = t.z; dst[i + 3] = t.w;
-    }
-  } else if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(src + i);
-      dst[i] = t.x; dst[i + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) dst[i] = src[i];
-  }
-}
-
-// R consecutive floats into shared memory (as lds aligns them).
-template <int R>
-__device__ __forceinline__ void sts(float* dst, const float (&v)[R]) {
-  if constexpr (R == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    static_assert(R == 2, "micro-tiles are 4 or 2 wide");
-    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-  }
-}
-
-// Rows [row0, row0 + BT) of a [T, D] matrix into shared memory as fp32:
-// row-major with stride D + 4 (`rm`) and/or transposed [D][BT] (`tr`).
-// One 16-byte global load per thread and step; consecutive threads take
-// consecutive rows, so the transposed stores hit consecutive banks. Rows
-// >= T are zero.
-template <int D, int BT>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          int row0, int t_len, float* rm,
-                                          float* tr) {
-  constexpr int VEC = 4;
-  constexpr int GROUPS = D / VEC;
-  for (int idx = threadIdx.x; idx < BT * GROUPS; idx += NT) {
-    const int r = idx % BT, g = idx / BT, row = row0 + r;
-    float vals[VEC];
-    if (row < t_len) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + (size_t)row * D + g * VEC);
-      const float* e = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) vals[j] = e[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) vals[j] = 0.f;
-    }
-    if (rm) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) rm[r * (D + 4) + g * VEC + j] = vals[j];
-    }
-    if (tr) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) tr[(g * VEC + j) * BT + r] = vals[j];
-    }
-  }
-}
-
-// acc[i][j] += sum_k A[k][ra + i] * B[k][cb + j] over k < K, with A and B
-// stored k-major ([K][BT], the transposed tiles): an R x R micro-tile.
-template <int K, int BT, int R>
-__device__ __forceinline__ void mm_kmajor(float (&acc)[R][R], const float* a,
-                                          const float* b, int ra, int cb) {
-#pragma unroll 8
-  for (int k = 0; k < K; ++k) {
-    float av[R], bv[R];
-    lds(av, a + k * BT + ra);
-    lds(bv, b + k * BT + cb);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) acc[i][j] += av[i] * bv[j];
-  }
-}
-
-// acc[i][j] += sum_k P[ra + i][k] * X[k][cb + j] over the BT keys k: P a
-// [BT][BT + 4] row-major score tile, X a [BT][D + 4] row-major value tile.
-template <int D, int DC, int BT, int R>
-__device__ __forceinline__ void mm_rows(float (&acc)[R][DC], const float* p,
-                                        const float* x, int ra, int cb) {
-#pragma unroll 2
-  for (int k = 0; k < BT; k += 4) {
-    float pv[R][4];
-#pragma unroll
-    for (int i = 0; i < R; ++i) lds(pv[i], p + (ra + i) * pt<BT>() + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float xv[DC];
-      lds(xv, x + (k + kk) * (D + 4) + cb);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] += pv[i][kk] * xv[j];
-    }
-  }
-}
 
 struct Mask {
   int t_len, causal, window;
@@ -290,189 +182,47 @@ __device__ __forceinline__ float score(float dot, float scale, float cap,
   return x;
 }
 
-template <int D>
-constexpr int dq_smem_floats() {
-  constexpr int BT = f32_rows<D>();
-  return 4 * D * BT + BT * (D + 4) + BT * pt<BT>() + 2 * BT;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ o,
-             const float* __restrict__ dout, const float* __restrict__ lse,
-             float* __restrict__ delta, float* __restrict__ dq, int t_len,
-             Mask mask, float scale, float cap) {
-  constexpr int BT = f32_rows<D>(), R = BT / 16, PT = pt<BT>(), DC = D / 16;
-  constexpr int TPR = NT / BT;       // threads to a row of delta
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                  // [D][BT]
-  float* dot_ = qt + D * BT;         // [D][BT]  dO transposed
-  float* kt = dot_ + D * BT;         // [D][BT]
-  float* vt = kt + D * BT;           // [D][BT]
-  float* ks = vt + D * BT;           // [BT][D + 4]
-  float* ds = ks + BT * (D + 4);     // [BT][PT]: dS[q][k]
-  float* lse_s = ds + BT * PT;       // [BT]
-  float* dl_s = lse_s + BT;          // [BT]
-  const int bh = blockIdx.x;
-  const int n_tiles = gridDim.y;
-  const int iq = n_tiles - 1 - blockIdx.y;
-  const int q0 = iq * BT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ra = ty * R, cb = tx * R;
-  const size_t base = (size_t)bh * t_len * D;
-
-  load_tile<D, BT>(q + base, q0, t_len, nullptr, qt);
-  load_tile<D, BT>(dout + base, q0, t_len, nullptr, dot_);
-  {  // delta = rowsum(dO * O): TPR threads per row
-    const int r = threadIdx.x / TPR, part = threadIdx.x % TPR, row = q0 + r;
-    float acc = 0.f;
-    if (row < t_len) {
-      for (int d = part * (D / TPR); d < (part + 1) * (D / TPR); ++d)
-        acc += dout[base + (size_t)row * D + d] *
-               o[base + (size_t)row * D + d];
-    }
+// The backward of one tile, in the accumulator layout of the warp's 16
+// rows (the thread's rows g and g + 8, columns 2t and 2t + 1 of each n8
+// tile), in place: P = exp(score - lse) and dS = P (dP - delta), times
+// 1 - tanh^2 under a softcap, from the raw scores s and dp; a pair that
+// the masks drop (tested only on an `edge` tile) gives 0. Rows are queries
+// (dq: S = Q K^T; s becomes dS, P is not kept) or, with KEY_ROWS, keys
+// (dkdv: S^T = K Q^T; s becomes P^T, dp dS^T); q_0 and k_0 are the strip's
+// or tile's first query and key, and `lse` and `dl` hold the statistics of
+// the queries from q_0 on. (The bf16 dq ran 14 % slower with dS in dp.)
+template <int BN, bool KEY_ROWS>
+__device__ __forceinline__ void grad_tile(float (&s)[BN / 8][4],
+                                          float (&dp)[BN / 8][4], int q_0,
+                                          int k_0, const float* lse,
+                                          const float* dl, bool edge,
+                                          const Mask& mask, float scale,
+                                          float cap) {
+  const int l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
 #pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (part == 0) {
-      dl_s[r] = acc;
-      lse_s[r] = row < t_len ? lse[(size_t)bh * t_len + row] : 0.f;
-      if (row < t_len) delta[(size_t)bh * t_len + row] = acc;
-    }
-  }
-  float acc[R][DC] = {};
-  const int lo = mask.key_tile_lo(q0, BT);
-  const int hi = mask.key_tile_hi(q0, BT, BT, n_tiles);
-  for (int ik = lo; ik <= hi; ++ik) {
-    const int k0 = ik * BT;
-    __syncthreads();
-    load_tile<D, BT>(k + base, k0, t_len, ks, kt);
-    load_tile<D, BT>(v + base, k0, t_len, nullptr, vt);
-    __syncthreads();
-    float s[R][R] = {}, dp[R][R] = {};
-    mm_kmajor<D, BT>(s, qt, kt, ra, cb);
-    mm_kmajor<D, BT>(dp, dot_, vt, ra, cb);
+  for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = ra + i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        float th;
-        const float x = score(s[i][j], scale, cap, &th);
-        float g = 0.f;
-        if (mask.allow(q0 + r, k0 + cb + j)) {
-          g = expf(x - lse_s[r]) * (dp[i][j] - dl_s[r]);
-          if (cap > 0.f) g *= 1.f - th * th;
-        }
-        s[i][j] = g;
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + 8 * (i / 2), c = j * 8 + 2 * t4 + i % 2;
+      const int qi = KEY_ROWS ? c : r, ki = KEY_ROWS ? r : c;
+      float th, p = 0.f, gr = 0.f;
+      const float x = score(s[j][i], scale, cap, &th);
+      if (!edge || mask.allow(q_0 + qi, k_0 + ki)) {
+        p = __expf(x - lse[qi]);
+        gr = p * (dp[j][i] - dl[qi]);
+        if (cap > 0.f) gr *= 1.f - th * th;
       }
-      sts(ds + r * PT + cb, s[i]);
-    }
-    __syncthreads();
-    mm_rows<D, DC, BT>(acc, ds, ks, ra, tx * DC);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = q0 + ra + i;
-    if (r >= t_len) continue;
-#pragma unroll
-    for (int j = 0; j < DC; ++j)
-      dq[base + (size_t)r * D + tx * DC + j] = acc[i][j] * scale;
-  }
-}
-
-template <int D>
-constexpr int dkdv_smem_floats() {
-  constexpr int BT = f32_rows<D>();
-  return 4 * D * BT + 2 * BT * (D + 4) + BT * pt<BT>() + 2 * BT;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, int t_len,
-               Mask mask, float scale, float cap) {
-  constexpr int BT = f32_rows<D>(), R = BT / 16, PT = pt<BT>(), DC = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                  // [D][BT]
-  float* vt = kt + D * BT;           // [D][BT]
-  float* qt = vt + D * BT;           // [D][BT]
-  float* dot_ = qt + D * BT;         // [D][BT]  dO transposed
-  float* qs = dot_ + D * BT;         // [BT][D + 4]
-  float* dos = qs + BT * (D + 4);    // [BT][D + 4]
-  float* pt_ = dos + BT * (D + 4);   // [BT][PT]: P^T, then dS^T ([k][q])
-  float* lse_s = pt_ + BT * PT;      // [BT]
-  float* dl_s = lse_s + BT;          // [BT]
-  const int bh = blockIdx.x;
-  const int n_tiles = gridDim.y;
-  const int ik = blockIdx.y;          // causal: low key tiles are heaviest
-  const int k0 = ik * BT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ra = ty * R, cb = tx * R;   // ra: key rows, cb: query columns
-  const size_t base = (size_t)bh * t_len * D;
-
-  load_tile<D, BT>(k + base, k0, t_len, nullptr, kt);
-  load_tile<D, BT>(v + base, k0, t_len, nullptr, vt);
-  float acc_k[R][DC] = {}, acc_v[R][DC] = {};
-  const int lo = mask.query_tile_lo(k0, BT);
-  const int hi = mask.query_tile_hi(k0, BT, BT, n_tiles);
-  for (int iq = lo; iq <= hi; ++iq) {
-    const int q0 = iq * BT;
-    __syncthreads();
-    load_tile<D, BT>(q + base, q0, t_len, qs, qt);
-    load_tile<D, BT>(dout + base, q0, t_len, dos, dot_);
-    if (threadIdx.x < BT) {
-      const int row = q0 + threadIdx.x;
-      const bool in = row < t_len;
-      lse_s[threadIdx.x] = in ? lse[(size_t)bh * t_len + row] : 0.f;
-      dl_s[threadIdx.x] = in ? delta[(size_t)bh * t_len + row] : 0.f;
-    }
-    __syncthreads();
-    // transposed scores: st[i][j] for key ra + i, query cb + j
-    float st[R][R] = {}, dpt[R][R] = {};
-    mm_kmajor<D, BT>(st, kt, qt, ra, cb);
-    mm_kmajor<D, BT>(dpt, vt, dot_, ra, cb);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int c = cb + j;
-        float th, p = 0.f, g = 0.f;
-        const float x = score(st[i][j], scale, cap, &th);
-        if (mask.allow(q0 + c, k0 + ra + i)) {
-          p = expf(x - lse_s[c]);
-          g = p * (dpt[i][j] - dl_s[c]);
-          if (cap > 0.f) g *= 1.f - th * th;
-        }
-        st[i][j] = p;
-        dpt[i][j] = g;
+      if constexpr (KEY_ROWS) {
+        s[j][i] = p;
+        dp[j][i] = gr;
+      } else {
+        s[j][i] = gr;
       }
-      sts(pt_ + (ra + i) * PT + cb, st[i]);
-    }
-    __syncthreads();
-    mm_rows<D, DC, BT>(acc_v, pt_, dos, ra, tx * DC);   // dV += P^T dO
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < R; ++i) sts(pt_ + (ra + i) * PT + cb, dpt[i]);
-    __syncthreads();
-    mm_rows<D, DC, BT>(acc_k, pt_, qs, ra, tx * DC);    // dK += dS^T Q
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = k0 + ra + i;
-    if (r >= t_len) continue;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      dk[base + (size_t)r * D + tx * DC + j] = acc_k[i][j] * scale;
-      dv[base + (size_t)r * D + tx * DC + j] = acc_v[i][j];
     }
   }
 }
 
-// ---- bf16 on the tensor cores ----
+// ---- tensor cores: bf16 (mma.sync m16n8k16) and fp32 (3xTF32) ----
 
 typedef __nv_bfloat16 bf16;
 constexpr int TC_NT = 128;       // 4 warps
@@ -500,6 +250,18 @@ __host__ __device__ constexpr int dq_tc_cols() { return tc_split<D, 144>(); }
 // dkdv: two such strips (dK and dV), up to 128 columns each
 template <int D>
 __host__ __device__ constexpr int dkdv_tc_cols() { return tc_split<D, 128>(); }
+// The fp32 backward's loop tiles: as the bf16 one's up to D = 64, 16 wide
+// from D = 128 (at D = 128 and 144 the smaller ring lets two blocks share
+// an SM, at 256 32-wide tiles would pass 227 KB); its output columns: dq
+// all D in one block (two slices of 128 at D = 256, each recomputing S
+// and dP, ran slower), dkdv slices of up to 144 (one at D = 144, where
+// three of 48 each recomputed S^T and dP^T)
+template <int D>
+__host__ __device__ constexpr int bwd_f32_cols() {
+  return D >= 128 ? 16 : tc_cols<D>();
+}
+template <int D>
+__host__ __device__ constexpr int dkdv_f32_cols() { return tc_split<D, 144>(); }
 
 // row stride (elements) of a [rows][D] tile of T in shared memory: bf16
 // tc_stride, fp32 D + 4
@@ -520,6 +282,50 @@ __device__ __forceinline__ void cp_tile(T* dst, const T* src, int row0,
     const bool in = row < t_len;
     cp_async16(dst + r * tile_stride<T, D>() + c * V,
                src + (size_t)(in ? row : 0) * D + c * V, in);
+  }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// The row statistics of dq's rows [q0, q0 + TC_ROWS) (`dout` and `o` at
+// this head's [T, D], `lse` and `delta` at its [T]): delta = rowsum(dO * O)
+// into dl_s and, from block z = 0, into `delta`; lse into lse_s. 16-byte
+// loads, LPR lanes to a row (the largest power of two up to 32 that
+// divides the row's 16-byte chunks), reduced by shuffles; every thread
+// takes part in every step.
+template <int D, typename T>
+__device__ __forceinline__ void row_stats(const T* dout, const T* o,
+                                          const float* lse, float* delta,
+                                          float* lse_s, float* dl_s, int q0,
+                                          int t_len) {
+  constexpr int V = 16 / sizeof(T), CH = D / V;
+  constexpr int LPR = CH % 32 == 0 ? 32 : CH % 16 == 0 ? 16
+                      : CH % 8 == 0 ? 8 : CH % 4 == 0 ? 4 : 2;
+  static_assert(CH % LPR == 0 && TC_ROWS * LPR % TC_NT == 0, "delta lanes");
+  for (int idx = threadIdx.x; idx < TC_ROWS * LPR; idx += TC_NT) {
+    const int r = idx / LPR, part = idx % LPR, row = q0 + r;
+    float acc = 0.f;
+    if (row < t_len) {
+      for (int c = part; c < CH; c += LPR) {
+        const uint4 a = *reinterpret_cast<const uint4*>(
+            dout + (size_t)row * D + c * V);
+        const uint4 b = *reinterpret_cast<const uint4*>(
+            o + (size_t)row * D + c * V);
+        const T* ea = reinterpret_cast<const T*>(&a);
+        const T* eb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc += to_f32(ea[j]) * to_f32(eb[j]);
+      }
+    }
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (part == 0) {
+      dl_s[r] = acc;
+      lse_s[r] = row < t_len ? lse[row] : 0.f;
+      if (row < t_len && blockIdx.z == 0) delta[row] = acc;
+    }
   }
 }
 
@@ -787,6 +593,56 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  q0 + w * 16, t_len);
 }
 
+// acc (a 16 x N strip as N/8 n8 tiles) += A B^T over k < D in 3xTF32: A
+// the warp's 16 rows at `a`, B the N rows at `b`, both [rows][D + 4] fp32
+// in shared memory. Each k step reads and splits the A fragment (a0 row
+// g, k t; a1 8 rows below; a2 and a3 4 columns right) once for the N/8 n
+// tiles; b0 = B[row g][k t], b1 = B[row g][k t + 4]. The loop stays rolled
+// (unrolled twice, the forward spilled at D = 16).
+template <int D, int N>
+__device__ __forceinline__ void mma3_abt(float (&acc)[N / 8][4],
+                                         const float* a, const float* b) {
+  constexpr int S = D + 4;
+  const int l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+  const float* pa = a + g * S + t4;
+  const float* pb = b + g * S + t4;
+#pragma unroll 1
+  for (int kk = 0; kk < D; kk += 8) {
+    const float af[4] = {pa[kk], pa[8 * S + kk], pa[kk + 4],
+                         pa[8 * S + kk + 4]};
+    uint32_t ah[4], al[4];
+    split4(af, ah, al);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      mma3(acc[j], ah, al, pb[j * 8 * S + kk], pb[j * 8 * S + kk + 4]);
+  }
+}
+
+// acc (a 16 x DC strip) += P X over k < N in 3xTF32: P in the accumulator
+// layout of a 16 x N strip, X the N rows at `x` ([rows][D + 4] fp32 in
+// shared memory, `x` at the strip's first column). Each 8-step takes its
+// rows of X in the order 2t (k = t), 2t + 1 (k = t + 4): P's accumulators
+// c0 c2 c1 c3 are then its A fragment as they are, b0 = X[row 2t][col g]
+// and b1 = X[row 2t + 1][col g].
+template <int D, int N, int DC>
+__device__ __forceinline__ void mma3_px(float (&acc)[DC / 8][4],
+                                        const float (&p)[N / 8][4],
+                                        const float* x) {
+  constexpr int S = D + 4;
+  const int l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+  const float* xb = x + 2 * t4 * S + g;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+    uint32_t ah[4], al[4];
+    split4(a, ah, al);
+#pragma unroll
+    for (int n = 0; n < DC / 8; ++n)
+      mma3(acc[n], ah, al, xb[j * 8 * S + n * 8],
+           xb[(j * 8 + 1) * S + n * 8]);
+  }
+}
+
 // The fp32 forward: flash_fwd_tc's design with fp32 tiles [rows][D + 4]
 // and 3xTF32 products (mma3), Q read and split at each k step.
 template <int D>
@@ -807,7 +663,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + 2 * BN * S;      // [2][BN][S]: the V ring
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+  const int w = threadIdx.x / 32;
   const size_t base = (size_t)bh * t_len * D;
   const int n_k = (t_len + BN - 1) / BN;
   const int lo = mask.key_tile_lo(q0, BN);
@@ -817,9 +673,6 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
   cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
   cp_async_commit();
-  // a0 of the warp's Q fragment (row g, k t); a1 8 rows below, a2 and a3
-  // 4 columns right
-  const float* qa = qs + (w * 16 + g) * S + t4;
   float acc[D / 8][4] = {};
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
   for (int ik = lo; ik <= hi; ++ik) {
@@ -831,19 +684,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + base, k0 + BN, t_len);
     }
     cp_async_commit();
-    // S = Q K^T: b0 = K[key g][d t], b1 = K[key g][d t + 4]
-    const float* kb = ks + buf * BN * S + g * S + t4;
     float s[BN / 8][4] = {};
-#pragma unroll 1
-    for (int kk = 0; kk < D; kk += 8) {
-      const float a[4] = {qa[kk], qa[8 * S + kk], qa[kk + 4],
-                          qa[8 * S + kk + 4]};
-      uint32_t ah[4], al[4];
-      split4(a, ah, al);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-        mma3(s[j], ah, al, kb[j * 8 * S + kk], kb[j * 8 * S + kk + 4]);
-    }
+    mma3_abt<D, BN>(s, qs + w * 16 * S, ks + buf * BN * S);   // S = Q K^T
     float corr[2];
     softmax_tile<BN>(s, m_r, l_r, corr, q0 + w * 16, k0,
                      mask.partial(q0, TC_ROWS, k0, BN), mask, scale, cap);
@@ -852,20 +694,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] *= corr[i / 2];
     }
-    // O += P V over each 8-key step with its keys in the order 2t (k = t),
-    // 2t + 1 (k = t + 4): P's accumulators c0 c2 c1 c3 are the A fragment,
-    // and b0 = V[key 2t][d g], b1 = V[key 2t + 1][d g]
-    const float* vb = vs + buf * BN * S + 2 * t4 * S + g;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float a[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
-      uint32_t ah[4], al[4];
-      split4(a, ah, al);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        mma3(acc[n], ah, al, vb[j * 8 * S + n * 8],
-             vb[(j * 8 + 1) * S + n * 8]);
-    }
+    mma3_px<D, BN, D>(acc, s, vs + buf * BN * S);             // O += P V
   }
   finish_rows<D>(o + base, lse + (size_t)bh * t_len, acc, m_r, l_r,
                  q0 + w * 16, t_len);
@@ -887,11 +716,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
                 float* __restrict__ delta, bf16* __restrict__ dq, int t_len,
                 Mask mask, float scale, float cap) {
-  constexpr int BN = tc_cols<D>(), S = tc_stride<D>(), CH = D / 8;
+  constexpr int BN = tc_cols<D>(), S = tc_stride<D>();
   constexpr int DC = dq_tc_cols<D>();
-  // delta's lanes to a row: CH where that is a power of two (one 16-byte
-  // load each), else 2, each looping over its row's 16-byte chunks
-  constexpr int LPR = (CH & (CH - 1)) == 0 && CH <= 32 ? CH : 2;
   extern __shared__ __align__(16) float smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // [TC_ROWS][S]
   bf16* dos = qs + TC_ROWS * S;               // [TC_ROWS][S]
@@ -902,7 +728,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
   const int c0 = blockIdx.z * DC;
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+  const int w = threadIdx.x / 32;
   const size_t base = (size_t)bh * t_len * D;
   const int n_k = (t_len + BN - 1) / BN;
   const int lo = mask.key_tile_lo(q0, BN);
@@ -913,34 +739,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
   cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
   cp_async_commit();
-  // delta = rowsum(dO * O): 16-byte loads, the LPR lanes of a row reduce
-  // by shuffles (every thread takes part in every step)
-  for (int idx = threadIdx.x; idx < TC_ROWS * LPR; idx += TC_NT) {
-    const int r = idx / LPR, part = idx % LPR, row = q0 + r;
-    float acc = 0.f;
-    if (row < t_len) {
-      for (int c = part; c < CH; c += LPR) {
-        const uint4 a = *reinterpret_cast<const uint4*>(
-            dout + base + (size_t)row * D + c * 8);
-        const uint4 b = *reinterpret_cast<const uint4*>(
-            o + base + (size_t)row * D + c * 8);
-        const bf16* ea = reinterpret_cast<const bf16*>(&a);
-        const bf16* eb = reinterpret_cast<const bf16*>(&b);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc += __bfloat162float(ea[j]) * __bfloat162float(eb[j]);
-      }
-    }
-#pragma unroll
-    for (int off = LPR / 2; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (part == 0) {
-      dl_s[r] = acc;
-      lse_s[r] = row < t_len ? lse[(size_t)bh * t_len + row] : 0.f;
-      if (row < t_len && blockIdx.z == 0)
-        delta[(size_t)bh * t_len + row] = acc;
-    }
-  }
+  row_stats<D>(dout + base, o + base, lse + (size_t)bh * t_len,
+               delta + (size_t)bh * t_len, lse_s, dl_s, q0, t_len);
 
   float acc[DC / 8][4] = {};
   for (int ik = lo; ik <= hi; ++ik) {
@@ -956,22 +756,9 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[BN / 8][4] = {}, dp[BN / 8][4] = {};
     mma_abt<D, BN>(s, qs + w * 16 * S, kt);         // S = Q K^T
     mma_abt<D, BN>(dp, dos + w * 16 * S, vs + buf * BN * S);  // dP = dO V^T
-    const bool edge = mask.partial(q0, TC_ROWS, k0, BN);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = w * 16 + g + 8 * (i / 2);
-        const int c = k0 + j * 8 + 2 * t4 + i % 2;
-        float th, gr = 0.f;
-        const float x = score(s[j][i], scale, cap, &th);
-        if (!edge || mask.allow(q0 + r, c)) {
-          gr = __expf(x - lse_s[r]) * (dp[j][i] - dl_s[r]);
-          if (cap > 0.f) gr *= 1.f - th * th;
-        }
-        s[j][i] = gr;
-      }
-    }
+    grad_tile<BN, false>(s, dp, q0 + w * 16, k0, lse_s + w * 16,
+                         dl_s + w * 16, mask.partial(q0, TC_ROWS, k0, BN),
+                         mask, scale, cap);
     uint32_t df[BN / 16][4];
     to_a_frags<BN>(df, s);
     mma_px<D, BN, DC>(acc, df, kt + c0);            // dQ += dS K
@@ -1008,7 +795,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * TC_ROWS;        // causal: low keys are heaviest
   const int c0 = blockIdx.z * DC;
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
+  const int w = threadIdx.x / 32;
   const size_t base = (size_t)bh * t_len * D;
   const float* lse_bh = lse + (size_t)bh * t_len;
   const float* dl_bh = delta + (size_t)bh * t_len;
@@ -1042,35 +829,155 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     const bf16* qt = qs + buf * BN * S;
     const bf16* dot_ = dos + buf * BN * S;
-    const float* lse_t = lse_s + buf * BN;
-    const float* dl_t = dl_s + buf * BN;
     // transposed scores: rows keys k0 + w * 16 + ..., columns queries
     float st[BN / 8][4] = {}, dpt[BN / 8][4] = {};
     mma_abt<D, BN>(st, ks + w * 16 * S, qt);         // S^T = K Q^T
     mma_abt<D, BN>(dpt, vs + w * 16 * S, dot_);      // dP^T = V dO^T
-    const bool edge = mask.partial(q0, BN, k0, TC_ROWS);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = k0 + w * 16 + g + 8 * (i / 2);
-        const int c = j * 8 + 2 * t4 + i % 2;
-        float th, p = 0.f, gr = 0.f;
-        const float x = score(st[j][i], scale, cap, &th);
-        if (!edge || mask.allow(q0 + c, r)) {
-          p = __expf(x - lse_t[c]);
-          gr = p * (dpt[j][i] - dl_t[c]);
-          if (cap > 0.f) gr *= 1.f - th * th;
-        }
-        st[j][i] = p;
-        dpt[j][i] = gr;
-      }
-    }
+    grad_tile<BN, true>(st, dpt, q0, k0 + w * 16, lse_s + buf * BN,
+                        dl_s + buf * BN, mask.partial(q0, BN, k0, TC_ROWS),
+                        mask, scale, cap);
     uint32_t f[BN / 16][4];
     to_a_frags<BN>(f, st);
     mma_px<D, BN, DC>(acc_v, f, dot_ + c0);         // dV += P^T dO
     to_a_frags<BN>(f, dpt);
     mma_px<D, BN, DC>(acc_k, f, qt + c0);           // dK += dS^T Q
+  }
+  store_strip<D, DC>(dk + base + c0, acc_k, k0 + w * 16, t_len, scale);
+  store_strip<D, DC>(dv + base + c0, acc_v, k0 + w * 16, t_len, 1.f);
+}
+
+// The fp32 backward: the designs of flash_bwd_dq_tc and flash_bwd_dkdv_tc
+// with fp32 tiles [rows][D + 4] and 3xTF32 products (mma3_abt, mma3_px);
+// P and dS stay fp32.
+template <int D>
+constexpr int dq_f32_smem_bytes() {
+  return (2 * TC_ROWS + 4 * bwd_f32_cols<D>()) * (D + 4) * 4 +
+         2 * TC_ROWS * 4;
+}
+
+// Grid (BH, row tiles): as flash_bwd_dq_tc, but every block accumulates
+// all D columns of dQ.
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ o,
+             const float* __restrict__ dout, const float* __restrict__ lse,
+             float* __restrict__ delta, float* __restrict__ dq, int t_len,
+             Mask mask, float scale, float cap) {
+  constexpr int BN = bwd_f32_cols<D>(), S = D + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                    // [TC_ROWS][S]
+  float* dos = qs + TC_ROWS * S;       // [TC_ROWS][S]
+  float* ks = dos + TC_ROWS * S;       // [2][BN][S]: the K ring
+  float* vs = ks + 2 * BN * S;         // [2][BN][S]: the V ring
+  float* lse_s = vs + 2 * BN * S;      // [TC_ROWS]
+  float* dl_s = lse_s + TC_ROWS;       // [TC_ROWS]
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
+  const int w = threadIdx.x / 32;
+  const size_t base = (size_t)bh * t_len * D;
+  const int n_k = (t_len + BN - 1) / BN;
+  const int lo = mask.key_tile_lo(q0, BN);
+  const int hi = mask.key_tile_hi(q0, TC_ROWS, BN, n_k);
+
+  cp_tile<TC_ROWS, D>(qs, q + base, q0, t_len);
+  cp_tile<TC_ROWS, D>(dos, dout + base, q0, t_len);
+  cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
+  cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
+  cp_async_commit();
+  row_stats<D>(dout + base, o + base, lse + (size_t)bh * t_len,
+               delta + (size_t)bh * t_len, lse_s, dl_s, q0, t_len);
+
+  float acc[D / 8][4] = {};
+  for (int ik = lo; ik <= hi; ++ik) {
+    const int buf = (ik - lo) & 1, k0 = ik * BN;
+    cp_async_wait_all();
+    __syncthreads();   // tile ik landed; everyone is done with tile ik - 1
+    if (ik < hi) {
+      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + base, k0 + BN, t_len);
+      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + base, k0 + BN, t_len);
+    }
+    cp_async_commit();
+    const float* kt = ks + buf * BN * S;
+    float s[BN / 8][4] = {}, dp[BN / 8][4] = {};
+    mma3_abt<D, BN>(s, qs + w * 16 * S, kt);                  // S = Q K^T
+    mma3_abt<D, BN>(dp, dos + w * 16 * S, vs + buf * BN * S); // dP = dO V^T
+    grad_tile<BN, false>(s, dp, q0 + w * 16, k0, lse_s + w * 16,
+                         dl_s + w * 16, mask.partial(q0, TC_ROWS, k0, BN),
+                         mask, scale, cap);
+    mma3_px<D, BN, D>(acc, s, kt);                            // dQ += dS K
+  }
+  store_strip<D, D>(dq + base, acc, q0 + w * 16, t_len, scale);
+}
+
+template <int D>
+constexpr int dkdv_f32_smem_bytes() {
+  return (2 * TC_ROWS + 4 * bwd_f32_cols<D>()) * (D + 4) * 4 +
+         4 * bwd_f32_cols<D>() * 4;
+}
+
+// Grid (BH, key tiles, D / dkdv_f32_cols): as flash_bwd_dkdv_tc.
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dk, float* __restrict__ dv, int t_len,
+               Mask mask, float scale, float cap) {
+  constexpr int BN = bwd_f32_cols<D>(), S = D + 4;
+  constexpr int DC = dkdv_f32_cols<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                    // [TC_ROWS][S]
+  float* vs = ks + TC_ROWS * S;        // [TC_ROWS][S]
+  float* qs = vs + TC_ROWS * S;        // [2][BN][S]: the Q ring
+  float* dos = qs + 2 * BN * S;        // [2][BN][S]: the dO ring
+  float* lse_s = dos + 2 * BN * S;     // [2][BN]
+  float* dl_s = lse_s + 2 * BN;        // [2][BN]
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * TC_ROWS;        // causal: low keys are heaviest
+  const int c0 = blockIdx.z * DC;
+  const int w = threadIdx.x / 32;
+  const size_t base = (size_t)bh * t_len * D;
+  const float* lse_bh = lse + (size_t)bh * t_len;
+  const float* dl_bh = delta + (size_t)bh * t_len;
+  const int n_q = (t_len + BN - 1) / BN;
+  const int lo = mask.query_tile_lo(k0, BN);
+  const int hi = mask.query_tile_hi(k0, TC_ROWS, BN, n_q);
+  // query tile iq into ring slot `buf`, as flash_bwd_dkdv_tc's
+  auto load = [&](int iq, int buf) {
+    const int q0 = iq * BN;
+    cp_tile<BN, D>(qs + buf * BN * S, q + base, q0, t_len);
+    cp_tile<BN, D>(dos + buf * BN * S, dout + base, q0, t_len);
+    for (int idx = threadIdx.x; idx < 2 * BN; idx += TC_NT) {
+      const int r = idx % BN, row = q0 + r;
+      const bool in = row < t_len;
+      cp_async4((idx < BN ? lse_s : dl_s) + buf * BN + r,
+                (idx < BN ? lse_bh : dl_bh) + (in ? row : 0), in);
+    }
+  };
+
+  cp_tile<TC_ROWS, D>(ks, k + base, k0, t_len);
+  cp_tile<TC_ROWS, D>(vs, v + base, k0, t_len);
+  load(lo, 0);
+  cp_async_commit();
+  float acc_k[DC / 8][4] = {}, acc_v[DC / 8][4] = {};
+  for (int iq = lo; iq <= hi; ++iq) {
+    const int buf = (iq - lo) & 1, q0 = iq * BN;
+    cp_async_wait_all();
+    __syncthreads();   // tile iq landed; everyone is done with tile iq - 1
+    if (iq < hi) load(iq + 1, buf ^ 1);
+    cp_async_commit();
+    const float* qt = qs + buf * BN * S;
+    const float* dot_ = dos + buf * BN * S;
+    // transposed scores: rows keys k0 + w * 16 + ..., columns queries
+    float st[BN / 8][4] = {}, dpt[BN / 8][4] = {};
+    mma3_abt<D, BN>(st, ks + w * 16 * S, qt);          // S^T = K Q^T
+    mma3_abt<D, BN>(dpt, vs + w * 16 * S, dot_);       // dP^T = V dO^T
+    grad_tile<BN, true>(st, dpt, q0, k0 + w * 16, lse_s + buf * BN,
+                        dl_s + buf * BN, mask.partial(q0, BN, k0, TC_ROWS),
+                        mask, scale, cap);
+    mma3_px<D, BN, DC>(acc_v, st, dot_ + c0);           // dV += P^T dO
+    mma3_px<D, BN, DC>(acc_k, dpt, qt + c0);            // dK += dS^T Q
   }
   store_strip<D, DC>(dk + base + c0, acc_k, k0 + w * 16, t_len, scale);
   store_strip<D, DC>(dv + base + c0, acc_v, k0 + w * 16, t_len, 1.f);
@@ -1094,7 +1001,6 @@ int launch(int bytes, int bh, int t_len, cudaStream_t stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
-constexpr int F32 = sizeof(float);
 constexpr int UNSUPPORTED = -1;
 
 }  // namespace
@@ -1146,8 +1052,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   const Mask mask{t_len, causal, window};
   cudaStream_t st = (cudaStream_t)stream;
 #define DQ(T, D)                                                            \
-  return launch<flash_bwd_dq<D>, NT, f32_rows<D>()>(                        \
-                dq_smem_floats<D>() * F32, bh, t_len, st, (const T*)q,      \
+  return launch<flash_bwd_dq<D>, TC_NT, TC_ROWS>(                          \
+                dq_f32_smem_bytes<D>(), bh, t_len, st, (const T*)q,         \
                 (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, \
                 delta, (T*)dq, t_len, mask, scale, cap)
 #define DQ_TC(T, D)                                                         \
@@ -1169,8 +1075,8 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
   const Mask mask{t_len, causal, window};
   cudaStream_t st = (cudaStream_t)stream;
 #define DKDV(T, D)                                                            \
-  return launch<flash_bwd_dkdv<D>, NT, f32_rows<D>()>(                        \
-                dkdv_smem_floats<D>() * F32, bh, t_len, st, (const T*)q,      \
+  return launch<flash_bwd_dkdv<D>, TC_NT, TC_ROWS, D / dkdv_f32_cols<D>()>(   \
+                dkdv_f32_smem_bytes<D>(), bh, t_len, st, (const T*)q,         \
                 (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, \
                 (T*)dv, t_len, mask, scale, cap)
 #define DKDV_TC(T, D)                                                         \

@@ -9,18 +9,16 @@ called through the same C interface and ``ctypes`` signatures as on the
 card. Split over three files so that the test run's ``--dist loadfile``
 spreads them over workers.
 
-Routes: the fp32 forward and every bf16 kernel run on the tensor cores
-(128 threads and some ``mma`` calls: 3xTF32 ``mma_tf32`` for fp32, bf16
-``mma_bf16``); the fp32 ``flash_bwd_dq`` and ``flash_bwd_dkdv`` on the
-CUDA cores (256 threads, none).
+Routes: all three kernels of both dtypes run on the tensor cores (128
+threads and some ``mma`` calls: 3xTF32 ``mma_tf32`` for fp32, bf16
+``mma_bf16``).
 
 Tolerance vs the plain ``flash_attention_ref`` and its autograd: fp32 1e-5
-(fp32-accurate products: the forward's 3xTF32 keeps about 21 bits of each
-operand and sums in fp32, the backward's FMAs are fp32, summed in tiles;
-the stand-in reads each tf32 operand to its top 19 bits, as the card
-does); bf16 3e-2 (the reference's kernel tolerance: bf16 outputs, and P
-and dS rounded to bf16 before their products, in the forward as in the
-backward).
+(fp32-accurate products: 3xTF32 keeps about 21 bits of each operand and
+sums in fp32, P and dS stay fp32; the stand-in reads each tf32 operand to
+its top 19 bits, as the card does); bf16 3e-2 (the reference's kernel
+tolerance: bf16 outputs, and P and dS rounded to bf16 before their
+products, in the forward as in the backward).
 """
 import ctypes
 
@@ -39,6 +37,8 @@ FP32 = [  # (bh, t, d, dtype, causal, window, softcap)
     (1, 96, 32, "float32", True, 0, 0.0),
     (1, 40, 64, "float32", False, 0, 0.0),        # not causal, T < tile
     (1, 192, 64, "float32", False, 70, 5.0),
+    (1, 200, 128, "float32", False, 0, 0.0),      # ragged, not causal
+    (2, 40, 16, "float32", True, 0, 0.0),         # T < one 64-row tile
 ]
 BF16 = [  # the tensor-core kernels at every head dim up to 128
     (1, 128, 64, "bfloat16", True, 0, 0.0),
@@ -125,13 +125,8 @@ def check_case(lib, bh, t, d, dtype, causal, window, cap):
                    for _ in range(4))
     (o, lse, dq, delta, dk, dv), routes = run_kernels(
         lib, q, k, v, do, d, causal, window, cap)
-    # forward, dq, dkdv: tensor cores but for the fp32 backward
-    if dtype == "bfloat16":
-        assert all(th == 128 and mmas > 0 for th, mmas in routes), routes
-    else:
-        assert routes[0][0] == 128 and routes[0][1] > 0, routes
-        assert all(th == 256 and mmas == 0 for th, mmas in routes[1:]), \
-            routes
+    # forward, dq, dkdv: all on the tensor cores
+    assert all(th == 128 and mmas > 0 for th, mmas in routes), routes
     rs = [x.float().requires_grad_(True) for x in (q, k, v)]
     want = flash_attention_ref(*rs, causal=causal, window=window,
                                logit_softcap=cap)

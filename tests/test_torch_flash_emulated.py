@@ -1,9 +1,10 @@
 """The CUDA flash-attention kernels' own source on the CPU, fp32 inputs
 (``tests/_flash_emu_cases.py`` says how the source is built and called, and
-why each tolerance): the 3xTF32 tensor-core forward ``flash_fwd`` and the
-CUDA-core ``flash_bwd_dq`` and ``flash_bwd_dkdv``, against the plain
+why each tolerance): the 3xTF32 tensor-core forward ``flash_fwd`` and
+backward ``flash_bwd_dq`` and ``flash_bwd_dkdv``, against the plain
 ``flash_attention_ref`` and its autograd at 1e-5. Also the forward against
-the JAX reference's Pallas kernel in interpret mode, and the C interface's
+the JAX reference's Pallas kernel in interpret mode, the backward against
+``jax.grad`` of the reference's plain attention, and the C interface's
 refusal of a head dim it does not instantiate. bf16 cases are in
 ``test_torch_flash_emulated_bf16.py``, head dims 144, 256 and a padded one
 in ``test_torch_flash_emulated_wide.py``. Whether the kernels compile for
@@ -15,15 +16,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import _flash_emu_cases as cases  # noqa: E402
 from repro.kernels import flash_attention as jflash  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 
-# the emulated forward vs the reference's Pallas kernel (interpret mode on
-# the CPU): both fp32 online softmax over key tiles, the forward's products
-# 3xTF32 (about 21 bits of each operand) against XLA's fp32 dots
+# the emulated kernels vs the reference (the forward vs its Pallas kernel in
+# interpret mode on the CPU, the backward vs jax.grad of its plain
+# attention): fp32 throughout, the kernels' products 3xTF32 (about 21 bits
+# of each operand) against XLA's fp32 dots
 JAX_TOL = 1e-5
 
 
@@ -53,6 +57,32 @@ def test_emulated_fp32_forward_matches_jax_kernel(emulated):
                                   causal=True, window=48)
     np.testing.assert_allclose(o.numpy(), np.asarray(want)[0],
                                rtol=JAX_TOL, atol=JAX_TOL)
+
+
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+def test_emulated_fp32_backward_matches_jax_grad(emulated, cap):
+    """``[1, 128, 64]`` causal with a 48-step window, without and with
+    softcap 50: the 3xTF32 dq, dk and dv against ``jax.grad`` of
+    ``repro.kernels.ref.flash_attention_ref`` on the same numpy inputs,
+    within ``JAX_TOL``."""
+    rng = np.random.default_rng(1)
+    q, k, v, do = (rng.normal(size=(1, 128, 64)).astype(np.float32)
+                   for _ in range(4))
+    (_, _, dq, _, dk, dv), routes = cases.run_kernels(
+        emulated, *(torch.as_tensor(x) for x in (q, k, v, do)), 64,
+        causal=True, window=48, cap=cap)
+    assert all(th == 128 and mmas > 0 for th, mmas in routes), routes
+
+    def loss(q, k, v):
+        o = jref.flash_attention_ref(q, k, v, causal=True, window=48,
+                                     logit_softcap=cap)
+        return jnp.sum(o * jnp.asarray(do)[None])
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x)[None] for x in (q, k, v)))
+    for got, ref in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref)[0],
+                                   rtol=JAX_TOL, atol=JAX_TOL)
 
 
 def test_emulated_launch_refuses_an_unsupported_head_dim(emulated):

@@ -12,7 +12,7 @@ autograd, fp32 atol and rtol 2e-3 (the reference's kernel tolerance: an
 online softmax in tiles vs a full one), bf16 atol 1e-2 and rtol 3e-2 (the
 reference's rtol; the atol as in ``chip_smoke.py``, from the measured
 errors; bf16 takes the tensor-core kernels, fp32 the 3xTF32 tensor-core
-forward and the CUDA-core backward);
+forward and backward);
 the aggregation kernel 1e-5
 (fp32 sums over 3 terms in another order; bf16 input 2e-2, as
 ``tests/test_torch_kernels.py``); the LM loss and its gradient
