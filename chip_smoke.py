@@ -103,15 +103,15 @@ operator calls per step, and the device's idle share.
 
 Phase 9 runs the paper on the card. First the aggregation against its
 plain version at the suites' own shapes (Fig. 3's ``[1, 50, 50]`` and its
-2-D route, Table 2's ``[4, 100, 2762]``, Fig. 8's ``[6, 100, 2762]``; every
+2-D route, its batches' ``[9, 50, 50]``, Table 2's ``[4, 100, 2762]``, Fig. 8's ``[6, 100, 2762]``; every
 op, with half the clients active and with none) within ``FP32_TOL``; the
 kernel at Fig. 3's shape (2-D route, OP_MEAN, half active) timed as phase 1
 times the main path's, beside its bound, its plain version and
 ``torch.bmm``; and Fig. 3's ``run_one`` through the kernel and through
 the plain path on the same seeds (FedPBC and FedAvg at (0.9, 0.1),
 ``FIG3_AGREE_ROUNDS`` rounds), the distance trajectories within
-``FP32_TOL``; one such run is profiled
-(kernels, device time and idle share a round). Then the port's
+``FP32_TOL``; a shorter such run (``FIG3_PROFILE_ROUNDS`` rounds) is
+profiled (kernels, device time and idle share a round). Then the port's
 ``repro_torch.paper`` suites with ``use_kernel=True`` into a fresh results
 store in a temporary directory. Table 1 at the reference's protocol with
 seeds 0-2 (all seven algorithms on bernoulli_ti and bernoulli_tv, 250
@@ -128,7 +128,9 @@ Fig. 3 (m = 50, d = 50, s = 20, seeds 0-2, cut from the module's 800
 rounds to ``FIG3_ROUNDS`` = 400): FedPBC's final distance at (0.9, 0.1)
 below FedAvg's, each seed-mean final distance within ``FIG3_TOL_STDS``
 standard deviations of the difference of two 3-seed means of the
-reference's (``FIG3_REFERENCE``), 18 x 400 launches. Fig. 2: its own
+reference's (``FIG3_REFERENCE``); its 18 trajectories run as one batch
+of 9 (3 points x 3 seeds) for each algorithm (``run_batch``), so 2 x 400
+launches at ``[9, 50, 50]``. Fig. 2: its own
 checks of Eq. 3's series against both closed forms. The store holds 14 + 7
 + 20 records, ``ResultsStore.merge`` into a second directory keeps them
 all and ``export_curves`` writes one ``_acc.csv`` and one ``_loss.csv`` per
@@ -386,6 +388,28 @@ peak ≤ 80 GB; tokens/s (all rounds and after the first) and one round
 profiled (device ms by family and the eight longest kernels, idle share).
 Phase 19 is held to ``PHASE19_LIMIT_S``.
 
+Phase 20 runs the sweep's multi-device split (``repro_torch.experiments.
+shard``: one worker process per mesh rank, ``repro_torch.sharding.pool``)
+on the one card: (a) phase 2's Table-1 cell for fedpbc (seeds 0-2,
+``use_kernel=True``) through ``run_cell_batch(devices=[cuda:0])``, one
+worker under NCCL, against ``mesh=None`` in this process, every
+``CellResult`` field bitwise and the worker's aggregation launched once a
+round; (b) the same cell on two ranks sharing the card (gloo, B = 3 padded
+to 4), bitwise or within ``SHARD_TOL`` with the op named (the round's
+batched ops on 2 rows against 3 are probed and printed), no padding row in
+the result; (c) lm-family (phase 12's widths, 10 rounds) on
+``make_2d_mesh(1, 2)`` over the card twice, each rank training 2 of the 4
+clients of every trajectory and all-gathering the updates, against one
+device within ``LM_PATHS_TOL``: each rank's flash and aggregation launches
+as one device's, the bytes and ops of its all-gathers equal to
+``roofline.collective_stats`` and their wall seconds printed. Each
+sub-phase prints the backend and each rank's device and wall seconds. The
+three pools start together in background threads when the phase begins
+(each worker takes seconds to import torch and reach the card), while this
+process runs the plain counterparts; each sub-phase waits for its own pool
+first and prints that wait apart from its run. The phase is held to
+``PHASE20_LIMIT_S``.
+
 The three CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
@@ -394,8 +418,8 @@ seconds, launches, family batches and results), a ``{"scale": {...}}``
 line (phase 10's), a ``{"search": {...}}`` line (phase 11's), a
 ``{"lm_sweep": {...}}`` line (phase 12's cells), a ``{"serve": {...}}``
 line (phase 13's), a ``{"launch": {...}}`` line (phase 18's), a
-``{"rwkv_train": {...}}`` line (phase 19's), a
-``{"zoo": {...}}`` line (phases 14 to 17), then a
+``{"rwkv_train": {...}}`` line (phase 19's), a ``{"sharded": {...}}``
+line (phase 20's), a ``{"zoo": {...}}`` line (phases 14 to 17), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
 11's as ``search_launches``, phase 12's by cell as ``lm_sweep_launches``
@@ -415,7 +439,9 @@ the resumed runs as ``ckpt_resume_launches``, the aggregation's through
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
 ptxas by head dim and the chunked route's phase-19 launches as
 ``train_launches``; the WKV6 backward, ``rwkv6_chunk_bwd``, with its
-launches in phase 19c), the card's name and power limit from nvidia-smi, and as the last
+launches in phase 19c; the aggregation's and each flash kernel's launches
+by rank in phase 20 as ``sharded_launches``), the card's name and power
+limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
 result line. Without CUDA, or without the repository beside it, it exits
 non-zero at once.
@@ -498,6 +524,9 @@ FIG3_REFERENCE = {
 FIG3_TOL_STDS = 4.0
 # Fig. 3's trajectory through the kernel against the plain path (phase 9)
 FIG3_AGREE_ROUNDS = 100
+# the rounds of Fig. 3's profiled run (phase 9; the profiler's own cost
+# grows with the events it records)
+FIG3_PROFILE_ROUNDS = 25
 # Table 2's BENCH JSON keys (benchmarks/table2_rounds_to_target.py)
 TABLE2_KEYS = {"bench", "m", "rounds", "seeds", "scheme", "eval_every",
                "algos", "best_acc", "fractions", "targets",
@@ -897,6 +926,18 @@ RWKV_TRAIN = dict(clients=4, steps=2, batch=1, seq=1024, rounds=4)
 RWKV_PARAMS = 3_073_313_280
 RWKV_FP32_PARAMS = 245_760
 PHASE19_LIMIT_S = 150.0
+# Phase 20, the sweep's multi-device split (ROADMAP item 6) on the one card,
+# one worker process per mesh rank (repro_torch.sharding.pool): (a) phase
+# 2's Table-1 cell for fedpbc (seeds 0-2, B = 3, use_kernel=True) on
+# devices=[cuda:0] (NCCL, a world of 1) against mesh=None in this process,
+# every CellResult field bitwise; (b) the same on two ranks sharing cuda:0
+# (gloo; B = 3 padded to 4), bitwise or within SHARD_TOL (phase 3's bar)
+# with the op named; (c) lm-family (LM_SWEEP: B = 8, m = 4, 10 rounds) on
+# make_2d_mesh(1, 2) over cuda:0 twice (each rank trains 2 of the 4 clients
+# of every trajectory) against one device within LM_PATHS_TOL
+CELL_FIELDS = ("test_acc", "train_acc", "loss", "num_active", "server")
+SHARD_TOL = 1e-5
+PHASE20_LIMIT_S = 90.0
 
 
 def fail(msg):
@@ -2012,7 +2053,8 @@ def check_agg_shapes(torch, masked, ref, gen, cases, tag, whose):
 
 def phase9_kernel(torch, masked, ref, fig3_quadratic):
     """The aggregation against its plain version at the shapes the paper's
-    suites give it: Fig. 3's ``[1, 50, 50]`` (and its 2-D route), Table 2's
+    suites give it: Fig. 3's ``[1, 50, 50]`` (and its 2-D route; ``run_one``)
+    and ``[9, 50, 50]`` (an algorithm's batch, ``run_batch``), Table 2's
     ``[4, 100, 2762]`` and Fig. 8's ``[6, 100, 2762]``, every op, with half
     the clients active and with none; then Fig. 3's ``run_one`` through the
     kernel and through the plain path on the same seeds, its distance
@@ -2026,6 +2068,7 @@ def phase9_kernel(torch, masked, ref, fig3_quadratic):
     gen.manual_seed(9)
     n_mlp = 32 * 64 + 64 + 64 * 10 + 10
     cases = [((1, 50, 50), [op]) for op in (0, 1, 2)] + [
+        ((9, 50, 50), [0, 1, 2] * 3),
         ((4, CLIENTS, n_mlp), [0, 0, 1, 2]),
         ((6, CLIENTS, n_mlp), [0, 1, 2, 0, 1, 2])]
     errs = check_agg_shapes(torch, masked, ref, gen, cases, "phase9",
@@ -2054,10 +2097,11 @@ def phase9_kernel(torch, masked, ref, fig3_quadratic):
     seconds["fig3_kernel_vs_plain_path"] = \
         time.perf_counter() - t0 - sum(seconds.values())
     prof = profile_window(
-        torch, f"phase9 fig3 run_one fedpbc (0.9, 0.1), {FIG3_AGREE_ROUNDS} "
+        torch, f"phase9 fig3 run_one fedpbc (0.9, 0.1), {FIG3_PROFILE_ROUNDS} "
         f"rounds", lambda: fig3_quadratic.run_one(
-            "fedpbc", 0.9, 0.1, seed=0, use_kernel=True, **protocol),
-        FIG3_AGREE_ROUNDS, "round")
+            "fedpbc", 0.9, 0.1, seed=0, use_kernel=True,
+            **dict(protocol, rounds=FIG3_PROFILE_ROUNDS)),
+        FIG3_PROFILE_ROUNDS, "round")
     seconds["fig3_profile"] = time.perf_counter() - t0 - sum(seconds.values())
     print(f"phase9 checks before the suites: {json.dumps(seconds)} s, not in "
           f"the suites' limit", flush=True)
@@ -2233,11 +2277,12 @@ def phase9_paper(torch, masked, ref, grid):
                  f"expected {4 * 200}")
         res["fig8"] = {f"{p},{v},{a}": acc for (p, v, a), acc in fig8.items()}
 
-        with _Recorded(fig3_quadratic, "run_one") as runs:
+        with _Recorded(fig3_quadratic, "run_batch") as runs:
             fig3, launches = suite("fig3", lambda: fig3_quadratic.run(
                 rounds=FIG3_ROUNDS, use_kernel=True))
         for key, ref in FIG3_REFERENCE.items():
-            port = [out[-1][1] for args, out, _ in runs if args[:3] == key]
+            port = [tr[-1][1] for args, out, _ in runs if args[0] == key[0]
+                    for tr in out[key[1:]]]
             tol = FIG3_TOL_STDS * np.sqrt(np.var(ref, ddof=1) / len(ref)
                                           + np.var(port, ddof=1) / len(port))
             diff = abs(np.mean(port) - np.mean(ref))
@@ -2251,15 +2296,19 @@ def phase9_paper(torch, masked, ref, grid):
         if not fig3[("fedpbc", 0.9, 0.1)] < fig3[("fedavg", 0.9, 0.1)]:
             fail("Fig. 3: FedPBC's final distance at (0.9, 0.1) is not "
                  "below FedAvg's")
-        if launches != 18 * FIG3_ROUNDS:
+        if launches != 2 * FIG3_ROUNDS:
             fail(f"Fig. 3 launched the aggregation {launches} times, "
-                 f"expected {18 * FIG3_ROUNDS}")
-        res["batches"].append({
-            "suite": "fig3", "scheme": "bernoulli_ti (p0, p1)",
-            "algos": ["fedpbc", "fedavg"], "trajectories": 1,
-            "runs": 18, "rounds": FIG3_ROUNDS,
-            "seconds": res["seconds"]["fig3"],
-            "rounds_per_s": 18 * FIG3_ROUNDS / res["seconds"]["fig3"]})
+                 f"expected {2 * FIG3_ROUNDS} (one a round for each "
+                 f"algorithm's batch)")
+        for args, out, sec in runs:
+            b = sum(len(v) for v in out.values())
+            res["batches"].append({
+                "suite": "fig3", "scheme": "bernoulli_ti (p0, p1)",
+                "algos": [args[0]], "trajectories": b, "rounds": FIG3_ROUNDS,
+                "seconds": sec, "rounds_per_s": FIG3_ROUNDS / sec})
+            print(f"phase9 fig3 bernoulli_ti (p0, p1) {args[0]}: "
+                  f"{FIG3_ROUNDS} rounds x {b} trajectories in {sec:.3f} s = "
+                  f"{FIG3_ROUNDS / sec:.2f} rounds/s", flush=True)
         res["fig3"] = {",".join(map(str, k)): v for k, v in fig3.items()}
 
         rows, _ = suite("fig2", fig2_bias.run)
@@ -5150,6 +5199,252 @@ def phase19_rwkv_train(torch, rk, masked, ref, train, card, bw, fp32_peak,
     return res
 
 
+def _cells_diff(a_cells, b_cells):
+    """The largest |difference| of each ``CellResult`` field over two runs'
+    cells, which must match in number, coordinates and shapes."""
+    if len(a_cells) != len(b_cells):
+        fail(f"{len(b_cells)} cells where {len(a_cells)} were expected")
+    out = dict.fromkeys(CELL_FIELDS, 0.0)
+    for a, b in zip(a_cells, b_cells):
+        if (a.algo, a.hparams, a.strategy, a.eval_rounds) != \
+                (b.algo, b.hparams, b.strategy, b.eval_rounds):
+            fail(f"cells {a.algo} and {b.algo} differ in their coordinates")
+        for f in CELL_FIELDS:
+            x = np.asarray(getattr(a, f), np.float64)
+            y = np.asarray(getattr(b, f), np.float64)
+            if x.shape != y.shape:
+                fail(f"{f}: shape {y.shape} where {x.shape} was expected")
+            if x.size:
+                out[f] = max(out[f], float(np.abs(x - y).max()))
+    return out
+
+
+def _ranks_line(label, res):
+    print(f"{label}: backend {res.backend}; " + "; ".join(
+        f"rank {r.rank} on {r.device} {r.seconds:.3f} s" for r in res.ranks),
+        flush=True)
+    return {"backend": res.backend,
+            "ranks": [dict(rank=r.rank, device=r.device, seconds=r.seconds)
+                      for r in res.ranks]}
+
+
+def _batch_count_probe(torch, masked, grid, spec, server):
+    """Where a run on 2 rows may differ from one on 3: the round's batched
+    ops on rows 0-1 of a 3-row input against the same ops on those 2 rows
+    alone (the test logits ``x @ w1`` over B models, the client loss and
+    its gradient over B * m models, the aggregation over ``[B, m, n]``).
+    Returns the largest |difference| of each; 0 where bitwise."""
+    from repro_torch.experiments.tasks import mlp_logits
+
+    task = grid.get_traced_task(spec)
+    sh = task.shared
+    gen = torch.Generator(device=server.device).manual_seed(0)
+    m, s, b = spec.num_clients, spec.local_steps, spec.batch_size
+    clients = server.unsqueeze(1).expand(-1, m, -1).contiguous()
+    clients = clients + 1e-3 * torch.randn(clients.shape, generator=gen,
+                                           device=server.device)
+    pick = torch.randint(0, sh["x"].shape[0], (3, m, b),
+                         generator=gen, device=server.device)
+    batch = {"x": sh["x"][pick], "y": sh["y"][pick]}
+    active = torch.rand((3, m), generator=gen, device=server.device) < 0.5
+    ops = {
+        "test logits (x @ w1 over B models)": lambda r: mlp_logits(
+            task.layout.views(server[:r]), sh["xt"]),
+        "client loss (x @ w1 over B * m models)": lambda r: task.loss_fn(
+            clients[:r], {k: v[:r] for k, v in batch.items()}),
+        "client gradient (its backward)": lambda r: _grad(
+            torch, task, clients[:r], {k: v[:r] for k, v in batch.items()}),
+        "fused_masked_agg over [B, m, n]": lambda r: masked.fused_masked_agg(
+            clients[:r], active[:r],
+            torch.zeros(r, dtype=torch.int32, device=server.device),
+            server[:r].float().contiguous(),
+            torch.full((r, m), 0.5, device=server.device))}
+    out = {}
+    for name, fn in ops.items():
+        full, two = fn(3)[:2], fn(2)
+        out[name] = float((full - two).abs().max())
+    return out
+
+
+def _grad(torch, task, clients, batch):
+    leaf = clients.clone().requires_grad_(True)
+    with torch.enable_grad():
+        return torch.autograd.grad(task.loss_fn(leaf, batch).sum(), leaf)[0]
+
+
+def phase20_sharded(torch, masked, fa, grid):
+    """The sweep's multi-device split through the pool on the one card
+    (``PHASE20_LIMIT_S``); see the constants above."""
+    import threading
+
+    from repro_torch.experiments import shard, sweep
+    from repro_torch.launch.mesh import make_2d_mesh, make_batch_mesh
+    from repro_torch.launch.roofline import collective_stats
+    from repro_torch.sharding import pool
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    res = {}
+    # the three sub-phases' pools start together while this process runs
+    # the plain counterparts; a pool that failed to start here is started
+    # again, and fails the run, at its first call
+    meshes = {"a": make_batch_mesh([card]), "b": make_batch_mesh([card, card]),
+              "c": make_2d_mesh(1, 2, [card, card])}
+    starts = {k: threading.Thread(target=pool.pool_for, args=(m,),
+                                  daemon=True) for k, m in meshes.items()}
+    for t in starts.values():
+        t.start()
+
+    def await_pool(key):
+        """Seconds this process waited for sub-phase ``key``'s pool."""
+        t0 = time.perf_counter()
+        starts[key].join(pool.START_TIMEOUT_S)
+        waited = time.perf_counter() - t0
+        res[key]["pool_wait_s"] = waited
+        return waited
+    spec = grid.SweepSpec(algorithms=("fedpbc",), schemes=("bernoulli_tv",),
+                          seeds=SEEDS, rounds=ROUNDS, eval_every=EVAL_EVERY,
+                          num_clients=CLIENTS, use_kernel=True)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) one worker on the card against this process
+    plain, plain_s = timed(lambda: grid.run_cell_batch(
+        spec, "fedpbc", "bernoulli_tv", mesh=None))
+    res["a"] = {}
+    waited = await_pool("a")
+    one, one_s = timed(lambda: grid.run_cell_batch(
+        spec, "fedpbc", "bernoulli_tv", devices=[card]))
+    run = shard.last_run()
+    diff = _cells_diff(plain, one)
+    agg = [v["launches"]["fused_masked_agg"] for v in run.values]
+    res["a"].update(_ranks_line("phase20a devices=[cuda:0]", run),
+                    plain_s=plain_s, sharded_s=one_s, max_abs_diff=diff,
+                    agg_launches=agg)
+    print(f"phase20a fedpbc, seeds 0-2, {ROUNDS} rounds: mesh=None "
+          f"{plain_s:.3f} s (beside the pools' starts), one worker "
+          f"{one_s:.3f} s after a wait of {waited:.3f} s for its pool; "
+          f"largest |diff| by field {diff}; the worker's fused_masked_agg "
+          f"launches {agg} (rounds {ROUNDS})", flush=True)
+    if run.backend != "nccl" or len(run.values) != 1:
+        fail(f"phase 20a ran on {len(run.values)} ranks under {run.backend}, "
+             "expected one NCCL rank")
+    if any(diff.values()):
+        fail(f"phase 20a is not bitwise: {diff}")
+    if agg != [ROUNDS]:
+        fail(f"phase 20a: the worker launched the aggregation {agg} times, "
+             f"expected {ROUNDS}")
+
+    # (b) two ranks sharing the card: B = 3 padded to 4, 2 rows a rank
+    res["b"] = {}
+    waited = await_pool("b")
+    two, two_s = timed(lambda: grid.run_cell_batch(
+        spec, "fedpbc", "bernoulli_tv", mesh=meshes["b"]))
+    run = shard.last_run()
+    diff = _cells_diff(plain, two)
+    agg = [v["launches"]["fused_masked_agg"] for v in run.values]
+    rows = [v["rows"] for v in run.values]
+    probe = _batch_count_probe(torch, masked, grid, spec,
+                               torch.as_tensor(plain[0].server, device=card))
+    worst = max(diff.values())
+    res["b"].update(_ranks_line("phase20b two ranks on cuda:0", run),
+                    sharded_s=two_s, max_abs_diff=diff, agg_launches=agg,
+                    rows=rows, batch_count_ops=probe)
+    print(f"phase20b B = 3 padded to 4, rows by rank {rows}: {two_s:.3f} s "
+          f"after a wait of {waited:.3f} s for its pool; largest |diff| "
+          f"from 20a's plain "
+          f"run by field {diff} (tol {SHARD_TOL:g}); fused_masked_agg "
+          f"launches by rank {agg}; the round's batched ops on 2 rows "
+          f"against 3: {probe}", flush=True)
+    if run.backend != "gloo" or rows != [2, 2]:
+        fail(f"phase 20b ran {rows} rows under {run.backend}, expected 2 "
+             "and 2 under gloo")
+    if two[0].test_acc.shape[0] != len(SEEDS) or \
+            len({a.tobytes() for a in two[0].loss}) != len(SEEDS):
+        fail("phase 20b: a padding row reached the result")
+    if worst > 0:
+        named = [k for k, v in probe.items() if v > 0] or [
+            "none of the probed ops"]
+        print(f"phase20b not bitwise ({worst:.3e}); the ops that differ at "
+              f"2 rows against 3: {named}", flush=True)
+    if worst > SHARD_TOL or agg != [ROUNDS, ROUNDS]:
+        fail(f"phase 20b: |diff| {worst:.3e} over {SHARD_TOL:g}, or "
+             f"aggregation launches {agg}")
+    for key in ("a", "b"):
+        pool.pool_for(meshes[key]).close()
+
+    # (c) lm-family on a ("batch", "model") mesh of two ranks on the card
+    lm = grid.SweepSpec(**LM_SWEEP)
+    E = len(sweep.eval_rounds(lm.rounds, lm.eval_every))
+    (task, st_p, out_p), lm_plain_s = timed(lambda: grid.run_batch_states(
+        lm, FAMILY, "bernoulli_ti", mesh=None))
+    mesh2d = meshes["c"]
+    res["c"] = {}
+    waited = await_pool("c")
+    (_, st_s, out_s), lm_s = timed(lambda: grid.run_batch_states(
+        lm, FAMILY, "bernoulli_ti", mesh=mesh2d))
+    run = shard.last_run()
+    B = len(FAMILY) * len(lm.lrs)
+    m, k = lm.num_clients, mesh2d.shape["model"]
+    rows_d = (st_p.server - st_s.server).abs().amax(-1)
+    loss_d = float((out_p["metrics"]["loss"]
+                    - out_s["metrics"]["loss"]).abs().max())
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkdv", "fused_masked_agg")
+    launches = [[v["launches"][nm] for nm in names] for v in run.values]
+    want = _want_launches(lm, E)
+    n = task.layout.size
+    stats = collective_stats(k, rows=B, clients=m, group_bytes=[4 * n],
+                             rounds=lm.rounds, final_bytes=[4 * n, 4])
+    gathers = [v["gathers"] for v in run.values]
+    res["c"].update(
+        _ranks_line("phase20c make_2d_mesh(1, 2) on cuda:0", run),
+        plain_s=lm_plain_s, sharded_s=lm_s,
+        max_server_diff=float(rows_d.max()), max_loss_diff=loss_d,
+        launches=launches, want_launches=want,
+        flash_bh=B * (m // k) * lm.batch_size * 4, gathers=gathers,
+        collective_stats=dict(bytes_by_kind=stats.bytes_by_kind,
+                              count_by_kind=stats.count_by_kind,
+                              t_collective_s=stats.t_collective))
+    print(f"phase20c lm-family B = {B}, m = {m} split {m // k} a rank, "
+          f"{lm.rounds} rounds: one device {lm_plain_s:.3f} s, the mesh "
+          f"{lm_s:.3f} s after a wait of {waited:.3f} s for its pool; "
+          f"largest |server "
+          f"diff| of a trajectory {rows_d.max().item():.3e} (tol "
+          f"{LM_PATHS_TOL:g}), loss {loss_d:.3e}; launches by rank (flash "
+          f"fwd, dq, dkdv, aggregation) {launches}, expected {want} each, "
+          f"the flash kernels at [{res['c']['flash_bh']}, {lm.lm_seq}, "
+          f"{lm.lm_d_model // 4}] (the rank's {m // k} clients); all-gathers "
+          f"by rank {[(g['bytes_by_kind'], g['count_by_kind'], round(g['seconds'], 4)) for g in gathers]}, "
+          f"counted {stats.bytes_by_kind} in {stats.count_by_kind} "
+          f"({stats.t_collective * 1e3:.4f} ms at NVLink's 450 GB/s)",
+          flush=True)
+    if run.backend != "gloo" or len(run.values) != 2:
+        fail(f"phase 20c ran {len(run.values)} ranks under {run.backend}")
+    if not rows_d.max() <= LM_PATHS_TOL:
+        fail("phase 20c: the 2-D mesh and one device diverge")
+    if any(row != want for row in launches):
+        fail(f"phase 20c launches {launches}, expected {want} on each rank")
+    if any(g["bytes_by_kind"] != stats.bytes_by_kind
+           or g["count_by_kind"] != stats.count_by_kind for g in gathers):
+        fail("phase 20c: the all-gathers moved other bytes than "
+             "collective_stats counts")
+    pool.close_pools()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase20 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE20_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE20_LIMIT_S:
+        fail(f"phase 20 took {res['seconds']:.1f} s, over its "
+             f"{PHASE20_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5219,6 +5514,7 @@ def main():
                             bf16_peak)
     rwkv_train = phase19_rwkv_train(torch, rk, masked, ref, train, card, bw,
                                     fp32_peak, logs[rk.BWD_SOURCE.name])
+    sharded = phase20_sharded(torch, masked, fa, grid)
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
           f"s)", flush=True)
@@ -5261,7 +5557,12 @@ def main():
                   k: launch[k]["launches"][3]
                   for k in ("smollm", "jamba_groups")},
               "masked_agg_pytree_launches": launch["ops"][
-                  "masked_agg_pytree_launches"]}
+                  "masked_agg_pytree_launches"],
+              # by rank, in the workers of phase 20's sub-phases
+              "sharded_launches": {
+                  "20a": sharded["a"]["agg_launches"],
+                  "20b": sharded["b"]["agg_launches"],
+                  "20c": [r[3] for r in sharded["c"]["launches"]]}}
     kernels = [kernel]
     source = "src/repro_torch/kernels/csrc/flash_attention.cu"
     replaces = "src/repro/kernels/flash_attention.py:76 (flash_attention -> _kernel"
@@ -5308,6 +5609,8 @@ def main():
     for i in range(3):
         kernels[1 + i]["ckpt_resume_launches"] = {
             k: launch[k]["launches"][i] for k in ("smollm", "jamba_groups")}
+        kernels[1 + i]["sharded_launches"] = {
+            "20c": [r[i] for r in sharded["c"]["launches"]]}
     kernels[1]["gqa_launches"] = launch["ops"]["gqa_launches"]
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
@@ -5366,6 +5669,7 @@ def main():
     print(json.dumps({"launch": launch}), flush=True)
     print(json.dumps({"rwkv_train": {k2: v for k2, v in rwkv_train.items()
                                      if k2 != "backward"}}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"zoo": {
         "gemma2-9b": gemma, "moe": moe,
         "memory_families": {k: v for k, v in mem_zoo.items()

@@ -359,7 +359,8 @@ def local_steps(loss_fn, optimizer, params, opt_state, batches, s: int):
 def make_round_fn(loss_fn: Callable, optimizer, algorithm,
                   link: LinkProcess, fed_cfg: FederationConfig,
                   algo_id=0, use_kernel: bool = False,
-                  strategy=None, cohort_size: Optional[int] = None):
+                  strategy=None, cohort_size: Optional[int] = None,
+                  gather_updates=None):
     """Build ``round_fn(state, batches, u) -> (state', metrics)``.
 
     ``algorithm``: an ``Algorithm``, or an ``AlgorithmSpec`` bound at
@@ -372,24 +373,38 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
     (``_make_scale_round_fn``); both need an ``AlgorithmSpec`` and ignore
     ``use_kernel``, as the reference's do: their aggregation is the buffer
     fold or the sparse cohort branches, never the fused kernel.
+
+    ``gather_updates``: the model axis of a sharded sweep
+    (``repro_torch.sharding.pool.ModelAxis``), or None. The state then holds
+    this rank's clients only (``take`` of the ``[B, m, ...]`` client buffers
+    and optimizer leaves), the round trains those on their columns of the
+    batches, and the hook (``(x_star, losses) -> (x_star, losses)``, the
+    reference's) all-gathers their results into all m clients before any
+    cross-client reduction. Every model rank then aggregates the full
+    ``[B, m, n]`` identically and keeps the server, link and algorithm
+    state whole; it keeps its own columns of the new clients.
     """
     # full fp32 products on the card (no TF32), set explicitly
     set_fp32_matmul_precision()
     if strategy is not None or cohort_size is not None:
         return _make_scale_round_fn(loss_fn, optimizer, algorithm, link,
-                                    fed_cfg, algo_id, strategy, cohort_size)
+                                    fed_cfg, algo_id, strategy, cohort_size,
+                                    gather_updates)
     algorithm = as_algorithm(algorithm, algo_id, use_kernel=use_kernel)
     s = fed_cfg.local_steps
+    train = _local_training(loss_fn, optimizer, s, gather_updates)
 
     def round_fn(state: FedState, batches, u: torch.Tensor) -> tuple:
         active, p_t, link_state = link.sample(state.link_state, state.round, u)
         starts = algorithm.client_start(state.algo_state, state.server,
                                         state.clients)
-        x_star, opt_state, losses = local_steps(
-            loss_fn, optimizer, starts, state.opt_state, batches, s)
+        x_star, opt_state, losses = train(starts, state.opt_state, batches)
+        # no rule reads the previous clients here (they start the round)
         algo_state, server, clients = algorithm.aggregate(
             state.algo_state, state.server, state.clients, x_star, active,
             p_t, state.round)
+        if gather_updates is not None:
+            clients = gmap(gather_updates.take, clients)
         last_active = torch.where(
             active, round_column(state.round, state.last_active),
             state.last_active)
@@ -409,8 +424,26 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
     return round_fn
 
 
+def _local_training(loss_fn, optimizer, s: int, gather_updates):
+    """``train(starts, opt_state, batches) -> (x_star, opt_state', losses)``
+    over every client, or, on a model axis, over this rank's clients
+    (their columns of ``batches``; ``starts`` and ``opt_state`` are already
+    theirs) with ``x_star`` and ``losses`` gathered back to all m."""
+
+    def train(starts, opt_state, batches):
+        if gather_updates is not None:
+            batches = {k: gather_updates.take(v) for k, v in batches.items()}
+        x_star, opt_state, losses = local_steps(loss_fn, optimizer, starts,
+                                                opt_state, batches, s)
+        if gather_updates is not None:
+            x_star, losses = gather_updates((x_star, losses))
+        return x_star, opt_state, losses
+
+    return train
+
+
 def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
-                         algo_id, strategy, cohort_size):
+                         algo_id, strategy, cohort_size, gather_updates=None):
     """The cross-device scale round engines (``repro_torch.scale``).
 
     Dense buffered (``cohort_size is None``): the synchronous round's data
@@ -445,7 +478,8 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
     if buffered:
         op, is_pbc = spec.fused_op(algo_id)
     bound = as_algorithm(spec, algo_id)
-    s = fed_cfg.local_steps
+    train = _local_training(loss_fn, optimizer, fed_cfg.local_steps,
+                            gather_updates)
 
     def commit_clients(commit, in_buffer, server, x_star):
         """Postponed broadcast at commit time: fedpbc's new global model
@@ -464,13 +498,15 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
                                                   state.round, u)
             starts = bound.client_start(state.algo_state, state.server,
                                         state.clients)
-            x_star, opt_state, losses = local_steps(
-                loss_fn, optimizer, starts, state.opt_state, batches, s)
+            x_star, opt_state, losses = train(starts, state.opt_state,
+                                              batches)
             in_buffer = state.buffer.in_buffer | active
             buf, server, commit, bmets = buffered_aggregate(
                 state.buffer, state.server, x_star, active, p_t, knobs,
                 op=op, m_total=m, in_buffer_new=in_buffer)
             clients = commit_clients(commit, in_buffer, server, x_star)
+            if gather_updates is not None:
+                clients = gather_updates.take(clients)
             last_active = torch.where(
                 active, round_column(state.round, state.last_active),
                 state.last_active)
@@ -506,8 +542,9 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
         batches, ds_state = source.sample_cohort(ds_state, state.round,
                                                  cohort, draws.pick)
         starts = _tile(state.server, C)
-        x_star, _, losses = local_steps(loss_fn, optimizer, starts,
-                                        optimizer.init(starts), batches, s)
+        if gather_updates is not None:
+            starts = gather_updates.take(starts)
+        x_star, _, losses = train(starts, optimizer.init(starts), batches)
         if buffered:
             prev = state.buffer.in_buffer
             in_buffer = prev.scatter(1, cohort, prev.gather(1, cohort)

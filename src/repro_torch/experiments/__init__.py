@@ -3,6 +3,8 @@
 - ``sweep``   — ``make_batched_run_rounds``: all (algorithm x point x seed)
   trajectories of one (family, scheme) cell as one batch; the sweep CLI.
 - ``grid``    — ``SweepSpec`` grids and the executor (``run_sweep``).
+- ``shard``   — a cell's batch split over a mesh's devices, one worker
+  process each (``run_sharded``, ``run_sharded_2d``).
 - ``results`` — the append-only JSONL/npz results store (the reference's
   format) with mean/CI summaries and cross-store ``merge`` + CLI.
 - ``plots``   — figure-style curve CSV exports straight from a store.

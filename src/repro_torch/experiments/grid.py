@@ -14,6 +14,9 @@ axis. ``cohort_size`` runs the cross-device cohort engine
 (cell, strategy, point) to a ``ResultsStore`` in the reference's layout.
 
 Entry points run on the card (``device=None``) and raise without CUDA.
+``mesh``/``devices`` split a cell's batch over several devices, one worker
+process each (``repro_torch.experiments.shard``); by default
+(``mesh="auto"``) whenever more than one card is visible.
 """
 from __future__ import annotations
 
@@ -37,6 +40,14 @@ from repro_torch.experiments.results import (
     ResultsStore,
     buffered_summary,
     summarize,
+)
+from repro_torch.experiments.shard import (
+    AUTO,
+    RunnerRecipe,
+    commit,
+    pad_batch,
+    resolve_batch_mesh,
+    run_committed,
 )
 from repro_torch.experiments.sweep import (
     CellBatch,
@@ -440,12 +451,14 @@ def make_cell_batch(spec: SweepSpec, fed: FederationConfig,
 
 def make_runner(spec: SweepSpec, fed: FederationConfig, task, *,
                 metric_keys=("loss", "num_active"), device=None,
-                carry_out: bool = False):
+                carry_out: bool = False, shard_mesh=None):
     """The batched runner of one (family, scheme) cell: the family's table,
     ``sgd(paper_decay(lr))`` and the configured link process
-    (``carry_out``: the resumable segment runner)."""
+    (``carry_out``: the resumable segment runner; ``shard_mesh``: the 2-D
+    sharded path). ``run.recipe`` is what a mesh's workers rebuild it
+    from (``repro_torch.experiments.shard``)."""
     algo = make_algorithm_spec(algo_family(fed.algorithm), fed)
-    return make_batched_run_rounds(
+    run = make_batched_run_rounds(
         task.loss_fn, algo, fed,
         optimizer_factory=lambda hp: sgd(paper_decay(hp["lr"])),
         link_factory=lambda p, hp: make_link_process(
@@ -460,7 +473,25 @@ def make_runner(spec: SweepSpec, fed: FederationConfig, task, *,
         cohort_size=spec.cohort_size,
         buffered=_has_strategy_axis(spec),
         carry_out=carry_out,
+        shard_mesh=shard_mesh,
         device=device)
+    run.recipe = RunnerRecipe(spec, fed, tuple(metric_keys), shard_mesh)
+    return run
+
+
+def runner_key(spec: SweepSpec, fed: FederationConfig, metric_keys, device,
+               *extra) -> tuple:
+    """A runner's structure, the reference's runner-cache key: the task's
+    shape, the cell's config with its hyperparameter knobs zeroed and its
+    algorithm made its family's first, the rounds and eval cadence, the
+    metric keys, the kernel and scale modes, the device and ``extra``
+    (a segment length, a mesh). Runners of equal keys compute alike."""
+    canon = dataclasses.replace(fed, alpha=0.0, sigma0=0.0, delta=0.0,
+                                gamma=0.0, period=0,
+                                algorithm=algo_family(fed.algorithm)[0])
+    return (_task_key(spec), canon, spec.rounds, spec.eval_every,
+            tuple(metric_keys), resolve_use_kernel(spec.use_kernel),
+            spec.cohort_size, _has_strategy_axis(spec), str(device)) + extra
 
 
 _SEGMENT_RUNNERS: Dict[tuple, Any] = {}
@@ -484,15 +515,10 @@ def segment_runner_for(spec: SweepSpec, algo: str, scheme: str, *,
     dev = resolve_device(device)
     task = get_traced_task(spec, dev)
     fed = spec.cell_config(algo, scheme)
-    family = algo_family(fed.algorithm)
-    canon = dataclasses.replace(fed, alpha=0.0, sigma0=0.0, delta=0.0,
-                                gamma=0.0, period=0, algorithm=family[0])
-    key = ("segment", _task_key(spec), canon, segment_rounds,
-           tuple(metric_keys), resolve_use_kernel(spec.use_kernel),
-           spec.cohort_size, _has_strategy_axis(spec), str(dev))
+    seg = dataclasses.replace(spec, rounds=segment_rounds,
+                              eval_every=segment_rounds)
+    key = runner_key(seg, fed, metric_keys, dev, "segment")
     if key not in _SEGMENT_RUNNERS:
-        seg = dataclasses.replace(spec, rounds=segment_rounds,
-                                  eval_every=segment_rounds)
         _SEGMENT_RUNNERS[key] = make_runner(seg, fed, task,
                                             metric_keys=metric_keys,
                                             device=dev, carry_out=True)
@@ -503,33 +529,95 @@ def segment_runner_for(spec: SweepSpec, algo: str, scheme: str, *,
 segment_runner_for.built = 0
 
 
+def _batch_key(spec: SweepSpec) -> tuple:
+    """Identity of a spec's fed-independent batch contents (dataset and
+    model shape, seeds, strategies, cohort, hyperparameter points)."""
+    return (_task_key(spec), spec.seeds, spec.strategies, spec.cohort_size,
+            tuple(tuple(sorted(pt.items())) for pt in spec.hparam_points()))
+
+
+# {(batch_key, mesh): {algos: Committed}}: one base entry, the most recent
+# (spec, mesh), with a sub-entry per algorithm group, so a mixed-family
+# sweep alternating groups per scheme commits each group's rows once
+_SHARDED_BATCH_CACHE: Dict[tuple, Dict[Tuple[str, ...], Any]] = {}
+
+
+def _sharded_cell_batch(spec: SweepSpec, fed: FederationConfig,
+                        task: TracedClassificationTask, mesh,
+                        algos: Tuple[str, ...], device):
+    """``make_cell_batch`` padded to the mesh's batch axis and committed to
+    its workers (``shard.commit``), memoized per (dataset, seeds, points,
+    mesh) and algorithm group. ``fed`` is deliberately NOT in the key: only
+    the ``[B]`` period column depends on it, and ``shard.run_committed``
+    rebuilds that column in the workers per call, so cells (or sweeps)
+    differing only in a ``period`` override reuse the committed rows. The
+    committed slices live in the workers, which keep one base at a time,
+    as this cache does; equal meshes hash equal, so a fresh auto-resolved
+    mesh over the same devices still hits."""
+    base = _batch_key(spec) + (mesh,)
+    entry = _SHARDED_BATCH_CACHE.get(base)
+    if entry is None:
+        _SHARDED_BATCH_CACHE.clear()
+        entry = _SHARDED_BATCH_CACHE.setdefault(base, {})
+    if algos not in entry:
+        padded, b_real = pad_batch(
+            make_cell_batch(spec, fed, task, algos=algos, device=device),
+            mesh.shape["batch"])
+        entry[algos] = commit(padded, mesh, (hash(base), algos), b_real)
+    return entry[algos]
+
+
+def _placement(mesh, devices, dev):
+    """The batch mesh of a call on ``dev``: ``mesh="auto"`` without
+    ``devices`` splits only a CUDA call (over every visible card)."""
+    if mesh == AUTO and devices is None and dev.type != "cuda":
+        return None
+    return resolve_batch_mesh(mesh, devices)
+
+
 def run_batch_states(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
                      metric_keys=("loss", "num_active"), device=None,
-                     draws=None):
+                     draws=None, mesh=AUTO, devices=None):
     """Run one (state-compatible algorithm group, scheme) cell and return
     ``(task, states, out)``: the raw batched result behind the
-    ``CellResult`` rows (``draws`` as in ``make_batched_run_rounds``)."""
+    ``CellResult`` rows (``draws`` as in ``make_batched_run_rounds``), on
+    ``device`` whatever the placement (``mesh``/``devices``: see
+    ``run_cell_batch``)."""
     dev = resolve_device(device)
     task = get_traced_task(spec, dev)
     fed = spec.cell_config(algos[0], scheme)
     if _has_strategy_axis(spec):
         metric_keys = tuple(metric_keys) + tuple(
             k for k in BUFFER_METRIC_KEYS if k not in metric_keys)
+    batch_mesh = _placement(mesh, devices, dev)
+    # a mesh with a "model" axis selects the 2-D path: the runner itself is
+    # built for the mesh (it splits each trajectory's clients)
+    mesh2d = batch_mesh if (batch_mesh is not None
+                            and "model" in batch_mesh.axis_names) else None
     runner = make_runner(spec, fed, task, metric_keys=metric_keys,
-                         device=dev)
-    states, out = runner(make_cell_batch(spec, fed, task, algos=algos,
-                                         device=dev), draws=draws)
+                         device=dev, shard_mesh=mesh2d)
+    if batch_mesh is not None:
+        # memoized pad + commit; padding rows are dropped right here, so
+        # nothing downstream ever sees them
+        states, out = run_committed(
+            runner, _sharded_cell_batch(spec, fed, task, batch_mesh, algos,
+                                        dev),
+            batch_mesh, period=fed.period, device=dev, draws=draws)
+    else:
+        states, out = runner(make_cell_batch(spec, fed, task, algos=algos,
+                                             device=dev), draws=draws)
     return task, states, out
 
 
 def _run_batch(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
-               metric_keys=("loss", "num_active"),
-               device=None) -> List[CellResult]:
+               metric_keys=("loss", "num_active"), device=None, mesh=AUTO,
+               devices=None) -> List[CellResult]:
     """One (algorithm group, scheme) cell as ``CellResult`` rows, algo-major,
     then strategy-major, then point-major."""
     task, states, out = run_batch_states(spec, algos, scheme,
                                          metric_keys=metric_keys,
-                                         device=device)
+                                         device=device, mesh=mesh,
+                                         devices=devices)
     with torch.no_grad():
         train_acc = task.eval_train(states.server, task.shared).cpu().numpy()
     if "evals" in out:
@@ -583,25 +671,26 @@ def _run_batch(spec: SweepSpec, algos: Tuple[str, ...], scheme: str, *,
         for pi, pt in enumerate(points)]
 
 
-def _later_slice_args(mesh, devices):
-    if mesh is not None or devices is not None:
-        raise NotImplementedError(
-            "mesh/devices placement is not ported yet (ROADMAP Queue 1 "
-            "item 6: multi-device batch split)")
-
-
 def run_cell_batch(spec: SweepSpec, algo: str, scheme: str, *,
-                   metric_keys=("loss", "num_active"), mesh=None,
+                   metric_keys=("loss", "num_active"), mesh=AUTO,
                    devices=None, device=None) -> List[CellResult]:
     """Run one (algo, scheme) cell: all hyperparameter points x seeds as one
-    batch; one ``CellResult`` per point. ``device=None`` is the card."""
-    _later_slice_args(mesh, devices)
+    batch; one ``CellResult`` per point. ``device=None`` is the card.
+
+    ``mesh``/``devices`` pick the placement
+    (``repro_torch.experiments.shard.resolve_batch_mesh``): by default the
+    batch splits over a ``("batch",)`` mesh of every visible card when more
+    than one is (a CPU call stays in this process); ``mesh=None`` forces
+    one device; ``devices=[...]`` splits over those devices, even one, one
+    worker process each; a ``make_2d_mesh`` mesh also splits each
+    trajectory's clients over its ``"model"`` axis. Results are those of
+    the single-device path: bit for bit on the CPU's ranks."""
     return _run_batch(spec, (algo,), scheme, metric_keys=metric_keys,
-                      device=device)
+                      device=device, mesh=mesh, devices=devices)
 
 
 def run_cell(spec: SweepSpec, algo: str, scheme: str, *,
-             metric_keys=("loss", "num_active"), mesh=None, devices=None,
+             metric_keys=("loss", "num_active"), mesh=AUTO, devices=None,
              device=None) -> CellResult:
     """Single-point convenience wrapper around ``run_cell_batch``."""
     n_points = len(spec.hparam_points()) * len(spec.strategies)
@@ -615,7 +704,7 @@ def run_cell(spec: SweepSpec, algo: str, scheme: str, *,
 
 def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
               suite: str = "sweep", metric_keys=("loss", "num_active"),
-              mesh=None, devices=None, device=None) -> List[CellResult]:
+              mesh=AUTO, devices=None, device=None) -> List[CellResult]:
     """Execute the full grid; with ``store``, append every (cell, strategy,
     point) row to it under ``suite``. Within each scheme, algorithms are
     grouped into state-compatible families and each group runs as ONE batch
@@ -625,8 +714,8 @@ def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
 
     Rows are written as soon as spec order allows, and on a crash every
     row a finished group computed is still written before the error
-    propagates, as in the reference."""
-    _later_slice_args(mesh, devices)
+    propagates, as in the reference. ``mesh``/``devices``: see
+    ``run_cell_batch``."""
     dev = resolve_device(device)
     for scheme in spec.schemes:            # validate every cell upfront
         for algo in spec.algorithms:
@@ -663,7 +752,8 @@ def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
         try:
             for group in groups.values():
                 results = _run_batch(spec, tuple(group), scheme,
-                                     metric_keys=metric_keys, device=dev)
+                                     metric_keys=metric_keys, device=dev,
+                                     mesh=mesh, devices=devices)
                 for ai, algo in enumerate(group):
                     by_algo[algo] = results[ai * n_points:(ai + 1) * n_points]
                 while pending and pending[0] in by_algo:
@@ -680,5 +770,5 @@ def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
 __all__ = ["ALGOS", "SCHEMES", "HPARAM_FIELDS", "SYNC", "SweepSpec",
            "CellResult", "make_cell_batch", "make_runner", "run_batch_states",
            "run_cell", "run_cell_batch", "run_sweep", "get_task",
-           "get_traced_task",
-           "point_base_probs", "segment_runner_for"]
+           "get_traced_task", "point_base_probs", "runner_key",
+           "segment_runner_for"]

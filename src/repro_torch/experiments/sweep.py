@@ -60,6 +60,7 @@ from repro_torch.core.federated import (
     make_round_step,
     run_rounds_loop,
 )
+from repro_torch.core.params import gmap
 from repro_torch.device import resolve_device
 from repro_torch.scale.buffer import STRATEGY_KNOB_FIELDS
 
@@ -154,6 +155,22 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
     buffers has no counterpart in eager PyTorch, whose round makes new
     tensors anyway. Re-pack carries with ``gather_carry`` and
     ``select_carry``; a carry's ``FedState.round`` may be a ``[B]`` tensor.
+
+    ``shard_mesh``: a 2-D ``("batch", "model")`` mesh
+    (``repro_torch.launch.mesh.make_2d_mesh``) making the runner the
+    sharded path of ``repro_torch.experiments.shard.run_sharded_2d``. It
+    then runs in the mesh's pool workers (``repro_torch.sharding.pool``),
+    one per rank, each on its batch rows: a model rank holds ``m / model``
+    clients of every trajectory (their parameters and optimizer leaves) and
+    trains them on their columns of the round's batches, and the local
+    updates are all-gathered over ``"model"`` before the aggregation
+    (``make_round_fn(gather_updates=...)``), which every model rank
+    computes on the full ``[B, m, n]`` with the server kept whole. The
+    final state is gathered back to all m clients (not in ``carry_out``
+    mode, whose carry keeps each rank's own, as the reference's does); the
+    evals read the whole server. The reference slices the server per leaf
+    over ``"model"`` (``spec_for_shape``); that changes memory, not
+    results.
     """
     scale_mode = buffered or cohort_size is not None
     if scale_mode and not isinstance(algorithm, AlgorithmSpec):
@@ -163,10 +180,11 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
     # stateful rules take the sparse cohort path; only fusable families
     # carry a BufferState
     has_buffer = scale_mode and algorithm.fusable
-    if shard_mesh is not None:
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP Queue 1 item 6: "
-            "multi-device batch split)")
+    if shard_mesh is not None and not (
+            {"batch", "model"} <= set(shard_mesh.axis_names)):
+        raise ValueError(
+            f'shard_mesh needs ("batch", "model") axes, got '
+            f"{shard_mesh.axis_names}")
     dev = resolve_device(device)
     do_eval = eval_fn is not None and eval_every > 0
     # round spans between evals: the eval_rounds contract (>= 1 eval, the
@@ -204,6 +222,9 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
                                 stateless_clients=cohort_size is not None,
                                 buffered=has_buffer)
             ds = source.init(batch.data)
+            axis = _model_axis(shard_mesh)
+            if axis is not None:            # this rank's clients only
+                st = _map_clients(lambda x: axis.take(x).clone(), st)
         return st, ds, draws
 
     def advance(carry, batch: CellBatch):
@@ -211,6 +232,7 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
         ``(carry', out)``; the carry's drawer advances."""
         st, ds, draws = carry
         algo_id, algo, optimizer, link, source = parts(batch)
+        axis = _model_axis(shard_mesh)
         if scale_mode:
             # the scale engines dispatch the spec themselves (they need the
             # family table, not a bound Algorithm)
@@ -218,9 +240,11 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
                      if buffered else None)
             round_fn = make_round_fn(loss_fn, optimizer, algorithm, link,
                                      fed_cfg, algo_id=algo_id,
-                                     strategy=strat, cohort_size=cohort_size)
+                                     strategy=strat, cohort_size=cohort_size,
+                                     gather_updates=axis)
         else:
-            round_fn = make_round_fn(loss_fn, optimizer, algo, link, fed_cfg)
+            round_fn = make_round_fn(loss_fn, optimizer, algo, link, fed_cfg,
+                                     gather_updates=axis)
         with torch.no_grad():
             round_step = make_round_step(round_fn, source)
             pieces, evals = [], []
@@ -231,6 +255,11 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
                 pieces.append(mets)
                 if do_eval:
                     evals.append(eval_fn(st.server, batch.shared))
+            if axis is not None and not carry_out:
+                # the final gather: every client back on every model rank
+                # (the server and the eval inputs are whole throughout)
+                st = _map_clients(
+                    lambda x: axis.gather(x) if x.shape[1] else x, st)
         out = {"metrics": {k: torch.cat([m[k] for m in pieces], 1)
                            for k in metric_keys}}
         if do_eval:
@@ -250,7 +279,37 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
     run.init = init
     run.step = step
     run.carry_out = carry_out
+    run.shard_mesh = shard_mesh
     return run
+
+
+def _model_axis(shard_mesh):
+    """The calling rank's ``ModelAxis`` of ``shard_mesh`` (None without a
+    mesh, or with a model axis of 1): a runner built for a mesh runs in
+    that mesh's pool workers."""
+    if shard_mesh is None:
+        return None
+    from repro_torch.sharding import pool
+
+    try:
+        ctx = pool.worker_context()
+    except RuntimeError:
+        raise RuntimeError(
+            "a runner built with shard_mesh runs in the mesh's pool workers: "
+            "call it through repro_torch.experiments.shard.run_sharded_2d"
+        ) from None
+    if ctx.mesh != shard_mesh:
+        raise ValueError(f"runner built for {shard_mesh} called in a worker "
+                         f"of {ctx.mesh}")
+    return ctx.model
+
+
+def _map_clients(fn, st):
+    """``fn`` over the state's per-client buffers: the clients (each
+    parameter group) and every optimizer leaf."""
+    return dataclasses.replace(
+        st, clients=gmap(fn, st.clients),
+        opt_state={k: gmap(fn, v) for k, v in st.opt_state.items()})
 
 
 def map_carry(fn, *parts):

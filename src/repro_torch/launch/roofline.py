@@ -7,17 +7,24 @@
 
 The counts come from ``repro_torch.launch.dryrun`` (the step run on the meta
 device under ``torch.utils.flop_counter.FlopCounterMode``, bytes summed over
-its aten ops). No program of the port has a collective yet (the mesh is
-item 6 of ROADMAP.md), so ``coll_bytes`` is 0; the reference parses XLA's
-HLO text for it (``collective_stats``), which moves to item 6.
+its aten ops). The dry run's step runs on one card and has no collective,
+so its ``coll_bytes`` is 0 (the production meshes it would need are ROADMAP
+item 6b). The port's one collective is the sharded sweep's: on a ``("batch",
+"model")`` mesh each round all-gathers the local updates over ``"model"``
+(``repro_torch.sharding.pool.ModelAxis``). The reference parses XLA's HLO
+text for its collectives; the port counts its own from the mesh and the
+shapes (``collective_stats``), and ``CollectiveStats.t_collective`` puts
+them at the link rate.
 
 Hardware model: the NVIDIA H100 data sheet's dense peaks, by card variant
 (``peak_rates``); the module constants are the SXM part's at 700 W: 989
-TFLOP/s bf16, 3.35 TB/s HBM3, NVLink 4 at 450 GB/s each way.
+TFLOP/s bf16, 3.35 TB/s HBM3, NVLink 4 at 450 GB/s each way (900 GB/s
+both ways, the data sheet's figure).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Sequence
 
 PEAK_FLOPS = 989e12       # bf16 dense tensor-core flop/s, H100 SXM
 HBM_BW = 3.35e12          # bytes/s, H100 SXM
@@ -33,6 +40,49 @@ def peak_rates(name: str):
     if "NVL" in name:
         return 3.9e12, 60e12, 835e12
     return HBM_BW, 67e12, PEAK_FLOPS
+
+
+@dataclass
+class CollectiveStats:
+    """Per-rank collective traffic by kind (``"all-gather"``): the output
+    bytes of each op and the number of ops, the reference's convention."""
+
+    bytes_by_kind: dict = field(default_factory=dict)
+    count_by_kind: dict = field(default_factory=dict)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+    @property
+    def t_collective(self) -> float:
+        """Seconds at the NVLink rate (``LINK_BW``, 450 GB/s each way on
+        the H100 SXM data sheet): the least time the bytes take between
+        cards."""
+        return self.total_bytes / LINK_BW
+
+
+def collective_stats(model: int, *, rows: int, clients: int,
+                     group_bytes: Sequence[int], rounds: int,
+                     final_bytes: Sequence[int] = ()) -> CollectiveStats:
+    """The all-gathers one rank of the sharded sweep makes over a
+    ``"model"`` axis of ``model`` ranks (none when ``model`` is 1), for
+    ``rows`` trajectories of ``clients`` clients (m, or C in cohort mode)
+    each:
+
+    - every round, one gather of the local updates per parameter group
+      (``group_bytes[g]``: one client's bytes of group ``g``) and one of
+      the per-client losses (fp32);
+    - at the end, one gather of each client-state leaf (``final_bytes``:
+      one client's bytes of each clients buffer and optimizer leaf).
+
+    Bytes are each gather's output, ``rows * clients * bytes a client``."""
+    if model <= 1:
+        return CollectiveStats()
+    per = [b * rows * clients for b in group_bytes] + [4 * rows * clients]
+    fin = [b * rows * clients for b in final_bytes]
+    return CollectiveStats({"all-gather": rounds * sum(per) + sum(fin)},
+                           {"all-gather": rounds * len(per) + len(fin)})
 
 
 def attention_pairs(t: int, window: int = 0) -> int:

@@ -16,8 +16,9 @@ An input spec is the step's inputs as meta tensors (the reference's
 as in the reference's specs (``MEM_DTYPE``). The steps ask for the plain
 versions of attention and WKV6 (``BACKEND``): no kernel has a meta mode,
 and ``dispatch.resolve_backend`` refuses meta tensors (``launch/dryrun.py``
-counts attention as the flash kernels' work all the same). No meshes:
-``launch/mesh.py`` and ``sharding/specs.py`` are ROADMAP item 6.
+counts attention as the flash kernels' work all the same). One card: the
+production meshes these steps would be placed on (the reference's
+``make_production_mesh`` and ``sharding/specs.py``) are ROADMAP item 6b.
 """
 from __future__ import annotations
 

@@ -10,7 +10,10 @@ Randomness comes from explicit generators with the reference's seeds by
 role: ``u`` from ``seed``, the link draws (``GeneratorDraws``: the initial
 draw, then each round's uniforms) from ``seed + 1``. The numbers differ
 from ``jax.random``'s; a caller can hand ``run_one`` the reference's ``u``
-and draws instead.
+and draws instead. ``run`` runs each algorithm's nine (point, seed)
+trajectories as one batch (``run_batch``) where the reference loops over
+``run_one``: the engine's eager round is host-bound, so one round for nine
+trajectories costs about what one for one does.
 
     python -m repro_torch.paper.fig3_quadratic [--paper-scale]
 """
@@ -27,17 +30,18 @@ from repro_torch.core import (
     make_link_process,
     make_run_rounds,
 )
-from repro_torch.data import fixed_source
+from repro_torch.data import DataSource
 from repro_torch.device import resolve_device
 from repro_torch.experiments.sweep import seed_generators
 from repro_torch.kernels.dispatch import resolve_use_kernel
 from repro_torch.optim import sgd
 
 PAPER_SCALE = dict(m=100, d=100, s=100, rounds=2500, eta=1e-4)
+POINTS = ((0.5, 0.5), (0.9, 0.1), (0.5, 0.1))
 
 
 def _loss(params, batch):
-    """``params [B, m, d]``, ``batch["u"] [1, m, d]`` -> ``[B, m]``."""
+    """``params [B, m, d]``, ``batch["u"] [B, m, d]`` -> ``[B, m]``."""
     return 0.5 * ((params - batch["u"]) ** 2).sum(-1)
 
 
@@ -46,28 +50,56 @@ def run_one(algo_name, p0, p1, *, m, d, s, rounds, eta, seed, device=None,
     """One trajectory; ``[(round, ||x_PS - x*||)]`` at 20 points. ``u [m, d]``
     and ``draws`` (a ``GeneratorDraws`` or anything with its ``link_init``
     and call) replace the seeded ones."""
+    return run_batch(algo_name, [(p0, p1)], m=m, d=d, s=s, rounds=rounds,
+                     eta=eta, seeds=(seed,), device=device,
+                     use_kernel=use_kernel,
+                     u=None if u is None else [u], draws=draws)[(p0, p1)][0]
+
+
+def _draw_u(gens, m, d, dev):
+    """The clients' optima ``u [m, d]`` of one seed. ``seed_generators(seed
+    - 1)`` seeds its streams seed .. seed + 3: "params" (unused by the
+    engine: the model starts at 0) draws u, "state" the links."""
+    return (torch.arange(m, device=dev) / (10.0 * m))[:, None] + \
+        0.1 * torch.randn(m, d, generator=gens["params"], device=dev)
+
+
+def run_batch(algo_name, points, *, m, d, s, rounds, eta, seeds,
+              device=None, use_kernel=None, u=None, draws=None):
+    """Every ``(p0, p1)`` of ``points`` at every seed for one algorithm, as
+    one batch of ``len(points) * len(seeds)`` trajectories through the
+    engine (one round serves them all): each draws its seed's ``u`` and
+    link uniforms. ``{(p0, p1): [run_one's list for each seed]}``. ``u``
+    (one ``[m, d]`` a seed) and ``draws`` (for the whole batch) replace the
+    seeded ones."""
     dev = resolve_device(device)
-    # seed_generators(seed - 1) seeds its streams seed .. seed + 3: "params"
-    # (unused by the engine: the model starts at 0) draws u, "state" the links
-    gens = seed_generators(seed - 1, dev)
+    gens = [seed_generators(sd - 1, dev) for sd in seeds]
     if u is None:
-        u = (torch.arange(m, device=dev) / (10.0 * m))[:, None] + \
-            0.1 * torch.randn(m, d, generator=gens["params"], device=dev)
-    u = torch.as_tensor(u, dtype=torch.float32, device=dev)
-    x_star = u.mean(0)
-    p = torch.where(torch.arange(m, device=dev) < m // 2, p0, p1)[None]
+        u = [_draw_u(g, m, d, dev) for g in gens]
+    index = [i for _ in points for i in range(len(seeds))]
+    B = len(index)
+    u = torch.stack([torch.as_tensor(x, dtype=torch.float32, device=dev)
+                     for x in u])[index]
+    x_star = u.mean(1)
+    half = torch.arange(m, device=dev) < m // 2
+    p = torch.stack([torch.where(half, p0, p1)
+                     for p0, p1 in points for _ in seeds])
     fed = FederationConfig(algorithm=algo_name, num_clients=m, local_steps=s)
     algo = make_algorithm_spec((algo_name,), fed)
     link = make_link_process(p, fed)
     opt = sgd(eta)
-    source = fixed_source({"u": u[:, None].expand(m, s, d)})
+    # each trajectory's own objective, [B, m, s, d] every round
+    batches = {"u": u[:, :, None].expand(B, m, s, d)}
+    source = DataSource(lambda data=None: (),
+                        lambda ds_state, t, pick=None: (batches, ds_state),
+                        "fixed")
     run_rounds = make_run_rounds(_loss, opt, algo, link, fed, source,
                                  use_kernel=resolve_use_kernel(use_kernel),
                                  device=dev)
     if draws is None:
-        draws = GeneratorDraws([gens], num_clients=m)
-    st = init_fed_state(draws.link_init(), torch.zeros(1, d, device=dev), fed,
-                        algo, link, opt)
+        draws = GeneratorDraws(gens, index, num_clients=m)
+    st = init_fed_state(draws.link_init(), torch.zeros(B, d, device=dev),
+                        fed, algo, link, opt)
     ds_state = source.init()
     # 20 measurement points, as the reference's 20 scan chunks
     chunk = max(rounds // 20, 1)
@@ -76,20 +108,26 @@ def run_one(algo_name, p0, p1, *, m, d, s, rounds, eta, seed, device=None,
         step = min(chunk, rounds - t)
         st, ds_state, _ = run_rounds(st, ds_state, draws, step)
         t += step
-        dists.append((t, float(torch.linalg.norm(st.server[0] - x_star))))
-    return dists
+        dists.append((t, torch.linalg.norm(st.server - x_star,
+                                           dim=-1).tolist()))
+    rows = [[(t, v[b]) for t, v in dists] for b in range(B)]
+    S = len(seeds)
+    return {pt: rows[i * S:(i + 1) * S] for i, pt in enumerate(points)}
 
 
 def run(csv=True, *, m=50, d=50, s=20, rounds=800, eta=5e-4, seeds=(0, 1, 2),
         device=None, use_kernel=None):
     if csv:
         print("fig3_quadratic,algo,p0,p1,round,dist_mean,dist_std")
+    # one batch of every (point, seed) trajectory for each algorithm
+    runs = {algo: run_batch(algo, POINTS, m=m, d=d, s=s, rounds=rounds,
+                            eta=eta, seeds=seeds, device=device,
+                            use_kernel=use_kernel)
+            for algo in ("fedpbc", "fedavg")}
     out = {}
-    for (p0, p1) in [(0.5, 0.5), (0.9, 0.1), (0.5, 0.1)]:
+    for (p0, p1) in POINTS:
         for algo in ("fedpbc", "fedavg"):
-            per_seed = [run_one(algo, p0, p1, m=m, d=d, s=s, rounds=rounds,
-                                eta=eta, seed=sd, device=device,
-                                use_kernel=use_kernel) for sd in seeds]
+            per_seed = runs[algo][(p0, p1)]
             rounds_axis = [r for r, _ in per_seed[0]]
             vals = np.array([[v for _, v in tr] for tr in per_seed])
             out[(algo, p0, p1)] = (rounds_axis, vals.mean(0), vals.std(0))

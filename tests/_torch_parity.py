@@ -22,6 +22,7 @@ from repro.experiments import tasks as jtasks
 from repro.optim import paper_decay as jdecay
 from repro.optim import sgd as jsgd
 
+from _torch_draws import TensorDraws
 from repro_torch import convert
 from repro_torch.configs import FederationConfig as TFed
 from repro_torch.core import algorithms as talg
@@ -222,7 +223,7 @@ def assert_state_close(port, ref_np, layout, *, atol, rtol):
         assert port.round == int(np.unique(ref_np.round)[0])
 
 
-class JaxKeyDraws:
+class JaxKeyDraws(TensorDraws):
     """The port's drawer interface (``params`` / ``link_init`` / call, and
     the re-packing ``copy`` / ``take`` / ``select`` / ``concat``) fed from
     the reference's per-seed keys: trajectory ``b`` with seed ``seeds[b]``
@@ -231,7 +232,9 @@ class JaxKeyDraws:
     an int or as a ``[B]`` tensor (row ``b`` gets round ``t[b]``'s draws,
     as the reference's vmapped round folds each trajectory's own round
     into its key); the draws are a function of (seed, round), so re-packed
-    rows need no state."""
+    rows need no state. Its ``take``/``select``/``concat`` give plain
+    ``TensorDraws``, which pickle without JAX (a sharded run sends each
+    rank its rows)."""
 
     def __init__(self, seeds, jfed_cfg, jtask, layout, num_rounds):
         meta = jtask.meta
@@ -241,7 +244,7 @@ class JaxKeyDraws:
         L = jfed_cfg.cyclic_length
         reset = jfed_cfg.scheme == "cyclic" and jfed_cfg.cyclic_reset
         keys = [jsweep.seed_keys(sd) for sd in seeds]
-        self._params = convert.params_from_jax(
+        params = convert.params_from_jax(
             np_tree(jax.vmap(jtask.init_params)(
                 jnp.stack([k["params"] for k in keys]))), layout)
         init_u, us, picks = [], [], []
@@ -261,53 +264,9 @@ class JaxKeyDraws:
                 traj_pick.append(np.asarray(pick))
             us.append(np.stack(traj_u))
             picks.append(np.stack(traj_pick))
-        self._init_u = torch.as_tensor(np.stack(init_u))
-        self._u = torch.as_tensor(np.stack(us))          # [B, R, m]
-        self._pick = torch.as_tensor(np.stack(picks))    # [B, R, m, s, b]
-
-    def params(self, init_params):
-        return self._params
-
-    def link_init(self):
-        return self._init_u
-
-    def __call__(self, t):
-        if isinstance(t, torch.Tensor):
-            rows = torch.arange(self._u.shape[0])
-            return tfed.RoundDraws(self._u[rows, t.cpu()],
-                                   self._pick[rows, t.cpu()])
-        return tfed.RoundDraws(self._u[:, t], self._pick[:, t])
-
-    def _of(self, params, init_u, u, pick):
-        out = object.__new__(JaxKeyDraws)
-        out._params, out._init_u, out._u, out._pick = params, init_u, u, pick
-        return out
-
-    def copy(self):
-        return self
-
-    def take(self, rows):
-        r = torch.as_tensor(np.asarray(rows, np.int64))
-        return self._of(self._params[r], self._init_u[r], self._u[r],
-                        self._pick[r])
-
-    def select(self, mask, other):
-        keep = torch.as_tensor(np.asarray(mask, bool))
-
-        def pick(a, b):
-            return torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)),
-                               a, b)
-
-        return self._of(pick(self._params, other._params),
-                        pick(self._init_u, other._init_u),
-                        pick(self._u, other._u),
-                        pick(self._pick, other._pick))
-
-    @staticmethod
-    def concat(drawers):
-        return drawers[0]._of(*(torch.cat([getattr(d, a) for d in drawers])
-                                for a in ("_params", "_init_u", "_u",
-                                          "_pick")))
+        super().__init__(params, torch.as_tensor(np.stack(init_u)),
+                         torch.as_tensor(np.stack(us)),       # [B, R, m]
+                         torch.as_tensor(np.stack(picks)))    # [B, R, m, s, b]
 
 
 def lm_round_draws(vocab, seed, rounds, m, s, batch, seq):

@@ -73,7 +73,17 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
              "repro_torch.kernels.ops": ["masked_agg_pytree",
                                          "gqa_flash_attention"],
              "repro_torch.launch.roofline": ["Roofline", "model_flops_for",
-                                             "peak_rates"],
+                                             "peak_rates", "CollectiveStats",
+                                             "collective_stats"],
+             # the sweep's multi-device split
+             "repro_torch.launch.mesh": ["Mesh", "make_batch_mesh",
+                                         "make_2d_mesh", "make_host_mesh"],
+             "repro_torch.sharding.pool": ["Pool", "ModelAxis", "pool_for",
+                                           "worker_context"],
+             "repro_torch.experiments.shard": ["AUTO", "resolve_batch_mesh",
+                                               "pad_batch", "shard_batch",
+                                               "run_sharded",
+                                               "run_sharded_2d"],
              "repro_torch.launch.steps": ["make_train_step",
                                           "make_prefill_step",
                                           "make_serve_step",

@@ -110,6 +110,12 @@ def _fake_run_one(algo_name, p0, p1, *, m, d, s, rounds, eta, seed, **kw):
                                           rng.random(rounds // chunk))]
 
 
+def _fake_run_batch(algo_name, points, *, seeds, **kw):
+    """The port's ``run_batch`` on ``_fake_run_one``'s numbers."""
+    return {(p0, p1): [_fake_run_one(algo_name, p0, p1, seed=sd, **kw)
+                       for sd in seeds] for p0, p1 in points}
+
+
 def _run_suite(name, pkg, monkeypatch, capsys, tmp_path):
     """``(stdout lines, returned value, Table 2's JSON or None)`` of one
     package's suite on the fakes."""
@@ -122,6 +128,8 @@ def _run_suite(name, pkg, monkeypatch, capsys, tmp_path):
         kw["store"] = res.ResultsStore(str(tmp_path / pkg / "store"))
     if name == "fig3":
         monkeypatch.setattr(mod, "run_one", _fake_run_one)
+        if pkg == "port":
+            monkeypatch.setattr(mod, "run_batch", _fake_run_batch)
     out_path = None
     if name == "table2":
         out_path = str(tmp_path / pkg / "table2.json")
@@ -293,6 +301,24 @@ def test_fig3_run_one_on_reference_draws_matches_reference(algo, use_kernel):
     np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
                                rtol=0, atol=1e-5)
     assert want[-1][1] < 0.9 * want[0][1]        # the trajectory moved
+
+
+@pytest.mark.parametrize("algo", ["fedpbc", "fedavg"])
+def test_fig3_run_batch_matches_run_one_per_trajectory(algo):
+    """``run_batch`` (every point and seed of one algorithm in one batch)
+    gives each trajectory what ``run_one`` gives it, bit for bit on the
+    CPU."""
+    kw = dict(m=6, d=3, s=2, rounds=40, eta=0.1)
+    seeds = (0, 1)
+    got = tfig3.run_batch(algo, tfig3.POINTS, seeds=seeds, device="cpu",
+                          use_kernel=True, **kw)
+    assert list(got) == list(tfig3.POINTS)
+    for (p0, p1), rows in got.items():
+        assert len(rows) == len(seeds)
+        for sd, row in zip(seeds, rows):
+            want = tfig3.run_one(algo, p0, p1, seed=sd, device="cpu",
+                                 use_kernel=True, **kw)
+            assert row == want
 
 
 def _p_stats(p):

@@ -42,11 +42,12 @@ def _spec(module, **kw):
     return module.SweepSpec(**base)
 
 
-def _reference_trajectories(scheme):
+def _reference_trajectories(scheme, rounds=ROUNDS, eval_every=EVAL_EVERY):
     """8 per-trajectory reference runs (algorithm-major, seed-minor, the
     batch layout), each through ``make_run_rounds`` with its own key
-    bundle, ``p_base`` and static-shape program; evals every 3 rounds."""
-    spec = _spec(jgrid)
+    bundle, ``p_base`` and static-shape program; ``rounds`` rounds with
+    evals every ``eval_every`` (a divisor of ``rounds``)."""
+    spec = _spec(jgrid, rounds=rounds, eval_every=eval_every)
     fed = spec.cell_config("fedpbc", scheme)
     jtask, _ = tasks()
     fam = jgrid.make_algorithm_spec(FAMILY, fed)
@@ -64,8 +65,8 @@ def _reference_trajectories(scheme):
                                  link, opt)
         ds = source.init(keys["ds"], {"idx": idx})
         evals, mets = [], []
-        for _ in range(ROUNDS // EVAL_EVERY):
-            st, ds, m = run(st, ds, keys["data"], EVAL_EVERY)
+        for _ in range(rounds // eval_every):
+            st, ds, m = run(st, ds, keys["data"], eval_every)
             evals.append(jtask.eval_test(st.server, jtask.shared))
             mets.append(m)
         return st, jnp.stack(evals), jax.tree.map(
@@ -189,21 +190,39 @@ def test_later_slice_spec_knobs_raise_not_implemented(kw):
             tgrid.SweepSpec(**kw)
 
 
-def test_later_slice_entry_arguments_raise_not_implemented():
+def test_placement_arguments_raise_the_reference_errors():
     """``store=`` works since the results store was ported
-    (tests/test_torch_results.py) and ``carry_out`` since adaptive search
-    was (tests/test_torch_search.py); placement still raises, naming its
-    ROADMAP item."""
+    (tests/test_torch_results.py), ``carry_out`` since adaptive search was
+    (tests/test_torch_search.py), and placement since the multi-device
+    split was (tests/test_torch_shard.py): a bad placement raises the
+    reference's own errors, checked against it here."""
+    from repro.experiments import shard as jshard
+    from repro.launch import mesh as jmesh
+    from repro_torch.experiments import shard as tshard
+    from repro_torch.launch import mesh as tmesh
+
     spec = _spec(tgrid, algorithms=("fedpbc",), seeds=(0,), rounds=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgrid.run_sweep(spec, devices=[object()], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgrid.run_sweep(spec, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for module, kw in ((tgrid, dict(device="cpu")), (jgrid, {})):
+        with pytest.raises(ValueError, match="mesh must be"):
+            module.run_sweep(spec if module is tgrid else
+                             _spec(jgrid, algorithms=("fedpbc",), seeds=(0,),
+                                   rounds=1), mesh=object(), **kw)
+    for module, host in ((tshard, tmesh.make_host_mesh()),
+                         (jshard, jmesh.make_host_mesh())):
+        with pytest.raises(ValueError, match="needs a 'batch' axis"):
+            module.resolve_batch_mesh(host)
+    with pytest.raises(ValueError, match='shard_mesh needs \\("batch", '
+                                         '"model"\\)'):
         tsweep.make_batched_run_rounds(
             None, None, None, optimizer_factory=None, link_factory=None,
             source_factory=None, init_params=None, num_rounds=1,
-            device="cpu", shard_mesh=object())
+            device="cpu", shard_mesh=tmesh.make_batch_mesh(["cpu"] * 2))
+    task = tgrid.get_traced_task(spec, "cpu")
+    batch = tgrid.make_cell_batch(spec, spec.cell_config("fedpbc",
+                                                         "bernoulli_tv"),
+                                  task, device="cpu")        # B = 1
+    with pytest.raises(ValueError, match="not divisible"):
+        tshard.shard_batch(batch, tmesh.make_batch_mesh(["cpu"] * 2))
     run = tsweep.make_batched_run_rounds(
         None, None, None, optimizer_factory=None, link_factory=None,
         source_factory=None, init_params=None, num_rounds=1, device="cpu",
