@@ -1,7 +1,9 @@
 """Batched experiment sweeps on the PyTorch port.
 
 - ``sweep``   — ``make_batched_run_rounds``: all (algorithm x point x seed)
-  trajectories of one (family, scheme) cell as one batch; the sweep CLI.
+  trajectories of one (family, scheme) cell as one batch;
+  ``make_vmap_run_rounds`` is its single-point seed-axis wrapper; the
+  sweep CLI.
 - ``grid``    — ``SweepSpec`` grids and the executor (``run_sweep``).
 - ``shard``   — a cell's batch split over a mesh's devices, one worker
   process each (``run_sharded``, ``run_sharded_2d``).
@@ -22,6 +24,7 @@ from repro_torch.experiments.grid import (
     run_cell,
     run_cell_batch,
     run_sweep,
+    seed_base_probs,
 )
 from repro_torch.experiments.results import ResultsStore, git_sha, summarize
 from repro_torch.experiments.search import (
@@ -34,6 +37,7 @@ from repro_torch.experiments.sweep import (
     CellBatch,
     eval_rounds,
     make_batched_run_rounds,
+    make_vmap_run_rounds,
     seed_generators,
 )
 from repro_torch.experiments.tasks import (
@@ -44,6 +48,7 @@ from repro_torch.experiments.tasks import (
     mlp_accuracy,
     mlp_init,
     mlp_loss,
+    with_label_noise,
 )
 
 __all__ = [
@@ -55,6 +60,7 @@ __all__ = [
     "run_cell",
     "run_cell_batch",
     "run_sweep",
+    "seed_base_probs",
     "ResultsStore",
     "git_sha",
     "summarize",
@@ -65,6 +71,7 @@ __all__ = [
     "CellBatch",
     "eval_rounds",
     "make_batched_run_rounds",
+    "make_vmap_run_rounds",
     "seed_generators",
     "ClassificationTask",
     "TracedClassificationTask",
@@ -73,4 +80,5 @@ __all__ = [
     "mlp_accuracy",
     "mlp_init",
     "mlp_loss",
+    "with_label_noise",
 ]

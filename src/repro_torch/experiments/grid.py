@@ -381,6 +381,13 @@ def point_base_probs(spec: SweepSpec, point: Dict[str, float]) -> np.ndarray:
         for s in spec.seeds])
 
 
+def seed_base_probs(spec: SweepSpec) -> np.ndarray:
+    """``[S, m]`` draws at the spec's scalar (default) hyperparameter
+    point."""
+    return point_base_probs(
+        spec, dict(alpha=spec.alpha, sigma0=spec.sigma0, delta=spec.delta))
+
+
 def _has_strategy_axis(spec: SweepSpec) -> bool:
     """Whether the spec runs the buffered engine: any strategy besides the
     bare synchronous default. (SYNC,) keeps the synchronous round; a single
@@ -770,5 +777,5 @@ def run_sweep(spec: SweepSpec, *, store: Optional[ResultsStore] = None,
 __all__ = ["ALGOS", "SCHEMES", "HPARAM_FIELDS", "SYNC", "SweepSpec",
            "CellResult", "make_cell_batch", "make_runner", "run_batch_states",
            "run_cell", "run_cell_batch", "run_sweep", "get_task",
-           "get_traced_task", "point_base_probs", "runner_key",
-           "segment_runner_for"]
+           "get_traced_task", "point_base_probs", "seed_base_probs",
+           "runner_key", "segment_runner_for"]

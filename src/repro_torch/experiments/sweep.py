@@ -283,6 +283,56 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
     return run
 
 
+def make_vmap_run_rounds(loss_fn: Callable, optimizer, algorithm,
+                         fed_cfg: FederationConfig, source, *,
+                         link_factory: Callable,
+                         init_params: Callable,
+                         num_rounds: int,
+                         eval_every: int = 0,
+                         eval_fn: Optional[Callable] = None,
+                         metric_keys=DEFAULT_METRIC_KEYS,
+                         use_kernel: bool = False,
+                         device=None):
+    """The seed-axis runner (the reference's ``make_vmap_run_rounds``): S
+    seeds of one cell as one batch, with the optimizer and a
+    constant-capturing ``DataSource`` fixed at build time. A thin wrapper
+    over ``make_batched_run_rounds`` at a single point: no hparam columns,
+    no per-trajectory data, no shared dataset; ``link_factory(p [S, m])``
+    and ``eval_fn(server [S, n]) -> [S]`` take no hparams.
+
+    Returns ``run(gens, p_base, draws=None) -> (states, out)``: ``gens``
+    one ``seed_generators`` bundle per seed (the reference's
+    ``stack_seed_keys`` bundle), ``p_base`` ``[S, m]``; ``draws`` as in
+    ``make_batched_run_rounds``. ``run.init_batch`` and ``run.scan_batch``
+    are the core's two halves (``init(batch)``, ``step(carry, batch)``),
+    and ``run.batch(gens, p_base)`` the ``CellBatch`` they take."""
+    dev = resolve_device(device)
+    core = make_batched_run_rounds(
+        loss_fn, algorithm, fed_cfg,
+        optimizer_factory=lambda hp: optimizer,
+        link_factory=lambda p, hp: link_factory(p),
+        source_factory=lambda shared: source,
+        init_params=init_params, num_rounds=num_rounds,
+        eval_every=eval_every,
+        eval_fn=(lambda server, shared: eval_fn(server))
+        if eval_fn is not None else None,
+        metric_keys=metric_keys, use_kernel=use_kernel, device=dev)
+
+    def batch(gens, p_base) -> CellBatch:
+        return CellBatch(gens=list(gens), gen_index=list(range(len(gens))),
+                         p_base=torch.as_tensor(p_base, dtype=torch.float32,
+                                                device=dev),
+                         hparams={}, data=None, shared=None)
+
+    def run(gens, p_base, draws=None):
+        return core(batch(gens, p_base), draws=draws)
+
+    run.batch = batch
+    run.init_batch = core.init
+    run.scan_batch = core.step
+    return run
+
+
 def _model_axis(shard_mesh):
     """The calling rank's ``ModelAxis`` of ``shard_mesh`` (None without a
     mesh, or with a model axis of 1): a runner built for a mesh runs in

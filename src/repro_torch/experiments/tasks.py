@@ -185,6 +185,24 @@ def make_traced_classification_task(*, data_seed=0, num_clients=100, dim=32,
     )
 
 
+def with_label_noise(shared: Dict[str, Any], gen: torch.Generator = None,
+                     frac: float = 0.1, classes: int = None, *,
+                     uniforms: torch.Tensor = None) -> Dict[str, Any]:
+    """Same-shape label-noise variant of a task's ``shared`` dataset (the
+    reference's ``with_label_noise``): a Bernoulli(``frac``) subset of the
+    train labels is shifted to the next class, cyclically. The flip
+    uniforms ``[N]`` are drawn from ``gen`` on the labels' device, or handed
+    in as ``uniforms`` (a test passes the reference's). The dataset is an
+    input of the batched runner, so the variant rides an existing runner:
+    ``dataclasses.replace(batch, shared=noisy)``."""
+    y = shared["y"]
+    c = classes if classes is not None else int(y.max()) + 1
+    if uniforms is None:
+        uniforms = torch.rand(y.shape, generator=gen, device=y.device)
+    flip = torch.as_tensor(uniforms, device=y.device) < frac
+    return dict(shared, y=torch.where(flip, (y + 1) % c, y))
+
+
 # Same fields as TracedClassificationTask: the sweep engine and grid.py
 # treat both alike; the alias names the workload a call site holds.
 LMTask = TracedClassificationTask

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: ``repro_torch`` imports neither JAX
-nor anything of the reference package ``repro``, so it runs where JAX is
-not installed (the machine with the card)."""
+nor anything of the reference package ``repro`` or of the reference's
+``benchmarks`` (whose suites import JAX), so it runs where JAX is not
+installed (the machine with the card)."""
 import os
 import pathlib
 import re
@@ -30,6 +31,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
             "repro_torch.scale.sparse_state"} <= set(mods)
     assert {"repro_torch.experiments.search",
             "repro_torch.paper.asha"} <= set(mods)
+    # the last seven suites of benchmarks/run.py
+    assert {f"repro_torch.paper.{m}" for m in (
+        "common", "extensions", "kernels_bench", "roofline", "scale",
+        "throughput", "sweep_throughput", "lm_sweep")} <= set(mods)
     assert "repro_torch.models.ssm" in mods
     assert {"repro_torch.checkpointing",
             "repro_torch.checkpointing.checkpoint", "repro_torch.kernels.ops",
@@ -88,7 +93,17 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                                           "make_prefill_step",
                                           "make_serve_step",
                                           "train_input_specs"],
-             "repro_torch.launch.dryrun": ["count_step", "lower_pair"]}
+             "repro_torch.launch.dryrun": ["count_step", "lower_pair"],
+             # the suites and the sweep's leftovers
+             "repro_torch.experiments": ["seed_base_probs",
+                                         "make_vmap_run_rounds",
+                                         "with_label_noise"],
+             "repro_torch.experiments.grid": ["seed_base_probs"],
+             "repro_torch.experiments.sweep": ["make_vmap_run_rounds"],
+             "repro_torch.experiments.tasks": ["with_label_noise"],
+             "repro_torch.paper.common": ["run_training", "accuracy",
+                                          "Timer"],
+             "repro_torch.paper.run": ["SUITE_INFO", "main"]}
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -97,6 +112,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
             "        getattr(importlib.import_module(m), n)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k == 'repro' or k.startswith('repro.') "
+            "or k == 'benchmarks' or k.startswith('benchmarks.') "
             "or k == 'triton' or k.startswith('triton.'))\n"
             "print(','.join(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -108,7 +124,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 
 def test_source_scan_finds_no_jax_or_reference_imports():
     pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
-                         r"from\s+repro(\.|\s+import)|import\s+repro(\.|\s|$))",
+                         r"from\s+repro(\.|\s+import)|import\s+repro(\.|\s|$)|"
+                         r"from\s+benchmarks\b|import\s+benchmarks\b)",
                          re.M)
     hits = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
             for p in PORT.rglob("*.py")

@@ -200,12 +200,21 @@ def test_suite_runs_on_the_cpu_with_the_reference_header(
 
 
 def test_run_lists_exactly_the_five_paper_suites(capsys):
+    """The port's driver lists the reference's 13 suites, in its order and
+    with its BENCH arms (``benchmarks/run.py``'s ``SUITE_INFO``)."""
+    from benchmarks import run as jrun
+
+    assert list(trun.SUITE_INFO) == list(jrun.SUITE_INFO)
+    assert {k: v[1] for k, v in trun.SUITE_INFO.items()} == \
+        {k: v[1] for k, v in jrun.SUITE_INFO.items()}
     trun.main(["--list"])
-    names = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
-    # the paper's five, then the reference's ASHA-vs-grid suite
-    assert names == ["fig2", "fig3", "table1", "table2", "fig8", "asha"]
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in lines] == list(jrun.SUITE_INFO)
+    assert [ln.partition("[arms: ")[2] for ln in lines] == [
+        (", ".join(arms) + "]") if arms else ""
+        for _, arms in jrun.SUITE_INFO.values()]
     with pytest.raises(SystemExit):
-        trun.main(["--only", "fig2,throughput"])
+        trun.main(["--only", "fig2,nope"])
     trun.main(["--only", "fig2"])
     assert "fig2_bias,p2,E_x_fedavg" in capsys.readouterr().out
 
