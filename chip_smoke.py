@@ -451,6 +451,24 @@ every loss finite, flash and aggregation launches as phase 12 counts them
 over a dry-run JSON the phase writes from phase 18e's smollm-135m ×
 train_4k row: one ``ok`` row. Phase 21 is held to ``PHASE21_LIMIT_S``.
 
+Phase 22 runs the analysis gate's runtime half (``repro_torch.analysis``).
+(a) Phase 2's cell at ``PHASE22_ROUNDS`` rounds under
+``HostSyncSanitizer`` (``torch.cuda.set_sync_debug_mode("warn")``, each
+sync warning mapped to the innermost frame of the port and whether a step
+context of ``lint.STEP_CONTEXTS`` was on the stack): syncs a round inside
+rounds and outside them, every in-round site, the aggregation once a
+round. (b) SmolLM-135M served at full width through ``serve.main``
+(``PHASE22_SERVE``), without and with ``keep_logits``: syncs a
+``decode_step``; with ``keep_logits`` the ``.cpu()`` of its step closure
+must show once a token (the known positive). In both, every in-step site
+must be a finding of the static gate (``lint.host_sync_sites``: new,
+grandfathered or suppressed), so the card holds the static rule to what it
+sees. (c) Runner pins: ``segment_runner_for`` for two specs that differ
+only in lr and gamma builds exactly one runner, and a second
+``run_sweep`` at other hyperparameters compiles no Triton specialisation
+(``masked_agg.compiled_specializations()``, which must not be None).
+Phase 22 is held to ``PHASE22_LIMIT_S``.
+
 The three CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
@@ -462,7 +480,8 @@ line (phase 13's), a ``{"launch": {...}}`` line (phase 18's), a
 ``{"rwkv_train": {...}}`` line (phase 19's), a ``{"sharded": {...}}``
 line (phase 20's), a ``{"suites": {...}}`` line (each phase-21 suite's
 ``BENCH`` dict) and a ``{"phase21": {...}}`` line (its seconds, launches,
-kernel checks and momentum check), a ``{"zoo": {...}}`` line (phases 14 to 17), then a
+kernel checks and momentum check), a ``{"zoo": {...}}`` line (phases 14 to 17), an
+``{"analysis": {...}}`` line (phase 22's census and pins), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
 11's as ``search_launches``, phase 12's by cell as ``lm_sweep_launches``
@@ -486,7 +505,9 @@ launches in phase 19c; the aggregation's and each flash kernel's launches
 by rank in phase 20 as ``sharded_launches``; every kernel's phase-21
 launches by suite as ``suite_launches``, and the aggregation's, the flash
 forward's and the chunked WKV6 route's timings at the ``kernels`` suite's
-shapes as ``kernels_suite_shapes``), the card's name and power
+shapes as ``kernels_suite_shapes``; phase 22's launches as
+``analysis_launches``: the aggregation's in 22a and 22c, each flash
+kernel's in 22b's two serve runs), the card's name and power
 limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
 result line. Without CUDA, or without the repository beside it, it exits
@@ -1024,6 +1045,15 @@ LM_SMOKE = dict(lm_layers=1, local_steps=1, rounds=2)
 SCALE_SMOKE = dict(ms=(10_000,), rounds=6)
 SCALE_DEADLINE = 4
 PHASE21_LIMIT_S = 120.0
+# phase 22 (the analysis gate's runtime half): phase 2's cell at 20 rounds
+# under the host-sync census; SmolLM-135M served at full width for a few
+# tokens (batch, prompt, gen); runner pins at one segment length no other
+# phase uses, so its first call builds a runner
+PHASE22_ROUNDS, PHASE22_EVAL_EVERY = 20, 10
+PHASE22_SERVE = (8, 4, 4)
+PHASE22_SEGMENT_ROUNDS = 3
+PHASE22_PIN_ROUNDS = 5
+PHASE22_LIMIT_S = 90.0
 
 
 def fail(msg):
@@ -5906,6 +5936,159 @@ def phase21_suites(torch, masked, fa, rk, ref, bw, fp32_peak, dry_row):
     return res
 
 
+def _census(lint, syncs, static, label, per, unit):
+    """Print a host-sync census (events a ``unit`` inside steps and out of
+    them, every in-step site) and fail if an in-step site is no finding
+    of the static gate; returns its JSON summary."""
+    inside, outside = syncs.sites(in_step=True), syncs.sites(in_step=False)
+    n_in, n_out = sum(inside.values()), sum(outside.values())
+    print(f"{label}: {n_in} syncs inside steps ({n_in / per:g} a {unit}), "
+          f"{n_out} outside ({n_out / per:g} a {unit}); in-step sites "
+          + (", ".join(f"{k} x{v}" for k, v in sorted(inside.items()))
+             or "none") + "; out-of-step sites "
+          + (", ".join(f"{k} x{v}" for k, v in sorted(outside.items()))
+             or "none"), flush=True)
+    sites = [(k.rsplit(":", 1)[0], int(k.rsplit(":", 1)[1])) for k in inside]
+    missed = lint.unmatched_sites(sites, static)
+    if missed:
+        fail(f"{label}: in-step sync sites the static gate does not flag: "
+             f"{[f'{f}:{n}' for f, n in missed]} (extend the rule)")
+    return {"in_step": n_in, "outside": n_out, f"in_step_per_{unit}": n_in / per,
+            f"outside_per_{unit}": n_out / per, "in_step_sites": inside,
+            "outside_sites": outside}
+
+
+def phase22_analysis(torch, masked, fa, grid):
+    """The analysis gate's runtime half on the card: (a) phase 2's cell at
+    ``PHASE22_ROUNDS`` rounds under ``HostSyncSanitizer``; (b) SmolLM-135M
+    served at full width through ``serve.main``, without and with
+    ``keep_logits`` (its ``.cpu()`` a token is the known positive); (c)
+    runner pins: ``segment_runner_for`` for two specs that differ in lr and
+    gamma builds one runner, and a second ``run_sweep`` at other
+    hyperparameters compiles no Triton specialisation. Every in-step sync
+    site must be a finding of the static gate (``lint.host_sync_sites``).
+    Held to ``PHASE22_LIMIT_S``."""
+    from repro_torch.analysis import lint, sanitize
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    t_phase = time.perf_counter()
+    static = lint.host_sync_sites()
+    res = {"static_sync_findings": len(static)}
+    print(f"phase22 static gate: {len(static)} host-sync findings in "
+          f"src/repro_torch (new, grandfathered or suppressed)", flush=True)
+
+    # (a) the sweep round
+    spec = grid.SweepSpec(algorithms=FAMILY, schemes=("bernoulli_tv",),
+                          seeds=SEEDS, rounds=PHASE22_ROUNDS,
+                          eval_every=PHASE22_EVAL_EVERY,
+                          num_clients=CLIENTS, use_kernel=True)
+    masked.fused_masked_agg.launches = 0
+    with sanitize.HostSyncSanitizer() as syncs:
+        cells = grid.run_sweep(spec)
+        torch.cuda.synchronize()
+    launches = masked.fused_masked_agg.launches
+    res["sweep"] = _census(lint, syncs, static, "phase22a run_sweep "
+                           f"({PHASE22_ROUNDS} rounds)", PHASE22_ROUNDS,
+                           "round")
+    res["sweep"]["agg_launches"] = launches
+    print(f"phase22a fused_masked_agg launches {launches} (want "
+          f"{PHASE22_ROUNDS}: one a round)", flush=True)
+    if launches != PHASE22_ROUNDS:
+        fail(f"phase 22a: {launches} aggregation launches, expected one a "
+             f"round ({PHASE22_ROUNDS})")
+    if not all(np.isfinite(c.server).all() for c in cells):
+        fail("phase 22a: non-finite parameters")
+
+    # (b) serving: syncs a decode_step, without and with keep_logits
+    b, p_len, g_len = PHASE22_SERVE
+    steps = p_len + g_len
+    cfg = get_config("smollm-135m")
+    params = model.init_leaves(torch.Generator(device="cuda").manual_seed(0),
+                               cfg)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkdv)
+    serve_src = os.path.join(ROOT, "src", "repro_torch", "launch",
+                             "serve.py")
+    with open(serve_src) as fh:
+        keep_line = next(i for i, text in enumerate(fh, 1)
+                         if "kept.append(" in text)
+    keep_site = f"src/repro_torch/launch/serve.py:{keep_line}"
+    res["serve"] = {}
+    for keep in (False, True):
+        for c in counters:
+            c.launches = 0
+        with sanitize.HostSyncSanitizer() as syncs:
+            out = serve.main(["--arch", "smollm-135m", "--full", "--batch",
+                              str(b), "--prompt-len", str(p_len), "--gen",
+                              str(g_len)], params=params, keep_logits=keep)
+            torch.cuda.synchronize()
+        row = _census(lint, syncs, static, f"phase22b serve smollm-135m "
+                      f"--full batch {b}, {p_len} + {g_len} steps, "
+                      f"keep_logits={keep}", steps, "step")
+        row["flash_launches"] = [c.launches for c in counters]
+        row["ids_shape"] = list(out["ids"].shape)
+        res["serve"][f"keep_logits_{str(keep).lower()}"] = row
+        if tuple(out["ids"].shape) != (b, g_len):
+            fail(f"phase 22b: served ids {tuple(out['ids'].shape)}")
+        if keep and row["in_step_sites"].get(keep_site, 0) != steps:
+            fail(f"phase 22b: keep_logits's .cpu() at {keep_site} showed "
+                 f"{row['in_step_sites'].get(keep_site, 0)} times in "
+                 f"steps, expected once a token ({steps})")
+    del params
+    print(f"phase22b flash launches "
+          f"{[r['flash_launches'] for r in res['serve'].values()]} (decode_"
+          f"step attends with the plain decode_attention)", flush=True)
+
+    # (c) runner pins
+    base = dict(algorithms=("fedpbc",), schemes=("bernoulli_tv",),
+                seeds=(0,), num_clients=CLIENTS, use_kernel=True)
+    points = [grid.SweepSpec(**base, lr=0.05, gamma=0.3),
+              grid.SweepSpec(**base, lr=0.2, gamma=0.7)]
+    built = sanitize.runner_count(grid.segment_runner_for)
+    with sanitize.assert_no_new_runners(grid.segment_runner_for, max_new=1,
+                                        label="phase22c segments"):
+        runners = [grid.segment_runner_for(
+            sp, "fedpbc", "bernoulli_tv",
+            segment_rounds=PHASE22_SEGMENT_ROUNDS) for sp in points]
+    grown = sanitize.runner_count(grid.segment_runner_for) - built
+    if grown != 1 or runners[0] is not runners[1]:
+        fail(f"phase 22c: two specs differing only in lr and gamma built "
+             f"{grown} segment runners, expected exactly 1 (one shared)")
+    masked.fused_masked_agg.launches = 0
+    sweeps = [dataclasses.replace(sp, rounds=PHASE22_PIN_ROUNDS,
+                                  eval_every=PHASE22_PIN_ROUNDS)
+              for sp in points]
+    grid.run_sweep(sweeps[0])
+    specs_before = masked.compiled_specializations()
+    if specs_before is None:
+        fail("phase 22c: masked_agg.compiled_specializations() is None on "
+             "the card (no Triton cache introspection)")
+    with sanitize.assert_no_new_runners(masked.compiled_specializations,
+                                        label="phase22c triton"):
+        grid.run_sweep(sweeps[1])
+        torch.cuda.synchronize()
+    res["pins"] = {"segment_runners_built": grown,
+                   "triton_specializations": specs_before,
+                   "agg_launches": masked.fused_masked_agg.launches}
+    print(f"phase22c segment_runner_for at lr/gamma 0.05/0.3 and 0.2/0.7: "
+          f"built +{grown}, one runner; run_sweep at both points: Triton "
+          f"specialisations {specs_before} -> "
+          f"{masked.compiled_specializations()}; aggregation launches "
+          f"{res['pins']['agg_launches']}", flush=True)
+    if res["pins"]["agg_launches"] != 2 * PHASE22_PIN_ROUNDS:
+        fail(f"phase 22c: {res['pins']['agg_launches']} aggregation "
+             f"launches, expected {2 * PHASE22_PIN_ROUNDS}")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase22 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE22_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE22_LIMIT_S:
+        fail(f"phase 22 took {res['seconds']:.1f} s, over its "
+             f"{PHASE22_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5978,6 +6161,7 @@ def main():
     sharded = phase20_sharded(torch, masked, fa, grid)
     suites = phase21_suites(torch, masked, fa, rk, ref, bw, fp32_peak,
                             launch["dryrun"]["row"])
+    analysis = phase22_analysis(torch, masked, fa, grid)
     sl = suites["launches"]
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
@@ -6032,7 +6216,11 @@ def main():
                                  for k, v in sl.items()},
               "kernels_suite_shapes": {
                   **suites["kernels"]["batched_agg"],
-                  "masked_agg_64x65536": suites["kernels"]["masked_agg"]}}
+                  "masked_agg_64x65536": suites["kernels"]["masked_agg"]},
+              # phase 22: the census's sweep (one a round) and the pins
+              "analysis_launches": {
+                  "22a": analysis["sweep"]["agg_launches"],
+                  "22c": analysis["pins"]["agg_launches"]}}
     kernels = [kernel]
     source = "src/repro_torch/kernels/csrc/flash_attention.cu"
     replaces = "src/repro/kernels/flash_attention.py:76 (flash_attention -> _kernel"
@@ -6085,6 +6273,11 @@ def main():
             k: v[FLASH_NAMES[i]] for k, v in sl.items()}
     kernels[1]["kernels_suite_shapes"] = {
         "flash_attention_512": suites["kernels"]["flash_fwd"]}
+    for i in range(3):
+        # phase 22b's serve runs: decode_step attends without a kernel
+        kernels[1 + i]["analysis_launches"] = {
+            f"22b_{k}": v["flash_launches"][i]
+            for k, v in analysis["serve"].items()}
     kernels[1]["gqa_launches"] = launch["ops"]["gqa_launches"]
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
@@ -6160,6 +6353,7 @@ def main():
                             if k != "flash"},
         "training": {k: v for k, v in train_zoo.items()
                      if k != "kernels"}}}), flush=True)
+    print(json.dumps({"analysis": analysis}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

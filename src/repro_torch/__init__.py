@@ -9,6 +9,13 @@ CUDA kernel, forward and backward (``repro_torch.kernels.flash_attention``);
 on CPU tensors their plain PyTorch versions (``repro_torch.kernels.ref``,
 ``repro_torch.models.attention``) run instead.
 """
-from repro_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # lazy, so that the gate's static half (repro_torch.analysis) imports
+    # no torch
+    if name == "resolve_device":
+        from repro_torch.device import resolve_device
+        return resolve_device
+    raise AttributeError(name)

@@ -65,7 +65,7 @@ cross-attention's output is cast back to the model's dtype.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -274,7 +274,7 @@ def _self_attn_block(p: Params, x, cfg: ModelConfig, kind: str, b: int,
     return x + o.reshape(G, N, -1) @ p["attn.wo"]
 
 
-def _ffn_block(p: Params, x, cfg: ModelConfig, rows=None):
+def _ffn_block(p: Params, x, cfg: ModelConfig, rows: Optional[int] = None):
     """``x + ffn(norm(x))`` and the MoE balance loss: ``x [G, rows * T,
     d]`` with leaves ``[G, ...]`` (the forward; aux ``[G]``), or ``rows``
     None: ``x [b, T, d]`` with one model's leaves (decode; aux 0-d). An

@@ -855,3 +855,24 @@ def test_ops_wrappers_on_the_card_match_their_plain_versions(cuda):
         rtol, atol = (tol, tol) if tol else (3e-2, 1e-2)
         torch.testing.assert_close(got.float().cpu(), want.float(),
                                    rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_host_sync_sanitizer_records_one_item_and_no_device_op(cuda):
+    """The runtime half of R001/R002 on the card: a deliberate ``.item()``
+    is exactly one event, at its line here; a pure device op is none; the
+    sync debug mode is restored on exit."""
+    from repro_torch.analysis.sanitize import HostSyncSanitizer
+
+    x = torch.arange(8.0, device=cuda)
+    before = torch.cuda.get_sync_debug_mode()
+    with HostSyncSanitizer() as syncs:
+        y = (x * 2 + 1).sum()
+    assert syncs.events == []
+    with HostSyncSanitizer() as syncs:
+        value = y.item()
+        line = __import__("inspect").currentframe().f_lineno - 1
+    assert value == 64.0
+    assert [(e.line, e.in_step) for e in syncs.events] == [(line, False)]
+    assert syncs.events[0].file.endswith("test_torch_gpu.py")
+    assert torch.cuda.get_sync_debug_mode() == before

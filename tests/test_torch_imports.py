@@ -36,6 +36,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
         "common", "extensions", "kernels_bench", "roofline", "scale",
         "throughput", "sweep_throughput", "lm_sweep")} <= set(mods)
     assert "repro_torch.models.ssm" in mods
+    # the analysis gate
+    assert {"repro_torch.analysis", "repro_torch.analysis.lint",
+            "repro_torch.analysis.rules", "repro_torch.analysis.baseline",
+            "repro_torch.analysis.sanitize",
+            "repro_torch.analysis.__main__"} <= set(mods)
     assert {"repro_torch.checkpointing",
             "repro_torch.checkpointing.checkpoint", "repro_torch.kernels.ops",
             "repro_torch.launch.roofline", "repro_torch.launch.steps",
@@ -103,7 +108,13 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
              "repro_torch.experiments.tasks": ["with_label_noise"],
              "repro_torch.paper.common": ["run_training", "accuracy",
                                           "Timer"],
-             "repro_torch.paper.run": ["SUITE_INFO", "main"]}
+             "repro_torch.paper.run": ["SUITE_INFO", "main"],
+             # the analysis gate
+             "repro_torch.analysis": ["lint_paths", "lint_text",
+                                      "STEP_CONTEXTS", "HostSyncSanitizer",
+                                      "assert_no_new_runners",
+                                      "RunnerSanitizer"],
+             "repro_torch.analysis.sanitize": ["runner_count", "SyncEvent"]}
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -131,3 +142,22 @@ def test_source_scan_finds_no_jax_or_reference_imports():
             for p in PORT.rglob("*.py")
             for m in pattern.finditer(p.read_text())]
     assert hits == []
+
+
+def test_static_gate_imports_no_torch():
+    """The gate's static half is stdlib only: importing
+    ``repro_torch.analysis`` and linting loads neither torch nor JAX nor
+    the reference; torch comes with the runtime half."""
+    code = ("import sys\n"
+            "import repro_torch.analysis as a\n"
+            "from repro_torch.analysis import baseline, lint, rules\n"
+            f"a.lint_paths([{str(PORT / 'analysis')!r}])\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('torch', 'jax', 'repro', 'numpy'))\n"
+            "a.HostSyncSanitizer\n"
+            "print(','.join(bad), 'torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True"], out.stdout
