@@ -469,6 +469,37 @@ only in lr and gamma builds exactly one runner, and a second
 (``masked_agg.compiled_specializations()``, which must not be None).
 Phase 22 is held to ``PHASE22_LIMIT_S``.
 
+Phase 23 runs the dry run on the reference's production meshes
+(``launch/dryrun.py``'s meshed rows: DTensor programs on a simulated
+process group of 256 or 512 ranks, ``sharding/spmd.py``) and the four
+examples. (a) On the card's host, in parallel worker processes (no card):
+the ``16x16`` rows of smollm-135m × train_4k, prefill_32k and decode_32k
+at full size and the ``2x16x16`` train_4k row (``PHASE23_ROWS``): each
+``ok``, the train rows with ``t_collective_s`` > 0, and on ``2x16x16``
+two clients, the client dim over ``"pod"`` and collective bytes on the pod
+axis of at least one model's shard (the aggregation across the pods);
+each row's ``count_s``, per-device ``param_bytes`` and
+``argument_bytes`` and collectives by kind, by axis and by the op behind
+them are printed. (b)
+Rank 0 of the ``16x16`` prefill_32k row, run on ``cuda:0``
+(``dryrun.run_rank0``: the same placements, rank 0's shards on the card
+under the simulated group, the flash forward through the hand-written
+kernel on rank 0's local tensors): its launches and shapes must equal the
+count's for that row, and its kernel counter must agree. Its peak memory
+is printed beside the row's ``argument_bytes`` and its device ms
+(``torch.profiler``) beside ``max(t_compute_s, t_memory_s)``. The step's
+values are not compared: a simulated group's collectives deliver no other
+rank's data (the q, k and v that reach attention passed its all-gather,
+whose output no rank fills). The kernel is: at rank 0's local shape and
+keywords (``[18, 32768, 64]`` bf16 causal, which no other phase checks),
+through ``dispatch.attention`` on unit normals, against the plain version
+(``attention_ref`` in fp32, chunked over keys) within ``FLASH_TOL``.
+(c) The four examples (``examples/torch_port/``) on the card, in parallel
+worker processes, at the reference's sizes (the LM trainer for
+``PHASE23_TRAIN_ARGS``): each exits 0, and the quickstart's assertion that
+FedPBC beats FedAvg holds. (a) and (c) run beside (b); phase 23 is held
+to ``PHASE23_LIMIT_S``.
+
 The three CUDA sources are built at the start, one ``nvcc`` each, started
 together while phase 1 builds and checks the Triton kernel.
 
@@ -481,7 +512,9 @@ line (phase 13's), a ``{"launch": {...}}`` line (phase 18's), a
 line (phase 20's), a ``{"suites": {...}}`` line (each phase-21 suite's
 ``BENCH`` dict) and a ``{"phase21": {...}}`` line (its seconds, launches,
 kernel checks and momentum check), a ``{"zoo": {...}}`` line (phases 14 to 17), an
-``{"analysis": {...}}`` line (phase 22's census and pins), then a
+``{"analysis": {...}}`` line (phase 22's census and pins), a
+``{"meshes": {...}}`` line (phase 23's rows, rank-0 run and examples),
+then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
 11's as ``search_launches``, phase 12's by cell as ``lm_sweep_launches``
@@ -507,7 +540,9 @@ launches by suite as ``suite_launches``, and the aggregation's, the flash
 forward's and the chunked WKV6 route's timings at the ``kernels`` suite's
 shapes as ``kernels_suite_shapes``; phase 22's launches as
 ``analysis_launches``: the aggregation's in 22a and 22c, each flash
-kernel's in 22b's two serve runs), the card's name and power
+kernel's in 22b's two serve runs; the flash forward's in 23b as
+``mesh_rank0_launches``, with the local shape it launched at), the card's
+name and power
 limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
 result line. Without CUDA, or without the repository beside it, it exits
@@ -1054,6 +1089,19 @@ PHASE22_SERVE = (8, 4, 4)
 PHASE22_SEGMENT_ROUNDS = 3
 PHASE22_PIN_ROUNDS = 5
 PHASE22_LIMIT_S = 90.0
+# phase 23 (the production meshes and the examples): the dry-run rows
+# (arch, shape, multi_pod) counted in worker processes, the rank-0 run's
+# row, the LM trainer example's arguments (a few rounds at 2 clients)
+PHASE23_ROWS = (("smollm-135m", "train_4k", False),
+                ("smollm-135m", "prefill_32k", False),
+                ("smollm-135m", "decode_32k", False),
+                ("smollm-135m", "train_4k", True))
+PHASE23_RANK0 = ("smollm-135m", "prefill_32k")     # 16x16
+PHASE23_TRAIN_ARGS = ("--rounds", "3", "--clients", "2", "--log-every", "1")
+PHASE23_EXAMPLES = (("quickstart", ()), ("unreliable_links_demo", ()),
+                    ("train_federated_lm", PHASE23_TRAIN_ARGS),
+                    ("serve_batched", ()))
+PHASE23_LIMIT_S = 150.0
 
 
 def fail(msg):
@@ -6089,6 +6137,210 @@ def phase22_analysis(torch, masked, fa, grid):
     return res
 
 
+_DRY_ROW = """
+import json, sys
+from repro_torch.launch import dryrun
+r = dryrun.lower_pair(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == "1",
+                      verbose=False)
+print("ROW " + json.dumps({k: v for k, v in r.items() if k != "trace"}))
+if r["status"] == "FAIL":
+    print(r["trace"], file=sys.stderr)
+"""
+
+
+def _spawn(argv, env_extra=None):
+    """A worker process of phase 23, its output kept in temporary files
+    (read by ``_reap``, so no pipe fills while this process works)."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               **(env_extra or {}))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(argv, stdout=out, stderr=err, text=True,
+                            env=env, cwd=ROOT)
+    return proc, out, err
+
+
+def _reap(spawned, label, timeout):
+    proc, out, err = spawned
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"phase 23: {label} ran over {timeout:g} s")
+    out.seek(0)
+    err.seek(0)
+    text, errs = out.read(), err.read()
+    out.close()
+    err.close()
+    if proc.returncode != 0:
+        print(errs[-3000:], file=sys.stderr, flush=True)
+        fail(f"phase 23: {label} exited {proc.returncode}")
+    return text
+
+
+def phase23_meshes(torch, fa):
+    """The dry run on the production meshes, rank 0 of the 16x16 prefill
+    on the card, and the four examples (see the module docstring). Held to
+    ``PHASE23_LIMIT_S``."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    # (a) and (c) start in worker processes, (b) runs here meanwhile
+    rows = {(a, s, mp): _spawn([sys.executable, "-c", _DRY_ROW, a, s,
+                                "1" if mp else "0"],
+                               {"CUDA_VISIBLE_DEVICES": ""})
+            for a, s, mp in PHASE23_ROWS}
+    examples = {name: _spawn([sys.executable, os.path.join(
+        ROOT, "examples", "torch_port", f"{name}.py"), *args])
+        for name, args in PHASE23_EXAMPLES}
+    try:
+        res = _phase23_checks(torch, fa, dryrun, get_config, INPUT_SHAPES,
+                              rows, examples)
+    finally:
+        for proc, _, _ in [*rows.values(), *examples.values()]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase23 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE23_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE23_LIMIT_S:
+        fail(f"phase 23 took {res['seconds']:.1f} s, over its "
+             f"{PHASE23_LIMIT_S:g} s")
+    return res
+
+
+def _check_rank0_attention(torch, call):
+    """Phase 23b's flash forward at rank 0's local shape and keywords
+    (``call``: ``run_rank0``'s ``attention``) on unit normals through
+    ``dispatch.attention`` (the kernel), against the plain version
+    (``attention_ref`` in fp32, chunked over keys, so no ``T x T`` score
+    tensor) within ``FLASH_TOL``. Fails on a mismatch; returns the max
+    |err|."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.attention import attention_ref
+
+    kw = {n: x for n, x in call["kw"].items() if n != "backend"}
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v = (torch.randn(call["shape"], generator=gen, device="cuda")
+               .to(call["dtype"]) for _ in range(3))
+    atol, rtol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    got = dispatch.attention(q, k, v, **kw)
+    want = attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    ok = (torch.allclose(got.float(), want, rtol=rtol, atol=atol)
+          and bool(torch.isfinite(got).all()))
+    print(f"phase23b flash forward at rank 0's local {call['shape']} "
+          f"{q.dtype} {kw}, unit normals, vs attention_ref fp32: "
+          f"max_abs_err {err:.3e}, max|ref| {want.abs().max().item():.3e} "
+          f"| atol {atol:g} rtol {rtol:g} {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        fail(f"phase 23b: the flash forward disagrees with its plain "
+             f"version at rank 0's local {call['shape']}")
+    return err
+
+
+def _phase23_checks(torch, fa, dryrun, get_config, INPUT_SHAPES, rows,
+                    examples):
+    """Phase 23's (b) here, then (a)'s and (c)'s workers reaped and
+    checked."""
+    res = {"rows": {}, "examples": {}}
+
+    # (b) rank 0 of the 16x16 prefill on the card
+    arch, shape_name = PHASE23_RANK0
+    cfg = get_config(arch)
+    fa.flash_attention_fwd.launches = 0
+    run = dryrun.run_rank0(
+        cfg, INPUT_SHAPES[shape_name], device="cuda",
+        measure=lambda fn: profile_window(torch, "phase23b rank 0 prefill",
+                                          fn, 1, "step"))
+    kernel_launches = fa.flash_attention_fwd.launches
+    call = run.pop("attention")
+    res["rank0"] = {**run, "kernel_launches": kernel_launches}
+    print(f"phase23b rank 0 of {arch} x {shape_name} (16x16) on cuda:0: "
+          f"{run['launches']} flash forward launches a step at "
+          f"{run['flash_shapes']} (counter {kernel_launches} over the warm "
+          f"and measured steps); logits {run['out_shape']} global, "
+          f"{run['out_local_shape']} on rank 0; inputs "
+          f"{run['input_bytes']} B, peak above what was allocated before "
+          f"the step {run['peak_bytes']} B; the step's values not "
+          f"compared (a simulated group's collectives deliver no other "
+          f"rank's data)",
+          flush=True)
+    if kernel_launches != 2 * run["launches"]:
+        fail(f"phase 23b: the flash forward's counter says "
+             f"{kernel_launches} launches, the step recorded "
+             f"{run['launches']} (x2 runs)")
+    res["rank0"]["max_abs_err"] = _check_rank0_attention(torch, call)
+
+    # (a) the rows
+    for key, proc in rows.items():
+        out = _reap(proc, f"dry-run row {key}", PHASE23_LIMIT_S)
+        row = json.loads(next(line[4:] for line in out.splitlines()
+                              if line.startswith("ROW ")))
+        res["rows"][f"{key[0]} x {key[1]} {row['mesh']}"] = row
+        print(f"phase23a {key[0]} x {key[1]} mesh={row['mesh']} "
+              f"{row['status']} count_s {row.get('count_s')} param_bytes "
+              f"{row.get('param_bytes')} argument_bytes "
+              f"{row.get('argument_bytes')} collectives "
+              f"{json.dumps(row.get('collectives'))} by axis "
+              f"{json.dumps(row.get('collective_bytes_by_axis'))} by op "
+              f"{json.dumps(row.get('collective_bytes_by_op'))} replicated "
+              f"ops {json.dumps(row.get('replicated_ops'))} "
+              f"t_compute/memory/collective {row.get('t_compute_s')} "
+              f"{row.get('t_memory_s')} {row.get('t_collective_s')}",
+              flush=True)
+        if row["status"] != "ok":
+            fail(f"phase 23a: row {key} is {row['status']}: "
+                 f"{row.get('error')}")
+        if row["mode"] == "train" and not row["t_collective_s"] > 0:
+            fail(f"phase 23a: train row {key} has no collective time")
+        if key[2]:
+            axes = row["collective_bytes_by_axis"]
+            if (row.get("num_clients") != 2
+                    or not row["client_placements"].startswith(
+                        "(Shard(dim=1)")
+                    or axes.get("pod", 0) < row["param_bytes"]):
+                fail(f"phase 23a: 2x16x16 row: clients "
+                     f"{row.get('num_clients')} placed "
+                     f"{row.get('client_placements')}, pod bytes "
+                     f"{axes.get('pod', 0)} (want 2 clients over 'pod' and "
+                     f"pod traffic >= {row['param_bytes']})")
+    row = res["rows"][f"{arch} x {shape_name} 16x16"]
+    want = sorted(tuple(x) for x in row["flash_shapes"])
+    if (run["launches"] != row["flash_launches"]["fwd"]
+            or [tuple(x) for x in run["flash_shapes"]] != want):
+        fail(f"phase 23b: rank 0 launched {run['launches']} at "
+             f"{run['flash_shapes']}, the count predicts "
+             f"{row['flash_launches']['fwd']} at {want}")
+    bound_ms = 1e3 * max(row["t_compute_s"], row["t_memory_s"])
+    res["rank0"]["row_bound_ms"] = bound_ms
+    print(f"phase23b device ms {run['measured']['device_ms_per_step']:.3f} "
+          f"(wall {run['measured']['wall_ms_per_step']:.1f}) beside the "
+          f"row's max(t_compute, t_memory) {bound_ms:.3f} ms; peak "
+          f"{run['peak_bytes']} B and inputs {run['input_bytes']} B beside "
+          f"the row's argument_bytes {row['argument_bytes']} B", flush=True)
+    if run["input_bytes"] != row["argument_bytes"]:
+        fail(f"phase 23b: rank 0's inputs on the card take "
+             f"{run['input_bytes']} B, the count says "
+             f"{row['argument_bytes']} B")
+
+    # (c) the examples
+    for name, proc in examples.items():
+        out = _reap(proc, f"example {name}", PHASE23_LIMIT_S)
+        res["examples"][name] = out.strip().splitlines()[-1][:200]
+        print(f"phase23c examples/torch_port/{name}.py exit 0: "
+              f"{res['examples'][name]}", flush=True)
+    if "implicit gossiping wins" not in res["examples"]["quickstart"]:
+        fail("phase 23c: the quickstart printed no FedPBC result")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6162,6 +6414,7 @@ def main():
     suites = phase21_suites(torch, masked, fa, rk, ref, bw, fp32_peak,
                             launch["dryrun"]["row"])
     analysis = phase22_analysis(torch, masked, fa, grid)
+    meshes = phase23_meshes(torch, fa)
     sl = suites["launches"]
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
@@ -6279,6 +6532,10 @@ def main():
             f"22b_{k}": v["flash_launches"][i]
             for k, v in analysis["serve"].items()}
     kernels[1]["gqa_launches"] = launch["ops"]["gqa_launches"]
+    # phase 23b: rank 0 of the 16x16 prefill, one step
+    kernels[1]["mesh_rank0_launches"] = meshes["rank0"]["launches"]
+    kernels[1]["mesh_rank0_shapes"] = meshes["rank0"]["flash_shapes"]
+    kernels[1]["mesh_rank0_max_abs_err"] = meshes["rank0"]["max_abs_err"]
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err
@@ -6354,6 +6611,7 @@ def main():
         "training": {k: v for k, v in train_zoo.items()
                      if k != "kernels"}}}), flush=True)
     print(json.dumps({"analysis": analysis}), flush=True)
+    print(json.dumps({"meshes": meshes}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

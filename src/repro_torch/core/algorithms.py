@@ -35,7 +35,7 @@ from typing import Callable, Dict, FrozenSet, Tuple, Union
 import torch
 
 from repro_torch.configs import FederationConfig
-from repro_torch.core.params import Groups, gmap
+from repro_torch.core.params import Groups, gmap, lead_view
 
 AlgoId = Union[int, torch.Tensor]
 
@@ -44,25 +44,31 @@ def masked_mean(xs: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """Mean over the client axis restricted to active clients:
     ``[B, m, n] -> [B, n]``; 0 when no client is active (callers guard)."""
     denom = active.sum(-1).float().clamp_min(1.0)
-    return (xs * active.unsqueeze(-1).to(xs.dtype)).sum(1) / \
-        denom.unsqueeze(-1).to(xs.dtype)
+    denom = denom.reshape(denom.shape + (1,) * (xs.dim() - 2))
+    return (xs * lead_view(active, xs).to(xs.dtype)).sum(1) / \
+        denom.to(xs.dtype)
 
 
 def weighted_sum(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return (xs * w.unsqueeze(-1).to(xs.dtype)).sum(1)
+    return (xs * lead_view(w, xs).to(xs.dtype)).sum(1)
 
 
 def bcast_where(active: torch.Tensor, new: torch.Tensor,
                 old: torch.Tensor) -> torch.Tensor:
     """Per-client select: active clients receive ``new [B, n]``, others keep
     ``old [B, m, n]``."""
-    return torch.where(active.unsqueeze(-1), new.unsqueeze(1), old)
+    return torch.where(lead_view(active, old), new.unsqueeze(1), old)
 
 
 def _tile(server: torch.Tensor, m: int) -> torch.Tensor:
     """``[B, n] -> [B, m, n]`` broadcast view (read-only: consumers build new
     tensors from it, nothing writes it in place)."""
-    return server.unsqueeze(1).expand(-1, m, -1)
+    return server.unsqueeze(1).expand((-1, m) + tuple(server.shape[1:]))
+
+
+def _any(active: torch.Tensor, server: torch.Tensor) -> torch.Tensor:
+    """Whether any client is active, ``[B]`` against ``server [B, n]``."""
+    return lead_view(active.any(-1), server)
 
 
 def _delta(x_star, server):
@@ -90,12 +96,13 @@ class AlgoState:
 _FIELDS = ("gap", "sum_gaps", "n_gaps", "lam", "mem", "mom")
 
 
-def _merge_groups(states) -> AlgoState:
+def _merge_groups(states, kind=Groups) -> AlgoState:
     """Per-group states -> one: the mask-derived fields of the first (every
-    group computes the same), ``mem`` and ``mom`` as ``Groups``."""
+    group computes the same), ``mem`` and ``mom`` grouped as ``kind``
+    (``Groups`` or ``Leaves``)."""
     return dataclasses.replace(states[0],
-                               mem=Groups(a.mem for a in states),
-                               mom=Groups(a.mom for a in states))
+                               mem=kind(a.mem for a in states),
+                               mom=kind(a.mom for a in states))
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +113,7 @@ def _merge_groups(states) -> AlgoState:
 
 def _agg_fedpbc(algo, server, clients, x_star, active, p_t, t):
     """FedPBC (Alg. 1): masked mean over active clients; postponed broadcast."""
-    any_active = active.any(-1, keepdim=True)
+    any_active = _any(active, server)
     new_server = torch.where(any_active, masked_mean(x_star, active), server)
     # postponed broadcast: only active clients receive the new global model
     return algo, new_server, bcast_where(active, new_server, x_star)
@@ -114,7 +121,7 @@ def _agg_fedpbc(algo, server, clients, x_star, active, p_t, t):
 
 def _agg_fedavg(algo, server, clients, x_star, active, p_t, t):
     """Vanilla FedAvg: average active clients; broadcast to everyone."""
-    any_active = active.any(-1, keepdim=True)
+    any_active = _any(active, server)
     new_server = torch.where(any_active, masked_mean(x_star, active), server)
     return algo, new_server, _tile(new_server, active.shape[-1])
 
@@ -160,7 +167,7 @@ def _make_agg_fedau(K: int):
 def _agg_mifa(algo, server, clients, x_star, active, p_t, t):
     """MIFA (Gu et al. 2021): memory of every client's last update."""
     m = active.shape[-1]
-    mem = torch.where(active.unsqueeze(-1),
+    mem = torch.where(lead_view(active, x_star),
                       _delta(x_star, server).to(algo.mem.dtype), algo.mem)
     new_server = server + mem.mean(1).to(server.dtype)
     return dataclasses.replace(algo, mem=mem), new_server, _tile(new_server, m)
@@ -177,7 +184,7 @@ def _make_agg_f3ast(beta: float, cap: int):
         order = torch.argsort(score, dim=-1, stable=True)
         rank = torch.argsort(order, dim=-1, stable=True)
         selected = active & (rank < cap)
-        any_sel = selected.any(-1, keepdim=True)
+        any_sel = _any(selected, server)
         new_server = torch.where(any_sel, masked_mean(x_star, selected),
                                  server)
         m = active.shape[-1]
@@ -192,7 +199,7 @@ def _make_agg_fedpbc_m(beta: float):
     direction; the postponed broadcast is unchanged."""
 
     def branch(algo, server, clients, x_star, active, p_t, t):
-        any_active = active.any(-1, keepdim=True)
+        any_active = _any(active, server)
         agg = masked_mean(x_star, active)
         step = torch.where(any_active, agg.float() - server.float(), 0.0)
         mom = beta * algo.mom[:, 0] + step
@@ -309,13 +316,14 @@ class AlgorithmSpec:
         return self.names.index(name)
 
     def init(self, server, m: int) -> AlgoState:
-        """The family's unified state for ``server [B, n]``: needed fields
-        at full size, the rest zero-sized (``mem`` / ``mom`` grouped as a
-        grouped ``server``)."""
+        """The family's unified state for ``server [B, n]`` (or a leaf
+        ``[B, *shape]``): needed fields at full size, the rest zero-sized
+        (``mem`` / ``mom`` grouped as a grouped ``server``)."""
         if isinstance(server, Groups):
-            return _merge_groups([self.init(x, m) for x in server])
+            return _merge_groups([self.init(x, m) for x in server],
+                                 type(server))
         u = self.needs
-        B, n = server.shape
+        B, n = server.shape[0], tuple(server.shape[1:])
         dev = server.device
 
         def vec(field, fill=0.0):
@@ -325,9 +333,9 @@ class AlgorithmSpec:
         return AlgoState(
             gap=vec("gap"), sum_gaps=vec("sum_gaps"), n_gaps=vec("n_gaps"),
             lam=vec("lam", 0.5),
-            mem=torch.zeros((B, m if "mem" in u else 0, n),
+            mem=torch.zeros((B, m if "mem" in u else 0) + n,
                             dtype=server.dtype, device=dev),
-            mom=torch.zeros((B, 1 if "mom" in u else 0, n),
+            mom=torch.zeros((B, 1 if "mom" in u else 0) + n,
                             dtype=torch.float32, device=dev))
 
     def client_start(self, algo_id: AlgoId, algo_state, server, clients):
@@ -393,8 +401,9 @@ class AlgorithmSpec:
                                    clients[g], x_star[g], active, p_t, t,
                                    use_kernel, fused)
                     for g in range(len(server))]
-            return (_merge_groups([o[0] for o in outs]),
-                    Groups(o[1] for o in outs), Groups(o[2] for o in outs))
+            kind = type(server)
+            return (_merge_groups([o[0] for o in outs], kind),
+                    kind(o[1] for o in outs), kind(o[2] for o in outs))
         if use_kernel and self.fusable:
             return self._aggregate_fused(algo_id, algo_state, server,
                                          x_star, active, p_t, fused)

@@ -305,8 +305,8 @@ def init_fed_state(link_u: torch.Tensor, server_params: torch.Tensor,
         clients = server_params.new_empty((B, 0, server_params.shape[-1]))
         opt_state = {}
     else:
-        clients = gmap(lambda x: x.unsqueeze(1).expand(B, m, -1).clone(),
-                       server_params)
+        clients = gmap(lambda x: x.unsqueeze(1).expand(
+            (B, m) + tuple(x.shape[1:])).clone(), server_params)
         opt_state = optimizer.init(clients)
     return FedState(
         server=server_params,
@@ -349,7 +349,7 @@ def local_steps(loss_fn, optimizer, params, opt_state, batches, s: int):
             leaf = gmap(lambda x: x.detach().requires_grad_(True), params)
             per_client = loss_fn(leaf, batch)
             grad = torch.autograd.grad(per_client.sum(), leaf)
-        grad = Groups(grad) if isinstance(leaf, Groups) else grad[0]
+        grad = type(leaf)(grad) if isinstance(leaf, Groups) else grad[0]
         params, opt_state = optimizer.update(gmap(torch.Tensor.detach,
                                                   params), opt_state, grad)
         losses.append(per_client.detach())

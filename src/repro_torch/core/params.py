@@ -36,15 +36,31 @@ class Groups(tuple):
     dtype's first, then fp32's."""
 
 
+class Leaves(Groups):
+    """A model held leaf by leaf, one buffer a leaf in layout order, each
+    with the engine's leading axes and the leaf's own shape (``[B, m,
+    *shape]`` clients, ``[B, *shape]`` server): the round of a sharded
+    mesh, where a leaf's spec places its own dims and no leaf is flattened
+    (``repro_torch.launch.steps``). The engine's rules broadcast their
+    per-client masks over the leaf's trailing dims (``lead_view``)."""
+
+
 Flat = Union[torch.Tensor, Groups]
 
 
 def gmap(fn: Callable, x: Flat, *others: Flat) -> Flat:
     """``fn`` over the groups of ``x`` (and ``others``, grouped alike), or
-    ``fn(x, *others)`` on a single buffer."""
+    ``fn(x, *others)`` on a single buffer; the result is grouped as
+    ``x`` (``Groups`` or ``Leaves``)."""
     if isinstance(x, Groups):
-        return Groups(fn(*parts) for parts in zip(x, *others))
+        return type(x)(fn(*parts) for parts in zip(x, *others))
     return fn(x, *others)
+
+
+def lead_view(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``v [*lead]`` against ``x [*lead, ...]``: ``v`` with trailing unit
+    dims up to ``x``'s rank (a flat buffer's ``unsqueeze(-1)``)."""
+    return v.reshape(tuple(v.shape) + (1,) * (x.dim() - v.dim()))
 
 
 def first(x: Flat) -> torch.Tensor:

@@ -344,8 +344,10 @@ def run_sharded_2d(runner, batch: CellBatch, mesh: Mesh, *, draws=None):
     ``"batch"``, each trajectory's clients over ``"model"`` by the runner
     itself, which must have been built with ``shard_mesh=mesh``
     (``grid.make_runner``, ``make_batched_run_rounds``). The reference's
-    ``activation_spec`` belongs to its production meshes (ROADMAP item
-    6b). Same pad / execute / host-side slice contract as ``run_sharded``.
+    ``activation_spec`` argument (sequence-parallel activations between
+    these worker processes) is not ported: it needs collectives inside the
+    model's forward (ROADMAP item 6c). Same pad / execute / host-side slice
+    contract as ``run_sharded``.
     """
     missing = {"batch", "model"} - set(mesh.axis_names)
     if missing:

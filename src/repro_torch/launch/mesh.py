@@ -7,9 +7,14 @@ process each (``repro_torch.sharding.pool``), laid out row-major over its
 axes: rank ``r`` runs on ``devices[r]``, and on a ``("batch", "model")``
 mesh it is batch index ``r // model`` and model index ``r % model``. The
 same device may appear more than once (several ranks sharing one card, or
-CPU ranks). The reference's production meshes (``make_production_mesh``,
-``dp_axes``, ``num_clients_for``) belong to the dry run and are ROADMAP
-item 6b.
+CPU ranks).
+
+The production meshes (``make_production_mesh``, ``dp_axes``,
+``num_clients_for``) are the dry run's: the reference's ``(16, 16)`` over
+``("data", "model")`` and ``(2, 16, 16)`` over ``("pod", "data",
+"model")``, as layouts of H100 cards. No host holds 256 of them, so their
+devices are ``meta``; ``repro_torch.sharding.spmd`` runs rank 0 of such a
+mesh under a simulated process group.
 """
 from __future__ import annotations
 
@@ -93,4 +98,27 @@ def make_host_mesh() -> Mesh:
     return Mesh(("data", "model"), (1, 1), (torch.device("cpu"),))
 
 
-__all__ = ["Mesh", "make_batch_mesh", "make_2d_mesh", "make_host_mesh"]
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, ``(16, 16)`` over ``("data",
+    "model")`` or, ``multi_pod``, ``(2, 16, 16)`` over ``("pod", "data",
+    "model")``, its devices ``meta`` (a layout of cards, not cards)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for d in shape:
+        n *= d
+    return Mesh(axes, shape, (torch.device("meta"),) * n)
+
+
+def dp_axes(mesh) -> tuple:
+    """The data-parallel axes: ``("pod", "data")`` on the multi-pod mesh."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def num_clients_for(mesh) -> int:
+    """``pod_silo`` placement: one federated client per pod."""
+    return mesh.shape["pod"] if "pod" in mesh.axis_names else 1
+
+
+__all__ = ["Mesh", "dp_axes", "make_batch_mesh", "make_2d_mesh",
+           "make_host_mesh", "make_production_mesh", "num_clients_for"]

@@ -5,16 +5,16 @@
     memory term     = counted bytes / HBM bytes/s
     collective term = collective bytes / link bytes/s
 
-The counts come from ``repro_torch.launch.dryrun`` (the step run on the meta
-device under ``torch.utils.flop_counter.FlopCounterMode``, bytes summed over
-its aten ops). The dry run's step runs on one card and has no collective,
-so its ``coll_bytes`` is 0 (the production meshes it would need are ROADMAP
-item 6b). The port's one collective is the sharded sweep's: on a ``("batch",
-"model")`` mesh each round all-gathers the local updates over ``"model"``
-(``repro_torch.sharding.pool.ModelAxis``). The reference parses XLA's HLO
-text for its collectives; the port counts its own from the mesh and the
-shapes (``collective_stats``), and ``CollectiveStats.t_collective`` puts
-them at the link rate.
+The counts come from ``repro_torch.launch.dryrun``: the step run on the
+meta device, flops and bytes summed over its aten ops. On one card its
+``coll_bytes`` is 0. On the reference's production meshes the step is a
+DTensor program and the row is rank 0's: its local flops and bytes, and
+the output bytes of its functional collectives by kind (the reference's
+convention, ``CollectiveStats``). The reference parses XLA's HLO text for
+its collectives; the port counts the ops DTensor runs. The sharded sweep's
+all-gathers over ``"model"`` (``repro_torch.sharding.pool.ModelAxis``) are
+counted from the mesh and the shapes (``collective_stats``). Both go at
+the link rate (``CollectiveStats.t_collective``, ``Roofline``).
 
 Hardware model: the NVIDIA H100 data sheet's dense peaks, by card variant
 (``peak_rates``); the module constants are the SXM part's at 700 W: 989
@@ -143,9 +143,9 @@ def wkv6_work(bh: int, t: int, d: int, heads: int):
 @dataclass
 class Roofline:
     """The three terms of one step on ``chips`` cards, each in seconds:
-    ``flops``, ``hbm_bytes`` and ``coll_bytes`` are one card's counts (the
-    dry run's step runs on one), ``model_flops`` the step's useful flops
-    over all cards (``model_flops_for``)."""
+    ``flops``, ``hbm_bytes`` and ``coll_bytes`` are one card's counts (on a
+    mesh, rank 0's), ``model_flops`` the step's useful flops over all
+    cards (``model_flops_for``)."""
 
     flops: float                 # per-card counted flops
     hbm_bytes: float             # per-card bytes accessed

@@ -86,6 +86,7 @@ from repro_torch.models.layers import (
     rope_angles,
     softcap,
 )
+from repro_torch.sharding.specs import maybe_constrain
 
 Params = Dict[str, torch.Tensor]
 
@@ -255,14 +256,22 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x [G, b, T, d]`` (or ``[G, N, d]``) as ``[G, b * T, d]``, the
+    rows of every product."""
+    return x.reshape(x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1])
+
+
 def _self_attn_block(p: Params, x, cfg: ModelConfig, kind: str, b: int,
                      positions, backend=None):
-    """``x [G, b*T, d]`` (G models); ``p`` leaves ``[G, ...]``."""
+    """``x [G, b, T, d]`` or ``[G, b*T, d]`` (G models); ``p`` leaves
+    ``[G, ...]``. The norm runs on ``x`` as it is, the products on its
+    rows, and the result keeps ``x``'s shape."""
     a = cfg.attention
     hd = cfg.head_dim
-    G, N, _ = x.shape
+    h = _rows(rms_norm(x, p["ln1"], cfg.norm_eps))
+    G, N, _ = h.shape
     t = N // b
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q = (h @ p["attn.wq"]).reshape(G * b, t, a.num_heads, hd)
     k = (h @ p["attn.wk"]).reshape(G * b, t, a.num_kv_heads, hd)
     v = (h @ p["attn.wv"]).reshape(G * b, t, a.num_kv_heads, hd)
@@ -271,22 +280,25 @@ def _self_attn_block(p: Params, x, cfg: ModelConfig, kind: str, b: int,
     k = apply_rope(k, cos, sin)
     o = attention(q, k, v, kind=kind, window=a.window,
                   logit_softcap=a.logit_softcap, backend=backend)
-    return x + o.reshape(G, N, -1) @ p["attn.wo"]
+    return x + (o.reshape(G, N, -1) @ p["attn.wo"]).reshape(x.shape)
 
 
 def _ffn_block(p: Params, x, cfg: ModelConfig, rows: Optional[int] = None):
-    """``x + ffn(norm(x))`` and the MoE balance loss: ``x [G, rows * T,
-    d]`` with leaves ``[G, ...]`` (the forward; aux ``[G]``), or ``rows``
-    None: ``x [b, T, d]`` with one model's leaves (decode; aux 0-d). An
-    MoE layer dispatches each of its ``rows`` batch rows as one group."""
+    """``x + ffn(norm(x))`` and the MoE balance loss: ``x [G, rows, T,
+    d]`` (or ``[G, rows * T, d]``) with leaves ``[G, ...]`` (the forward;
+    aux ``[G]``), or ``rows`` None: ``x [b, T, d]`` with one model's leaves
+    (decode; aux 0-d). An MoE layer dispatches each of its ``rows`` batch
+    rows as one group."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if rows:
+        h = _rows(h)
     if "moe.router" not in p:
         ffn = {"up": p["ffn.up"], "down": p["ffn.down"]}
         if cfg.gated_mlp:
             ffn["gate"] = p["ffn.gate"]
-        aux = torch.zeros(x.shape[:-2] if rows else (), dtype=torch.float32,
+        aux = torch.zeros(x.shape[:1] if rows else (), dtype=torch.float32,
                           device=x.device)
-        return x + mlp_apply(ffn, h, cfg.gated_mlp), aux
+        return x + mlp_apply(ffn, h, cfg.gated_mlp).reshape(x.shape), aux
     names = [n for n, _ in moe_mod.moe_leaves(cfg)]
     if rows is None:
         out, aux = moe_mod.moe_apply({n: p[f"moe.{n}"] for n in names}, h,
@@ -299,7 +311,7 @@ def _ffn_block(p: Params, x, cfg: ModelConfig, rows: Optional[int] = None):
                                      h[g].reshape(rows, N // rows, d), cfg)
         outs.append(out.reshape(N, d))
         auxs.append(aux)
-    return x + torch.stack(outs), torch.stack(auxs)
+    return x + torch.stack(outs).reshape(x.shape), torch.stack(auxs)
 
 
 def _models(params: Params, tokens: torch.Tensor) -> Tuple[Params, int]:
@@ -340,7 +352,7 @@ def _ssm_block(p: Params, x, cfg: ModelConfig, state=None):
 
 def _cross_block(p: Params, x, cfg: ModelConfig, memory):
     """The gated cross-attention block of G models (leaves ``[*L, ...]``;
-    one model: no ``L``): ``x`` (``[*L, b * T, d]``, or one model's ``[b,
+    one model: no ``L``): ``x`` (``[*L, b, T, d]``, or one model's ``[b,
     T, d]``) against ``memory [*L, b, M, d]`` (projected or encoded), the
     models folded into the batch of one ``cross_attention``; ``k`` and
     ``v`` in the promoted dtype, the output cast back to ``x.dtype``."""
@@ -350,7 +362,7 @@ def _cross_block(p: Params, x, cfg: ModelConfig, memory):
              "cross_gate")
     q_, G = _fold(p, names, "cross.wq")
     b, m, d = memory.shape[-3:]
-    xg = x.reshape(G, -1, d)
+    xg = _rows(x.reshape((G,) + x.shape[-3:]))
     t = xg.shape[1] // b
     h = rms_norm(xg, q_["lnc"], cfg.norm_eps)
     q = (h @ q_["cross.wq"]).reshape(G * b, t, a.num_heads, hd)
@@ -436,6 +448,7 @@ def _rwkv_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     layers = [{name: p[f"blocks.{i}.{name}"].unbind(1) for name in names}
               for i in range(P)]
     for layer in range(cfg.num_layers // P):
+        x = maybe_constrain(x)
         for i in range(P):
             lp = {name: v[layer] for name, v in layers[i].items()}
             tmix = {name[len("tmix."):]: v for name, v in lp.items()
@@ -447,6 +460,7 @@ def _rwkv_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             h, _ = rwkv_mod.rwkv_channel_mix(
                 tmix, rms_norm(x, lp["ln2"], cfg.norm_eps))
             x = x + h
+        x = maybe_constrain(x)
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     return x.reshape(tokens.shape + (cfg.d_model,))
 
@@ -474,19 +488,21 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     memory = _memory(params, cfg, memory, backend)
     p, G = _models(params, tokens)
     b, t = tokens.shape[-2:]
-    tok = tokens.reshape(G, b * t).long()
-    rows = torch.arange(G, device=tok.device)[:, None]
-    x = p["embed"][rows, tok].to(dtype_of(cfg))          # [G, b*T, d]
+    tok = tokens.reshape(G, b, t).long()
+    rows = torch.arange(G, device=tok.device)[:, None, None]
+    x = p["embed"][rows, tok].to(dtype_of(cfg))          # [G, b, T, d]
     positions = torch.arange(t, device=tok.device)
     aux = torch.zeros(G, dtype=torch.float32, device=tok.device)
     for layer in range(n_periods):
+        # the residual [G, b, T, d] keeps b and T apart, so that a mesh's
+        # sequence-parallel spec can place each (maybe_constrain)
+        x = maybe_constrain(x)
         for i in range(P):
             lp = {name: p[f"blocks.{i}.{name}"][:, layer]
                   for name, _ in _layer_leaves(cfg, i)}
             kind = cfg.layer_kind(i)
             if kind == "ssm":
-                x = _ssm_block(lp, x.reshape(G, b, t, -1),
-                               cfg)[0].reshape(x.shape)
+                x = _ssm_block(lp, x, cfg)[0]
             else:
                 x = _self_attn_block(lp, x, cfg, attn_kind(cfg, i), b,
                                      positions, backend)
@@ -494,6 +510,7 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 x = _cross_block(lp, x, cfg, memory)
             x, a = _ffn_block(lp, x, cfg, b)
             aux = aux + a
+        x = maybe_constrain(x)
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     lead = tokens.shape[:-2]
     return x.reshape(tokens.shape + (cfg.d_model,)), aux.reshape(lead)
@@ -525,9 +542,11 @@ def _chunk_ce(h, y, head, cap: float):
     """Summed cross-entropy of one token chunk per model: ``h [G, N, d]``,
     ``y [G, N]``, ``head [G, d, V]`` -> ``[G]``."""
     logits = softcap((h @ head).float(), cap)
-    lse = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, y.unsqueeze(-1)).squeeze(-1)
-    return (lse - gold).sum(-1)
+    lse = torch.logsumexp(logits, -1, keepdim=True)
+    # [G, N, 1] until the difference: on a mesh the gather of vocab-sharded
+    # logits is a masked partial, which DTensor reduces at its own shape
+    gold = logits.gather(-1, y.unsqueeze(-1))
+    return (lse - gold).sum((-2, -1))
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch, *,

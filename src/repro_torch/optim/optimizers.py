@@ -16,7 +16,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.params import first, gmap
+from repro_torch.core.params import Leaves, first, gmap, lead_view
 from repro_torch.optim.schedules import constant
 
 
@@ -31,9 +31,11 @@ def _schedule(lr):
 
 
 def _step0(params):
+    """The per-client step counter: ``[B, m]`` of ``params [B, m, n]`` (or
+    of ``Leaves`` ``[B, m, *shape]``)."""
     lead = first(params)
-    return torch.zeros(lead.shape[:-1], dtype=torch.int32,
-                       device=lead.device)
+    shape = lead.shape[:2] if isinstance(params, Leaves) else lead.shape[:-1]
+    return torch.zeros(shape, dtype=torch.int32, device=lead.device)
 
 
 def _zeros32(params):
@@ -69,16 +71,19 @@ def sgd(lr, momentum: float = 0.0) -> Optimizer:
         return st
 
     def update(params, state, grads):
-        eta = sched(state["step"]).unsqueeze(-1)
+        eta = sched(state["step"])
         step = state["step"] + 1
+
+        def descend(a, b):
+            return a - lead_view(eta, a) * b
+
         if momentum:
             mu = gmap(lambda m, g: momentum * m + g.float(), state["mu"],
                       grads)
-            return gmap(lambda p, u: _sliced(lambda a, b: a - eta * b, p,
-                                             u), params, mu), \
+            return gmap(lambda p, u: _sliced(descend, p, u), params, mu), \
                 {"step": step, "mu": mu}
-        return gmap(lambda p, g: _sliced(lambda a, b: a - eta * b, p, g),
-                    params, grads), {"step": step}
+        return gmap(lambda p, g: _sliced(descend, p, g), params,
+                    grads), {"step": step}
 
     return Optimizer(init, update)
 
@@ -92,8 +97,8 @@ def adam(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
 
     def update(params, state, grads):
         step = state["step"] + 1
-        eta = sched(step).unsqueeze(-1)
-        sf = step.to(torch.float32).unsqueeze(-1)
+        eta = sched(step)
+        sf = step.to(torch.float32)
         bc1 = 1 - torch.pow(b1, sf)
         bc2 = 1 - torch.pow(b2, sf)
         m = gmap(lambda m_, g: b1 * m_ + (1 - b1) * g.float(), state["m"],
@@ -102,10 +107,11 @@ def adam(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
                  state["v"], grads)
 
         def step_one(p, m_, v_):
-            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            u = ((m_ / lead_view(bc1, m_))
+                 / (torch.sqrt(v_ / lead_view(bc2, v_)) + eps))
             if weight_decay:
                 u = u + weight_decay * p.float()
-            return (p - eta * u).to(p.dtype)
+            return (p - lead_view(eta, p) * u).to(p.dtype)
 
         return gmap(step_one, params, m, v), {"step": step, "m": m, "v": v}
 

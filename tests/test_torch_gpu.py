@@ -876,3 +876,50 @@ def test_host_sync_sanitizer_records_one_item_and_no_device_op(cuda):
     assert [(e.line, e.in_step) for e in syncs.events] == [(line, False)]
     assert syncs.events[0].file.endswith("test_torch_gpu.py")
     assert torch.cuda.get_sync_debug_mode() == before
+
+
+@pytest.mark.gpu
+def test_rank0_of_a_meshed_prefill_launches_the_counted_flash_shapes(cuda):
+    """``chip_smoke.py`` phase 23b's path at a short shape: rank 0 of the
+    16x16 prefill of reduced SmolLM-135M on the card under the simulated
+    group, the flash forward through the kernel on rank 0's local tensors,
+    at the launches and shapes the meshed count predicts, timed by CUDA
+    events. The step's values are not compared (the simulated group's
+    collectives deliver no other rank's data); the kernel is, at the
+    first flash call's local shape and keywords, on unit normals through
+    ``dispatch.attention``, against ``attention_ref`` in fp32 within bf16
+    flash's bar (atol 1e-2, rtol 3e-2)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.models.attention import attention_ref
+
+    cfg = reduced(get_config("smollm-135m"))
+    shape = ShapeConfig("prefill_32k", 1024, 32, "prefill")
+    count = dryrun.count_step_meshed(cfg, shape)
+    tflash.flash_attention_fwd.launches = 0
+
+    def events(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    run = dryrun.run_rank0(cfg, shape, device=cuda, measure=events)
+    assert run["launches"] == count["flash_launches"]["fwd"] > 0
+    assert run["flash_shapes"] == sorted(count["flash_shapes"])
+    assert tflash.flash_attention_fwd.launches == 2 * run["launches"]
+    assert run["out_local_shape"][0] == shape.global_batch // 16
+    assert run["input_bytes"] == count["input_bytes"]
+    assert run["peak_bytes"] > 0 and run["measured"] > 0
+    call = run["attention"]
+    assert call["dtype"] == torch.bfloat16
+    kw = {n: x for n, x in call["kw"].items() if n != "backend"}
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v = (torch.randn(call["shape"], generator=gen, device=cuda)
+               .to(call["dtype"]) for _ in range(3))
+    got = dispatch.attention(q, k, v, **kw)
+    want = attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=3e-2)

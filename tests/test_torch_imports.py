@@ -45,6 +45,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
             "repro_torch.checkpointing.checkpoint", "repro_torch.kernels.ops",
             "repro_torch.launch.roofline", "repro_torch.launch.steps",
             "repro_torch.launch.dryrun"} <= set(mods)
+    # the production meshes' placements
+    assert {"repro_torch.sharding.specs",
+            "repro_torch.sharding.spmd"} <= set(mods)
     # the LM sweep task and dense decode
     names = {"repro_torch.data.sources": ["traced_lm_source"],
              "repro_torch.experiments.tasks": ["LMTask",
@@ -97,8 +100,33 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
              "repro_torch.launch.steps": ["make_train_step",
                                           "make_prefill_step",
                                           "make_serve_step",
-                                          "train_input_specs"],
-             "repro_torch.launch.dryrun": ["count_step", "lower_pair"],
+                                          "train_input_specs",
+                                          "make_fed_setup", "_batch_spec",
+                                          "train_shardings",
+                                          "_cache_leaf_spec", "_tp2d_spec",
+                                          "serve_shardings",
+                                          "placed_train_inputs",
+                                          "placed_prefill_inputs",
+                                          "placed_serve_inputs"],
+             "repro_torch.launch.dryrun": ["count_step", "lower_pair",
+                                           "count_step_meshed", "run_rank0",
+                                           "LocalCounter", "_act_spec"],
+             # the production meshes and their placements
+             "repro_torch.launch.mesh": ["make_production_mesh", "dp_axes",
+                                         "num_clients_for"],
+             "repro_torch.sharding": ["P", "spec_for_shape",
+                                      "infer_pytree_specs", "placements",
+                                      "activation_sharding",
+                                      "activation_spec", "maybe_constrain",
+                                      "set_activation_spec", "set_mesh"],
+             "repro_torch.sharding.specs": ["leaf_spec", "_moe_expert_spec",
+                                            "shard_shape"],
+             "repro_torch.sharding.spmd": ["simulated_mesh",
+                                           "distribute_empty",
+                                           "LayoutFixups", "RETRIED",
+                                           "view_placements",
+                                           "local_attention", "local_wkv6"],
+             "repro_torch.core.params": ["Leaves", "lead_view"],
              # the suites and the sweep's leftovers
              "repro_torch.experiments": ["seed_base_probs",
                                          "make_vmap_run_rounds",
@@ -138,8 +166,10 @@ def test_source_scan_finds_no_jax_or_reference_imports():
                          r"from\s+repro(\.|\s+import)|import\s+repro(\.|\s|$)|"
                          r"from\s+benchmarks\b|import\s+benchmarks\b)",
                          re.M)
-    hits = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
-            for p in PORT.rglob("*.py")
+    examples = SRC.parent / "examples" / "torch_port"
+    files = [*PORT.rglob("*.py"), *examples.glob("*.py")]
+    assert len(files) > len(list(PORT.rglob("*.py"))) + 3
+    hits = [f"{p}: {m.group(0).strip()}" for p in files
             for m in pattern.finditer(p.read_text())]
     assert hits == []
 
