@@ -500,8 +500,33 @@ worker processes, at the reference's sizes (the LM trainer for
 FedPBC beats FedAvg holds. (a) and (c) run beside (b); phase 23 is held
 to ``PHASE23_LIMIT_S``.
 
-The three CUDA sources are built at the start, one ``nvcc`` each, started
-together while phase 1 builds and checks the Triton kernel.
+Phase 24 runs the sharded LM sweep with each sequence split over the
+``"model"`` ranks (``run_sharded_2d(..., activation_spec=P(None, "model",
+None))``, ``sharding.pool.SequenceAxis``; ROADMAP item 6c): two gloo ranks
+sharing the card on ``make_2d_mesh(1, 2)``, each holding every client and
+its half of every sequence, all-gathering K and V in each attention block
+and all-reducing the gradients and the losses. (c), while the pool
+starts: the flash kernels' causal-offset route alone at rank 1's local
+shapes of (a) and (b) in fp32 and at ``[144, 1024 | 2048, 64]`` bf16
+(``SEQ_OFFSET_SHAPES``), each against ``attention_ref(..., q_offset=...)``
+and its autograd within ``FLASH_TOL``, timed (CUDA-graph replays) beside
+its plain version, its bound (the pairs the offset allows) and SDPA with
+an explicit bottom-right boolean mask, and the aligned twins
+(``SEQ_ALIGNED_TWINS``) re-timed in the same call. (a) lm-family
+(``LM_SWEEP``, 10 rounds) and (b) lm-wide (``LM_WIDE`` cut to
+``SEQ_WIDE_ROUNDS`` round), each against its single-device run: the
+largest |server diff| of a trajectory within ``LM_PATHS_TOL`` with the
+losses printed, both ranks' servers and outputs bitwise equal, each
+rank's launches as one device's with rank 1's training launches at
+``q_offset = T / 2`` (and rank 0's not), no plain attention on either
+rank, the collectives' bytes and counts equal to
+``roofline.collective_stats(..., sequence=...)``; (b) also runs the same
+runner with the clients split, for its peak memory a rank beside the
+sequence split's. Phase 24 is held to ``PHASE24_LIMIT_S``.
+
+The four CUDA sources (the flash kernels' two routes, WKV6's forward and
+backward) are built at the start, one ``nvcc`` each, started together
+while phase 1 builds and checks the Triton kernel.
 
 Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
 seconds, launches, family batches and results), a ``{"scale": {...}}``
@@ -514,9 +539,10 @@ line (phase 20's), a ``{"suites": {...}}`` line (each phase-21 suite's
 kernel checks and momentum check), a ``{"zoo": {...}}`` line (phases 14 to 17), an
 ``{"analysis": {...}}`` line (phase 22's census and pins), a
 ``{"meshes": {...}}`` line (phase 23's rows, rank-0 run and examples),
-then a
+a ``{"seq_parallel": {...}}`` line (phase 24's cells), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
-by suite as ``paper_launches``, phase 10's as ``scale_launches``, phase
+by suite as ``paper_launches``, phase 24's by rank as
+``seq_parallel_launches``, phase 10's as ``scale_launches``, phase
 11's as ``search_launches``, phase 12's by cell as ``lm_sweep_launches``
 and its timings at the sweep's shapes as ``lm_sweep_shapes``, its Fig. 3
 shape timing as ``fig3_shape``; each flash kernel with its design and its
@@ -530,7 +556,10 @@ the aggregation's phase-17 launches by shape as ``train_zoo_launches`` and
 timings at its shapes as ``train_zoo_shapes``, phase 18's launches in
 the resumed runs as ``ckpt_resume_launches``, the aggregation's through
 ``masked_agg_pytree`` and the flash forward's through
-``gqa_flash_attention``; the WKV6 wrapper once per
+``gqa_flash_attention``; each flash kernel's phase-24 launches by rank
+(all, and at an offset) as ``seq_parallel_launches`` and the offset
+route's timings with their aligned twins as ``seq_parallel_shapes``; the
+WKV6 wrapper once per
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
 ptxas by head dim and the chunked route's phase-19 launches as
 ``train_launches``; the WKV6 backward, ``rwkv6_chunk_bwd``, with its
@@ -1102,6 +1131,23 @@ PHASE23_EXAMPLES = (("quickstart", ()), ("unreliable_links_demo", ()),
                     ("train_federated_lm", PHASE23_TRAIN_ARGS),
                     ("serve_batched", ()))
 PHASE23_LIMIT_S = 150.0
+# Phase 24, sequence-parallel activations in the sharded LM sweep (ROADMAP
+# item 6c): two gloo ranks sharing cuda:0 (make_2d_mesh(1, 2)), each
+# sequence split over "model" (run_sharded_2d's activation_spec =
+# P(None, "model", None)); (a) lm-family as LM_SWEEP (10 rounds), (b)
+# lm-wide cut from phase 12's 5 rounds to SEQ_WIDE_ROUNDS so that the phase
+# fits, each against its single-device run within LM_PATHS_TOL; (c) the
+# flash kernels' causal-offset route alone at rank 1's local shapes of (a)
+# and (b) in fp32 and at a bf16 shape at SmolLM's head dim, as (bh, tq, d,
+# q_offset, dtype), beside their aligned twins (bh, t, d, dtype) re-timed
+# in the same call
+SEQ_WIDE_ROUNDS = 1
+SEQ_OFFSET_SHAPES = ((256, 16, 16, 16, "float32"),
+                     (256, 128, 128, 128, "float32"),
+                     (144, 1024, 64, 1024, "bfloat16"))
+SEQ_ALIGNED_TWINS = ((256, 32, 16, "float32"), (256, 256, 128, "float32"),
+                     (144, 2048, 64, "bfloat16"))
+PHASE24_LIMIT_S = 120.0
 
 
 def fail(msg):
@@ -1410,12 +1456,15 @@ def print_ptxas(phase, log):
 
 def ptxas_table(log):
     """{(kernel, head dim): {registers, spill_stores, spill_loads}} from an
-    ``nvcc -Xptxas -v`` report."""
+    ``nvcc -Xptxas -v`` report; a flash kernel's causal-offset
+    instantiation is ``<kernel>_offset``."""
     table, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d(flash_[a-z_]+)ILi(\d+)E", line)
-            key = None if m is None else (m.group(1), int(m.group(2)))
+            m = re.search(r"\d(flash_[a-z_]+)ILi(\d+)E(Lb1E)?", line)
+            key = None if m is None else (
+                m.group(1) + ("_offset" if m.group(3) else ""),
+                int(m.group(2)))
             if key:
                 table[key] = {}
         elif key and "spill stores" in line:
@@ -1484,9 +1533,11 @@ def check_flash_shape(torch, fa, ref, gen, shape, tag, forward_only=False):
 
 
 def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
-                 window=0, cap=0.0, forward_only=False):
+                 window=0, cap=0.0, forward_only=False, q_offset=0):
     """The three kernels at ``[bh, t, d]`` causal, with ``window`` and
-    softcap ``cap`` (CUDA-graph replays), the plain version and its
+    softcap ``cap`` (CUDA-graph replays; ``q_offset``: the causal-offset
+    route, keys ``[bh, q_offset + t, d]``, SDPA then with an explicit
+    bottom-right boolean mask), the plain version and its
     autograd (CUDA events around eager calls) and one
     ``scaled_dot_product_attention`` call forward and backward (the
     yardstick; the port never calls it); each pass's bound from its bytes
@@ -1503,9 +1554,13 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
 
     dev = gen.device
     dt = getattr(torch, dtype)
-    kw = dict(causal=True, window=window, logit_softcap=cap)
-    q, k, v, do = (torch.randn(bh, t, d, generator=gen, device=dev).to(dt)
-                   for _ in range(4))
+    kw = dict(causal=True, window=window, logit_softcap=cap,
+              q_offset=q_offset)
+    tk = q_offset + t
+    q, do = (torch.randn(bh, t, d, generator=gen, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(bh, tk, d, generator=gen, device=dev).to(dt)
+            for _ in range(2))
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
                          iters=20)}
@@ -1523,7 +1578,7 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
 
     def plain_fwd():
         return ref.flash_attention_ref(qr, kr, vr, window=window,
-                                       logit_softcap=cap)
+                                       logit_softcap=cap, q_offset=q_offset)
 
     plain_f = time_ms_events(plain_fwd, iters=5)
     plain = {"fwd": plain_f}
@@ -1536,18 +1591,25 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     torch.cuda.empty_cache()
     # the yardstick: one scaled_dot_product_attention call, forward and
     # backward (its backward computes dq, dk and dv together)
-    q4, k4, v4 = (x.view(1, bh, t, d).clone().requires_grad_(True)
+    q4, k4, v4 = (x.view(1, bh, x.shape[1], d).clone().requires_grad_(True)
                   for x in (q, k, v))
+    # the causal mask: is_causal (top-left) for self-attention, an explicit
+    # bottom-right one at an offset
+    mask = None
+    if q_offset:
+        pos = torch.arange(tk, device=dev)
+        mask = pos[q_offset:, None] >= pos[None, :]
+    causal = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
 
     def sdpa():
-        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        return F.scaled_dot_product_attention(q4, k4, v4, **causal)
 
     same = not window and not cap
     with torch.no_grad():
         sdpa_err = (sdpa().float() - o.view(1, bh, t, d).float()).abs(
         ).max() if same else None
     lib_f = time_ms(lambda: F.scaled_dot_product_attention(
-        q4.detach(), k4.detach(), v4.detach(), is_causal=True), iters=20)
+        q4.detach(), k4.detach(), v4.detach(), **causal), iters=20)
     sdpa_ms = {"fwd": lib_f}
     if not forward_only:
         lib_b = time_ms_events(lambda: torch.autograd.grad(
@@ -1556,7 +1618,7 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
         sdpa_ms.update(dq=lib_b, dkdv=lib_b)
     note = "" if same else (" (causal only: SDPA has no window and no "
                             "softcap, so not the same function)")
-    work = flash_work(bh, t, d, window, q.element_size())
+    work = flash_work(bh, t, d, window, q.element_size(), q_offset)
     flops = {kk: f for kk, (f, _) in work.items()}
     nbytes = {kk: n for kk, (_, n) in work.items()}
     bound = {kk: max(nbytes[kk] / bw, flops[kk] / peak) * 1e3 for kk in ms}
@@ -1567,11 +1629,14 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
                 if dtype == "float32" else None for kk in ms}
     short = "bf16" if dtype == "bfloat16" else "fp32"
     masks = "causal" + (f", window {window}" if window else "") + (
-        f", softcap {cap:g}" if cap else "")
+        f", softcap {cap:g}" if cap else "") + (
+        f", q_offset {q_offset} (bottom-right SDPA mask)" if q_offset
+        else "")
+    at = f"[{bh},{t},{d}]" if not q_offset else f"[{bh},{t}|{tk},{d}]"
     for kk in ms:
         print(f"{tag} timing flash_attention_"
               f"{'fwd' if kk == 'fwd' else 'bwd_' + kk} "
-              f"[{bh},{t},{d}] {short} {masks}: kernel {ms[kk]:.5f} ms, "
+              f"{at} {short} {masks}: kernel {ms[kk]:.5f} ms, "
               f"plain {plain[kk]:.5f} ms, scaled_dot_product_attention "
               f"{'fwd' if kk == 'fwd' else 'bwd (dq+dk+dv)'} "
               f"{sdpa_ms[kk]:.5f} ms{note}, bound {bound[kk]:.5f} ms "
@@ -1585,7 +1650,7 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     if not forward_only:
         bwd = ms["dq"] + ms["dkdv"]
         print(f"{tag} backward total (dq + dkdv) vs SDPA backward{note}, "
-              f"[{bh},{t},{d}] {short} {masks}: {ms['dq']:.5f} + "
+              f"{at} {short} {masks}: {ms['dq']:.5f} + "
               f"{ms['dkdv']:.5f} = {bwd:.5f} ms vs {lib_b:.5f} ms, "
               f"{bwd / lib_b:.2f}x; "
               f"{(flops['dq'] + flops['dkdv']) / bwd / 1e9:.2f} TFLOP/s",
@@ -1601,14 +1666,16 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
                      bound_by=by[kk], bound_tc_ms=bound_tc[kk],
                      flops=flops[kk], bytes=nbytes[kk],
                      shape=[bh, t, d], dtype=dtype, window=window,
-                     softcap=cap)
+                     softcap=cap, **({"tk": tk, "q_offset": q_offset}
+                                     if q_offset else {}))
             for kk in ms}
 
 
 def phase4_flash(torch, fa, ref, bw, bf16_peak, fp32_peak, build_log):
     print_ptxas("phase4", build_log)
     ptxas = ptxas_table(build_log)
-    for name in list(FLASH_TC.values()) + list(FLASH_F32.values()):
+    names = list(FLASH_TC.values()) + list(FLASH_F32.values())
+    for name in names + [n + "_offset" for n in names]:
         got = {kk[1]: vv for kk, vv in ptxas.items() if kk[0] == name}
         print(f"phase4 ptxas {name} by head dim: " + "; ".join(
             f"D={dd}: {vv.get('registers')} registers, spill stores "
@@ -1617,7 +1684,8 @@ def phase4_flash(torch, fa, ref, bw, bf16_peak, fp32_peak, build_log):
     if sorted({kk[1] for kk in ptxas}) != list(fa.HEAD_DIMS):
         fail(f"the build's head dims {sorted({kk[1] for kk in ptxas})} are "
              f"not the wrapper's {fa.HEAD_DIMS}")
-    for name in FLASH_F32.values():
+    for name in [*FLASH_F32.values(),
+                 *(n + "_offset" for n in FLASH_F32.values())]:
         got = {kk[1]: vv for kk, vv in ptxas.items() if kk[0] == name}
         if sorted(got) != list(fa.HEAD_DIMS) or any(
                 vv.get("spill_stores") or vv.get("spill_loads")
@@ -4321,8 +4389,9 @@ class _ByShape:
 
     class _Wrapper:
         """Calls ``real``, counting by its first argument; ``launches``
-        reads and writes ``real``'s (the wrapper stands in for it under
-        its module name, which ``real`` counts its launches by)."""
+        (and a flash wrapper's ``offset_launches``) reads and writes
+        ``real``'s (the wrapper stands in for it under its module name,
+        which ``real`` counts its launches by)."""
 
         def __init__(self, counts, real):
             self.counts, self.real = counts, real
@@ -4339,6 +4408,14 @@ class _ByShape:
         @launches.setter
         def launches(self, value):
             self.real.launches = value
+
+        @property
+        def offset_launches(self):
+            return self.real.offset_launches
+
+        @offset_launches.setter
+        def offset_launches(self, value):
+            self.real.offset_launches = value
 
     def __exit__(self, *exc):
         for n, real in self.real.items():
@@ -6341,6 +6418,244 @@ def _phase23_checks(torch, fa, dryrun, get_config, INPUT_SHAPES, rows,
     return res
 
 
+def check_flash_offset(torch, fa, gen, bh, tq, d, q_offset, dtype, tag):
+    """The three kernels' causal-offset route, ``q [bh, tq, d]`` at
+    ``q_offset`` against ``k, v [bh, q_offset + tq, d]`` through
+    ``flash_attention``, against the model stack's plain
+    ``attention_ref(..., q_offset=...)`` in fp32 and its autograd within
+    ``FLASH_TOL``; one launch of each kernel, at the offset. Fails on a
+    mismatch; returns each output's max |err|."""
+    from repro_torch.models.attention import attention_ref
+
+    dt = getattr(torch, dtype)
+    dev = gen.device
+    tk = q_offset + tq
+    q, g = (torch.randn(1, bh, tq, d, generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    k, v = (torch.randn(1, bh, tk, d, generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    fns = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+           fa.flash_attention_bwd_dkdv)
+    before = [f.offset_launches for f in fns]
+    ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*ts, q_offset=q_offset)
+    grads = torch.autograd.grad(out, ts, g)
+    rs = [x.float().transpose(1, 2).clone().requires_grad_(True)
+          for x in (q, k, v)]
+    want = attention_ref(*rs, q_offset=q_offset)
+    want_grads = torch.autograd.grad(want, rs, g.float().transpose(1, 2))
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL[dtype]
+    e, ok = {}, True
+    for n, a, w in zip(("o", "dq", "dk", "dv"), (out,) + grads,
+                       (want,) + want_grads):
+        w = w.transpose(1, 2)
+        e[n] = (a.float() - w).abs().max().item()
+        ok = ok and bool(torch.isfinite(a).all()) and torch.allclose(
+            a.float(), w, rtol=rtol, atol=atol)
+    launched = [f.offset_launches - b for f, b in zip(fns, before)]
+    print(f"{tag} flash causal-offset route q [{bh},{tq},{d}] at q_offset "
+          f"{q_offset} vs k, v [{bh},{tk},{d}] {dtype}: max_abs_err "
+          + " ".join(f"{n} {x:.3e}" for n, x in e.items())
+          + f" against attention_ref (atol {atol:g} rtol {rtol:g}); "
+          f"offset launches {launched} "
+          f"{'ok' if ok and launched == [1, 1, 1] else 'MISMATCH'}",
+          flush=True)
+    if not ok or launched != [1, 1, 1]:
+        fail(f"the causal-offset route disagrees with attention_ref at "
+             f"[{bh},{tq}|{tk},{d}] {dtype}, or launched {launched}")
+    del q, k, v, g, ts, out, grads, rs, want, want_grads
+    torch.cuda.empty_cache()
+    return e
+
+
+def _gib(n):
+    return None if n is None else round(n / 2 ** 30, 3)
+
+
+def _seq_cell(torch, grid, shard, spec, mesh, label, *, clients_too=False):
+    """One family batch of ``spec`` on one device (this process) and with
+    each sequence split over ``mesh``'s two model ranks (the pool), with
+    phase 24's bars: the largest |server diff| of a trajectory within
+    ``LM_PATHS_TOL``, both ranks' servers and outputs bitwise equal
+    (their digests), each rank's launches as one device's with rank 1's
+    training at an offset and rank 0's not, no plain attention on either
+    rank, every rank's collectives as ``collective_stats`` counts them.
+    ``clients_too``: the same runner once more with the clients split
+    (``activation_spec=None``), for its wall and peak memory a rank."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.experiments import sweep
+    from repro_torch.launch.roofline import collective_stats
+
+    fed = spec.cell_config(spec.algorithms[0], spec.schemes[0])
+    task = grid.get_traced_task(spec)
+    batch = grid.make_cell_batch(spec, fed, task, algos=spec.algorithms)
+    plain = grid.make_runner(spec, fed, task)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_p, out_p = plain(batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    r2d = grid.make_runner(spec, fed, task, shard_mesh=mesh)
+    t0 = time.perf_counter()
+    st_s, out_s = shard.run_sharded_2d(r2d, batch, mesh,
+                                       activation_spec=shard.SEQUENCE_SPEC)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    run = shard.last_run()
+    B, m, k = batch.batch_size, spec.num_clients, mesh.shape["model"]
+    L, s, T = spec.lm_layers, spec.local_steps, spec.lm_seq
+    E = len(sweep.eval_rounds(spec.rounds, spec.eval_every))
+    rows_d = (st_p.server - st_s.server).abs().amax(-1)
+    loss_p = out_p["metrics"]["loss"][:, -1].tolist()
+    loss_s = out_s["metrics"]["loss"][:, -1].tolist()
+    names = FLASH_NAMES + ("fused_masked_agg",)
+    launches = [[v["launches"][nm] for nm in names] for v in run.values]
+    offset = [[v["offset_launches"][nm] for nm in FLASH_NAMES]
+              for v in run.values]
+    want = _want_launches(spec, E)
+    want_offset = [[0] * 3, [L * s * spec.rounds] * 3]
+    cfg = reduced(get_config(spec.lm_arch), d_model=spec.lm_d_model,
+                  layers=L)
+    kv = spec.batch_size * T * cfg.attention.num_kv_heads * cfg.head_dim * 4
+    stats = collective_stats(k, rows=B, clients=m,
+                             group_bytes=[4 * task.layout.size],
+                             rounds=spec.rounds, sequence=(L, s, kv))
+    gathers = [v["gathers"] for v in run.values]
+    digests = [v["digest"] for v in run.values]
+    plain_calls = [v["plain_attention"] for v in run.values]
+    peak = [v["peak_bytes"] for v in run.values]
+    res = dict(_ranks_line(f"{label} make_2d_mesh(1, 2) on cuda:0", run),
+               B=B, m=m, T=T, rank_T=T // k, plain_s=plain_s,
+               seq_parallel_s=seq_s, max_server_diff=float(rows_d.max()),
+               final_loss_plain=loss_p, final_loss_seq_parallel=loss_s,
+               launches=launches, want_launches=want,
+               offset_launches=offset, plain_attention=plain_calls,
+               digests_equal=digests[0] == digests[1],
+               seq_split=[v["seq_split"] for v in run.values],
+               gathers=gathers, peak_bytes=peak,
+               flash_rank1_shape=[B * m * spec.batch_size
+                                  * cfg.attention.num_heads, T // k,
+                                  T, cfg.head_dim],
+               collective_stats=dict(bytes_by_kind=stats.bytes_by_kind,
+                                     count_by_kind=stats.count_by_kind,
+                                     t_collective_s=stats.t_collective))
+    print(f"{label} B = {B}, m = {m}, T = {T} split {T // k} a rank, "
+          f"{spec.rounds} rounds: one device {plain_s:.3f} s, the sequence "
+          f"split {seq_s:.3f} s; largest |server diff| of a trajectory "
+          f"{rows_d.max().item():.3e} (tol {LM_PATHS_TOL:g}); final losses "
+          f"one device {[round(x, 6) for x in loss_p]}, split "
+          f"{[round(x, 6) for x in loss_s]}; launches by rank (flash fwd, "
+          f"dq, dkdv, aggregation) {launches}, expected {want} each; at an "
+          f"offset {offset}, expected {want_offset}; rank 1's flash "
+          f"shape q [{res['flash_rank1_shape'][0]}, {T // k}] at q_offset "
+          f"{T // k} against k, v [{res['flash_rank1_shape'][0]}, {T}]; "
+          f"plain attention calls {plain_calls}; the ranks' digests "
+          f"{'equal' if digests[0] == digests[1] else 'DIFFER'}; "
+          f"collectives by rank {[(g['bytes_by_kind'], g['count_by_kind'], round(g['seconds'], 4)) for g in gathers]}, "
+          f"counted {stats.bytes_by_kind} in {stats.count_by_kind} "
+          f"({stats.t_collective * 1e3:.4f} ms at NVLink's 450 GB/s); peak "
+          f"memory a rank {[_gib(x) for x in peak]} GiB",
+          flush=True)
+    if run.backend != "gloo" or len(run.values) != 2 \
+            or not all(res["seq_split"]):
+        fail(f"{label} ran {len(run.values)} ranks under {run.backend}, "
+             f"split {res['seq_split']}")
+    if not rows_d.max() <= LM_PATHS_TOL:
+        fail(f"{label}: the sequence split and one device diverge")
+    if not res["digests_equal"]:
+        fail(f"{label}: the two model ranks' servers or outputs differ")
+    if any(row != want for row in launches) or offset != want_offset:
+        fail(f"{label}: launches {launches} (offset {offset}), expected "
+             f"{want} ({want_offset})")
+    if any(plain_calls):
+        fail(f"{label}: the plain attention ran on the card {plain_calls}")
+    if any(g["bytes_by_kind"] != stats.bytes_by_kind
+           or g["count_by_kind"] != stats.count_by_kind for g in gathers):
+        fail(f"{label}: the collectives moved other bytes than "
+             "collective_stats counts")
+    if clients_too:
+        t0 = time.perf_counter()
+        st_c, _ = shard.run_sharded_2d(r2d, batch, mesh)
+        torch.cuda.synchronize()
+        cl = shard.last_run()
+        res["clients_split"] = dict(
+            seconds=time.perf_counter() - t0,
+            peak_bytes=[v["peak_bytes"] for v in cl.values],
+            gathers=[v["gathers"] for v in cl.values],
+            max_server_diff=float((st_p.server - st_c.server).abs().max()))
+        print(f"{label} the same runner with the clients split "
+              f"({m // k} a rank): {res['clients_split']['seconds']:.3f} s, "
+              f"peak memory a rank "
+              f"{[_gib(x) for x in res['clients_split']['peak_bytes']]}"
+              f" GiB against the sequence split's "
+              f"{[_gib(x) for x in peak]}; largest |server "
+              f"diff| {res['clients_split']['max_server_diff']:.3e}",
+              flush=True)
+        if any(cl.values[i]["seq_split"] for i in range(2)) or \
+                not res["clients_split"]["max_server_diff"] <= LM_PATHS_TOL:
+            fail(f"{label}: the clients split with the same runner failed")
+    return res
+
+
+def phase24_seq_parallel(torch, fa, ref, grid, bw, fp32_peak, bf16_peak):
+    """Sequence-parallel activations in the sharded LM sweep
+    (``PHASE24_LIMIT_S``); see the constants above."""
+    import threading
+
+    from repro_torch.experiments import shard
+    from repro_torch.launch.mesh import make_2d_mesh
+    from repro_torch.sharding import pool
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    mesh = make_2d_mesh(1, 2, [card, card])
+    start = threading.Thread(target=pool.pool_for, args=(mesh,), daemon=True)
+    start.start()
+    res = {}
+    # (c) first, while the pool starts: the offset route alone, checked and
+    # timed, beside its aligned twins
+    gen = torch.Generator(device=card).manual_seed(24)
+    checks, timed = {}, {}
+    for bh, tq, d, off, dt in SEQ_OFFSET_SHAPES:
+        key = f"[{bh},{tq}|{off + tq},{d}] {dt}"
+        checks[key] = check_flash_offset(torch, fa, gen, bh, tq, d, off, dt,
+                                         "phase24c")
+        peak = bf16_peak if dt == "bfloat16" else fp32_peak
+        timed[key] = flash_timing(torch, fa, ref, gen, bh, tq, d, dt, bw,
+                                  peak, "phase24c", q_offset=off)
+    for bh, t, d, dt in SEQ_ALIGNED_TWINS:
+        peak = bf16_peak if dt == "bfloat16" else fp32_peak
+        timed[f"[{bh},{t},{d}] {dt}"] = flash_timing(
+            torch, fa, ref, gen, bh, t, d, dt, bw, peak, "phase24c")
+    res["c"] = {"max_abs_err": checks, "timed": timed,
+                "seconds": time.perf_counter() - t_phase}
+    print(f"phase24c done at {res['c']['seconds']:.1f} s", flush=True)
+    # (a) lm-family, (b) lm-wide, each sequence split over the two ranks
+    t0 = time.perf_counter()
+    start.join(pool.START_TIMEOUT_S)
+    res["pool_wait_s"] = time.perf_counter() - t0
+    print(f"phase24 waited {res['pool_wait_s']:.3f} s for its pool after "
+          f"24c", flush=True)
+    res["a"] = _seq_cell(torch, grid, shard, grid.SweepSpec(**LM_SWEEP),
+                         mesh, "phase24a lm-family")
+    wide = grid.SweepSpec(**{**LM_SWEEP, **LM_WIDE,
+                             "rounds": SEQ_WIDE_ROUNDS,
+                             "eval_every": SEQ_WIDE_ROUNDS})
+    res["b"] = _seq_cell(torch, grid, shard, wide, mesh, "phase24b lm-wide",
+                         clients_too=True)
+    pool.close_pools()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase24 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE24_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE24_LIMIT_S:
+        fail(f"phase 24 took {res['seconds']:.1f} s, over its "
+             f"{PHASE24_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6376,22 +6691,22 @@ def main():
           f"{torch.cuda.get_device_name(0)} ({card})", flush=True)
     bw, fp32_peak, bf16_peak = peak_rates(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    # both CUDA sources build (one nvcc each) while phase 1 builds the
-    # Triton kernel
+    # the CUDA sources build (one nvcc each, the flash kernels' two routes
+    # apart) while phase 1 builds the Triton kernel
+    sources = [fa.SOURCE, fa.OFFSET_SOURCE, rk.SOURCE, rk.BWD_SOURCE]
     with ThreadPoolExecutor(1) as pool:
-        nvcc = pool.submit(build.compile_all,
-                           [fa.SOURCE, rk.SOURCE, rk.BWD_SOURCE])
+        nvcc = pool.submit(build.compile_all, sources)
         k = phase1_kernel(torch, masked, ref)
         logs = nvcc.result()
-    print(f"nvcc builds of {fa.SOURCE.name}, {rk.SOURCE.name} and "
-          f"{rk.BWD_SOURCE.name} (in parallel, beside phase 1) done at "
+    print(f"nvcc builds of {', '.join(x.name for x in sources)} (in "
+          f"parallel, beside phase 1) done at "
           f"{time.perf_counter() - t0:.1f} s; "
           + "; ".join(log.splitlines()[0] for log in logs.values()),
           flush=True)
     spec, launches, rounds_per_s = phase2_main_path(torch, masked, grid)
     phase3_paths_agree(torch, grid, spec)
     f = phase4_flash(torch, fa, ref, bw, bf16_peak, fp32_peak,
-                     logs[fa.SOURCE.name])
+                     logs[fa.SOURCE.name] + logs[fa.OFFSET_SOURCE.name])
     lm = phase5_slice(torch, train, fa, masked, card)
     paths_err = phase6_paths_agree(torch, train, fa)
     wkv = phase7_wkv(torch, rk, ref, bw, fp32_peak, logs[rk.SOURCE.name])
@@ -6415,6 +6730,8 @@ def main():
                             launch["dryrun"]["row"])
     analysis = phase22_analysis(torch, masked, fa, grid)
     meshes = phase23_meshes(torch, fa)
+    seq = phase24_seq_parallel(torch, fa, ref, grid, bw, fp32_peak,
+                               bf16_peak)
     sl = suites["launches"]
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
@@ -6474,6 +6791,9 @@ def main():
               "analysis_launches": {
                   "22a": analysis["sweep"]["agg_launches"],
                   "22c": analysis["pins"]["agg_launches"]}}
+    # phase 24: by rank, in its sequence-split cells
+    kernel["seq_parallel_launches"] = {
+        f"24{c}": [r[3] for r in seq[c]["launches"]] for c in ("a", "b")}
     kernels = [kernel]
     source = "src/repro_torch/kernels/csrc/flash_attention.cu"
     replaces = "src/repro/kernels/flash_attention.py:76 (flash_attention -> _kernel"
@@ -6536,6 +6856,20 @@ def main():
     kernels[1]["mesh_rank0_launches"] = meshes["rank0"]["launches"]
     kernels[1]["mesh_rank0_shapes"] = meshes["rank0"]["flash_shapes"]
     kernels[1]["mesh_rank0_max_abs_err"] = meshes["rank0"]["max_abs_err"]
+    for i, key in enumerate(("fwd", "dq", "dkdv")):
+        # phase 24: by rank, all launches and those at an offset (rank 1's
+        # training), and the offset route's timings beside its twins
+        kernels[1 + i]["seq_parallel_launches"] = {
+            f"24{c}{part}": [r[i] for r in seq[c][f]]
+            for c in ("a", "b") for part, f in (("", "launches"),
+                                                ("_offset",
+                                                 "offset_launches"))}
+        kernels[1 + i]["seq_parallel_shapes"] = {
+            sh: v[key] for sh, v in seq["c"]["timed"].items()}
+        kernels[1 + i]["seq_parallel_max_abs_err"] = {
+            sh: (e["o"] if key == "fwd" else e["dq"] if key == "dq"
+                 else max(e["dk"], e["dv"]))
+            for sh, e in seq["c"]["max_abs_err"].items()}
     kernels[1]["lm_slice"] = {k2: v for k2, v in lm.items()
                               if k2 != "launches"}
     kernels[1]["lm_paths_relative_update_distance"] = paths_err
@@ -6612,6 +6946,8 @@ def main():
                      if k != "kernels"}}}), flush=True)
     print(json.dumps({"analysis": analysis}), flush=True)
     print(json.dumps({"meshes": meshes}), flush=True)
+    print(json.dumps({"seq_parallel": {k2: v for k2, v in seq.items()
+                                       if k2 != "c"}}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

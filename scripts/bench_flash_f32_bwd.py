@@ -8,7 +8,9 @@ variant is built with ``nvcc -Xptxas -v`` (all at once, into
 printed by head dim, its dq, dk and dv are held against the plain
 version's autograd (``chip_smoke.FLASH_TOL``) at every timed shape, and
 its two kernels are timed (CUDA-graph replays, ``chip_smoke.time_ms``) in
-turns: every variant in order, then in reverse order.
+turns: every variant in order, then in reverse order. Every variant is
+called through this tree's C interface (``tq, tk, q_off`` after ``bh``),
+so a ``--parent`` tree must have it too.
 
     python3 scripts/bench_flash_f32_bwd.py --parent build/parent
     python3 scripts/bench_flash_f32_bwd.py --variants committed \\
@@ -143,7 +145,7 @@ def main(argv=None):
                                    do.float())
         outs = [torch.empty_like(q) for _ in range(3)]
         delta = torch.empty_like(lse)
-        common = (bh, t, d, int(bf16), 1, 0, 0.0, d ** -0.5)
+        common = (bh, t, t, 0, d, int(bf16), 1, 0, 0.0, d ** -0.5)
 
         # the C interface's calls, each on the stream current when it runs
         # (a graph captures on its own)

@@ -96,6 +96,14 @@ STEP_CONTEXTS: Dict[str, Tuple[str, ...]] = {
         "traced_lm_source.sample", "traced_lm_source.sample_cohort",
         "lm_source.sample", "lm_source.sample_cohort"),
     "experiments/tasks.py": ("_flat_fns.loss_fn",),
+    # the sequence split's collectives, run in every local step's forward,
+    # backward and update and once a round for the losses
+    "sharding/pool.py": (
+        "SequenceAxis.take_seq", "SequenceAxis.gather_prefix",
+        "SequenceAxis.reduce_grads", "SequenceAxis.reduce_loss",
+        "SequenceAxis._mean", "SequenceAxis._tally",
+        "SequenceAxis._all_gather", "SequenceAxis._all_reduce",
+        "_GatherPrefix.forward", "_GatherPrefix.backward"),
     # one decoded token
     "models/model.py": ("decode_step",),
     "launch/serve.py": ("main.step",),

@@ -332,15 +332,17 @@ def one_group(params, what: str):
             "mapped over parameter groups yet")
 
 
-def local_steps(loss_fn, optimizer, params, opt_state, batches, s: int):
+def local_steps(loss_fn, optimizer, params, opt_state, batches, s: int,
+                reduce_grads=None):
     """Run ``s`` local optimizer steps for every client model at once.
 
     ``params [B, m, n]`` (or its ``Groups``); ``batches`` leaves ``[B, m,
     s, ...]`` (one mini-batch per local step). Each client's gradient is
     the autograd gradient of the SUM of the per-client mean losses: clients
     share no parameters, so that sum's gradient row is each client's own
-    gradient (one buffer per group). Returns ``(params', opt_state',
-    mean_loss [B, m])``.
+    gradient (one buffer per group). ``reduce_grads`` (a sequence axis's,
+    or None) maps each step's gradient before the update. Returns
+    ``(params', opt_state', mean_loss [B, m])``.
     """
     losses = []
     for k in range(s):
@@ -350,6 +352,8 @@ def local_steps(loss_fn, optimizer, params, opt_state, batches, s: int):
             per_client = loss_fn(leaf, batch)
             grad = torch.autograd.grad(per_client.sum(), leaf)
         grad = type(leaf)(grad) if isinstance(leaf, Groups) else grad[0]
+        if reduce_grads is not None:
+            grad = reduce_grads(grad)
         params, opt_state = optimizer.update(gmap(torch.Tensor.detach,
                                                   params), opt_state, grad)
         losses.append(per_client.detach())
@@ -383,6 +387,11 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
     cross-client reduction. Every model rank then aggregates the full
     ``[B, m, n]`` identically and keeps the server, link and algorithm
     state whole; it keeps its own columns of the new clients.
+
+    A ``SequenceAxis`` there (``splits_sequence``) splits each sequence
+    instead (``_local_training``): the state holds all m clients on every
+    model rank, no client is taken or gathered, and the all-reduces of the
+    gradients and the losses leave every rank the same bits.
     """
     # full fp32 products on the card (no TF32), set explicitly
     set_fp32_matmul_precision()
@@ -393,6 +402,7 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
     algorithm = as_algorithm(algorithm, algo_id, use_kernel=use_kernel)
     s = fed_cfg.local_steps
     train = _local_training(loss_fn, optimizer, s, gather_updates)
+    client_axis = _client_axis(gather_updates)
 
     def round_fn(state: FedState, batches, u: torch.Tensor) -> tuple:
         active, p_t, link_state = link.sample(state.link_state, state.round, u)
@@ -403,8 +413,8 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
         algo_state, server, clients = algorithm.aggregate(
             state.algo_state, state.server, state.clients, x_star, active,
             p_t, state.round)
-        if gather_updates is not None:
-            clients = gmap(gather_updates.take, clients)
+        if client_axis is not None:
+            clients = gmap(client_axis.take, clients)
         last_active = torch.where(
             active, round_column(state.round, state.last_active),
             state.last_active)
@@ -424,11 +434,36 @@ def make_round_fn(loss_fn: Callable, optimizer, algorithm,
     return round_fn
 
 
+def _client_axis(gather_updates):
+    """The round's model-axis hook where it splits the clients (a
+    ``ModelAxis``); None without one or for a ``SequenceAxis``."""
+    if getattr(gather_updates, "splits_sequence", False):
+        return None
+    return gather_updates
+
+
 def _local_training(loss_fn, optimizer, s: int, gather_updates):
     """``train(starts, opt_state, batches) -> (x_star, opt_state', losses)``
     over every client, or, on a model axis, over this rank's clients
     (their columns of ``batches``; ``starts`` and ``opt_state`` are already
-    theirs) with ``x_star`` and ``losses`` gathered back to all m."""
+    theirs) with ``x_star`` and ``losses`` gathered back to all m. On a
+    sequence axis every client trains on this rank's columns of every
+    sequence (``take_seq`` of the batches' last axis) with the axis active
+    in the forward; each step's gradient and the per-client losses are
+    all-reduced over the axis, so every rank holds all m identical
+    results."""
+    if getattr(gather_updates, "splits_sequence", False):
+        seq = gather_updates
+
+        def train(starts, opt_state, batches):
+            batches = {k: seq.take_seq(v) for k, v in batches.items()}
+            with seq.active():
+                x_star, opt_state, losses = local_steps(
+                    loss_fn, optimizer, starts, opt_state, batches, s,
+                    reduce_grads=seq.reduce_grads)
+            return x_star, opt_state, seq.reduce_loss(losses)
+
+        return train
 
     def train(starts, opt_state, batches):
         if gather_updates is not None:
@@ -480,6 +515,7 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
     bound = as_algorithm(spec, algo_id)
     train = _local_training(loss_fn, optimizer, fed_cfg.local_steps,
                             gather_updates)
+    client_axis = _client_axis(gather_updates)
 
     def commit_clients(commit, in_buffer, server, x_star):
         """Postponed broadcast at commit time: fedpbc's new global model
@@ -505,8 +541,8 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
                 state.buffer, state.server, x_star, active, p_t, knobs,
                 op=op, m_total=m, in_buffer_new=in_buffer)
             clients = commit_clients(commit, in_buffer, server, x_star)
-            if gather_updates is not None:
-                clients = gather_updates.take(clients)
+            if client_axis is not None:
+                clients = client_axis.take(clients)
             last_active = torch.where(
                 active, round_column(state.round, state.last_active),
                 state.last_active)
@@ -542,8 +578,8 @@ def _make_scale_round_fn(loss_fn, optimizer, algorithm, link, fed_cfg,
         batches, ds_state = source.sample_cohort(ds_state, state.round,
                                                  cohort, draws.pick)
         starts = _tile(state.server, C)
-        if gather_updates is not None:
-            starts = gather_updates.take(starts)
+        if client_axis is not None:
+            starts = client_axis.take(starts)
         x_star, _, losses = train(starts, optimizer.init(starts), batches)
         if buffered:
             prev = state.buffer.in_buffer

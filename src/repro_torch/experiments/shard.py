@@ -10,7 +10,8 @@ Python thread feeding N cards would add host time N times:
 
 - a ``("batch",)`` mesh (``repro_torch.launch.mesh.make_batch_mesh``), or a
   ``("batch", "model")`` one (``make_2d_mesh``) whose model ranks also
-  split each trajectory's clients (``run_sharded_2d``);
+  split each trajectory's clients, or with ``activation_spec=P(None,
+  "model", None)`` each LM sequence (``run_sharded_2d``);
 - B padded up to a multiple of the batch axis by repeating the last
   trajectory (``pad_batch``): a padding row is a full, finite simulation
   that draws exactly what its twin draws, and it is dropped on the host
@@ -36,6 +37,7 @@ batch cache), so a sweep sends its heavy arrays once.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -44,9 +46,33 @@ import torch
 from repro_torch.experiments.sweep import CellBatch, map_carry, seed_generators
 from repro_torch.launch.mesh import Mesh, make_batch_mesh
 from repro_torch.sharding import pool as pool_mod
+from repro_torch.sharding.specs import P
 
 # run_cell_batch's default: shard automatically when >1 card is visible.
 AUTO = "auto"
+# run_sharded_2d's one activation spec: the LM residual [b, T, d] with T
+# over "model" (Megatron-style sequence parallelism)
+SEQUENCE_SPEC = P(None, "model", None)
+
+
+def sequence_split(spec, activation_spec, model: int) -> bool:
+    """Whether a call of ``run_sharded_2d`` with ``activation_spec``, for a
+    runner of ``spec`` (a ``grid.SweepSpec``) on a model axis of ``model``
+    ranks, splits each sequence over the axis: ``SEQUENCE_SPEC`` on the LM
+    task when the sequence length divides over the axis. Otherwise (no
+    spec, a task without a sequence, a length that does not divide) the
+    call runs as with ``None``, as ``specs.maybe_constrain`` leaves a dim
+    it cannot split replicated. Raises ``ValueError`` for any other
+    spec."""
+    if activation_spec is None:
+        return False
+    if tuple(activation_spec) != tuple(SEQUENCE_SPEC):
+        raise ValueError(
+            f"run_sharded_2d takes activation_spec=None or "
+            f"{SEQUENCE_SPEC!r} (each sequence over 'model'); got "
+            f"{activation_spec!r}, which is not ported (ROADMAP Queue 1, "
+            f"item 6d)")
+    return spec.task == "lm" and model > 1 and spec.lm_seq % model == 0
 
 
 def resolve_batch_mesh(mesh: Union[str, Mesh, None] = AUTO,
@@ -226,39 +252,77 @@ def _launch_counters():
             "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv}
 
 
-def _rank_call(recipe: RunnerRecipe, token, wire, period, draws):
+def _digest(tree) -> str:
+    """A SHA-256 of every tensor's bytes in ``tree`` (in carry order)."""
+    h = hashlib.sha256()
+
+    def add(x):
+        if isinstance(x, torch.Tensor):
+            h.update(x.detach().reshape(-1).contiguous().view(torch.uint8)
+                     .cpu().numpy().tobytes())
+        return x
+
+    map_carry(add, tree)
+    return h.hexdigest()
+
+
+def _rank_call(recipe: RunnerRecipe, token, wire, period, draws,
+               activation_spec=None):
     """One rank's share of a sharded call (runs in a pool worker): its
-    batch slice through the rebuilt runner. Model rank 0 of each batch
-    index returns the slice's ``(states, out)`` on the host; every rank
-    returns its kernel launches, its all-gathers and how many runners its
-    worker has built."""
+    batch slice through the rebuilt runner, its model axis splitting the
+    clients or, under ``activation_spec`` (``sequence_split``), each
+    sequence. Model rank 0 of each batch index returns the slice's
+    ``(states, out)`` on the host; every rank returns whether it split
+    sequences, its kernel launches (and the flash kernels' at an offset),
+    its plain attention calls, its collectives, its peak device memory, a
+    digest of its server and outputs and how many runners its worker has
+    built."""
     from repro_torch.experiments import grid
+    from repro_torch.kernels import dispatch
 
     ctx = pool_mod.worker_context()
     dev = ctx.device
     task = grid.get_traced_task(recipe.spec, dev)
     runner = _worker_runner(recipe, task, dev)
     batch = _worker_batch(token, wire, period, task.shared, dev)
+    split = sequence_split(recipe.spec, activation_spec,
+                           ctx.mesh.shape.get("model", 1))
     counters = _launch_counters()
     for c in counters.values():
         c.launches = 0
-    if ctx.model is not None:
-        ctx.model.reset()
-    states, out = runner(batch, draws=draws)
+        c.offset_launches = 0
+    dispatch.plain_attention_calls = 0
+    ctx.split = "sequence" if split else "clients"
+    axis = ctx.axis()
+    if axis is not None:
+        axis.reset()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        states, out = runner(batch, draws=draws)
+    finally:
+        ctx.split = "clients"
+    peak = None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
     value = None
-    if ctx.model is None or ctx.model.index == 0:
+    if axis is None or axis.index == 0:
         value = (map_carry(_host, states), map_carry(_host, out))
     gathers = None
-    if ctx.model is not None:
-        st = ctx.model.stats()
+    if axis is not None:
+        st = axis.stats()
         gathers = {"bytes_by_kind": st.bytes_by_kind,
                    "count_by_kind": st.count_by_kind,
-                   "seconds": ctx.model.seconds}
-    return {"value": value, "rows": batch.batch_size,
+                   "seconds": axis.seconds}
+    return {"value": value, "rows": batch.batch_size, "seq_split": split,
             "launches": {k: c.launches for k, c in counters.items()},
-            "gathers": gathers, "runners_built": _WORKER["built"]}
+            "offset_launches": {k: getattr(c, "offset_launches", 0)
+                                for k, c in counters.items()},
+            "plain_attention": dispatch.plain_attention_calls,
+            "gathers": gathers, "peak_bytes": peak,
+            "digest": _digest((getattr(states, "server", states), out)),
+            "runners_built": _WORKER["built"]}
 
 
 # -- the caller side ------------------------------------------------------------
@@ -268,8 +332,13 @@ _LAST: List[pool_mod.PoolResult] = []
 
 def last_run() -> pool_mod.PoolResult:
     """The pool's result of the latest sharded call in this process: each
-    rank's value (``launches``, ``gathers``, ``rows``, ``runners_built``),
-    device and wall seconds, and the backend."""
+    rank's value (``seq_split``: whether it split sequences; ``launches``
+    and the flash kernels' ``offset_launches``; ``plain_attention``, its
+    calls of the plain attention; ``gathers``, its collectives' bytes and
+    counts by kind and their wall seconds; ``peak_bytes``, its peak device
+    memory, None on the CPU; ``digest``, a SHA-256 of its server and
+    outputs; ``rows``, ``runners_built``), device and wall seconds, and the
+    backend."""
     if not _LAST:
         raise RuntimeError("no sharded call has run in this process")
     return _LAST[-1]
@@ -289,7 +358,7 @@ def _recipe_of(runner) -> RunnerRecipe:
 
 
 def _execute(runner, mesh: Mesh, wires, b_real: int, size: int, device, *,
-             token=None, period=None, draws=None):
+             token=None, period=None, draws=None, activation_spec=None):
     """Run the runner's recipe on every rank of ``mesh`` (``wires[r]``: the
     rows of batch index ``r``, or None where the worker holds them under
     ``token``); join the batch indices' results in row order, drop the
@@ -305,7 +374,7 @@ def _execute(runner, mesh: Mesh, wires, b_real: int, size: int, device, *,
         if draws is not None:       # padding rows draw as their twin
             d = draws.take([min(i, b_real - 1)
                             for i in range(b * per, (b + 1) * per)])
-        args.append((recipe, token, wires[b], period, d))
+        args.append((recipe, token, wires[b], period, d, activation_spec))
     result = pool_mod.pool_for(mesh).run(_rank_call, args)
     _LAST[:] = [result]
     parts = [v["value"] for v in result.values if v["value"] is not None]
@@ -332,22 +401,41 @@ def run_sharded(runner, batch: CellBatch, mesh: Mesh, *, draws=None):
     rebuild it from), and ``batch`` from ``grid.make_cell_batch`` (its rows
     and seeds cross; its ``shared`` is the task's). ``draws`` (optional, as
     the runner's) must pickle and have ``take``."""
+    return _run(runner, batch, mesh, draws=draws)
+
+
+def _run(runner, batch: CellBatch, mesh: Mesh, *, draws=None,
+         activation_spec=None):
     padded, B = pad_batch(batch, mesh.shape["batch"])
     wires = [_wire(s) for s in shard_batch(padded, mesh)]
     return _execute(runner, mesh, wires, B, padded.batch_size,
-                    batch.p_base.device, draws=draws)
+                    batch.p_base.device, draws=draws,
+                    activation_spec=activation_spec)
 
 
-def run_sharded_2d(runner, batch: CellBatch, mesh: Mesh, *, draws=None):
+def run_sharded_2d(runner, batch: CellBatch, mesh: Mesh, *,
+                   activation_spec=None, draws=None):
     """Run one cell batch on a 2-D ``("batch", "model")`` mesh
     (``repro_torch.launch.mesh.make_2d_mesh``): trajectories split over
     ``"batch"``, each trajectory's clients over ``"model"`` by the runner
     itself, which must have been built with ``shard_mesh=mesh``
-    (``grid.make_runner``, ``make_batched_run_rounds``). The reference's
-    ``activation_spec`` argument (sequence-parallel activations between
-    these worker processes) is not ported: it needs collectives inside the
-    model's forward (ROADMAP item 6c). Same pad / execute / host-side slice
-    contract as ``run_sharded``.
+    (``grid.make_runner``, ``make_batched_run_rounds``).
+
+    ``activation_spec``: the reference's placement of the LM residual
+    ``[b, T, d]``, sent to the workers with the call (so one runner serves
+    both placements). ``SEQUENCE_SPEC``, ``P(None, "model", None)``, splits
+    each sequence over ``"model"`` (Megatron-style sequence parallelism,
+    ``pool.SequenceAxis``): every model rank holds all the clients of its
+    trajectories and trains them on its ``T / model`` tokens of every
+    sequence, all-gathering K and V in each attention block (the flash
+    kernels' causal-offset route) and all-reducing each step's gradient
+    and the losses, so every model rank ends with the same bits and the
+    result equals the single-device run up to fp32 reassociation. On a
+    task without a sequence, or where ``T`` does not divide over the
+    axis, the call runs as with ``None`` (clients split); any other spec
+    raises ``ValueError`` (``sequence_split``). The evals run whole on
+    every rank, either way. Same pad / execute / host-side slice contract
+    as ``run_sharded``.
     """
     missing = {"batch", "model"} - set(mesh.axis_names)
     if missing:
@@ -360,7 +448,10 @@ def run_sharded_2d(runner, batch: CellBatch, mesh: Mesh, *, draws=None):
             "runner was not built for this mesh — pass shard_mesh=mesh to "
             "make_batched_run_rounds (got runner.shard_mesh="
             f"{rmesh})")
-    return run_sharded(runner, batch, mesh, draws=draws)
+    sequence_split(_recipe_of(runner).spec, activation_spec,
+                   mesh.shape["model"])
+    return _run(runner, batch, mesh, draws=draws,
+                activation_spec=activation_spec)
 
 
 @dataclass
@@ -399,6 +490,7 @@ def run_committed(runner, committed: Committed, mesh: Mesh, *, period,
     return out
 
 
-__all__ = ["AUTO", "resolve_batch_mesh", "pad_batch", "shard_batch",
-           "run_sharded", "run_sharded_2d", "RunnerRecipe", "Committed",
-           "commit", "run_committed", "last_run"]
+__all__ = ["AUTO", "SEQUENCE_SPEC", "resolve_batch_mesh", "pad_batch",
+           "shard_batch", "run_sharded", "run_sharded_2d", "sequence_split",
+           "RunnerRecipe", "Committed", "commit", "run_committed",
+           "last_run"]

@@ -170,7 +170,12 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
     mode, whose carry keeps each rank's own, as the reference's does); the
     evals read the whole server. The reference slices the server per leaf
     over ``"model"`` (``spec_for_shape``); that changes memory, not
-    results.
+    results. A call of ``run_sharded_2d`` with ``activation_spec=P(None,
+    "model", None)`` splits each sequence over ``"model"`` instead
+    (``pool.SequenceAxis``): every model rank holds all m clients, trains
+    them on its tokens of every sequence, and all-reduces the gradients
+    and losses; nothing is taken or gathered. The same runner serves both
+    placements.
     """
     scale_mode = buffered or cohort_size is not None
     if scale_mode and not isinstance(algorithm, AlgorithmSpec):
@@ -223,7 +228,7 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
                                 buffered=has_buffer)
             ds = source.init(batch.data)
             axis = _model_axis(shard_mesh)
-            if axis is not None:            # this rank's clients only
+            if _splits_clients(axis):       # this rank's clients only
                 st = _map_clients(lambda x: axis.take(x).clone(), st)
         return st, ds, draws
 
@@ -255,7 +260,7 @@ def make_batched_run_rounds(loss_fn: Callable, algorithm,
                 pieces.append(mets)
                 if do_eval:
                     evals.append(eval_fn(st.server, batch.shared))
-            if axis is not None and not carry_out:
+            if _splits_clients(axis) and not carry_out:
                 # the final gather: every client back on every model rank
                 # (the server and the eval inputs are whole throughout)
                 st = _map_clients(
@@ -334,9 +339,11 @@ def make_vmap_run_rounds(loss_fn: Callable, optimizer, algorithm,
 
 
 def _model_axis(shard_mesh):
-    """The calling rank's ``ModelAxis`` of ``shard_mesh`` (None without a
-    mesh, or with a model axis of 1): a runner built for a mesh runs in
-    that mesh's pool workers."""
+    """The calling rank's model-axis hook of ``shard_mesh`` for the call in
+    progress (``WorkerContext.axis``: its ``ModelAxis``, or its
+    ``SequenceAxis`` when the call splits sequences; None without a mesh,
+    or with a model axis of 1): a runner built for a mesh runs in that
+    mesh's pool workers."""
     if shard_mesh is None:
         return None
     from repro_torch.sharding import pool
@@ -351,7 +358,13 @@ def _model_axis(shard_mesh):
     if ctx.mesh != shard_mesh:
         raise ValueError(f"runner built for {shard_mesh} called in a worker "
                          f"of {ctx.mesh}")
-    return ctx.model
+    return ctx.axis()
+
+
+def _splits_clients(axis) -> bool:
+    """Whether a model-axis hook holds only its rank's clients (a
+    ``ModelAxis``; a ``SequenceAxis`` holds them all)."""
+    return axis is not None and not getattr(axis, "splits_sequence", False)
 
 
 def _map_clients(fn, st):

@@ -5,7 +5,8 @@
 // flash-attention-2 split.
 //
 // Inputs are [BH, T, D] row-major (fp32 or bf16; the client, batch and head
-// axes folded into BH by the wrapper, GQA's KV heads already repeated).
+// axes folded into BH by the wrapper, GQA's KV heads already repeated); q
+// may be a shorter chunk at an offset (the causal-offset route, below).
 // Every kernel computes
 //   s = (q k^T) D^-1/2, optionally cap * tanh(s / cap);
 //   causal mask q >= k and sliding window q - k < window, applied as
@@ -123,6 +124,20 @@
 // -1e30; the correction exp(-1e30 - m) = 0 of its first allowed key wipes
 // it, as in the reference. Ragged T is handled by zero-filled loads and
 // masking keys and rows >= T.
+//
+// The causal-offset route: q [BH, tq, D] against k, v [BH, tk, D] with
+// query i at absolute position q_off + i (tk = q_off + tq: a rank of a
+// sequence-parallel split holds queries [q_off, q_off + tq) and the
+// all-gathered prefix of keys). The mask (Mask) carries tq, tk and q_off,
+// and its tile ranges and `partial` shift by the offset; nothing else
+// changes. The forward and dq run their grids over tq's 64-row tiles, dkdv
+// over tk's (low keys stay the heaviest: a key below q_off is seen by every
+// query); lse and delta are [BH, tq], dK and dV [BH, tk, D]. Self-attention
+// is the aligned case, q_off = 0 and tq = tk, through the same code: every
+// kernel is a template on OFF (Mask<OFF>); self-attention runs OFF = false,
+// where the offset is a compile-time 0 and tk is tq, so no instruction
+// tests for it, and the two routes build as two libraries (the C interface
+// below).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,37 +149,67 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 
-struct Mask {
-  int t_len, causal, window;
+// The masks of tq queries against tk keys, query i at absolute position
+// q_off + i (the causal-offset route, OFF: a rank's chunk of a sequence
+// against the prefix of its keys, tk = q_off + tq). Self-attention is the
+// same code with OFF false, where q_off = 0 and tk = tq are known at
+// compile time and each expression reduces to the one the kernels had
+// before the offset route: on an H100 the aligned instantiations give the
+// same bits as those kernels and, timed in turns with them, the same times
+// within the runs' spread (scripts/flash_aligned_bitwise.py), where a
+// runtime q_off = 0 had made the fp32 forward at [256, 256, 128] 11 %
+// slower. Query and key arguments are indices into their own rows.
+template <bool OFF>
+struct MaskFields {         // the offset route: tq, tk, q_off apart
+  int tq, tk_, q_off_, causal, window;
+  __device__ __forceinline__ int tk() const { return tk_; }
+  __device__ __forceinline__ int q_off() const { return q_off_; }
+};
+template <>
+struct MaskFields<false> {  // self-attention: one length, no offset
+  int tq, causal, window;
+  __device__ __forceinline__ int tk() const { return tq; }
+  __device__ __forceinline__ int q_off() const { return 0; }
+};
+template <bool OFF>
+struct Mask : MaskFields<OFF> {
+  using MaskFields<OFF>::tq;
+  using MaskFields<OFF>::causal;
+  using MaskFields<OFF>::window;
+  using MaskFields<OFF>::tk;
+  using MaskFields<OFF>::q_off;
   __device__ __forceinline__ bool allow(int q, int k) const {
-    return q < t_len && k < t_len && (!causal || q >= k) &&
-           (window <= 0 || q - k < window);
+    return q < tq && k < tk() && (!causal || q + q_off() >= k) &&
+           (window <= 0 || q + q_off() - k < window);
   }
   // For a block of `rows` resident rows and loop tiles of `bn` (n of
   // them): the key tiles that queries [q0, q0 + rows) see, and the query
-  // tiles that keys [k0, k0 + rows) are seen by, as [lo, hi].
+  // tiles that keys [k0, k0 + rows) are seen by, as [lo, hi] (empty when
+  // lo > hi; keys below the offset are seen from the first query on).
   __device__ __forceinline__ int key_tile_lo(int q0, int bn) const {
-    return window > 0 ? max(0, q0 - window + 1) / bn : 0;
+    return window > 0 ? max(0, q0 + q_off() - window + 1) / bn : 0;
   }
   __device__ __forceinline__ int key_tile_hi(int q0, int rows, int bn,
                                              int n) const {
-    return causal ? min(n - 1, (q0 + rows - 1) / bn) : n - 1;
+    return causal ? min(n - 1, (q0 + q_off() + rows - 1) / bn) : n - 1;
   }
   __device__ __forceinline__ int query_tile_lo(int k0, int bn) const {
-    return causal ? k0 / bn : 0;
+    return causal ? (OFF ? max(0, k0 - q_off()) : k0) / bn : 0;
   }
   __device__ __forceinline__ int query_tile_hi(int k0, int rows, int bn,
                                                int n) const {
-    return window > 0 ? min(n - 1, (k0 + rows - 1 + window - 1) / bn)
-                      : n - 1;
+    const int last = k0 + rows - 1 + window - 1;
+    return window > 0
+               ? min(n - 1, (OFF ? max(0, last - q_off()) : last) / bn)
+               : n - 1;
   }
   // whether some pair of queries [q0, q0 + nq) and keys [k0, k0 + nk) is
   // masked (else the tile needs no per-element test)
   __device__ __forceinline__ bool partial(int q0, int nq, int k0,
                                           int nk) const {
-    return q0 + nq > t_len || k0 + nk > t_len ||
-           (causal && q0 < k0 + nk - 1) ||
-           (window > 0 && q0 + nq - 1 - k0 >= window);
+    return q0 + nq > tq || k0 + nk > tk() ||
+           (causal && q0 + q_off() < k0 + nk - 1) ||
+           (window > 0 && q0 + q_off() + nq - 1 - k0 >= window);
   }
 };
 
@@ -191,12 +236,12 @@ __device__ __forceinline__ float score(float dot, float scale, float cap,
 // (dkdv: S^T = K Q^T; s becomes P^T, dp dS^T); q_0 and k_0 are the strip's
 // or tile's first query and key, and `lse` and `dl` hold the statistics of
 // the queries from q_0 on. (The bf16 dq ran 14 % slower with dS in dp.)
-template <int BN, bool KEY_ROWS>
+template <int BN, bool KEY_ROWS, bool OFF>
 __device__ __forceinline__ void grad_tile(float (&s)[BN / 8][4],
                                           float (&dp)[BN / 8][4], int q_0,
                                           int k_0, const float* lse,
                                           const float* dl, bool edge,
-                                          const Mask& mask, float scale,
+                                          const Mask<OFF>& mask, float scale,
                                           float cap) {
   const int l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
 #pragma unroll
@@ -448,13 +493,13 @@ __device__ __forceinline__ void store_strip(T* out,
 // in place (scale, softcap, the masks on an `edge` tile), the rows' (m, l)
 // are updated, and `corr` says by how much to rescale O. The 4 lanes of a
 // quad hold one row's columns and reduce its max and sum by two shuffles.
-template <int BN>
+template <int BN, bool OFF>
 __device__ __forceinline__ void softmax_tile(float (&s)[BN / 8][4],
                                              float (&m_r)[2], float (&l_r)[2],
                                              float (&corr)[2], int row0,
                                              int k0, bool edge,
-                                             const Mask& mask, float scale,
-                                             float cap) {
+                                             const Mask<OFF>& mask,
+                                             float scale, float cap) {
   const int l = threadIdx.x % 32, g = l / 4, t4 = l % 4;
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -532,12 +577,12 @@ constexpr int fwd_tc_smem_bytes() {
   return (TC_ROWS + 4 * fwd_tc_cols<D>()) * tc_stride<D>() * 2;
 }
 
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(TC_NT)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
-             float* __restrict__ lse, int t_len, Mask mask, float scale,
-             float cap) {
+             float* __restrict__ lse, int t_len, Mask<OFF> mask,
+             float scale, float cap) {
   constexpr int BN = fwd_tc_cols<D>(), S = tc_stride<D>();
   extern __shared__ __align__(16) float smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // [TC_ROWS][S]
@@ -546,14 +591,17 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
   const int w = threadIdx.x / 32;
-  const size_t base = (size_t)bh * t_len * D;
-  const int n_k = (t_len + BN - 1) / BN;
+  // t_len: the queries' length (tq); self-attention's keys too
+  const int tq = t_len, tk = OFF ? mask.tk() : t_len;
+  const size_t qbase = (size_t)bh * t_len * D;
+  const size_t kbase = OFF ? (size_t)bh * tk * D : qbase;
+  const int n_k = (tk + BN - 1) / BN;
   const int lo = mask.key_tile_lo(q0, BN);
   const int hi = mask.key_tile_hi(q0, TC_ROWS, BN, n_k);
 
-  cp_tile<TC_ROWS, D>(qs, q + base, q0, t_len);
-  cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
-  cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
+  cp_tile<TC_ROWS, D>(qs, q + qbase, q0, tq);
+  cp_tile<BN, D>(ks, k + kbase, lo * BN, tk);
+  cp_tile<BN, D>(vs, v + kbase, lo * BN, tk);
   cp_async_commit();
   // the warp's 16 query rows, for the whole loop (up to D = 128)
   uint32_t qf[fwd_q_in_regs<D>() ? D / 16 : 1][4];
@@ -566,8 +614,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();   // tile ik landed; everyone is done with tile ik - 1
     if (ik < hi) {
-      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + base, k0 + BN, t_len);
-      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + base, k0 + BN, t_len);
+      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + kbase, k0 + BN, tk);
+      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + kbase, k0 + BN, tk);
     }
     cp_async_commit();
     float s[BN / 8][4] = {};
@@ -589,8 +637,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     to_a_frags<BN>(pf, s);
     mma_px<D, BN, D>(acc, pf, vs + buf * BN * S);   // O += P V
   }
-  finish_rows<D>(o + base, lse + (size_t)bh * t_len, acc, m_r, l_r,
-                 q0 + w * 16, t_len);
+  finish_rows<D>(o + qbase, lse + (size_t)bh * tq, acc, m_r, l_r,
+                 q0 + w * 16, tq);
 }
 
 // acc (a 16 x N strip as N/8 n8 tiles) += A B^T over k < D in 3xTF32: A
@@ -650,12 +698,12 @@ constexpr int fwd_f32_smem_bytes() {
   return (TC_ROWS + 4 * fwd_tc_cols<D>()) * (D + 4) * 4;
 }
 
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(TC_NT)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
-          float* __restrict__ lse, int t_len, Mask mask, float scale,
-          float cap) {
+          float* __restrict__ lse, int t_len, Mask<OFF> mask,
+          float scale, float cap) {
   constexpr int BN = fwd_tc_cols<D>(), S = D + 4;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                 // [TC_ROWS][S]
@@ -664,14 +712,17 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
   const int w = threadIdx.x / 32;
-  const size_t base = (size_t)bh * t_len * D;
-  const int n_k = (t_len + BN - 1) / BN;
+  // t_len: the queries' length (tq); self-attention's keys too
+  const int tq = t_len, tk = OFF ? mask.tk() : t_len;
+  const size_t qbase = (size_t)bh * t_len * D;
+  const size_t kbase = OFF ? (size_t)bh * tk * D : qbase;
+  const int n_k = (tk + BN - 1) / BN;
   const int lo = mask.key_tile_lo(q0, BN);
   const int hi = mask.key_tile_hi(q0, TC_ROWS, BN, n_k);
 
-  cp_tile<TC_ROWS, D>(qs, q + base, q0, t_len);
-  cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
-  cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
+  cp_tile<TC_ROWS, D>(qs, q + qbase, q0, tq);
+  cp_tile<BN, D>(ks, k + kbase, lo * BN, tk);
+  cp_tile<BN, D>(vs, v + kbase, lo * BN, tk);
   cp_async_commit();
   float acc[D / 8][4] = {};
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
@@ -680,8 +731,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();   // tile ik landed; everyone is done with tile ik - 1
     if (ik < hi) {
-      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + base, k0 + BN, t_len);
-      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + base, k0 + BN, t_len);
+      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + kbase, k0 + BN, tk);
+      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + kbase, k0 + BN, tk);
     }
     cp_async_commit();
     float s[BN / 8][4] = {};
@@ -696,8 +747,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     }
     mma3_px<D, BN, D>(acc, s, vs + buf * BN * S);             // O += P V
   }
-  finish_rows<D>(o + base, lse + (size_t)bh * t_len, acc, m_r, l_r,
-                 q0 + w * 16, t_len);
+  finish_rows<D>(o + qbase, lse + (size_t)bh * tq, acc, m_r, l_r,
+                 q0 + w * 16, tq);
 }
 
 template <int D>
@@ -709,13 +760,13 @@ constexpr int dq_tc_smem_bytes() {
 // Grid (BH, row tiles, D / dq_tc_cols): block z accumulates dQ's columns
 // [z DC, (z + 1) DC); every block computes the full S and dP, and block
 // z = 0 writes delta.
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ o,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
                 float* __restrict__ delta, bf16* __restrict__ dq, int t_len,
-                Mask mask, float scale, float cap) {
+                Mask<OFF> mask, float scale, float cap) {
   constexpr int BN = tc_cols<D>(), S = tc_stride<D>();
   constexpr int DC = dq_tc_cols<D>();
   extern __shared__ __align__(16) float smem[];
@@ -729,18 +780,21 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
   const int c0 = blockIdx.z * DC;
   const int w = threadIdx.x / 32;
-  const size_t base = (size_t)bh * t_len * D;
-  const int n_k = (t_len + BN - 1) / BN;
+  // t_len: the queries' length (tq); self-attention's keys too
+  const int tq = t_len, tk = OFF ? mask.tk() : t_len;
+  const size_t qbase = (size_t)bh * t_len * D;
+  const size_t kbase = OFF ? (size_t)bh * tk * D : qbase;
+  const int n_k = (tk + BN - 1) / BN;
   const int lo = mask.key_tile_lo(q0, BN);
   const int hi = mask.key_tile_hi(q0, TC_ROWS, BN, n_k);
 
-  cp_tile<TC_ROWS, D>(qs, q + base, q0, t_len);
-  cp_tile<TC_ROWS, D>(dos, dout + base, q0, t_len);
-  cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
-  cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
+  cp_tile<TC_ROWS, D>(qs, q + qbase, q0, tq);
+  cp_tile<TC_ROWS, D>(dos, dout + qbase, q0, tq);
+  cp_tile<BN, D>(ks, k + kbase, lo * BN, tk);
+  cp_tile<BN, D>(vs, v + kbase, lo * BN, tk);
   cp_async_commit();
-  row_stats<D>(dout + base, o + base, lse + (size_t)bh * t_len,
-               delta + (size_t)bh * t_len, lse_s, dl_s, q0, t_len);
+  row_stats<D>(dout + qbase, o + qbase, lse + (size_t)bh * tq,
+               delta + (size_t)bh * tq, lse_s, dl_s, q0, tq);
 
   float acc[DC / 8][4] = {};
   for (int ik = lo; ik <= hi; ++ik) {
@@ -748,8 +802,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();   // tile ik landed; everyone is done with tile ik - 1
     if (ik < hi) {
-      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + base, k0 + BN, t_len);
-      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + base, k0 + BN, t_len);
+      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + kbase, k0 + BN, tk);
+      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + kbase, k0 + BN, tk);
     }
     cp_async_commit();
     const bf16* kt = ks + buf * BN * S;
@@ -763,7 +817,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     to_a_frags<BN>(df, s);
     mma_px<D, BN, DC>(acc, df, kt + c0);            // dQ += dS K
   }
-  store_strip<D, DC>(dq + base + c0, acc, q0 + w * 16, t_len, scale);
+  store_strip<D, DC>(dq + qbase + c0, acc, q0 + w * 16, tq, scale);
 }
 
 template <int D>
@@ -775,14 +829,14 @@ constexpr int dkdv_tc_smem_bytes() {
 // Grid (BH, key tiles, D / dkdv_tc_cols): block z accumulates dK's and
 // dV's columns [z DC, (z + 1) DC); every block computes the full S^T and
 // dP^T.
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int t_len, Mask mask, float scale,
-                  float cap) {
+                  bf16* __restrict__ dv, int t_len, Mask<OFF> mask,
+                  float scale, float cap) {
   constexpr int BN = tc_cols<D>(), S = tc_stride<D>();
   constexpr int DC = dkdv_tc_cols<D>();
   extern __shared__ __align__(16) float smem[];
@@ -796,28 +850,31 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k0 = blockIdx.y * TC_ROWS;        // causal: low keys are heaviest
   const int c0 = blockIdx.z * DC;
   const int w = threadIdx.x / 32;
-  const size_t base = (size_t)bh * t_len * D;
-  const float* lse_bh = lse + (size_t)bh * t_len;
-  const float* dl_bh = delta + (size_t)bh * t_len;
-  const int n_q = (t_len + BN - 1) / BN;
+  // t_len: the queries' length (tq); self-attention's keys too
+  const int tq = t_len, tk = OFF ? mask.tk() : t_len;
+  const size_t qbase = (size_t)bh * t_len * D;
+  const size_t kbase = OFF ? (size_t)bh * tk * D : qbase;
+  const float* lse_bh = lse + (size_t)bh * tq;
+  const float* dl_bh = delta + (size_t)bh * tq;
+  const int n_q = (tq + BN - 1) / BN;
   const int lo = mask.query_tile_lo(k0, BN);
   const int hi = mask.query_tile_hi(k0, TC_ROWS, BN, n_q);
   // query tile iq into ring slot `buf`: Q, dO, and lse and delta (4 bytes a
   // copy: a row offset need not be 16-byte aligned)
   auto load = [&](int iq, int buf) {
     const int q0 = iq * BN;
-    cp_tile<BN, D>(qs + buf * BN * S, q + base, q0, t_len);
-    cp_tile<BN, D>(dos + buf * BN * S, dout + base, q0, t_len);
+    cp_tile<BN, D>(qs + buf * BN * S, q + qbase, q0, tq);
+    cp_tile<BN, D>(dos + buf * BN * S, dout + qbase, q0, tq);
     for (int idx = threadIdx.x; idx < 2 * BN; idx += TC_NT) {
       const int r = idx % BN, row = q0 + r;
-      const bool in = row < t_len;
+      const bool in = row < tq;
       cp_async4((idx < BN ? lse_s : dl_s) + buf * BN + r,
                 (idx < BN ? lse_bh : dl_bh) + (in ? row : 0), in);
     }
   };
 
-  cp_tile<TC_ROWS, D>(ks, k + base, k0, t_len);
-  cp_tile<TC_ROWS, D>(vs, v + base, k0, t_len);
+  cp_tile<TC_ROWS, D>(ks, k + kbase, k0, tk);
+  cp_tile<TC_ROWS, D>(vs, v + kbase, k0, tk);
   load(lo, 0);
   cp_async_commit();
   float acc_k[DC / 8][4] = {}, acc_v[DC / 8][4] = {};
@@ -842,8 +899,8 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     to_a_frags<BN>(f, dpt);
     mma_px<D, BN, DC>(acc_k, f, qt + c0);           // dK += dS^T Q
   }
-  store_strip<D, DC>(dk + base + c0, acc_k, k0 + w * 16, t_len, scale);
-  store_strip<D, DC>(dv + base + c0, acc_v, k0 + w * 16, t_len, 1.f);
+  store_strip<D, DC>(dk + kbase + c0, acc_k, k0 + w * 16, tk, scale);
+  store_strip<D, DC>(dv + kbase + c0, acc_v, k0 + w * 16, tk, 1.f);
 }
 
 // The fp32 backward: the designs of flash_bwd_dq_tc and flash_bwd_dkdv_tc
@@ -857,13 +914,13 @@ constexpr int dq_f32_smem_bytes() {
 
 // Grid (BH, row tiles): as flash_bwd_dq_tc, but every block accumulates
 // all D columns of dQ.
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ o,
              const float* __restrict__ dout, const float* __restrict__ lse,
              float* __restrict__ delta, float* __restrict__ dq, int t_len,
-             Mask mask, float scale, float cap) {
+             Mask<OFF> mask, float scale, float cap) {
   constexpr int BN = bwd_f32_cols<D>(), S = D + 4;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                    // [TC_ROWS][S]
@@ -875,18 +932,21 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // heaviest first
   const int w = threadIdx.x / 32;
-  const size_t base = (size_t)bh * t_len * D;
-  const int n_k = (t_len + BN - 1) / BN;
+  // t_len: the queries' length (tq); self-attention's keys too
+  const int tq = t_len, tk = OFF ? mask.tk() : t_len;
+  const size_t qbase = (size_t)bh * t_len * D;
+  const size_t kbase = OFF ? (size_t)bh * tk * D : qbase;
+  const int n_k = (tk + BN - 1) / BN;
   const int lo = mask.key_tile_lo(q0, BN);
   const int hi = mask.key_tile_hi(q0, TC_ROWS, BN, n_k);
 
-  cp_tile<TC_ROWS, D>(qs, q + base, q0, t_len);
-  cp_tile<TC_ROWS, D>(dos, dout + base, q0, t_len);
-  cp_tile<BN, D>(ks, k + base, lo * BN, t_len);
-  cp_tile<BN, D>(vs, v + base, lo * BN, t_len);
+  cp_tile<TC_ROWS, D>(qs, q + qbase, q0, tq);
+  cp_tile<TC_ROWS, D>(dos, dout + qbase, q0, tq);
+  cp_tile<BN, D>(ks, k + kbase, lo * BN, tk);
+  cp_tile<BN, D>(vs, v + kbase, lo * BN, tk);
   cp_async_commit();
-  row_stats<D>(dout + base, o + base, lse + (size_t)bh * t_len,
-               delta + (size_t)bh * t_len, lse_s, dl_s, q0, t_len);
+  row_stats<D>(dout + qbase, o + qbase, lse + (size_t)bh * tq,
+               delta + (size_t)bh * tq, lse_s, dl_s, q0, tq);
 
   float acc[D / 8][4] = {};
   for (int ik = lo; ik <= hi; ++ik) {
@@ -894,8 +954,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();   // tile ik landed; everyone is done with tile ik - 1
     if (ik < hi) {
-      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + base, k0 + BN, t_len);
-      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + base, k0 + BN, t_len);
+      cp_tile<BN, D>(ks + (buf ^ 1) * BN * S, k + kbase, k0 + BN, tk);
+      cp_tile<BN, D>(vs + (buf ^ 1) * BN * S, v + kbase, k0 + BN, tk);
     }
     cp_async_commit();
     const float* kt = ks + buf * BN * S;
@@ -907,7 +967,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
                          mask, scale, cap);
     mma3_px<D, BN, D>(acc, s, kt);                            // dQ += dS K
   }
-  store_strip<D, D>(dq + base, acc, q0 + w * 16, t_len, scale);
+  store_strip<D, D>(dq + qbase, acc, q0 + w * 16, tq, scale);
 }
 
 template <int D>
@@ -917,13 +977,13 @@ constexpr int dkdv_f32_smem_bytes() {
 }
 
 // Grid (BH, key tiles, D / dkdv_f32_cols): as flash_bwd_dkdv_tc.
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(TC_NT)
 flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int t_len,
-               Mask mask, float scale, float cap) {
+               Mask<OFF> mask, float scale, float cap) {
   constexpr int BN = bwd_f32_cols<D>(), S = D + 4;
   constexpr int DC = dkdv_f32_cols<D>();
   extern __shared__ __align__(16) float smem[];
@@ -937,27 +997,30 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.y * TC_ROWS;        // causal: low keys are heaviest
   const int c0 = blockIdx.z * DC;
   const int w = threadIdx.x / 32;
-  const size_t base = (size_t)bh * t_len * D;
-  const float* lse_bh = lse + (size_t)bh * t_len;
-  const float* dl_bh = delta + (size_t)bh * t_len;
-  const int n_q = (t_len + BN - 1) / BN;
+  // t_len: the queries' length (tq); self-attention's keys too
+  const int tq = t_len, tk = OFF ? mask.tk() : t_len;
+  const size_t qbase = (size_t)bh * t_len * D;
+  const size_t kbase = OFF ? (size_t)bh * tk * D : qbase;
+  const float* lse_bh = lse + (size_t)bh * tq;
+  const float* dl_bh = delta + (size_t)bh * tq;
+  const int n_q = (tq + BN - 1) / BN;
   const int lo = mask.query_tile_lo(k0, BN);
   const int hi = mask.query_tile_hi(k0, TC_ROWS, BN, n_q);
   // query tile iq into ring slot `buf`, as flash_bwd_dkdv_tc's
   auto load = [&](int iq, int buf) {
     const int q0 = iq * BN;
-    cp_tile<BN, D>(qs + buf * BN * S, q + base, q0, t_len);
-    cp_tile<BN, D>(dos + buf * BN * S, dout + base, q0, t_len);
+    cp_tile<BN, D>(qs + buf * BN * S, q + qbase, q0, tq);
+    cp_tile<BN, D>(dos + buf * BN * S, dout + qbase, q0, tq);
     for (int idx = threadIdx.x; idx < 2 * BN; idx += TC_NT) {
       const int r = idx % BN, row = q0 + r;
-      const bool in = row < t_len;
+      const bool in = row < tq;
       cp_async4((idx < BN ? lse_s : dl_s) + buf * BN + r,
                 (idx < BN ? lse_bh : dl_bh) + (in ? row : 0), in);
     }
   };
 
-  cp_tile<TC_ROWS, D>(ks, k + base, k0, t_len);
-  cp_tile<TC_ROWS, D>(vs, v + base, k0, t_len);
+  cp_tile<TC_ROWS, D>(ks, k + kbase, k0, tk);
+  cp_tile<TC_ROWS, D>(vs, v + kbase, k0, tk);
   load(lo, 0);
   cp_async_commit();
   float acc_k[DC / 8][4] = {}, acc_v[DC / 8][4] = {};
@@ -979,16 +1042,16 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     mma3_px<D, BN, DC>(acc_v, st, dot_ + c0);           // dV += P^T dO
     mma3_px<D, BN, DC>(acc_k, dpt, qt + c0);            // dK += dS^T Q
   }
-  store_strip<D, DC>(dk + base + c0, acc_k, k0 + w * 16, t_len, scale);
-  store_strip<D, DC>(dv + base + c0, acc_v, k0 + w * 16, t_len, 1.f);
+  store_strip<D, DC>(dk + kbase + c0, acc_k, k0 + w * 16, tk, scale);
+  store_strip<D, DC>(dv + kbase + c0, acc_v, k0 + w * 16, tk, 1.f);
 }
 
 // Opt the kernel into more than 48 KB of dynamic shared memory (once per
 // kernel instantiation: each instantiation of launch has its own `ready`)
-// and launch it: NT threads a block, one block per (head, ROWS rows,
-// column slice of SPLIT).
+// and launch it: NT threads a block, one block per (head, ROWS of its
+// `rows` resident rows, column slice of SPLIT).
 template <auto Kernel, int NT, int ROWS, int SPLIT = 1, typename... Args>
-int launch(int bytes, int bh, int t_len, cudaStream_t stream, Args... args) {
+int launch(int bytes, int bh, int rows, cudaStream_t stream, Args... args) {
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -996,38 +1059,73 @@ int launch(int bytes, int bh, int t_len, cudaStream_t stream, Args... args) {
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  const dim3 grid(bh, (t_len + ROWS - 1) / ROWS, SPLIT);
+  const dim3 grid(bh, (rows + ROWS - 1) / ROWS, SPLIT);
   Kernel<<<grid, NT, bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
 constexpr int UNSUPPORTED = -1;
+constexpr int WRONG_ROUTE = -2;
+
+// This file builds two libraries (kernels/build.py, one nvcc each, started
+// together): its own holds self-attention (OFF false, flash_attention_*);
+// csrc/flash_attention_offset.cu defines FLASH_OFFSET_ROUTE and includes
+// this file, and its library holds the causal-offset route (OFF true,
+// flash_attention_offset_*). Each compiles one instantiation of each
+// kernel, so the two builds take the time one took before the route.
+#ifndef FLASH_OFFSET_ROUTE
+#define FLASH_OFFSET_ROUTE 0
+#endif
+constexpr bool OFFSET_ROUTE = FLASH_OFFSET_ROUTE;
+
+template <bool OFF>
+Mask<OFF> make_mask(int tq, int tk, int q_off, int causal, int window);
+template <>
+Mask<true> make_mask<true>(int tq, int tk, int q_off, int causal,
+                           int window) {
+  return {{tq, tk, q_off, causal, window}};
+}
+template <>
+Mask<false> make_mask<false>(int tq, int, int, int causal, int window) {
+  return {{tq, causal, window}};
+}
 
 }  // namespace
 
+#if FLASH_OFFSET_ROUTE
+#define FLASH_FN(name) flash_attention_offset_##name
+#else
+#define FLASH_FN(name) flash_attention_##name
+#endif
+
 // C interface, loaded with ctypes. Pointers are device pointers of
-// contiguous [BH, T, D] tensors (lse and delta [BH, T] fp32); `bf16` selects
+// contiguous tensors: q, o, dout and dq [BH, tq, D], k, v, dk and dv [BH,
+// tk, D], lse and delta [BH, tq] fp32; query i sits at position q_off + i
+// (self-attention: tq = tk, q_off = 0; a sequence-parallel rank's chunk
+// against its key prefix: tk = q_off + tq). `bf16` selects
 // bfloat16 over float32, and with it the tensor-core kernels; `d` selects
 // the instantiation and `scale` is the score scale, the caller's true
 // head dim ** -0.5 (the wrapper zero-pads other head dims up to an
-// instantiated one). Each returns the launch's cudaError_t, or -1 for a
-// head dim without an instantiation.
+// instantiated one). Each returns the launch's cudaError_t, -1 for a
+// head dim without an instantiation, or -2 for an offset call to the
+// self-attention library.
 extern "C" {
 
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int bh, int t_len, int d, int bf16,
-                        int causal, int window, float cap, float scale,
-                        void* stream) {
-  const Mask mask{t_len, causal, window};
+int FLASH_FN(fwd)(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int bh, int tq, int tk, int q_off, int d,
+                  int bf16, int causal, int window, float cap, float scale,
+                  void* stream) {
+  if (!OFFSET_ROUTE && (q_off != 0 || tk != tq)) return WRONG_ROUTE;
+  const auto mask = make_mask<OFFSET_ROUTE>(tq, tk, q_off, causal, window);
   cudaStream_t st = (cudaStream_t)stream;
-#define FWD(T, D)                                                          \
-  return launch<flash_fwd<D>, TC_NT, TC_ROWS>(fwd_f32_smem_bytes<D>(),     \
-                bh, t_len, st, (const T*)q, (const T*)k, (const T*)v,      \
-                (T*)o, lse, t_len, mask, scale, cap)
-#define FWD_TC(T, D)                                                       \
-  return launch<flash_fwd_tc<D>, TC_NT, TC_ROWS>(fwd_tc_smem_bytes<D>(),   \
-                bh, t_len, st, (const T*)q, (const T*)k, (const T*)v,      \
-                (T*)o, lse, t_len, mask, scale, cap)
+#define FWD(T, D)                                                           \
+  return launch<flash_fwd<D, OFFSET_ROUTE>, TC_NT, TC_ROWS>(                \
+      fwd_f32_smem_bytes<D>(), bh, tq, st, (const T*)q, (const T*)k,        \
+      (const T*)v, (T*)o, lse, tq, mask, scale, cap)
+#define FWD_TC(T, D)                                                        \
+  return launch<flash_fwd_tc<D, OFFSET_ROUTE>, TC_NT, TC_ROWS>(             \
+      fwd_tc_smem_bytes<D>(), bh, tq, st, (const T*)q, (const T*)k,         \
+      (const T*)v, (T*)o, lse, tq, mask, scale, cap)
 // the instantiated head dims (kernels/flash_attention.py HEAD_DIMS)
 #define BY_D(M, T)        \
   switch (d) {            \
@@ -1044,47 +1142,51 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 #undef FWD_TC
 }
 
-int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                           const void* o, const void* dout, const float* lse,
-                           float* delta, void* dq, int bh, int t_len, int d,
-                           int bf16, int causal, int window, float cap,
-                           float scale, void* stream) {
-  const Mask mask{t_len, causal, window};
+int FLASH_FN(bwd_dq)(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* delta, void* dq, int bh, int tq, int tk,
+                     int q_off, int d, int bf16, int causal, int window,
+                     float cap, float scale, void* stream) {
+  if (!OFFSET_ROUTE && (q_off != 0 || tk != tq)) return WRONG_ROUTE;
+  const auto mask = make_mask<OFFSET_ROUTE>(tq, tk, q_off, causal, window);
   cudaStream_t st = (cudaStream_t)stream;
 #define DQ(T, D)                                                            \
-  return launch<flash_bwd_dq<D>, TC_NT, TC_ROWS>(                          \
-                dq_f32_smem_bytes<D>(), bh, t_len, st, (const T*)q,         \
-                (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, \
-                delta, (T*)dq, t_len, mask, scale, cap)
+  return launch<flash_bwd_dq<D, OFFSET_ROUTE>, TC_NT, TC_ROWS>(             \
+      dq_f32_smem_bytes<D>(), bh, tq, st, (const T*)q, (const T*)k,         \
+      (const T*)v, (const T*)o, (const T*)dout, lse, delta, (T*)dq, tq,     \
+      mask, scale, cap)
 #define DQ_TC(T, D)                                                         \
-  return launch<flash_bwd_dq_tc<D>, TC_NT, TC_ROWS, D / dq_tc_cols<D>()>(   \
-                dq_tc_smem_bytes<D>(), bh, t_len, st, (const T*)q,          \
-                (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, \
-                delta, (T*)dq, t_len, mask, scale, cap)
+  return launch<flash_bwd_dq_tc<D, OFFSET_ROUTE>, TC_NT, TC_ROWS,           \
+                D / dq_tc_cols<D>()>(                                       \
+      dq_tc_smem_bytes<D>(), bh, tq, st, (const T*)q, (const T*)k,          \
+      (const T*)v, (const T*)o, (const T*)dout, lse, delta, (T*)dq, tq,     \
+      mask, scale, cap)
   if (bf16) { BY_D(DQ_TC, __nv_bfloat16) } else { BY_D(DQ, float) }
 #undef DQ
 #undef DQ_TC
 }
 
-int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
-                             const void* dout, const float* lse,
-                             const float* delta, void* dk, void* dv, int bh,
-                             int t_len, int d, int bf16, int causal,
-                             int window, float cap, float scale,
-                             void* stream) {
-  const Mask mask{t_len, causal, window};
+int FLASH_FN(bwd_dkdv)(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int bh,
+                       int tq, int tk, int q_off, int d, int bf16,
+                       int causal, int window, float cap, float scale,
+                       void* stream) {
+  if (!OFFSET_ROUTE && (q_off != 0 || tk != tq)) return WRONG_ROUTE;
+  const auto mask = make_mask<OFFSET_ROUTE>(tq, tk, q_off, causal, window);
   cudaStream_t st = (cudaStream_t)stream;
 #define DKDV(T, D)                                                            \
-  return launch<flash_bwd_dkdv<D>, TC_NT, TC_ROWS, D / dkdv_f32_cols<D>()>(   \
-                dkdv_f32_smem_bytes<D>(), bh, t_len, st, (const T*)q,         \
-                (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, \
-                (T*)dv, t_len, mask, scale, cap)
+  return launch<flash_bwd_dkdv<D, OFFSET_ROUTE>, TC_NT, TC_ROWS,              \
+                D / dkdv_f32_cols<D>()>(                                      \
+      dkdv_f32_smem_bytes<D>(), bh, tk, st, (const T*)q, (const T*)k,         \
+      (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, tq, mask,      \
+      scale, cap)
 #define DKDV_TC(T, D)                                                         \
-  return launch<flash_bwd_dkdv_tc<D>, TC_NT, TC_ROWS,                         \
+  return launch<flash_bwd_dkdv_tc<D, OFFSET_ROUTE>, TC_NT, TC_ROWS,           \
                 D / dkdv_tc_cols<D>()>(                                       \
-                dkdv_tc_smem_bytes<D>(), bh, t_len, st, (const T*)q,          \
-                (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, \
-                (T*)dv, t_len, mask, scale, cap)
+      dkdv_tc_smem_bytes<D>(), bh, tk, st, (const T*)q, (const T*)k,          \
+      (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, tq, mask,      \
+      scale, cap)
   if (bf16) { BY_D(DKDV_TC, __nv_bfloat16) } else { BY_D(DKDV, float) }
 #undef DKDV
 #undef DKDV_TC
@@ -1092,3 +1194,4 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
 }
 
 }  // extern "C"
+#undef FLASH_FN

@@ -99,11 +99,14 @@ def fused_agg(x: torch.Tensor, mask: torch.Tensor, op: torch.Tensor,
 
 
 def flash_shape_ok(kind: str, tq: int, tk: int, q_offset: int) -> bool:
-    """Whether the flash kernels cover an attention call: self-attention
-    (``tq == tk``, ``q_offset == 0``), ``kind`` full or swa, and ``tq %
-    min(128, tq) == 0``."""
-    return (kind in ("full", "swa") and q_offset == 0 and tq == tk
-            and tq % min(128, tq) == 0)
+    """Whether the flash kernels cover an attention call: ``kind`` full or
+    swa, queries at ``q_offset`` against every key up to their last
+    (``tk == q_offset + tq``: self-attention at ``q_offset == 0``, else the
+    causal-offset route of a sequence-parallel rank's chunk), and ``t %
+    min(128, t) == 0`` for ``t`` in ``tq`` and ``tk``."""
+    return (kind in ("full", "swa") and q_offset >= 0
+            and tk == q_offset + tq
+            and all(t % min(128, t) == 0 for t in (tq, tk)))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -117,8 +120,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The kernel covers the reference's kernel shapes
     (:func:`flash_shape_ok`). Every other shape (block-local "chunked"
-    masks, decode/prefill offsets, ragged lengths) takes the plain chunked
-    version on any device, as in the reference; so do CPU tensors.
+    masks, decode-style offsets with fewer keys, ragged lengths) takes the
+    plain chunked version on any device, as in the reference; so do CPU
+    tensors. Each call that takes the plain version adds one to
+    ``plain_attention_calls`` (a run on the card can show that none
+    did).
     ``backend``: ``None`` follows the tensor (:func:`resolve_backend`);
     ``"torch"`` takes the plain version on the card too (to compare the two
     paths); ``"kernel"`` insists on the kernel and raises for CPU tensors.
@@ -133,6 +139,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backend = _backend(backend, q, "attention")
     if not flash_shape_ok(kind, q.shape[1], k.shape[1], q_offset) \
             or backend == "torch":
+        global plain_attention_calls
+        plain_attention_calls += 1
         return ref.attention_ref(q, k, v, kind=kind, window=window,
                                  logit_softcap=logit_softcap, chunk=chunk,
                                  q_offset=q_offset)
@@ -141,8 +149,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vr = ref.repeat_kv(v, n_rep).transpose(1, 2)
     out = fa.flash_attention(q.transpose(1, 2), kr, vr, causal=True,
                              window=window if kind == "swa" else 0,
-                             logit_softcap=logit_softcap)
+                             logit_softcap=logit_softcap, q_offset=q_offset)
     return out.transpose(1, 2)
+
+
+# calls of attention() that took the plain version, on any device
+plain_attention_calls = 0
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

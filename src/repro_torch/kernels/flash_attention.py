@@ -8,12 +8,21 @@ what bounds it and how it is laid out. Three kernels, each behind a wrapper
 with its own launch counter:
 
 - ``flash_attention_fwd``: ``o``, and the row log-sum-exp ``lse`` (fp32,
-  ``[BH, T]``) kept for the backward;
+  ``[BH, Tq]``) kept for the backward;
 - ``flash_attention_bwd_dq``: ``delta = rowsum(dO * O)`` and ``dQ``;
 - ``flash_attention_bwd_dkdv``: ``dK`` and ``dV``.
 
 ``flash_attention(q, k, v)`` on ``[B, H, T, D]`` (the reference's entry) is
-differentiable through them (``torch.autograd.Function``). On CPU tensors it
+differentiable through them (``torch.autograd.Function``). ``q_offset``
+selects the causal-offset route: ``q [.., Tq, D]`` against ``k, v [..,
+Tk, D]`` with ``Tk = q_offset + Tq``, query ``i`` at absolute position
+``q_offset + i`` (a sequence-parallel rank's chunk against the gathered
+prefix of its keys, ``models.model``); ``q_offset = 0`` with ``Tq = Tk``
+is self-attention, the same kernels' code instantiated with the offset
+fixed at 0 (the C interface picks the instantiation). Each wrapper's
+``offset_launches``
+counts its launches with ``q_offset > 0`` (they count in ``launches``
+too). On CPU tensors it
 is the plain version (``repro_torch.kernels.ref.flash_attention_ref``); on
 CUDA tensors it always launches the kernels, and a build or launch failure
 raises. Any head dim from 1 to 256 (``MAX_HEAD_DIM``), fp32 or bf16, any
@@ -25,7 +34,11 @@ columns of v only add output columns that are dropped), passing the true
 
 Build: at first launch ``nvcc`` compiles the source for the card
 (``sm_90a`` on an H100) into ``build/cuda/``, a shared library with a plain
-C interface loaded with ``ctypes`` (``repro_torch.kernels.build``).
+C interface loaded with ``ctypes`` (``repro_torch.kernels.build``): one for
+self-attention (``SOURCE``) and one for the causal-offset route
+(``OFFSET_SOURCE``, the same kernels at the other instantiation), each
+built at its route's first launch, or both at once by
+``build.compile_all``.
 """
 from __future__ import annotations
 
@@ -41,6 +54,9 @@ from repro_torch.kernels.dispatch import resolve_backend
 from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+# the causal-offset route's library (the same kernels at OFF = true, built
+# from SOURCE beside its own library; its functions flash_attention_offset_*)
+OFFSET_SOURCE = SOURCE.with_name("flash_attention_offset.cu")
 # the head dims the source instantiates (its BY_D switch): every published
 # head dim of the repo's configs (64, 128, 256) and the LM sweep's 144
 # (lm_d_model 576 over reduced()'s 4 heads)
@@ -52,12 +68,16 @@ __all__ = ["HEAD_DIMS", "MAX_HEAD_DIM", "flash_attention",
            "flash_attention_bwd_dkdv", "padded_head_dim"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (..., cap, scale, stream)
+# (pointers..., bh, tq, tk, q_off, d, bf16, causal, window, cap, scale,
+# stream)
 _SIGNATURES = {
-    "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _F, _P],
-    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
-    "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _F, _P],
+    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 8 + [_F, _F, _P],
+    "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 8 + [_F, _F, _P],
 }
+_OFFSET_SIGNATURES = {
+    name.replace("flash_attention_", "flash_attention_offset_"): sig
+    for name, sig in _SIGNATURES.items()}
 
 
 def padded_head_dim(d: int) -> int:
@@ -73,8 +93,11 @@ def padded_head_dim(d: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """Build (once per source version and card) and load the kernels."""
+def _library(offset: bool) -> ctypes.CDLL:
+    """Build (once per source version and card) and load the kernels of
+    self-attention or, ``offset``, of the causal-offset route."""
+    if offset:
+        return build.load(OFFSET_SOURCE, _OFFSET_SIGNATURES)
     return build.load(SOURCE, _SIGNATURES)
 
 
@@ -105,6 +128,17 @@ def _check_q(q: torch.Tensor):
     _check("q", q, q)
 
 
+def _key_shape(q: torch.Tensor, k: torch.Tensor, q_offset: int) -> tuple:
+    """``[BH, Tk, D]`` of the keys of ``q [BH, Tq, D]`` at ``q_offset``:
+    ``Tk = q_offset + Tq`` (``k``'s own length, checked)."""
+    bh, tq, d = q.shape
+    if q_offset < 0 or k.dim() != 3 or k.shape[1] != q_offset + tq:
+        raise ValueError(
+            f"q {tuple(q.shape)} at q_offset {q_offset} takes keys "
+            f"[{bh}, {q_offset + tq}, {d}], got {tuple(k.shape)}")
+    return (bh, q_offset + tq, d)
+
+
 def _pad(x: torch.Tensor, dp: int) -> torch.Tensor:
     """``x [.., D]`` zero-padded to ``[.., dp]`` (itself when ``D == dp``)."""
     d = x.shape[-1]
@@ -116,72 +150,88 @@ def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor):
     _check(name, t, q, q.shape[:-1], torch.float32)
 
 
-def _call(name: str, *args):
-    err = getattr(_library(), name)(*args)
+def _call(name: str, q_offset: int, *args):
+    """``name`` of the library of ``q_offset``'s route (the offset one's
+    ``flash_attention_offset_*`` at ``q_offset > 0``)."""
+    if q_offset:
+        name = name.replace("flash_attention_", "flash_attention_offset_")
+    err = getattr(_library(q_offset > 0), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: "
                            + ("unsupported head dim" if err == -1
                               else f"cudaError_t {err}"))
 
 
-def _common(q: torch.Tensor, dp: int, causal: bool, window: int,
-            softcap: float):
-    """The C interface's trailing arguments for ``q [BH, T, D]`` run at
-    the instantiated head dim ``dp``, scaled by the true ``D ** -0.5``."""
+def _common(q: torch.Tensor, q_offset: int, dp: int, causal: bool,
+            window: int, softcap: float):
+    """The C interface's trailing arguments for ``q [BH, Tq, D]`` at
+    ``q_offset`` (keys ``Tk = q_offset + Tq``) run at the instantiated head
+    dim ``dp``, scaled by the true ``D ** -0.5``."""
     bh, t, d = q.shape
-    return (bh, t, dp, int(q.dtype == torch.bfloat16), int(bool(causal)),
-            int(window), float(softcap), d ** -0.5,
+    return (bh, t, q_offset + t, int(q_offset), dp,
+            int(q.dtype == torch.bfloat16), int(bool(causal)), int(window),
+            float(softcap), d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_softcap=0.0
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``q, k, v [BH, T, D]`` on the card -> ``(o [BH, T, D], lse [BH, T]
-    fp32)``; one kernel launch."""
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
+                        q_offset=0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``q [BH, Tq, D]``, ``k, v [BH, Tk, D]`` (``Tk = q_offset + Tq``) on
+    the card -> ``(o [BH, Tq, D], lse [BH, Tq] fp32)``; one kernel
+    launch."""
     _check_q(q)
-    _check("k", k, q)
-    _check("v", v, q)
+    kshape = _key_shape(q, k, q_offset)
+    _check("k", k, q, kshape)
+    _check("v", v, q, kshape)
     d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
     qp, kp, vp = (_pad(x, dp) for x in (q, k, v))
     o = torch.empty_like(qp)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _call("flash_attention_fwd", qp.data_ptr(), kp.data_ptr(),
-              vp.data_ptr(), o.data_ptr(), lse.data_ptr(),
-              *_common(q, dp, causal, window, logit_softcap))
+        _call("flash_attention_fwd", q_offset, qp.data_ptr(),
+              kp.data_ptr(), vp.data_ptr(), o.data_ptr(), lse.data_ptr(),
+              *_common(q, q_offset, dp, causal, window, logit_softcap))
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.offset_launches += int(q_offset > 0)
     return o[..., :d].contiguous() if dp != d else o, lse
 
 
 def flash_attention_bwd_dq(q, k, v, o, do, lse, *, causal=True, window=0,
-                           logit_softcap=0.0
+                           logit_softcap=0.0, q_offset=0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``-> (dq [BH, T, D], delta [BH, T] fp32)``; one kernel launch."""
+    """``-> (dq [BH, Tq, D], delta [BH, Tq] fp32)``; one kernel
+    launch."""
     _check_q(q)
-    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
-        _check(name, t, q)
+    kshape = _key_shape(q, k, q_offset)
+    for name, t, shape in (("k", k, kshape), ("v", v, kshape), ("o", o, None),
+                           ("do", do, None)):
+        _check(name, t, q, shape)
     _check_rows("lse", lse, q)
     d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
     qp, kp, vp, op, dop = (_pad(x, dp) for x in (q, k, v, o, do))
     dq = torch.empty_like(qp)
     delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
-        _call("flash_attention_bwd_dq", qp.data_ptr(), kp.data_ptr(),
-              vp.data_ptr(), op.data_ptr(), dop.data_ptr(), lse.data_ptr(),
+        _call("flash_attention_bwd_dq", q_offset, qp.data_ptr(),
+              kp.data_ptr(), vp.data_ptr(), op.data_ptr(), dop.data_ptr(),
+              lse.data_ptr(),
               delta.data_ptr(), dq.data_ptr(),
-              *_common(q, dp, causal, window, logit_softcap))
+              *_common(q, q_offset, dp, causal, window, logit_softcap))
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.offset_launches += int(q_offset > 0)
     return dq[..., :d].contiguous() if dp != d else dq, delta
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True,
-                             window=0, logit_softcap=0.0
+                             window=0, logit_softcap=0.0, q_offset=0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``-> (dk, dv [BH, T, D])``; one kernel launch (after
+    """``-> (dk, dv [BH, Tk, D])``; one kernel launch (after
     ``flash_attention_bwd_dq``, which writes ``delta``)."""
     _check_q(q)
-    for name, t in (("k", k), ("v", v), ("do", do)):
-        _check(name, t, q)
+    kshape = _key_shape(q, k, q_offset)
+    for name, t, shape in (("k", k, kshape), ("v", v, kshape),
+                           ("do", do, None)):
+        _check(name, t, q, shape)
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
     d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
@@ -189,11 +239,12 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True,
     dk = torch.empty_like(kp)
     dv = torch.empty_like(vp)
     with torch.cuda.device(q.device):
-        _call("flash_attention_bwd_dkdv", qp.data_ptr(), kp.data_ptr(),
-              vp.data_ptr(), dop.data_ptr(), lse.data_ptr(),
+        _call("flash_attention_bwd_dkdv", q_offset, qp.data_ptr(),
+              kp.data_ptr(), vp.data_ptr(), dop.data_ptr(), lse.data_ptr(),
               delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-              *_common(q, dp, causal, window, logit_softcap))
+              *_common(q, q_offset, dp, causal, window, logit_softcap))
     flash_attention_bwd_dkdv.launches += 1
+    flash_attention_bwd_dkdv.offset_launches += int(q_offset > 0)
     if dp != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
@@ -202,42 +253,51 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True,
 for _fn in (flash_attention_fwd, flash_attention_bwd_dq,
             flash_attention_bwd_dkdv):
     _fn.launches = 0
+    _fn.offset_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernels as one differentiable op on ``[BH, T, D]``."""
+    """The kernels as one differentiable op on ``[BH, Tq, D]`` against
+    ``[BH, Tk, D]``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
         o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                     logit_softcap=softcap)
+                                     logit_softcap=softcap,
+                                     q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = (causal, window, softcap)
+        ctx.mask = (causal, window, softcap, q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, softcap = ctx.mask
-        kw = dict(causal=causal, window=window, logit_softcap=softcap)
+        causal, window, softcap, q_offset = ctx.mask
+        kw = dict(causal=causal, window=window, logit_softcap=softcap,
+                  q_offset=q_offset)
         do = do.contiguous()
         dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
         dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    logit_softcap: float = 0.0) -> torch.Tensor:
-    """``q, k, v [B, H, T, D]`` (same head count; GQA is repeated by the
-    caller) -> ``[B, H, T, D]`` in ``q.dtype``. CUDA tensors: one forward
-    launch over ``[B*H, T, D]`` (and two backward launches under
-    autograd); CPU tensors: the plain version."""
+                    logit_softcap: float = 0.0, q_offset: int = 0
+                    ) -> torch.Tensor:
+    """``q [B, H, Tq, D]``, ``k, v [B, H, Tk, D]`` with ``Tk = q_offset +
+    Tq`` (same head count; GQA is repeated by the caller) -> ``[B, H, Tq,
+    D]`` in ``q.dtype``. CUDA tensors: one forward launch over ``[B*H, Tq,
+    D]`` (and two backward launches under autograd); CPU tensors: the
+    plain version."""
     if resolve_backend(q) == "torch":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   logit_softcap=logit_softcap)
+                                   logit_softcap=logit_softcap,
+                                   q_offset=q_offset)
     b, h, t, d = q.shape
-    flat = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v)]
-    out = _FlashAttention.apply(*flat, bool(causal), int(window),
-                                float(logit_softcap))
+    tk = k.shape[2]
+    qf = q.reshape(b * h, t, d).contiguous()
+    kf, vf = (x.reshape(b * h, tk, d).contiguous() for x in (k, v))
+    out = _FlashAttention.apply(qf, kf, vf, bool(causal), int(window),
+                                float(logit_softcap), int(q_offset))
     return out.view(b, h, t, d)

@@ -67,23 +67,27 @@ def fused_masked_agg_ref(x: torch.Tensor, mask: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        logit_softcap: float = 0.0) -> torch.Tensor:
+                        logit_softcap: float = 0.0,
+                        q_offset: int = 0) -> torch.Tensor:
     """Naive softmax attention over ``[..., T, D]`` (same head count; any
     leading axes, ``[B, H]`` in the reference): fp32 scores ``(q k^T)
     D^-1/2``, optional ``cap tanh(s / cap)``, the causal and window masks
     by ``where(allow, s, -1e30)``, a full softmax, the output cast to
-    ``q.dtype``. Differentiable: its autograd is the backward kernel's
+    ``q.dtype``. ``q_offset``: the absolute position of ``q``'s first row
+    against keys from position 0 (``q [..., Tq, D]``, ``k, v [..., Tk,
+    D]``). Differentiable: its autograd is the backward kernel's
     yardstick."""
     t, d = q.shape[-2:]
     s = (q.float() @ k.float().transpose(-1, -2)) * (d ** -0.5)
     if logit_softcap:
         s = logit_softcap * torch.tanh(s / logit_softcap)
-    qp = torch.arange(t, device=q.device)
-    allow = torch.ones((t, t), dtype=torch.bool, device=q.device)
+    qp = q_offset + torch.arange(t, device=q.device)
+    kp = torch.arange(k.shape[-2], device=q.device)
+    allow = torch.ones((t, k.shape[-2]), dtype=torch.bool, device=q.device)
     if causal:
-        allow &= qp[:, None] >= qp[None, :]
+        allow &= qp[:, None] >= kp[None, :]
     if window:
-        allow &= qp[:, None] - qp[None, :] < window
+        allow &= qp[:, None] - kp[None, :] < window
     s = torch.where(allow, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return (p @ v.float()).to(q.dtype)

@@ -24,7 +24,7 @@ both ways, the data sheet's figure).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 PEAK_FLOPS = 989e12       # bf16 dense tensor-core flop/s, H100 SXM
 HBM_BW = 3.35e12          # bytes/s, H100 SXM
@@ -64,11 +64,13 @@ class CollectiveStats:
 
 def collective_stats(model: int, *, rows: int, clients: int,
                      group_bytes: Sequence[int], rounds: int,
-                     final_bytes: Sequence[int] = ()) -> CollectiveStats:
-    """The all-gathers one rank of the sharded sweep makes over a
+                     final_bytes: Sequence[int] = (),
+                     sequence: Optional[Tuple[int, int, int]] = None
+                     ) -> CollectiveStats:
+    """The collectives one rank of the sharded sweep makes over a
     ``"model"`` axis of ``model`` ranks (none when ``model`` is 1), for
     ``rows`` trajectories of ``clients`` clients (m, or C in cohort mode)
-    each:
+    each. Split by clients (``pool.ModelAxis``), all-gathers:
 
     - every round, one gather of the local updates per parameter group
       (``group_bytes[g]``: one client's bytes of group ``g``) and one of
@@ -76,29 +78,60 @@ def collective_stats(model: int, *, rows: int, clients: int,
     - at the end, one gather of each client-state leaf (``final_bytes``:
       one client's bytes of each clients buffer and optimizer leaf).
 
-    Bytes are each gather's output, ``rows * clients * bytes a client``."""
+    Split by sequence (``sequence = (layers, local_steps, kv_bytes)``,
+    ``pool.SequenceAxis``; ``kv_bytes`` one client's bytes of one layer's
+    K over the whole sequence, ``b * T * kv_heads * head_dim * itemsize``):
+
+    - every local step, an all-gather of K and one of V a layer, and in
+      the backward an all-reduce of each of their gradients (over the
+      whole sequence, zero past the rank's prefix);
+    - every local step, one all-reduce of the gradient per parameter
+      group; every round, one of the per-client losses (fp32);
+    - no final gather: every rank holds all the clients.
+
+    Bytes are each collective's output, ``rows * clients * bytes a
+    client``."""
     if model <= 1:
         return CollectiveStats()
+    if sequence is not None:
+        layers, steps, kv = sequence
+        kv_all = 2 * layers * rows * clients * kv     # K and V, a step
+        grads = sum(b * rows * clients for b in group_bytes)
+        return CollectiveStats(
+            {"all-gather": rounds * steps * kv_all,
+             "all-reduce": rounds * (steps * (kv_all + grads)
+                                     + 4 * rows * clients)},
+            {"all-gather": rounds * steps * 2 * layers,
+             "all-reduce": rounds * (steps * (2 * layers + len(group_bytes))
+                                     + 1)})
     per = [b * rows * clients for b in group_bytes] + [4 * rows * clients]
     fin = [b * rows * clients for b in final_bytes]
     return CollectiveStats({"all-gather": rounds * sum(per) + sum(fin)},
                            {"all-gather": rounds * len(per) + len(fin)})
 
 
-def attention_pairs(t: int, window: int = 0) -> int:
-    """Allowed (query, key) pairs of one head of length ``t`` under the
-    causal mask and a sliding ``window`` (0: none): the sum over queries
-    ``q`` of ``min(q + 1, window or t)``."""
+def attention_pairs(t: int, window: int = 0, q_offset: int = 0) -> int:
+    """Allowed (query, key) pairs of one head of ``t`` queries at absolute
+    positions ``q_offset + i`` against the keys up to the last of them
+    (``q_offset + t``), under the causal mask and a sliding ``window`` (0:
+    none): the sum over query positions ``p`` of ``min(p + 1, window or
+    p + 1)``."""
+    if q_offset:
+        return (attention_pairs(q_offset + t, window)
+                - attention_pairs(q_offset, window))
     w = window if window else t
     if w >= t:
         return t * (t + 1) // 2
     return w * (w + 1) // 2 + (t - w) * w
 
 
-def flash_work(bh: int, t: int, d: int, window: int, itemsize: int):
-    """``{kernel: (flops, bytes)}`` of the three flash kernels on ``[bh, t,
-    d]`` (``repro_torch.kernels.flash_attention``), counting the causal
-    pairs only (the masked tiles are skipped) and each operand moved once:
+def flash_work(bh: int, t: int, d: int, window: int, itemsize: int,
+               q_offset: int = 0):
+    """``{kernel: (flops, bytes)}`` of the three flash kernels on ``q [bh,
+    t, d]`` at ``q_offset`` against ``k, v [bh, q_offset + t, d]``
+    (``repro_torch.kernels.flash_attention``; self-attention at
+    ``q_offset`` 0), counting the causal pairs only (the masked tiles are
+    skipped) and each operand moved once:
 
     - ``fwd``: ``QK^T`` and ``PV`` (4 flops a pair and head dim); reads
       q, k, v, writes o and the fp32 row log-sum-exp;
@@ -107,11 +140,12 @@ def flash_work(bh: int, t: int, d: int, window: int, itemsize: int):
     - ``dkdv``: recomputes ``QK^T`` and ``dP``, then ``dV = P^T dO`` and
       ``dK = dS^T Q`` (8); reads q, k, v, dO, lse and delta, writes dk and
       dv."""
-    pairs = bh * attention_pairs(t, window)
+    pairs = bh * attention_pairs(t, window, q_offset)
     row, mat = bh * t * 4, bh * t * d * itemsize
-    return {"fwd": (4 * pairs * d, 3 * mat + mat + row),
-            "dq": (6 * pairs * d, 5 * mat + row + mat + row),
-            "dkdv": (8 * pairs * d, 4 * mat + 2 * row + 2 * mat)}
+    kmat = bh * (q_offset + t) * d * itemsize
+    return {"fwd": (4 * pairs * d, 2 * mat + 2 * kmat + row),
+            "dq": (6 * pairs * d, 4 * mat + 2 * kmat + 2 * row),
+            "dkdv": (8 * pairs * d, 2 * mat + 4 * kmat + 2 * row)}
 
 
 def wkv6_work(bh: int, t: int, d: int, heads: int):

@@ -37,6 +37,15 @@ stack with ``moe.*`` leaves in place of ``ffn.*`` on the layers of
 has no kernel there); ``loss_fn`` adds ``0.01 * aux``, the balance loss,
 as the reference's does.
 
+Sequence parallelism (the sharded sweep's ``run_sharded_2d(...,
+activation_spec=P(None, "model", None))``): under a sequence axis
+(``sharding.specs.sequence_axis``, a ``sharding.pool.SequenceAxis``) the
+dense family's forward takes one rank's chunk of every sequence, at its
+absolute positions; each attention block all-gathers K and V up to the
+chunk's end and attends at the chunk's offset (the flash kernels'
+causal-offset route); norms, products, the MLP and the loss stay local.
+The other families raise under an axis (``_sequence_split_ok``).
+
 Fp32 leaves in a bf16 model (the MoE router, the Mamba ``dt_proj``,
 ``dt_bias``, ``a_log``, ``d_skip``, the cross gate, RWKV6's) make two parameter
 groups (``init_params``, ``ParamLayout.pack``): the round engine holds
@@ -86,7 +95,7 @@ from repro_torch.models.layers import (
     rope_angles,
     softcap,
 )
-from repro_torch.sharding.specs import maybe_constrain
+from repro_torch.sharding.specs import maybe_constrain, sequence_axis
 
 Params = Dict[str, torch.Tensor]
 
@@ -263,10 +272,14 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _self_attn_block(p: Params, x, cfg: ModelConfig, kind: str, b: int,
-                     positions, backend=None):
+                     positions, backend=None, seq=None):
     """``x [G, b, T, d]`` or ``[G, b*T, d]`` (G models); ``p`` leaves
     ``[G, ...]``. The norm runs on ``x`` as it is, the products on its
-    rows, and the result keeps ``x``'s shape."""
+    rows, and the result keeps ``x``'s shape. ``seq``: a sequence axis
+    (``pool.SequenceAxis``) whose rank holds this chunk of each sequence:
+    K and V are all-gathered after rope up to the chunk's end, and the
+    chunk's queries attend them at their absolute offset (the flash
+    kernels' causal-offset route)."""
     a = cfg.attention
     hd = cfg.head_dim
     h = _rows(rms_norm(x, p["ln1"], cfg.norm_eps))
@@ -278,8 +291,13 @@ def _self_attn_block(p: Params, x, cfg: ModelConfig, kind: str, b: int,
     cos, sin = rope_angles(positions, hd, a.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q_offset = 0
+    if seq is not None:
+        k, v = seq.gather_prefix(k), seq.gather_prefix(v)
+        q_offset = seq.offset(t)
     o = attention(q, k, v, kind=kind, window=a.window,
-                  logit_softcap=a.logit_softcap, backend=backend)
+                  logit_softcap=a.logit_softcap, q_offset=q_offset,
+                  backend=backend)
     return x + (o.reshape(G, N, -1) @ p["attn.wo"]).reshape(x.shape)
 
 
@@ -465,6 +483,18 @@ def _rwkv_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return x.reshape(tokens.shape + (cfg.d_model,))
 
 
+def _sequence_split_ok(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a family whose forward splits its sequences
+    over a sequence axis: the dense stack without MoE layers."""
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise ValueError(
+            f"sequence-parallel activations (run_sharded_2d's "
+            f"activation_spec) cover the dense family only; {cfg.name} "
+            f"({cfg.family}{' with MoE layers' if cfg.moe else ''}) needs "
+            f"its MoE balance loss, token shift, causal conv or memory "
+            f"split too (ROADMAP Queue 1, item 6d)")
+
+
 def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    *, memory=None, backend=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -475,7 +505,17 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``memory``: ``[*L, b, M, d]`` image tokens (vlm) or audio frames
     (audio). ``backend``: ``None`` (the kernels for CUDA tensors) or
     ``"torch"`` (the plain versions on any device), see
-    ``repro_torch.kernels.dispatch``."""
+    ``repro_torch.kernels.dispatch``.
+
+    Under a sequence axis (``specs.sequence_axis``; the sharded sweep's
+    ``pool.SequenceAxis``) ``tokens`` is this rank's chunk of each
+    sequence: its positions start at the chunk's offset and each attention
+    block all-gathers K and V (``_self_attn_block``); the rest is local.
+    Only the dense family without MoE layers takes it
+    (``_sequence_split_ok``)."""
+    seq = sequence_axis()
+    if seq is not None:
+        _sequence_split_ok(cfg)
     if cfg.family == "ssm":
         return (_rwkv_hidden(params, cfg, tokens, backend),
                 torch.zeros(tokens.shape[:-2], dtype=torch.float32,
@@ -492,6 +532,8 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     rows = torch.arange(G, device=tok.device)[:, None, None]
     x = p["embed"][rows, tok].to(dtype_of(cfg))          # [G, b, T, d]
     positions = torch.arange(t, device=tok.device)
+    if seq is not None:
+        positions = positions + seq.offset(t)
     aux = torch.zeros(G, dtype=torch.float32, device=tok.device)
     for layer in range(n_periods):
         # the residual [G, b, T, d] keeps b and T apart, so that a mesh's
@@ -505,7 +547,7 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 x = _ssm_block(lp, x, cfg)[0]
             else:
                 x = _self_attn_block(lp, x, cfg, attn_kind(cfg, i), b,
-                                     positions, backend)
+                                     positions, backend, seq)
             if kind == "cross":
                 x = _cross_block(lp, x, cfg, memory)
             x, a = _ffn_block(lp, x, cfg, b)

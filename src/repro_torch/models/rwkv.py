@@ -83,7 +83,10 @@ def _token_shift(x, mix, last=None):
     """x [*L, B, T, D]; returns lerp(x_{t-1}, x_t, mix). last: [*L, B, 1, D]
     carry or None (zeros before the first step)."""
     if last is None:
-        prev = F.pad(x, (0, 0, 1, 0))[..., :-1, :]
+        # zeros before the first step, as a cat (DTensor refuses the pad's
+        # constant_pad_nd on some releases)
+        prev = torch.cat([torch.zeros_like(x[..., :1, :]), x[..., :-1, :]],
+                         -2)
     else:
         prev = torch.cat([last, x[..., :-1, :]], -2)
     return x + (prev - x) * (1.0 - _per_model(mix, x))

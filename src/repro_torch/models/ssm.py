@@ -173,7 +173,10 @@ def ssm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
 
     xs, z = mm(x.reshape(G, b, t, d), q["in_proj"]).split(di, -1)
     if state is None:
-        conv_in = F.pad(xs, (0, 0, cw - 1, 0))
+        # cw - 1 zero steps before the first, as a cat (DTensor refuses the
+        # pad's constant_pad_nd on some releases)
+        conv_in = torch.cat([torch.zeros_like(xs[:, :, :1])] * (cw - 1)
+                            + [xs], 2)
     else:
         conv_in = torch.cat([state["conv"].reshape(G, b, cw - 1, di), xs], 2)
     w = q["conv"].float()

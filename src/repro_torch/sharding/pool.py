@@ -16,7 +16,12 @@ starts one process per rank of a ``repro_torch.launch.mesh.Mesh`` instead:
 - the backend, chosen from the mesh's devices in ``backend_for``: NCCL when
   every rank has a CUDA device of its own, gloo otherwise (CPU ranks, or
   ranks sharing a card, which NCCL refuses). Under gloo a CUDA tensor goes
-  through host memory for a collective (``ModelAxis``).
+  through host memory for a collective (``ModelAxis``, ``SequenceAxis``).
+
+Over the ``"model"`` group a rank splits each trajectory's clients
+(``ModelAxis``, the default) or each sequence of the LM (``SequenceAxis``,
+the reference's ``activation_spec=P(None, "model", None)``); the caller
+picks one per call (``WorkerContext.split``).
 
 ``Pool.run(fn, args)`` sends rank ``r`` the pickled ``(fn, args[r])``
 (``fn`` by its import path), runs it there, and returns every rank's value
@@ -31,6 +36,7 @@ at exit (``close_pools``).
 from __future__ import annotations
 
 import atexit
+import contextlib
 import datetime
 import itertools
 import multiprocessing
@@ -123,16 +129,161 @@ class ModelAxis:
         return tuple(gmap(self.gather, u) for u in updates)
 
 
+class _GatherPrefix(torch.autograd.Function):
+    """``SequenceAxis.gather_prefix``: all-gather along ``dim``, keep the
+    prefix up to this rank's chunk; backward: the prefix's gradient
+    zero-padded to the whole sequence, all-reduced (every rank's queries
+    that saw this rank's keys), this rank's chunk of it."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.t = axis, dim, x.shape[dim]
+        full = axis._all_gather(x, dim)
+        return full.narrow(dim, 0, (axis.index + 1) * x.shape[dim])
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, t = ctx.axis, ctx.dim, ctx.t
+        shape = list(g.shape)
+        shape[dim] = t * axis.size
+        full = g.new_zeros(shape)
+        full.narrow(dim, 0, g.shape[dim]).copy_(g)
+        full = axis._all_reduce(full)
+        return full.narrow(dim, axis.index * t, t), None, None
+
+
+class SequenceAxis:
+    """A rank's share of each sequence on the mesh's ``"model"`` axis
+    (Megatron-style sequence parallelism, the reference's
+    ``run_sharded_2d(..., activation_spec=P(None, "model", None))``) and
+    the collectives that keep the local training exact.
+
+    With ``size`` ranks of the ``"model"`` group, rank ``index`` holds
+    tokens ``[index * T / size, (index + 1) * T / size)`` of every sequence
+    (``take_seq`` of ``tokens`` and ``labels``) and every client of its
+    trajectories. Inside the forward (``active()``, read by
+    ``repro_torch.models.model`` through ``specs.sequence_axis``) each
+    attention block all-gathers K and V and keeps their prefix up to its
+    chunk (``gather_prefix``: an autograd op whose backward all-reduces the
+    prefix's gradient and keeps the chunk); norms, products, the MLP and
+    the loss stay local. ``reduce_grads`` and ``reduce_loss`` all-reduce a
+    parameter gradient or the per-client losses and divide by ``size``:
+    each rank's loss is the mean over its ``b * T / size`` tokens, so that
+    is the mean over all ``b * T`` (exact division when ``size`` is a power
+    of two), and every rank holds the same bits after it. ``host_staged``
+    (gloo) copies a CUDA tensor to the host for the collective and back.
+    Each collective is tallied by kind (``"all-gather"``,
+    ``"all-reduce"``): its output bytes, its count and the wall seconds of
+    all (``stats``, ``seconds``; ``reset``)."""
+
+    splits_sequence = True
+
+    def __init__(self, index: int, size: int, group, host_staged: bool):
+        self.index, self.size, self.group = index, size, group
+        self.host_staged = host_staged
+        self.reset()
+
+    def reset(self) -> None:
+        self.bytes = {"all-gather": 0, "all-reduce": 0}
+        self.count = {"all-gather": 0, "all-reduce": 0}
+        self.seconds = 0.0
+
+    def stats(self) -> CollectiveStats:
+        return CollectiveStats(dict(self.bytes), dict(self.count))
+
+    def take_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of the last axis (``T``) of ``x``."""
+        t = x.shape[-1]
+        if t % self.size:
+            raise ValueError(f"a sequence of {t} does not split over a "
+                             f"model axis of {self.size}")
+        w = t // self.size
+        return x[..., self.index * w:(self.index + 1) * w]
+
+    def offset(self, t: int) -> int:
+        """The absolute position of this rank's first token, for chunks of
+        ``t``."""
+        return self.index * t
+
+    def gather_prefix(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """``x`` (this rank's chunk along ``dim``) all-gathered, up to the
+        end of this rank's chunk: ``[0, (index + 1) * t)``."""
+        return _GatherPrefix.apply(x, self, dim)
+
+    def reduce_grads(self, grad):
+        """A parameter gradient (or its ``Groups``) summed over the ranks
+        and divided by ``size``: one all-reduce per group."""
+        return gmap(self._mean, grad)
+
+    def reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The per-client losses ``[B, m]`` averaged over the ranks."""
+        return self._mean(loss)
+
+    @contextlib.contextmanager
+    def active(self):
+        """The model's forward splits each sequence over this axis."""
+        from repro_torch.sharding.specs import sequence_parallel
+
+        with sequence_parallel(self):
+            yield
+
+    def _mean(self, x: torch.Tensor) -> torch.Tensor:
+        return self._all_reduce(x) / self.size
+
+    def _tally(self, kind: str, out: torch.Tensor, t0: float) -> None:
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        self.seconds += time.perf_counter() - t0
+        self.bytes[kind] += out.numel() * out.element_size()
+        self.count[kind] += 1
+
+    def _all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        src = x.detach().contiguous()
+        if self.host_staged:
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
+        out = torch.cat(parts, dim).to(x.device)
+        self._tally("all-gather", out, t0)
+        return out
+
+    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        buf = x.detach().to("cpu" if self.host_staged else x.device,
+                            copy=True).contiguous()
+        dist.all_reduce(buf, group=self.group)
+        out = buf.to(x.device)
+        self._tally("all-reduce", out, t0)
+        return out
+
+
 @dataclass
 class WorkerContext:
-    """A worker's place in its mesh (``worker_context()``)."""
+    """A worker's place in its mesh (``worker_context()``). ``model`` and
+    ``sequence`` are the two splits over its ``"model"`` group (None
+    without a model axis of size > 1); ``split`` says which one the call
+    in progress uses (``"clients"`` or ``"sequence"``, set by the caller's
+    function, ``axis()``)."""
 
     rank: int
     mesh: Mesh
     device: torch.device
     backend: str
     device_mesh: Any
-    model: Optional[ModelAxis]      # None without a model axis of size > 1
+    model: Optional[ModelAxis]
+    sequence: Optional[SequenceAxis] = None
+    split: str = "clients"
+
+    def axis(self):
+        """The model-axis hook of the call in progress: the
+        ``SequenceAxis`` while ``split`` is ``"sequence"``, else the
+        ``ModelAxis`` (None without a model axis)."""
+        return self.sequence if self.split == "sequence" else self.model
 
 
 _CONTEXT: Optional[WorkerContext] = None
@@ -146,8 +297,31 @@ def worker_context() -> WorkerContext:
     return _CONTEXT
 
 
+# bytes a pipe message: a pickle crosses as its length, then pieces of at
+# most this size (multiprocessing's recv_bytes asks the OS for all that is
+# left of a message at every read, which makes one message of a GB or more,
+# a large client buffer coming back, crawl)
+PIECE_BYTES = 16 * 2 ** 20
+
+
+def _send_obj(conn, obj) -> None:
+    data = pickle.dumps(obj)
+    conn.send_bytes(len(data).to_bytes(8, "little"))
+    for at in range(0, len(data), PIECE_BYTES):
+        conn.send_bytes(data, at, min(PIECE_BYTES, len(data) - at))
+
+
+def _recv_obj(conn):
+    size = int.from_bytes(conn.recv_bytes(), "little")
+    buf = bytearray(size)
+    at = 0
+    while at < size:
+        at += conn.recv_bytes_into(buf, at)
+    return pickle.loads(buf)
+
+
 def _send(conn, *msg) -> None:
-    conn.send_bytes(pickle.dumps(msg))
+    _send_obj(conn, msg)
 
 
 def _worker_main(rank: int, mesh: Mesh, backend: str, store_path: str, conn,
@@ -169,12 +343,14 @@ def _worker_main(rank: int, mesh: Mesh, backend: str, store_path: str, conn,
             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
         dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
                               mesh.dims, mesh_dim_names=mesh.axis_names)
-        model = None
+        model = sequence = None
         if mesh.shape.get("model", 1) > 1:
-            model = ModelAxis(dm.get_local_rank("model"),
-                              mesh.shape["model"], dm.get_group("model"),
-                              host_staged=backend == "gloo")
-        _CONTEXT = WorkerContext(rank, mesh, dev, backend, dm, model)
+            axis = (dm.get_local_rank("model"), mesh.shape["model"],
+                    dm.get_group("model"))
+            model = ModelAxis(*axis, host_staged=backend == "gloo")
+            sequence = SequenceAxis(*axis, host_staged=backend == "gloo")
+        _CONTEXT = WorkerContext(rank, mesh, dev, backend, dm, model,
+                                 sequence)
         _send(conn, "ready", None, 0.0)
     except Exception:       # reported to the pool, which raises it
         _send(conn, "error", traceback.format_exc(), 0.0)
@@ -182,7 +358,7 @@ def _worker_main(rank: int, mesh: Mesh, backend: str, store_path: str, conn,
     try:
         while True:
             try:
-                fn, args = pickle.loads(conn.recv_bytes())
+                fn, args = _recv_obj(conn)
             except EOFError:
                 break
             if fn is None:
@@ -274,8 +450,7 @@ class Pool:
                 if conn in ready or (self._procs[r].sentinel in ready
                                      and conn.poll()):
                     try:
-                        status, value, seconds = pickle.loads(
-                            conn.recv_bytes())
+                        status, value, seconds = _recv_obj(conn)
                     except EOFError:
                         status, value, seconds = "died", None, 0.0
                     if status == "error":
@@ -304,7 +479,7 @@ class Pool:
             raise ValueError(f"{len(args)} argument tuples for "
                              f"{len(self._procs)} ranks")
         for conn, a in zip(self._conns, args):
-            conn.send_bytes(pickle.dumps((fn, tuple(a))))
+            _send_obj(conn, (fn, tuple(a)))
         got = self._collect(None, getattr(fn, "__name__", "call"))
         return PoolResult(
             [v for v, _ in got], self.backend,
@@ -362,6 +537,6 @@ def close_pools() -> None:
     _POOLS.clear()
 
 
-__all__ = ["Pool", "PoolResult", "RankReport", "ModelAxis", "WorkerContext",
-           "backend_for", "worker_context", "pool_for", "close_pools",
-           "START_TIMEOUT_S", "COLLECTIVE_TIMEOUT_S"]
+__all__ = ["Pool", "PoolResult", "RankReport", "ModelAxis", "SequenceAxis",
+           "WorkerContext", "backend_for", "worker_context", "pool_for",
+           "close_pools", "START_TIMEOUT_S", "COLLECTIVE_TIMEOUT_S"]

@@ -25,7 +25,9 @@ residual stream ``[B, T, D]`` is constrained to ``P(dp, "model", None)``
 (T over the tensor axis) through the ``set_activation_spec`` context hook
 that ``repro_torch.models.model`` consults at each period's boundaries
 (:func:`maybe_constrain`). Without a mesh (:func:`set_mesh`), or on a tensor
-that is not a DTensor, the hook returns its input unchanged.
+that is not a DTensor, the hook returns its input unchanged. The sharded
+sweep's worker processes split sequences another way, with explicit
+collectives (:func:`sequence_axis`, ``sharding.pool.SequenceAxis``).
 """
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ class P(tuple):
 
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
+
+    def __getnewargs__(self):
+        return tuple(self)      # pickles as P(*entries)
 
     def __repr__(self):
         return f"P{tuple.__repr__(self)}"
@@ -62,6 +67,25 @@ def activation_sharding(spec: Optional[P]):
         yield
     finally:
         set_activation_spec(old)
+
+
+def sequence_axis():
+    """The sequence-parallel axis of the forward running in this thread
+    (``repro_torch.sharding.pool.SequenceAxis``, installed by its
+    ``active()``), or None: ``repro_torch.models.model`` then splits each
+    sequence over the axis's ranks and all-gathers K and V."""
+    return getattr(_ctx, "sequence", None)
+
+
+@contextmanager
+def sequence_parallel(axis):
+    """Install ``axis`` as :func:`sequence_axis` for the block."""
+    old = sequence_axis()
+    _ctx.sequence = axis
+    try:
+        yield
+    finally:
+        _ctx.sequence = old
 
 
 def set_mesh(mesh, device_mesh=None):

@@ -150,11 +150,12 @@ def test_dispatch_kernel_gate_and_layout(monkeypatch):
     the chunking (1e-5)."""
     calls = []
 
-    def fake_kernel(q, k, v, *, causal, window, logit_softcap):
+    def fake_kernel(q, k, v, *, causal, window, logit_softcap, q_offset=0):
         calls.append((tuple(q.shape), window, logit_softcap))
         return tref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window,
-                                        logit_softcap=logit_softcap)
+                                        logit_softcap=logit_softcap,
+                                        q_offset=q_offset)
 
     monkeypatch.setattr(tdispatch, "resolve_backend", lambda x: "kernel")
     monkeypatch.setattr(tflash, "flash_attention", fake_kernel)
@@ -169,10 +170,18 @@ def test_dispatch_kernel_gate_and_layout(monkeypatch):
                                   jnp.asarray(v), **kw)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                    atol=1e-5)
+    # a chunk at its offset against every key up to its end (a
+    # sequence-parallel rank's) takes the kernel's causal-offset route
+    calls.clear()
+    got = tdispatch.attention(tq[:, 48:], tk, tv, q_offset=48)
+    assert calls == [((2, 4, 16, 16), 0, 0.0)]
+    ref = jattn.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:, 48:],
+                               rtol=1e-5, atol=1e-5)
     # the reference's plain-path shapes never reach the kernel
     calls.clear()
     tdispatch.attention(tq, tk, tv, kind="chunked", window=16)
-    tdispatch.attention(tq[:, :16], tk, tv, q_offset=48)
+    tdispatch.attention(tq[:, :16], tk, tv, q_offset=40)  # keys past its end
     q2, k2, v2 = (torch.as_tensor(x) for x in _gqa(t=200))
     tdispatch.attention(q2, k2, v2)              # 200 % 128 != 0
     assert calls == []

@@ -36,10 +36,12 @@ def emulated(tmp_path_factory):
     return cases.build(tmp_path_factory)
 
 
-@pytest.mark.parametrize("bh,t,d,dtype,causal,window,cap", cases.FP32)
+@pytest.mark.parametrize(cases.PARAMS, cases.FP32,
+                         ids=[cases.ID(c) for c in cases.FP32])
 def test_emulated_kernels_match_plain_version(emulated, bh, t, d, dtype,
-                                              causal, window, cap):
-    cases.check_case(emulated, bh, t, d, dtype, causal, window, cap)
+                                              causal, window, cap, q_offset):
+    cases.check_case(emulated, bh, t, d, dtype, causal, window, cap,
+                     q_offset)
 
 
 def test_emulated_fp32_forward_matches_jax_kernel(emulated):
@@ -87,11 +89,17 @@ def test_emulated_fp32_backward_matches_jax_grad(emulated, cap):
 
 def test_emulated_launch_refuses_an_unsupported_head_dim(emulated):
     """Past the largest instantiation the C interface refuses (-1) and the
-    wrapper raises before any launch, naming the gap."""
+    wrapper raises before any launch, naming the gap; the self-attention
+    library refuses an offset call (-2: the offset route's library takes
+    it)."""
     x = torch.zeros(1, 64, 272)
     lse = torch.empty(1, 64)
     assert emulated.flash_attention_fwd(
         x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
-        lse.data_ptr(), 1, 64, 272, 0, 1, 0, 0.0, 272 ** -0.5, None) == -1
+        lse.data_ptr(), 1, 64, 64, 0, 272, 0, 1, 0, 0.0, 272 ** -0.5,
+        None) == -1
+    assert emulated.flash_attention_fwd(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+        lse.data_ptr(), 1, 32, 64, 32, 64, 0, 1, 0, 0.0, 0.125, None) == -2
     with pytest.raises(ValueError, match="head dims 1 to 256"):
         tflash.padded_head_dim(272)

@@ -16,7 +16,9 @@ def emulated(tmp_path_factory):
     return cases.build(tmp_path_factory)
 
 
-@pytest.mark.parametrize("bh,t,d,dtype,causal,window,cap", cases.BF16)
+@pytest.mark.parametrize(cases.PARAMS, cases.BF16,
+                         ids=[cases.ID(c) for c in cases.BF16])
 def test_emulated_kernels_match_plain_version(emulated, bh, t, d, dtype,
-                                              causal, window, cap):
-    cases.check_case(emulated, bh, t, d, dtype, causal, window, cap)
+                                              causal, window, cap, q_offset):
+    cases.check_case(emulated, bh, t, d, dtype, causal, window, cap,
+                     q_offset)

@@ -923,3 +923,91 @@ def test_rank0_of_a_meshed_prefill_launches_the_counted_flash_shapes(cuda):
     got = dispatch.attention(q, k, v, **kw)
     want = attention_ref(q.float(), k.float(), v.float(), **kw)
     torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=3e-2)
+
+
+# the causal-offset route at chip_smoke.py phase 24c's fp32 shapes, rank 1
+# of a 2-rank sequence split: lm-family's ([256, 16 | 32, 16]: B 8 x m 4
+# x b 2 x 4 heads, T = 32) and lm-wide's ([256, 128 | 256, 128]: B 4 x m
+# 8 x b 2 x 4 heads, T = 256), as (bh, tq, d, q_offset)
+FLASH_OFFSET_CASES = [(256, 16, 16, 16), (256, 128, 128, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,tq,d,q_offset", FLASH_OFFSET_CASES)
+def test_flash_offset_route_matches_attention_ref(cuda, bh, tq, d, q_offset):
+    """The three kernels' causal-offset route (``q [bh, tq, d]`` at
+    ``q_offset`` against ``k, v [bh, q_offset + tq, d]``) vs the model
+    stack's ``attention_ref(..., q_offset=...)`` and its autograd, fp32
+    within the flash bar; each kernel launches once, at an offset."""
+    from repro_torch.models.attention import attention_ref
+
+    tk = q_offset + tq
+    gen = torch.Generator(device=cuda).manual_seed(tq + q_offset)
+    q, g = (torch.randn(1, bh, tq, d, generator=gen, device=cuda)
+            for _ in range(2))
+    k, v = (torch.randn(1, bh, tk, d, generator=gen, device=cuda)
+            for _ in range(2))
+    fns = (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+           tflash.flash_attention_bwd_dkdv)
+    counts = [(f.launches, f.offset_launches) for f in fns]
+    ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tflash.flash_attention(*ts, q_offset=q_offset)
+    grads = torch.autograd.grad(out, ts, g)
+    torch.cuda.synchronize()
+    assert [(f.launches - a, f.offset_launches - b)
+            for f, (a, b) in zip(fns, counts)] == [(1, 1)] * 3
+    rs = [x.transpose(1, 2).clone().requires_grad_(True) for x in (q, k, v)]
+    ref = attention_ref(*rs, q_offset=q_offset)
+    ref_grads = torch.autograd.grad(ref, rs, g.transpose(1, 2))
+    torch.testing.assert_close(out, ref.transpose(1, 2), rtol=2e-3,
+                               atol=2e-3)
+    for got, want in zip(grads, ref_grads):
+        torch.testing.assert_close(got, want.transpose(1, 2), rtol=2e-3,
+                                   atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_sequence_parallel_lm_round_matches_one_device(cuda):
+    """A 2-rank sequence-parallel lm-family run (two gloo ranks sharing the
+    card, ``make_2d_mesh(1, 2)``, ``activation_spec=P(None, "model",
+    None)``) against one device: servers within ``LM_PATHS_TOL`` (1e-3, as
+    ``chip_smoke.py``), both ranks' servers and outputs bitwise equal, rank
+    1's training through the offset route and no plain attention on the
+    card."""
+    from repro_torch.core.algorithms import algo_family
+    from repro_torch.experiments import grid as tgrid
+    from repro_torch.experiments import shard as tshard
+    from repro_torch.launch.mesh import make_2d_mesh
+    from repro_torch.sharding import pool as tpool
+
+    spec = tgrid.SweepSpec(
+        algorithms=algo_family("fedavg"), schemes=("bernoulli_ti",),
+        seeds=(0,), rounds=2, eval_every=2, num_clients=4, local_steps=2,
+        batch_size=2, per_client=8, lrs=(0.1,), task="lm", lm_d_model=64,
+        lm_layers=2, lm_seq=32, classes=4, lm_n_seqs=64, lm_n_test=16,
+        use_kernel=True)
+    card = torch.device("cuda", 0)
+    mesh = make_2d_mesh(1, 2, [card, card])
+    task = tgrid.get_traced_task(spec, cuda)
+    fed = spec.cell_config(spec.algorithms[0], "bernoulli_ti")
+    batch = tgrid.make_cell_batch(spec, fed, task, algos=spec.algorithms,
+                                  device=cuda)
+    want = tgrid.make_runner(spec, fed, task, device=cuda)(batch)
+    r2d = tgrid.make_runner(spec, fed, task, device=cuda, shard_mesh=mesh)
+    try:
+        got = tshard.run_sharded_2d(r2d, batch, mesh,
+                                    activation_spec=tshard.SEQUENCE_SPEC)
+        res = tshard.last_run()
+    finally:
+        tpool.close_pools()
+    assert float((got[0].server - want[0].server).abs().max()) <= 1e-3
+    assert res.backend == "gloo"
+    ranks = res.values
+    assert all(v["seq_split"] for v in ranks)
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    assert [v["plain_attention"] for v in ranks] == [0, 0]
+    steps = spec.rounds * spec.local_steps * spec.lm_layers
+    off = ranks[1]["offset_launches"]
+    assert [off[n] for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkdv")] == [steps] * 3
+    assert not any(ranks[0]["offset_launches"].values())

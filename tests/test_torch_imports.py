@@ -92,11 +92,15 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
              "repro_torch.launch.mesh": ["Mesh", "make_batch_mesh",
                                          "make_2d_mesh", "make_host_mesh"],
              "repro_torch.sharding.pool": ["Pool", "ModelAxis", "pool_for",
-                                           "worker_context"],
+                                           "worker_context",
+                                           # the sequence split
+                                           "SequenceAxis", "WorkerContext"],
              "repro_torch.experiments.shard": ["AUTO", "resolve_batch_mesh",
                                                "pad_batch", "shard_batch",
                                                "run_sharded",
-                                               "run_sharded_2d"],
+                                               "run_sharded_2d",
+                                               "SEQUENCE_SPEC",
+                                               "sequence_split"],
              "repro_torch.launch.steps": ["make_train_step",
                                           "make_prefill_step",
                                           "make_serve_step",
@@ -120,7 +124,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                                       "activation_spec", "maybe_constrain",
                                       "set_activation_spec", "set_mesh"],
              "repro_torch.sharding.specs": ["leaf_spec", "_moe_expert_spec",
-                                            "shard_shape"],
+                                            "shard_shape", "sequence_axis",
+                                            "sequence_parallel"],
              "repro_torch.sharding.spmd": ["simulated_mesh",
                                            "distribute_empty",
                                            "LayoutFixups", "RETRIED",
@@ -167,8 +172,9 @@ def test_source_scan_finds_no_jax_or_reference_imports():
                          r"from\s+benchmarks\b|import\s+benchmarks\b)",
                          re.M)
     examples = SRC.parent / "examples" / "torch_port"
-    files = [*PORT.rglob("*.py"), *examples.glob("*.py")]
-    assert len(files) > len(list(PORT.rglob("*.py"))) + 3
+    files = [*PORT.rglob("*.py"), *examples.glob("*.py"),
+             SRC.parent / "chip_smoke.py"]
+    assert len(files) > len(list(PORT.rglob("*.py"))) + 4
     hits = [f"{p}: {m.group(0).strip()}" for p in files
             for m in pattern.finditer(p.read_text())]
     assert hits == []
@@ -191,3 +197,21 @@ def test_static_gate_imports_no_torch():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["True"], out.stdout
+
+
+def test_run_sharded_2d_takes_the_activation_spec():
+    """The sequence split's entry: ``run_sharded_2d``'s keyword-only
+    ``activation_spec`` (default None, the clients split) beside ``draws``,
+    and the flash wrappers' ``q_offset``."""
+    import inspect
+
+    from repro_torch.experiments import shard
+    from repro_torch.kernels import flash_attention as fa
+
+    params = inspect.signature(shard.run_sharded_2d).parameters
+    assert params["activation_spec"].default is None
+    assert params["activation_spec"].kind is inspect.Parameter.KEYWORD_ONLY
+    assert "draws" in params
+    for fn in (fa.flash_attention, fa.flash_attention_fwd,
+               fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv):
+        assert inspect.signature(fn).parameters["q_offset"].default == 0
