@@ -524,6 +524,32 @@ rank, the collectives' bytes and counts equal to
 runner with the clients split, for its peak memory a rank beside the
 sequence split's. Phase 24 is held to ``PHASE24_LIMIT_S``.
 
+Phase 25 splits the sequences of the MoE, RWKV6 and hybrid families
+(ROADMAP item 6d) on phase 24's mesh: each rank takes what the earlier
+rank carries into its chunk (the token shifts' and the Mamba conv's last
+rows, the WKV6 and Mamba states, the MoE rows' expert counts and
+whole-row sums; ``sharding.pool.SequenceAxis``). (a), while the pool
+starts: the WKV6 kernels' zero-padded head-dim route alone at head dims
+16 and 32 (``WKV_PAD_SHAPES``), forward and backward from a non-zero
+``s0`` with a non-zero ``dS_T`` against the plain version within
+``WKV_TOL`` / ``WKV_BWD_TOL``, timed beside it and its bound; then
+``LM_SWEEP`` at rwkv6-3b (4 heads of 16) on one device through the pad
+route, its WKV6 launches as counted, no plain WKV6 call, against the
+plain path within ``LM_PATHS_TOL``. (b) ``LM_SWEEP`` at each of
+``SEQ_FAMILY_ARCHS`` with ``activation_spec=P(None, "model", None)``
+against one device: the largest |server diff| of a trajectory within
+``LM_PATHS_TOL``, both ranks' digests equal, each rank's flash and
+aggregation launches as one device's (rank 1's training at the offset),
+its WKV6 forward one more a layer and local step and its backward twice
+(the chunk's state from zero, then its outputs from the carried state),
+no plain attention or WKV6, the collectives as
+``roofline.collective_stats(..., exchanges=sequence_exchanges(...))``
+counts them. (c) lm-wide (one round) at ``SEQ_FAMILY_WIDE_ARCHS`` the
+same (rwkv6 alone, for the smoke's time), with each rank's peak memory
+and collective seconds; then WKV6 at rank 1's local shape there (D = 128)
+from a carried state, checked and timed. Phase 25 is held to
+``PHASE25_LIMIT_S``.
+
 The four CUDA sources (the flash kernels' two routes, WKV6's forward and
 backward) are built at the start, one ``nvcc`` each, started together
 while phase 1 builds and checks the Triton kernel.
@@ -539,7 +565,8 @@ line (phase 20's), a ``{"suites": {...}}`` line (each phase-21 suite's
 kernel checks and momentum check), a ``{"zoo": {...}}`` line (phases 14 to 17), an
 ``{"analysis": {...}}`` line (phase 22's census and pins), a
 ``{"meshes": {...}}`` line (phase 23's rows, rank-0 run and examples),
-a ``{"seq_parallel": {...}}`` line (phase 24's cells), then a
+a ``{"seq_parallel": {...}}`` line (phase 24's cells), a
+``{"seq_families": {...}}`` line (phase 25's), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 24's by rank as
 ``seq_parallel_launches``, phase 10's as ``scale_launches``, phase
@@ -563,7 +590,13 @@ WKV6 wrapper once per
 route, ``rwkv6_chunk_fwd`` and ``rwkv6_step_fwd``, with their kernels'
 ptxas by head dim and the chunked route's phase-19 launches as
 ``train_launches``; the WKV6 backward, ``rwkv6_chunk_bwd``, with its
-launches in phase 19c; the aggregation's and each flash kernel's launches
+launches in phase 19c; both WKV6 directions' phase-25 launches by cell
+and rank as ``seq_family_launches`` and their timing at 25c's rank-local
+shape as ``seq_wide_shape``; the zero-padded route,
+``rwkv6_chunk_padded``, with its launches in 25a's rwkv6 run, its
+timings by head dim and its launches by cell and rank; each flash
+kernel's and the aggregation's phase-25 launches by cell and rank as
+``seq_family_launches``; the aggregation's and each flash kernel's launches
 by rank in phase 20 as ``sharded_launches``; every kernel's phase-21
 launches by suite as ``suite_launches``, and the aggregation's, the flash
 forward's and the chunked WKV6 route's timings at the ``kernels`` suite's
@@ -1148,6 +1181,23 @@ SEQ_OFFSET_SHAPES = ((256, 16, 16, 16, "float32"),
 SEQ_ALIGNED_TWINS = ((256, 32, 16, "float32"), (256, 256, 128, "float32"),
                      (144, 2048, 64, "bfloat16"))
 PHASE24_LIMIT_S = 120.0
+# Phase 25, the sequence split of the MoE, RWKV6 and hybrid families (ROADMAP
+# item 6d) on phase 24's make_2d_mesh(1, 2) of cuda:0, and the WKV6
+# kernels' zero-padded head-dim route: (a) the route alone at head dims 16
+# and 32 as (b, heads, T, D) (the rwkv6 LM sweep's training call at
+# d_model 64: 8 trajectories x 4 clients x 4 heads of 16; the same at
+# d_model 128), then LM_SWEEP at rwkv6-3b on one device through it against
+# the plain path; (b) LM_SWEEP at each of SEQ_FAMILY_ARCHS split over the
+# two ranks against one device; (c) lm-wide (LM_WIDE, one round) at each
+# of SEQ_FAMILY_WIDE_ARCHS likewise, and WKV6 at rank 1's local shape there
+# from a carried state, timed. (c) runs rwkv6 alone so that the whole smoke
+# keeps its room in 1,200 s: mixtral there took 36.8 s of a 113.7-s phase
+# (NVIDIA H100 at 700 W), and phase 24b runs the flash offset route at
+# lm-wide's shape already; jamba's Mamba has no kernel of its own
+SEQ_FAMILY_ARCHS = ("rwkv6-3b", "mixtral-8x22b", "jamba-1.5-large-398b")
+SEQ_FAMILY_WIDE_ARCHS = ("rwkv6-3b",)
+WKV_PAD_SHAPES = ((2, 128, 32, 16), (2, 128, 32, 32))
+PHASE25_LIMIT_S = 150.0
 
 
 def fail(msg):
@@ -6656,6 +6706,339 @@ def phase24_seq_parallel(torch, fa, ref, grid, bw, fp32_peak, bf16_peak):
     return res
 
 
+def _wkv_fwd_check(torch, rk, ref, ins, label, route=None):
+    """``rwkv6_chunk`` (one call, ``route`` or by T) against the plain
+    version within ``WKV_TOL``; fails on a mismatch. Returns the largest
+    error of ``o`` and ``S_T``."""
+    o, s_t = rk.rwkv6_chunk(*ins, route=route)
+    wo, ws = ref.rwkv6_chunk_plain(*ins, chunk=rk.CHUNK)
+    torch.cuda.synchronize()
+    err = max((o - wo).abs().max().item(), (s_t - ws).abs().max().item())
+    ok = all(bool(torch.isfinite(a).all()) and torch.allclose(
+        a, w, rtol=WKV_TOL, atol=WKV_TOL) for a, w in ((o, wo), (s_t, ws)))
+    print(f"{label} forward vs plain: max_abs_err {err:.3e} (tol "
+          f"{WKV_TOL:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{label}: the WKV6 forward disagrees with its plain version")
+    return err
+
+
+def _wkv_timed(torch, rk, ref, gen, shape, label, bw, fp32_peak):
+    """The WKV6 wrapper at ``shape`` ``(b, h, t, d)`` from a non-zero
+    ``s0`` with a non-zero ``dS_T`` (a state carried into a chunk), checked
+    forward and backward against the plain version (the backward through
+    ``rwkv6_chunk_autograd``, ``WKV_BWD_TOL``), then timed: the forward
+    (``rwkv6_chunk``, CUDA-graph replays) and the autograd backward (CUDA
+    events; at a padded head dim the pads' and slices' copies included)
+    beside the plain version's and the bounds at the true head dim."""
+    b, h, t, d = shape
+    ins, do, ds_t = _wkv_bwd_inputs(torch, gen, b, h, t, d, "ref")
+    before = dict(rk.rwkv6_chunk.padded_launches)
+    err = max(_wkv_fwd_check(torch, rk, ref, ins, label),
+              _wkv_bwd_check(torch, rk, ref, ins, do, ds_t, label))
+    padded = {k: v - before[k]
+              for k, v in rk.rwkv6_chunk.padded_launches.items()}
+    want_padded = 1 if rk.padded_head_dim(d) != d else 0
+    if padded != {"forward": 2 * want_padded, "backward": want_padded}:
+        fail(f"{label}: the zero-padded route counted {padded}")
+    ms = time_ms(lambda: rk.rwkv6_chunk(*ins, route="chunked"), iters=50)
+    plain_ms = time_ms_events(lambda: ref.rwkv6_chunk_plain(
+        *ins, chunk=rk.CHUNK), iters=5)
+
+    def backward_ms(fn, iters):
+        leaves = [x.clone().requires_grad_(True) for x in ins]
+        o, s = fn(*leaves)
+        return time_ms_events(lambda: torch.autograd.grad(
+            [o, s], leaves, [do, ds_t], retain_graph=True), iters=iters)
+
+    bwd_ms = backward_ms(rk.rwkv6_chunk_autograd, 10)
+    plain_bwd_ms = backward_ms(ref.rwkv6_chunk_plain, 3)
+    row = dict(shape=list(shape), padded_to=rk.padded_head_dim(d),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               backward_ms=bwd_ms, plain_backward_ms=plain_bwd_ms,
+               library_ms=None)
+    for key, direction in (("", "fwd"), ("backward_", "bwd")):
+        nbytes, flops = wkv_work(b, h, t, d, direction=direction)
+        row[f"{key}bound_ms"] = max(nbytes / bw, flops / fp32_peak) * 1e3
+        row[f"{key}bound_by"] = ("operations" if flops / fp32_peak
+                                 > nbytes / bw else "bytes")
+    print(f"{label} timing {list(shape)} fp32 (head dim {d} run at "
+          f"{row['padded_to']}): forward {ms:.5f} ms (CUDA-graph replays; "
+          f"plain {plain_ms:.5f}), autograd backward {bwd_ms:.5f} ms (CUDA "
+          f"events; plain {plain_bwd_ms:.5f}); bounds {row['bound_ms']:.5f} "
+          f"/ {row['backward_bound_ms']:.5f} ms by {row['bound_by']} / "
+          f"{row['backward_bound_by']} at the true head dim; library none",
+          flush=True)
+    del ins, do, ds_t
+    torch.cuda.empty_cache()
+    return row
+
+
+def _one_device_counted(torch, grid, spec, task=None):
+    """One family batch of ``spec`` on one device with every count (flash,
+    aggregation, WKV6, the plain attention and WKV6 calls) set to 0 just
+    before and read just after: ``(server, out, counts, wall s, peak
+    bytes, batch, task, fed)``; the rest of the final state is freed, and
+    the allocator's cache emptied, so that a pool sharing the card finds
+    the room."""
+    from repro_torch.experiments import shard
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import masked_agg
+    from repro_torch.kernels import rwkv6_chunk as rk
+
+    fed = spec.cell_config(spec.algorithms[0], spec.schemes[0])
+    task = task or grid.get_traced_task(spec)
+    batch = grid.make_cell_batch(spec, fed, task, algos=spec.algorithms)
+    runner = grid.make_runner(spec, fed, task)
+    fns = dict(zip(FLASH_NAMES, (fa.flash_attention_fwd,
+                                 fa.flash_attention_bwd_dq,
+                                 fa.flash_attention_bwd_dkdv)),
+               fused_masked_agg=masked_agg.fused_masked_agg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for f in fns.values():
+        f.launches = 0
+    rk.reset_counts()
+    dispatch.plain_attention_calls = dispatch.plain_wkv6_calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, out = runner(batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = dict({k: f.launches for k, f in fns.items()},
+                  **shard._wkv6_launches(rk),
+                  plain_attention=dispatch.plain_attention_calls,
+                  plain_wkv6=dispatch.plain_wkv6_calls)
+    peak = torch.cuda.max_memory_allocated()
+    server = st.server
+    del st, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return server, out, counts, sec, peak, batch, task, fed
+
+
+def _seq_family_cell(torch, grid, shard, spec, mesh, label, one=None):
+    """One family batch of ``spec`` (an MoE, RWKV6 or hybrid arch) on one
+    device (``one``: that run, already made) and with each sequence split
+    over ``mesh``'s two model ranks, with phase 25's bars: the largest
+    |server diff| of a trajectory within ``LM_PATHS_TOL``, both ranks'
+    servers and outputs bitwise equal, each rank's flash and aggregation
+    launches as one device's with rank 1's training at ``q_offset = T /
+    2``, its WKV6 calls one device's plus one more forward a layer and
+    local step and twice the backward (the chunk's state from zero, then
+    its outputs from the carried state), through the zero-padded route
+    where the head dim is not the kernels', no plain attention or WKV6
+    call on either rank, every rank's collectives as ``collective_stats``
+    counts them with the family's ``sequence_exchanges``."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import rwkv6_chunk as rk
+    from repro_torch.launch.roofline import (collective_stats,
+                                             sequence_exchanges)
+
+    server_p, out_p, one_counts, plain_s, one_peak, batch, task, fed = (
+        one or _one_device_counted(torch, grid, spec))
+    r2d = grid.make_runner(spec, fed, task, shard_mesh=mesh)
+    t0 = time.perf_counter()
+    st_s, out_s = shard.run_sharded_2d(r2d, batch, mesh,
+                                       activation_spec=shard.SEQUENCE_SPEC)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    run = shard.last_run()
+    B, m, k = batch.batch_size, spec.num_clients, mesh.shape["model"]
+    L, s, T = spec.lm_layers, spec.local_steps, spec.lm_seq
+    cfg = dc.replace(reduced(get_config(spec.lm_arch), d_model=spec.lm_d_model,
+                             layers=L), dtype="float32")
+    kinds = [cfg.layer_kind(i) for i in range(L)]
+    attn, rwkv = kinds.count("attn"), kinds.count("rwkv")
+    steps = s * spec.rounds
+    padded = bool(rwkv) and rk.padded_head_dim(cfg.rwkv.head_dim) != \
+        cfg.rwkv.head_dim
+    want = dict(one_counts, plain_attention=0, plain_wkv6=0)
+    want["wkv6_fwd"] += rwkv * steps
+    want["wkv6_bwd"] *= 2
+    want["wkv6_fwd_padded"] = want["wkv6_fwd"] if padded else 0
+    want["wkv6_bwd_padded"] = want["wkv6_bwd"] if padded else 0
+    got = [dict(v["launches"], plain_attention=v["plain_attention"],
+                plain_wkv6=v["plain_wkv6"]) for v in run.values]
+    offset = [[v["offset_launches"][nm] for nm in FLASH_NAMES]
+              for v in run.values]
+    want_offset = [[0] * 3, [attn * steps] * 3]
+    kv = (spec.batch_size * T * cfg.attention.num_kv_heads * cfg.head_dim
+          * 4) if attn else 0
+    stats = collective_stats(
+        k, rows=B, clients=m, group_bytes=[4 * task.layout.size],
+        rounds=spec.rounds, sequence=(attn, s, kv),
+        exchanges=sequence_exchanges(cfg, batch=spec.batch_size, seq_len=T,
+                                     ranks=k))
+    rows_d = (server_p - st_s.server).abs().amax(-1)
+    gathers = [v["gathers"] for v in run.values]
+    digests = [v["digest"] for v in run.values]
+    peak = [v["peak_bytes"] for v in run.values]
+    res = dict(_ranks_line(f"{label} make_2d_mesh(1, 2) on cuda:0", run),
+               arch=spec.lm_arch, B=B, m=m, T=T, rank_T=T // k, layers=L,
+               one_device_s=plain_s, seq_parallel_s=seq_s,
+               max_server_diff=float(rows_d.max()),
+               final_loss_one_device=out_p["metrics"]["loss"][:, -1].tolist(),
+               final_loss_seq_parallel=out_s["metrics"]["loss"][:, -1].tolist(),
+               one_device_launches=one_counts, launches=got,
+               want_launches=want, offset_launches=offset,
+               digests_equal=digests[0] == digests[1],
+               seq_split=[v["seq_split"] for v in run.values],
+               gathers=gathers, one_device_peak_bytes=one_peak,
+               peak_bytes=peak,
+               collective_stats=dict(bytes_by_kind=stats.bytes_by_kind,
+                                     count_by_kind=stats.count_by_kind,
+                                     t_collective_s=stats.t_collective))
+    print(f"{label} ({spec.lm_arch}, d_model {spec.lm_d_model}, {L} layers "
+          f"{kinds}) B = {B}, m = {m}, T = {T} split {T // k} a rank, "
+          f"{spec.rounds} rounds: one device {plain_s:.3f} s (peak "
+          f"{_gib(one_peak)} GiB), the sequence split {seq_s:.3f} s; largest "
+          f"|server diff| of a trajectory {rows_d.max().item():.3e} (tol "
+          f"{LM_PATHS_TOL:g}); final losses one device "
+          f"{[round(x, 6) for x in res['final_loss_one_device']]}, split "
+          f"{[round(x, 6) for x in res['final_loss_seq_parallel']]}; counts "
+          f"by rank {got}, expected {want} each; flash at an offset "
+          f"{offset}, expected {want_offset}; the ranks' digests "
+          f"{'equal' if res['digests_equal'] else 'DIFFER'}; collectives "
+          f"by rank {[(g['bytes_by_kind'], g['count_by_kind'], round(g['seconds'], 4)) for g in gathers]}, "
+          f"counted {stats.bytes_by_kind} in {stats.count_by_kind} "
+          f"({stats.t_collective * 1e3:.4f} ms at NVLink's 450 GB/s); peak "
+          f"memory a rank {[_gib(x) for x in peak]} GiB", flush=True)
+    if run.backend != "gloo" or len(run.values) != 2 \
+            or not all(res["seq_split"]):
+        fail(f"{label} ran {len(run.values)} ranks under {run.backend}, "
+             f"split {res['seq_split']}")
+    if not rows_d.max() <= LM_PATHS_TOL:
+        fail(f"{label}: the sequence split and one device diverge")
+    if not res["digests_equal"]:
+        fail(f"{label}: the two model ranks' servers or outputs differ")
+    if one_counts["plain_attention"] or one_counts["plain_wkv6"]:
+        fail(f"{label}: one device took a plain version on the card "
+             f"{one_counts}")
+    if any(row != want for row in got) or offset != want_offset:
+        fail(f"{label}: counts {got} (offset {offset}), expected {want} "
+             f"({want_offset})")
+    if any(g["bytes_by_kind"] != stats.bytes_by_kind
+           or g["count_by_kind"] != stats.count_by_kind for g in gathers):
+        fail(f"{label}: the collectives moved other bytes than "
+             "collective_stats counts")
+    del server_p, out_p, st_s, out_s, batch, task
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase25_seq_families(torch, rk, ref, grid, bw, fp32_peak):
+    """The sequence split of the MoE, RWKV6 and hybrid families, and the
+    WKV6 kernels' zero-padded head-dim route (``PHASE25_LIMIT_S``); see
+    the constants above."""
+    import dataclasses as dc
+    import threading
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.experiments import shard, sweep, tasks
+    from repro_torch.launch.mesh import make_2d_mesh
+    from repro_torch.sharding import pool
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    mesh = make_2d_mesh(1, 2, [card, card])
+    start = threading.Thread(target=pool.pool_for, args=(mesh,), daemon=True)
+    start.start()
+    res = {}
+    # (a) the pad route alone at head dims 16 and 32, then the rwkv6 LM
+    # sweep at head dim 16 through it on one device against the plain path
+    gen = torch.Generator(device=card).manual_seed(25)
+    res["pad_route"] = {
+        f"D={shape[3]}": _wkv_timed(torch, rk, ref, gen, shape,
+                                    f"phase25a wkv6 pad route {list(shape)}",
+                                    bw, fp32_peak)
+        for shape in WKV_PAD_SHAPES}
+    spec = grid.SweepSpec(**{**LM_SWEEP, "lm_arch": "rwkv6-3b"})
+    one = _one_device_counted(torch, grid, spec)
+    server_k, out_k, counts = one[:3]
+    E = len(sweep.eval_rounds(spec.rounds, spec.eval_every))
+    L, steps = spec.lm_layers, spec.local_steps * spec.rounds
+    want = dict(zip(FLASH_NAMES, (0, 0, 0)), fused_masked_agg=spec.rounds,
+                wkv6_fwd=L * (steps + E), wkv6_bwd=L * steps,
+                wkv6_fwd_padded=L * (steps + E), wkv6_bwd_padded=L * steps,
+                plain_attention=0, plain_wkv6=0)
+    plain_task = tasks.make_traced_lm_task(
+        data_seed=spec.data_seed, num_clients=spec.num_clients,
+        arch=spec.lm_arch, d_model=spec.lm_d_model, layers=spec.lm_layers,
+        seq_len=spec.lm_seq, classes=spec.classes, n_seqs=spec.lm_n_seqs,
+        n_test=spec.lm_n_test, per_client=spec.per_client,
+        local_steps=spec.local_steps, batch_size=spec.batch_size,
+        device=card, backend="torch")
+    server_p, out_p, counts_p = _one_device_counted(
+        torch, grid, dc.replace(spec, use_kernel=False), task=plain_task)[:3]
+    rows = (server_k - server_p).abs().amax(-1)
+    res["a"] = dict(head_dim=16, seconds_kernel=one[3], counts=counts,
+                    want_counts=want,
+                    plain_path_counts=counts_p,
+                    paths_max_row_diff=rows.max().item(),
+                    final_loss=out_k["metrics"]["loss"][:, -1].tolist())
+    print(f"phase25a rwkv6-3b LM sweep (d_model {spec.lm_d_model}: 4 heads "
+          f"of 16, through the pad route to 64), {spec.rounds} rounds on one "
+          f"device: {one[3]:.3f} s; counts {counts}, expected {want}; "
+          f"against the plain path ({counts_p}): largest |server diff| of a "
+          f"trajectory {rows.max().item():.3e} (tol {LM_PATHS_TOL:g})",
+          flush=True)
+    if counts != want:
+        fail(f"phase25a: counts {counts}, expected {want}")
+    if counts_p["wkv6_fwd"] or not counts_p["plain_wkv6"] \
+            or not rows.max() <= LM_PATHS_TOL:
+        fail("phase25a: the rwkv6 LM sweep's kernel and plain paths "
+             "diverge, or the plain path launched WKV6")
+    del server_p, out_p, plain_task
+    res["a"]["seconds"] = time.perf_counter() - t_phase
+    # (b) each family's lm-family cell split over the two ranks
+    t0 = time.perf_counter()
+    start.join(pool.START_TIMEOUT_S)
+    res["pool_wait_s"] = time.perf_counter() - t0
+    res["b"] = {}
+    for arch in SEQ_FAMILY_ARCHS:
+        at = grid.SweepSpec(**{**LM_SWEEP, "lm_arch": arch})
+        res["b"][arch] = _seq_family_cell(
+            torch, grid, shard, at, mesh, f"phase25b {arch}",
+            one=one if arch == "rwkv6-3b" else None)
+    del one, server_k, out_k
+    # (c) lm-wide, one round, split; WKV6 at rank 1's local shape
+    res["c"] = {}
+    for arch in SEQ_FAMILY_WIDE_ARCHS:
+        wide = grid.SweepSpec(**{**LM_SWEEP, **LM_WIDE, "lm_arch": arch,
+                                 "rounds": SEQ_WIDE_ROUNDS,
+                                 "eval_every": SEQ_WIDE_ROUNDS})
+        res["c"][arch] = _seq_family_cell(torch, grid, shard, wide, mesh,
+                                          f"phase25c {arch} lm-wide")
+    pool.close_pools()
+    # rank 1's time-mix call in 25c's rwkv6 cell: b rows, the B * m models'
+    # heads folded into the head axis, half the sequence, head dim 128
+    hd = reduced(get_config("rwkv6-3b"),
+                 d_model=LM_WIDE["lm_d_model"]).rwkv.head_dim
+    B = len(LM_SWEEP["algorithms"]) * len(LM_WIDE["lrs"]) * len(
+        LM_SWEEP["seeds"])
+    shape = (LM_SWEEP["batch_size"],
+             B * LM_WIDE["num_clients"] * LM_WIDE["lm_d_model"] // hd,
+             LM_WIDE["lm_seq"] // 2, hd)
+    res["c"]["wkv6_rank_local"] = _wkv_timed(
+        torch, rk, ref, gen, shape, f"phase25c wkv6 rank-local "
+        f"{list(shape)} from a carried state", bw, fp32_peak)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase25 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE25_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE25_LIMIT_S:
+        fail(f"phase 25 took {res['seconds']:.1f} s, over its "
+             f"{PHASE25_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6732,6 +7115,7 @@ def main():
     meshes = phase23_meshes(torch, fa)
     seq = phase24_seq_parallel(torch, fa, ref, grid, bw, fp32_peak,
                                bf16_peak)
+    fam = phase25_seq_families(torch, rk, ref, grid, bw, fp32_peak)
     sl = suites["launches"]
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
@@ -6925,6 +7309,55 @@ def main():
         "reduced_launches": {
             dt: rwkv_train["reduced"][dt]["wkv6_launches_per_direction"]
             for dt in ("float32", "bfloat16")}})
+    # phase 25: the sequence split of the other families, by cell and rank
+    cells25 = {f"25{c}_{arch}": cell for c in ("b", "c")
+               for arch, cell in fam[c].items() if arch in SEQ_FAMILY_ARCHS}
+    kernel["seq_family_launches"] = {
+        key: [r["fused_masked_agg"] for r in cell["launches"]]
+        for key, cell in cells25.items()}
+    for i, name in enumerate(FLASH_NAMES):
+        kernels[1 + i]["seq_family_launches"] = {
+            f"{key}{part}": [r[name] if part == "" else o[i]
+                             for r, o in zip(cell["launches"],
+                                             cell["offset_launches"])]
+            for key, cell in cells25.items() for part in ("", "_offset")}
+    by_name = {k2["name"]: k2 for k2 in kernels}
+    wide = fam["c"]["wkv6_rank_local"]
+    for name, count, key in (("rwkv6_chunk_fwd", "wkv6_fwd", ""),
+                             ("rwkv6_chunk_bwd", "wkv6_bwd", "backward_")):
+        by_name[name]["seq_family_launches"] = dict(
+            {"25a": fam["a"]["counts"][count]},
+            **{k2: [r[count] for r in cell["launches"]]
+               for k2, cell in cells25.items()})
+        # rank 1's local call in 25c's rwkv6 cell, from a carried state
+        by_name[name]["seq_wide_shape"] = {
+            "shape": wide["shape"], "ms": wide[f"{key}ms"],
+            "plain_ms": wide[f"plain_{key}ms"],
+            "bound_ms": wide[f"{key}bound_ms"],
+            "bound_by": wide[f"{key}bound_by"],
+            "max_abs_err": wide["max_abs_err"]}
+    pad = fam["pad_route"]
+    kernels.append({
+        "name": "rwkv6_chunk_padded", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
+        "replaces": replaces + "; at a head dim below 64 or between 64 and "
+                    "128: the inputs zero-padded to the kernels' next head "
+                    "dim, the outputs sliced back)",
+        "launches": fam["a"]["counts"]["wkv6_fwd_padded"],
+        "max_abs_err": max(r["max_abs_err"] for r in pad.values()),
+        "ms": pad["D=16"]["ms"], "plain_ms": pad["D=16"]["plain_ms"],
+        "bound_ms": pad["D=16"]["bound_ms"],
+        "bound_by": pad["D=16"]["bound_by"], "library_ms": None,
+        "shape": pad["D=16"]["shape"],
+        "backward_launches": fam["a"]["counts"]["wkv6_bwd_padded"],
+        "backward_ms": pad["D=16"]["backward_ms"],
+        "plain_backward_ms": pad["D=16"]["plain_backward_ms"],
+        "backward_bound_ms": pad["D=16"]["backward_bound_ms"],
+        "by_head_dim": pad,
+        "seq_family_launches": {
+            k2: [[r["wkv6_fwd_padded"], r["wkv6_bwd_padded"]]
+                 for r in cell["launches"]]
+            for k2, cell in cells25.items()}})
     print(json.dumps({"paper": paper}), flush=True)
     print(json.dumps({"scale": scale}), flush=True)
     print(json.dumps({"search": found}), flush=True)
@@ -6948,6 +7381,7 @@ def main():
     print(json.dumps({"meshes": meshes}), flush=True)
     print(json.dumps({"seq_parallel": {k2: v for k2, v in seq.items()
                                        if k2 != "c"}}), flush=True)
+    print(json.dumps({"seq_families": fam}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

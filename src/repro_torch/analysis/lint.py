@@ -97,13 +97,18 @@ STEP_CONTEXTS: Dict[str, Tuple[str, ...]] = {
         "lm_source.sample", "lm_source.sample_cohort"),
     "experiments/tasks.py": ("_flat_fns.loss_fn",),
     # the sequence split's collectives, run in every local step's forward,
-    # backward and update and once a round for the losses
+    # backward and update and once a round for the losses; the carries of
+    # the recurrent layers and the MoE rows' exchanges, every local step
     "sharding/pool.py": (
         "SequenceAxis.take_seq", "SequenceAxis.gather_prefix",
+        "SequenceAxis.gather_all", "SequenceAxis.all_sum",
+        "SequenceAxis.prev_rows", "SequenceAxis.carry_in",
         "SequenceAxis.reduce_grads", "SequenceAxis.reduce_loss",
         "SequenceAxis._mean", "SequenceAxis._tally",
         "SequenceAxis._all_gather", "SequenceAxis._all_reduce",
-        "_GatherPrefix.forward", "_GatherPrefix.backward"),
+        "_GatherPrefix.forward", "_GatherPrefix.backward",
+        "_GatherAll.forward", "_GatherAll.backward", "_AllSum.forward",
+        "_AllSum.backward"),
     # one decoded token
     "models/model.py": ("decode_step",),
     "launch/serve.py": ("main.step",),

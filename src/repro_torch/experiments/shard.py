@@ -62,8 +62,9 @@ def sequence_split(spec, activation_spec, model: int) -> bool:
     task when the sequence length divides over the axis. Otherwise (no
     spec, a task without a sequence, a length that does not divide) the
     call runs as with ``None``, as ``specs.maybe_constrain`` leaves a dim
-    it cannot split replicated. Raises ``ValueError`` for any other
-    spec."""
+    it cannot split replicated. Raises ``ValueError`` for any other spec
+    (the residual's ``d`` over ``"model"``, or a spec over ``"batch"``);
+    the LM's forward raises for an arch of the vlm or audio family."""
     if activation_spec is None:
         return False
     if tuple(activation_spec) != tuple(SEQUENCE_SPEC):
@@ -71,7 +72,7 @@ def sequence_split(spec, activation_spec, model: int) -> bool:
             f"run_sharded_2d takes activation_spec=None or "
             f"{SEQUENCE_SPEC!r} (each sequence over 'model'); got "
             f"{activation_spec!r}, which is not ported (ROADMAP Queue 1, "
-            f"item 6d)")
+            f"item 6e)")
     return spec.task == "lm" and model > 1 and spec.lm_seq % model == 0
 
 
@@ -252,6 +253,15 @@ def _launch_counters():
             "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv}
 
 
+def _wkv6_launches(rk) -> Dict[str, int]:
+    """The WKV6 wrapper's counts: forward calls, backward calls, and those
+    of each that took the zero-padded route."""
+    return {"wkv6_fwd": rk.rwkv6_chunk.launches,
+            "wkv6_bwd": rk.rwkv6_chunk.launches_by_route["backward"],
+            "wkv6_fwd_padded": rk.rwkv6_chunk.padded_launches["forward"],
+            "wkv6_bwd_padded": rk.rwkv6_chunk.padded_launches["backward"]}
+
+
 def _digest(tree) -> str:
     """A SHA-256 of every tensor's bytes in ``tree`` (in carry order)."""
     h = hashlib.sha256()
@@ -273,12 +283,14 @@ def _rank_call(recipe: RunnerRecipe, token, wire, period, draws,
     clients or, under ``activation_spec`` (``sequence_split``), each
     sequence. Model rank 0 of each batch index returns the slice's
     ``(states, out)`` on the host; every rank returns whether it split
-    sequences, its kernel launches (and the flash kernels' at an offset),
-    its plain attention calls, its collectives, its peak device memory, a
-    digest of its server and outputs and how many runners its worker has
-    built."""
+    sequences, its kernel launches (the flash kernels' also at an offset,
+    the WKV6 wrapper's by direction and through its zero-padded route),
+    its plain attention and WKV6 calls, its collectives, its peak device
+    memory, a digest of its server and outputs and how many runners its
+    worker has built."""
     from repro_torch.experiments import grid
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels import rwkv6_chunk as rk
 
     ctx = pool_mod.worker_context()
     dev = ctx.device
@@ -291,7 +303,8 @@ def _rank_call(recipe: RunnerRecipe, token, wire, period, draws,
     for c in counters.values():
         c.launches = 0
         c.offset_launches = 0
-    dispatch.plain_attention_calls = 0
+    rk.reset_counts()
+    dispatch.plain_attention_calls = dispatch.plain_wkv6_calls = 0
     ctx.split = "sequence" if split else "clients"
     axis = ctx.axis()
     if axis is not None:
@@ -316,10 +329,12 @@ def _rank_call(recipe: RunnerRecipe, token, wire, period, draws,
                    "count_by_kind": st.count_by_kind,
                    "seconds": axis.seconds}
     return {"value": value, "rows": batch.batch_size, "seq_split": split,
-            "launches": {k: c.launches for k, c in counters.items()},
+            "launches": {**{k: c.launches for k, c in counters.items()},
+                         **_wkv6_launches(rk)},
             "offset_launches": {k: getattr(c, "offset_launches", 0)
                                 for k, c in counters.items()},
             "plain_attention": dispatch.plain_attention_calls,
+            "plain_wkv6": dispatch.plain_wkv6_calls,
             "gathers": gathers, "peak_bytes": peak,
             "digest": _digest((getattr(states, "server", states), out)),
             "runners_built": _WORKER["built"]}
@@ -333,8 +348,10 @@ _LAST: List[pool_mod.PoolResult] = []
 def last_run() -> pool_mod.PoolResult:
     """The pool's result of the latest sharded call in this process: each
     rank's value (``seq_split``: whether it split sequences; ``launches``
-    and the flash kernels' ``offset_launches``; ``plain_attention``, its
-    calls of the plain attention; ``gathers``, its collectives' bytes and
+    (the WKV6 wrapper's as ``wkv6_fwd``, ``wkv6_bwd`` and their
+    ``_padded`` parts) and the flash kernels' ``offset_launches``;
+    ``plain_attention`` and ``plain_wkv6``, its calls of the plain
+    versions; ``gathers``, its collectives' bytes and
     counts by kind and their wall seconds; ``peak_bytes``, its peak device
     memory, None on the CPU; ``digest``, a SHA-256 of its server and
     outputs; ``rows``, ``runners_built``), device and wall seconds, and the
@@ -428,9 +445,13 @@ def run_sharded_2d(runner, batch: CellBatch, mesh: Mesh, *,
     ``pool.SequenceAxis``): every model rank holds all the clients of its
     trajectories and trains them on its ``T / model`` tokens of every
     sequence, all-gathering K and V in each attention block (the flash
-    kernels' causal-offset route) and all-reducing each step's gradient
-    and the losses, so every model rank ends with the same bits and the
-    result equals the single-device run up to fp32 reassociation. On a
+    kernels' causal-offset route), taking the token shifts', causal
+    convs' and recurrent states' carries from the earlier ranks (RWKV6's
+    WKV6 and the hybrid's Mamba blocks) and routing each MoE row as one
+    group across the ranks, and all-reducing each step's gradient and the
+    losses, so every model rank ends with the same bits and the result
+    equals the single-device run up to fp32 reassociation. Every family
+    of the LM sweep takes it but the vlm and audio ones, which raise. On a
     task without a sequence, or where ``T`` does not divide over the
     axis, the call runs as with ``None`` (clients split); any other spec
     raises ``ValueError`` (``sequence_split``). The evals run whole on

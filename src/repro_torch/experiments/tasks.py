@@ -244,9 +244,12 @@ def make_traced_lm_task(*, data_seed=0, num_clients=8, arch="smollm-135m",
     on the card (to compare the paths); ``None`` launches the flash
     kernels for CUDA tensors. Under the sharded sweep's sequence split
     (``run_sharded_2d(..., activation_spec=P(None, "model", None))``) only
-    the local training splits each sequence: every model rank runs the
-    evals whole on the whole server, which all ranks hold bit for bit, so
-    their value does not depend on the placement.
+    the local training splits each sequence, for every arch but those of
+    the vlm and audio families (which raise: this task gives their cross
+    layers no memory); the attention, RWKV6, Mamba and MoE layers take
+    what they need from the other ranks (``models/model.py``). Every model
+    rank runs the evals whole on the whole server, which all ranks hold
+    bit for bit, so their value does not depend on the placement.
     """
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import model as lm

@@ -172,14 +172,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     input that requires grad) takes ``rwkv6_chunk_autograd``: the chunked
     forward and, in the backward, the two backward kernels; any other call
     takes ``rwkv6_chunk``, one forward route by T. All walk chunks of
-    ``rwkv6_chunk.CHUNK`` steps.
+    ``rwkv6_chunk.CHUNK`` steps; a head dim below 64, or between 64 and
+    128, takes the kernels' zero-padded route. Each call that takes the
+    plain version adds one to ``plain_wkv6_calls``.
     """
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_chunk as rk
 
     if _backend(backend, r, "wkv6") == "torch":
+        global plain_wkv6_calls
+        plain_wkv6_calls += 1
         return ref.rwkv6_chunk_plain(r, k, v, w, u, s0, chunk=rk.CHUNK)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (r, k, v, w, u, s0)):
         return rk.rwkv6_chunk_autograd(r, k, v, w, u, s0)
     return rk.rwkv6_chunk(r, k, v, w, u, s0)
+
+
+# calls of wkv6() that took the plain version, on any device
+plain_wkv6_calls = 0

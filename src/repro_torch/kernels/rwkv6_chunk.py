@@ -21,7 +21,17 @@ longer T ``"chunked"`` (two CUDA launches, ``wkv6_state`` then
 allocated here with ``torch.empty``: the state entering each chunk). Either
 route takes any ``T >= 1``; ``route=`` forces one. Each call counts one in
 ``rwkv6_chunk.launches`` and one in ``rwkv6_chunk.launches_by_route[route]``,
-whatever the number of CUDA launches. Head dims 64 and 128.
+whatever the number of CUDA launches. The kernels are built for head dims
+64 and 128 (``HEAD_DIMS``); a smaller ``D`` takes the zero-padded route
+(``padded_head_dim``, ``pad_inputs``): ``r``, ``k``, ``v``, ``u`` padded
+with zeros and ``w`` with ones to the next head dim the kernels take,
+``s0`` with zero rows and columns, and ``o`` and ``S_T`` sliced back to
+``D``. That is exact: a zero ``k`` column keeps its state row at zero
+whatever ``w`` is, a zero ``v`` column gives a zero output column, and a
+zero ``r`` column reads nothing. Under autograd the pads' own backward
+slices every gradient back to ``D``. Each padded call also counts one in
+``rwkv6_chunk.padded_launches["forward"]`` (its backward in
+``["backward"]``). A ``D`` above 128 raises.
 
 ``rwkv6_chunk_autograd`` is the same function under autograd: on CUDA
 tensors its forward is the chunked route whatever T is, and it keeps the
@@ -55,9 +65,9 @@ STEP_MAX_T = 8
 ROUTES = ("chunked", "step")
 
 __all__ = ["BWD_KERNELS", "CHUNK", "COUNTED", "HEAD_DIMS", "KERNELS",
-           "ROUTES", "STEP_MAX_T", "reset_counts", "route_for",
-           "rwkv6_chunk", "rwkv6_chunk_autograd", "rwkv6_chunk_backward",
-           "shared_bytes"]
+           "ROUTES", "STEP_MAX_T", "pad_inputs", "padded_head_dim",
+           "reset_counts", "route_for", "rwkv6_chunk", "rwkv6_chunk_autograd",
+           "rwkv6_chunk_backward", "shared_bytes"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # chunked: r, k, v, w, u, s0, o, s_out, workspace; step: without it
@@ -115,12 +125,39 @@ def route_for(t_len: int) -> str:
     return "step" if t_len <= STEP_MAX_T else "chunked"
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run ``d`` at: ``d`` itself when it is one
+    of ``HEAD_DIMS``, else the next one above (the zero-padded route);
+    raises for ``d`` above 128 or below 1."""
+    if d in HEAD_DIMS:
+        return d
+    if not 1 <= d < HEAD_DIMS[-1]:
+        raise ValueError(f"the WKV6 kernels take head dims {HEAD_DIMS}, and "
+                         f"a head dim below {HEAD_DIMS[-1]} through the "
+                         f"zero-padded route; got {d}")
+    return next(h for h in HEAD_DIMS if h > d)
+
+
+def pad_inputs(r, k, v, w, u, s0, dp: int):
+    """The zero-padded route's inputs at head dim ``dp``: ``r``, ``k``,
+    ``v``, ``u`` with zero columns, ``w`` with ones, ``s0`` with zero rows
+    and columns (differentiable pads, so under autograd each gradient is
+    sliced back to the given head dim)."""
+    pd = dp - r.shape[-1]
+    F = torch.nn.functional
+    return (*(F.pad(x, (0, pd)) for x in (r, k, v)),
+            F.pad(w, (0, pd), value=1.0), F.pad(u, (0, pd)),
+            F.pad(s0, (0, pd, 0, pd)))
+
+
 def _check_inputs(r, k, v, w, u, s0=None):
     """The kernels' inputs: ``r, k, v, w [B, H, T >= 1, D]`` with ``D`` in
     ``HEAD_DIMS``, ``u [H, D]``, ``s0 [B, H, D, D]`` (where given)."""
     if r.dim() != 4 or r.shape[-1] not in HEAD_DIMS or r.shape[2] < 1:
         raise ValueError(f"r must be [B, H, T >= 1, D] with D in "
-                         f"{HEAD_DIMS}, got {tuple(r.shape)}")
+                         f"{HEAD_DIMS} (a D below {HEAD_DIMS[-1]} through "
+                         f"rwkv6_chunk's zero-padded route), got "
+                         f"{tuple(r.shape)}")
     b, h, t, d = r.shape
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
         _check(name, x, r, r.shape)
@@ -171,6 +208,12 @@ def rwkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if resolve_backend(r) == "torch":
         return rwkv6_chunk_plain(r, k, v, w, u, s0, chunk=CHUNK)
+    d = r.shape[-1]
+    if r.dim() == 4 and d not in HEAD_DIMS:
+        o, s_out = rwkv6_chunk(*pad_inputs(r, k, v, w, u, s0,
+                                           padded_head_dim(d)), route=route)
+        rwkv6_chunk.padded_launches["forward"] += 1
+        return o[..., :d].contiguous(), s_out[..., :d, :d].contiguous()
     _check_inputs(r, k, v, w, u, s0)
     o, s_out, _ = _forward(r, k, v, w, u, s0, route or route_for(r.shape[2]))
     return o, s_out
@@ -213,15 +256,18 @@ class _ChunkedWKV6(torch.autograd.Function):
     kernels."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u, s0):
+    def forward(ctx, r, k, v, w, u, s0, padded):
         o, s_out, ws = _forward(r, k, v, w, u, s0, "chunked")
         ctx.save_for_backward(r, k, v, w, u, ws)
+        ctx.padded = padded
         return o, s_out
 
     @staticmethod
     def backward(ctx, do, ds_t):         # an unused output's gradient: zeros
         r, k, v, w, u, ws = ctx.saved_tensors
-        return rwkv6_chunk_backward(r, k, v, w, u, ws, do, ds_t)
+        if ctx.padded:
+            rwkv6_chunk.padded_launches["backward"] += 1
+        return (*rwkv6_chunk_backward(r, k, v, w, u, ws, do, ds_t), None)
 
 
 def rwkv6_chunk_autograd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,15 +277,23 @@ def rwkv6_chunk_autograd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (any T) and the backward kernels; CPU tensors the plain version."""
     if resolve_backend(r) == "torch":
         return rwkv6_chunk_plain(r, k, v, w, u, s0, chunk=CHUNK)
+    d = r.shape[-1]
+    if r.dim() == 4 and d not in HEAD_DIMS:
+        padded = pad_inputs(r, k, v, w, u, s0, padded_head_dim(d))
+        _check_inputs(*padded)
+        o, s_out = _ChunkedWKV6.apply(*padded, True)
+        rwkv6_chunk.padded_launches["forward"] += 1
+        return o[..., :d], s_out[..., :d, :d]
     _check_inputs(r, k, v, w, u, s0)
-    return _ChunkedWKV6.apply(r, k, v, w, u, s0)
+    return _ChunkedWKV6.apply(r, k, v, w, u, s0, False)
 
 
 def reset_counts():
-    """Every count to 0: calls, and calls by route and the backward's."""
+    """Every count to 0: calls, calls by route and the backward's, and the
+    zero-padded route's by direction."""
     rwkv6_chunk.launches = 0
     rwkv6_chunk.launches_by_route = dict.fromkeys(COUNTED, 0)
+    rwkv6_chunk.padded_launches = {"forward": 0, "backward": 0}
 
 
-rwkv6_chunk.launches = 0
-rwkv6_chunk.launches_by_route = dict.fromkeys(COUNTED, 0)
+reset_counts()

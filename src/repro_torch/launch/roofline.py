@@ -65,7 +65,8 @@ class CollectiveStats:
 def collective_stats(model: int, *, rows: int, clients: int,
                      group_bytes: Sequence[int], rounds: int,
                      final_bytes: Sequence[int] = (),
-                     sequence: Optional[Tuple[int, int, int]] = None
+                     sequence: Optional[Tuple[int, int, int]] = None,
+                     exchanges: Sequence[Tuple[str, int, int]] = ()
                      ) -> CollectiveStats:
     """The collectives one rank of the sharded sweep makes over a
     ``"model"`` axis of ``model`` ranks (none when ``model`` is 1), for
@@ -85,6 +86,10 @@ def collective_stats(model: int, *, rows: int, clients: int,
     - every local step, an all-gather of K and one of V a layer, and in
       the backward an all-reduce of each of their gradients (over the
       whole sequence, zero past the rank's prefix);
+    - every local step, the other layers' exchanges (``exchanges``,
+      ``(kind, bytes, count)``: ``count`` collectives of ``kind`` a step,
+      each moving ``bytes`` a client; ``sequence_exchanges`` of the
+      model's config);
     - every local step, one all-reduce of the gradient per parameter
       group; every round, one of the per-client losses (fp32);
     - no final gather: every rank holds all the clients.
@@ -97,17 +102,65 @@ def collective_stats(model: int, *, rows: int, clients: int,
         layers, steps, kv = sequence
         kv_all = 2 * layers * rows * clients * kv     # K and V, a step
         grads = sum(b * rows * clients for b in group_bytes)
-        return CollectiveStats(
-            {"all-gather": rounds * steps * kv_all,
-             "all-reduce": rounds * (steps * (kv_all + grads)
-                                     + 4 * rows * clients)},
-            {"all-gather": rounds * steps * 2 * layers,
-             "all-reduce": rounds * (steps * (2 * layers + len(group_bytes))
-                                     + 1)})
+        nbytes = {"all-gather": steps * kv_all,
+                  "all-reduce": steps * (kv_all + grads) + 4 * rows * clients}
+        count = {"all-gather": steps * 2 * layers,
+                 "all-reduce": steps * (2 * layers + len(group_bytes)) + 1}
+        for kind, b, n in exchanges:
+            nbytes[kind] += steps * n * b * rows * clients
+            count[kind] += steps * n
+        return CollectiveStats({k: rounds * v for k, v in nbytes.items()},
+                               {k: rounds * v for k, v in count.items()})
     per = [b * rows * clients for b in group_bytes] + [4 * rows * clients]
     fin = [b * rows * clients for b in final_bytes]
     return CollectiveStats({"all-gather": rounds * sum(per) + sum(fin)},
                            {"all-gather": rounds * len(per) + len(fin)})
+
+
+def sequence_exchanges(cfg, *, batch: int, seq_len: int, ranks: int,
+                       itemsize: int = 4):
+    """The exchanges one local step (forward and backward) of the LM
+    ``cfg`` (a ``ModelConfig``) makes under a sequence split over
+    ``ranks`` (``pool.SequenceAxis``) besides the attention layers' K/V
+    gathers, as ``collective_stats``'s ``exchanges``: ``(kind, bytes a
+    client, count)`` for one client's ``batch`` sequences of ``seq_len``
+    tokens (activations ``itemsize`` bytes, states fp32). Each exchange
+    runs one collective in the forward, and one in the backward where a
+    gradient flows back:
+
+    - RWKV6 layer: the time and channel mixes' token shifts
+      (``prev_rows``, a gather of ``ranks`` rows of ``d`` each and the
+      all-reduce of its gradient) and the WKV6 state's ``carry_in`` (a
+      gather of ``ranks`` fp32 states ``[H, D, D]`` and log decays ``[H,
+      D]`` a sequence, and its gradient's all-reduce);
+    - Mamba layer: the conv's ``prev_rows`` (``conv_width - 1`` rows of
+      ``d_inner``) and the scan's ``carry_in`` (a state and a log decay
+      ``[d_inner, N]`` a sequence);
+    - MoE layer: the gather of the expert counts ``[ranks, E]`` a sequence
+      (no gradient) and the ``all_sum`` of the probability sums ``[E]``,
+      forward and backward."""
+    out = []
+
+    def pair(nbytes, n=1):          # forward gather, backward all-reduce
+        out.extend([("all-gather", ranks * batch * nbytes, n),
+                     ("all-reduce", ranks * batch * nbytes, n)])
+
+    d = cfg.d_model
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        if kind == "rwkv":
+            hd = cfg.rwkv.head_dim
+            pair(d * itemsize, 2)
+            pair((d // hd) * (hd * hd + hd) * 4)
+        elif kind == "ssm":
+            di, n = d * cfg.ssm.expand, cfg.ssm.state_dim
+            pair((cfg.ssm.conv_width - 1) * di * itemsize)
+            pair(2 * di * n * 4)
+        if cfg.moe is not None and kind != "rwkv" and cfg._is_moe_layer(i):
+            e = cfg.moe.num_experts
+            out.extend([("all-gather", ranks * batch * e * 4, 1),
+                        ("all-reduce", batch * e * 4, 2)])
+    return out
 
 
 def attention_pairs(t: int, window: int = 0, q_offset: int = 0) -> int:

@@ -40,11 +40,16 @@ as the reference's does.
 Sequence parallelism (the sharded sweep's ``run_sharded_2d(...,
 activation_spec=P(None, "model", None))``): under a sequence axis
 (``sharding.specs.sequence_axis``, a ``sharding.pool.SequenceAxis``) the
-dense family's forward takes one rank's chunk of every sequence, at its
-absolute positions; each attention block all-gathers K and V up to the
-chunk's end and attends at the chunk's offset (the flash kernels'
-causal-offset route); norms, products, the MLP and the loss stay local.
-The other families raise under an axis (``_sequence_split_ok``).
+forward takes one rank's chunk of every sequence, at its absolute
+positions; each attention block all-gathers K and V up to the chunk's end
+and attends at the chunk's offset (the flash kernels' causal-offset
+route); RWKV6's token shifts and WKV6 state and the Mamba block's conv
+context and scan state are carried in from the earlier ranks
+(``models/rwkv.py``, ``models/ssm.py``); an MoE layer routes each row as
+one group across the ranks (``models/moe.py``); norms, products, the MLP
+and the loss stay local. The vlm and audio families raise under an axis
+(``_sequence_split_ok``): the LM sweep gives their cross layers no
+memory.
 
 Fp32 leaves in a bf16 model (the MoE router, the Mamba ``dt_proj``,
 ``dt_bias``, ``a_log``, ``d_skip``, the cross gate, RWKV6's) make two parameter
@@ -301,12 +306,14 @@ def _self_attn_block(p: Params, x, cfg: ModelConfig, kind: str, b: int,
     return x + (o.reshape(G, N, -1) @ p["attn.wo"]).reshape(x.shape)
 
 
-def _ffn_block(p: Params, x, cfg: ModelConfig, rows: Optional[int] = None):
+def _ffn_block(p: Params, x, cfg: ModelConfig, rows: Optional[int] = None,
+               seq=None):
     """``x + ffn(norm(x))`` and the MoE balance loss: ``x [G, rows, T,
     d]`` (or ``[G, rows * T, d]``) with leaves ``[G, ...]`` (the forward;
     aux ``[G]``), or ``rows`` None: ``x [b, T, d]`` with one model's leaves
     (decode; aux 0-d). An MoE layer dispatches each of its ``rows`` batch
-    rows as one group."""
+    rows as one group, under a sequence axis ``seq`` the whole row across
+    the ranks (``moe.moe_apply_models``)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if rows:
         h = _rows(h)
@@ -323,13 +330,10 @@ def _ffn_block(p: Params, x, cfg: ModelConfig, rows: Optional[int] = None):
                                      cfg)
         return x + out, aux
     G, N, d = h.shape
-    outs, auxs = [], []
-    for g in range(G):
-        out, aux = moe_mod.moe_apply({n: p[f"moe.{n}"][g] for n in names},
-                                     h[g].reshape(rows, N // rows, d), cfg)
-        outs.append(out.reshape(N, d))
-        auxs.append(aux)
-    return x + torch.stack(outs).reshape(x.shape), torch.stack(auxs)
+    out, aux = moe_mod.moe_apply_models(
+        [{n: p[f"moe.{n}"][g] for n in names} for g in range(G)],
+        h.reshape(G, rows, N // rows, d), cfg, seq)
+    return x + out.reshape(x.shape), aux
 
 
 def _models(params: Params, tokens: torch.Tensor) -> Tuple[Params, int]:
@@ -359,12 +363,14 @@ def _fold(p: Params, names, lead_of: str) -> Tuple[Params, int]:
     return {k: p[k].reshape((G,) + p[k].shape[n:]) for k in names}, G
 
 
-def _ssm_block(p: Params, x, cfg: ModelConfig, state=None):
+def _ssm_block(p: Params, x, cfg: ModelConfig, state=None, seq=None):
     """``x + mamba(norm(x))`` for ``x [*L, b, T, d]`` and layer leaves
-    ``[*L, ...]`` (one model: no ``L``); returns ``(x, new_state)``."""
+    ``[*L, ...]`` (one model: no ``L``); returns ``(x, new_state)``.
+    ``seq``: a sequence axis whose rank holds this chunk
+    (``ssm.ssm_apply``)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     ssm = {n: p[f"ssm.{n}"] for n, _ in ssm_mod.ssm_leaves(cfg)}
-    o, st = ssm_mod.ssm_apply(ssm, h, cfg, state=state)
+    o, st = ssm_mod.ssm_apply(ssm, h, cfg, state=state, seq=seq)
     return x + o, st
 
 
@@ -447,11 +453,13 @@ def _rwkv_layer(params: Params, cfg: ModelConfig, i: int, layer: int):
 
 
 def _rwkv_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 backend=None) -> torch.Tensor:
+                 backend=None, seq=None) -> torch.Tensor:
     """The RWKV6 stack of G models (leaves ``[*L, ...]``, ``G = prod(L)``)
     over ``tokens [*L, b, T]`` -> the final normed hidden states ``[*L, b,
     T, d]``: each product one batched matmul over the models, one WKV6
-    call per layer with the models folded into its head axis."""
+    call per layer with the models folded into its head axis (two under a
+    sequence axis ``seq``: the chunk's state from zero, then its outputs
+    from the state carried in; ``models/rwkv.py``)."""
     p, G = _models(params, tokens)
     b, t = tokens.shape[-2:]
     tok = tokens.reshape(G, b, t).long()
@@ -473,10 +481,10 @@ def _rwkv_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     if name.startswith("tmix.")}
             h, _ = rwkv_mod.rwkv_time_mix(
                 tmix, rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                backend=backend)
+                backend=backend, seq=seq)
             x = x + h
             h, _ = rwkv_mod.rwkv_channel_mix(
-                tmix, rms_norm(x, lp["ln2"], cfg.norm_eps))
+                tmix, rms_norm(x, lp["ln2"], cfg.norm_eps), seq=seq)
             x = x + h
         x = maybe_constrain(x)
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
@@ -485,14 +493,14 @@ def _rwkv_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _sequence_split_ok(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a family whose forward splits its sequences
-    over a sequence axis: the dense stack without MoE layers."""
-    if cfg.family != "dense" or cfg.moe is not None:
+    over a sequence axis: every family but the vlm and audio ones."""
+    if cfg.family in ("vlm", "audio"):
         raise ValueError(
             f"sequence-parallel activations (run_sharded_2d's "
-            f"activation_spec) cover the dense family only; {cfg.name} "
-            f"({cfg.family}{' with MoE layers' if cfg.moe else ''}) needs "
-            f"its MoE balance loss, token shift, causal conv or memory "
-            f"split too (ROADMAP Queue 1, item 6d)")
+            f"activation_spec) do not cover the {cfg.family} family "
+            f"({cfg.name}): its cross layers attend a memory that the LM "
+            f"sweep does not give, in this package or in the reference "
+            f"(whose LM task calls the forward without memory_shape)")
 
 
 def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -500,8 +508,8 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``params`` leaves ``[*L, ...]``, ``tokens [*L, b, T]`` -> ``(the
     final normed hidden states [*L, b, T, d], aux [*L])``, the LM head not
-    applied (RWKV6, ``family="ssm"``, runs one model: no ``L``); aux is the
-    MoE balance loss summed over layers, zero without MoE layers.
+    applied; aux is the MoE balance loss summed over layers, zero without
+    MoE layers.
     ``memory``: ``[*L, b, M, d]`` image tokens (vlm) or audio frames
     (audio). ``backend``: ``None`` (the kernels for CUDA tensors) or
     ``"torch"`` (the plain versions on any device), see
@@ -509,15 +517,17 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     Under a sequence axis (``specs.sequence_axis``; the sharded sweep's
     ``pool.SequenceAxis``) ``tokens`` is this rank's chunk of each
-    sequence: its positions start at the chunk's offset and each attention
-    block all-gathers K and V (``_self_attn_block``); the rest is local.
-    Only the dense family without MoE layers takes it
+    sequence: its positions start at the chunk's offset, each attention
+    block all-gathers K and V (``_self_attn_block``), RWKV6's token shifts
+    and WKV6 state, the Mamba conv's context and scan state come from the
+    earlier ranks, and each MoE layer routes the whole row across the
+    ranks; the rest is local. The vlm and audio families raise
     (``_sequence_split_ok``)."""
     seq = sequence_axis()
     if seq is not None:
         _sequence_split_ok(cfg)
     if cfg.family == "ssm":
-        return (_rwkv_hidden(params, cfg, tokens, backend),
+        return (_rwkv_hidden(params, cfg, tokens, backend, seq),
                 torch.zeros(tokens.shape[:-2], dtype=torch.float32,
                             device=tokens.device))
     if memory is not None and memory.shape[:-2] != tokens.shape[:-1]:
@@ -544,13 +554,13 @@ def hidden_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   for name, _ in _layer_leaves(cfg, i)}
             kind = cfg.layer_kind(i)
             if kind == "ssm":
-                x = _ssm_block(lp, x, cfg)[0]
+                x = _ssm_block(lp, x, cfg, seq=seq)[0]
             else:
                 x = _self_attn_block(lp, x, cfg, attn_kind(cfg, i), b,
                                      positions, backend, seq)
             if kind == "cross":
                 x = _cross_block(lp, x, cfg, memory)
-            x, a = _ffn_block(lp, x, cfg, b)
+            x, a = _ffn_block(lp, x, cfg, b, seq)
             aux = aux + a
         x = maybe_constrain(x)
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)

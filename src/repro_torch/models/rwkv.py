@@ -20,6 +20,15 @@ serving) or G models at once (``x [G, b, T, d]``, every leaf ``[G, ...]``:
 training), each product one batched matmul over the models. The time mix
 folds the models into the head axis of its one WKV6 call, ``[b, G * H, T,
 D]`` with ``u [G * H, D]``, so each model's bonus reaches its own heads.
+
+Under a sequence split (``seq``, a ``sharding.pool.SequenceAxis``; the
+sharded LM sweep's ``activation_spec=P(None, "model", None)``) ``x`` is
+this rank's chunk of every sequence: each token shift's carry is the
+previous rank's last input row (``seq.prev_rows``), and the WKV6 state
+entering the chunk is ``seq.carry_in`` of every earlier rank's chunk-final
+state (one WKV6 call from zero) and its summed log decay ``sum_t log
+w_t`` on the key axis; the chunk's outputs are a second WKV6 call from
+that state.
 """
 from __future__ import annotations
 
@@ -105,14 +114,18 @@ def _models(p: Dict[str, torch.Tensor], x: torch.Tensor, state):
 
 def rwkv_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor,
                   cfg: ModelConfig, state=None, *,
-                  backend: Optional[str] = None):
+                  backend: Optional[str] = None, seq=None):
     """x ``[b, T, d]`` (one model) or ``[G, b, T, d]`` (G models, leaves
     ``[G, ...]``). state: None or {'s': [b, H, D, D] fp32, 'last':
     [b, 1, d]} (one model). Returns ``(out like x, {'s': [b, G * H, D, D],
-    'last'})``. ``backend``: the WKV6 recurrence's (``dispatch.wkv6``)."""
+    'last'})``. ``backend``: the WKV6 recurrence's (``dispatch.wkv6``).
+    ``seq``: a sequence axis whose rank holds this chunk (``state`` None;
+    the module docstring): the returned state is the chunk's last."""
     p, x, last, one = _models(p, x, state)
     G, b, t, d = x.shape
     nh, hd = _dims(cfg)
+    if seq is not None:
+        last = seq.prev_rows(x, 1, -2)
     xr, xk, xv, xw, xg = (_token_shift(x, p[f"mix_{c}"], last)
                           for c in "rkvwg")
 
@@ -134,6 +147,11 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor,
         u = u.clone()
     s0 = state["s"] if state is not None else torch.zeros(
         b, G * nh, hd, hd, dtype=torch.float32, device=x.device)
+    if seq is not None:
+        _, s_local = dispatch.wkv6(r, k, v, w, u, s0, backend=backend)
+        # the chunk's decay on the key axis, as the recurrence takes it
+        log_w = torch.log(w.clamp_min(1e-12)).sum(2)[..., None]
+        s0 = seq.carry_in(s_local, log_w)
     o, s_t = dispatch.wkv6(r, k, v, w, u, s0, backend=backend)
     o = o.reshape(b, G, nh, t, hd).permute(1, 0, 3, 2, 4).reshape(
         G, b * t, d)
@@ -146,13 +164,16 @@ def rwkv_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def rwkv_channel_mix(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                     state=None):
+                     state=None, *, seq=None):
     """x ``[b, T, d]`` (one model) or ``[G, b, T, d]`` (leaves ``[G,
     ...]``); state: None or the last input ``[b, 1, d]`` (one model).
-    Returns ``(out like x, x[..., -1:, :])``."""
+    Returns ``(out like x, x[..., -1:, :])``. ``seq``: as in
+    ``rwkv_time_mix``."""
     p, x, last, one = _models(p, x, None if state is None
                               else {"last": state})
     G, b, t, d = x.shape
+    if seq is not None:
+        last = seq.prev_rows(x, 1, -2)
     xk = _token_shift(x, p["cmix_k"], last)
     xr = _token_shift(x, p["cmix_r"], last)
     k = torch.square(torch.relu(xk.reshape(G, b * t, d) @ p["ck"]))

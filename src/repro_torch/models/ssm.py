@@ -25,6 +25,14 @@ leaves of one model, or of ``G`` models with leading model axes ``[*L,
 ...]`` and activations ``[*L, b, T, d]`` (the round engine's clients):
 each product is one batched matmul over the models, and the scan runs the
 ``G * b`` rows together.
+
+Under a sequence split (``seq``, a ``sharding.pool.SequenceAxis``; the
+sharded LM sweep's ``activation_spec=P(None, "model", None)``) ``x`` is
+this rank's chunk of every sequence: the causal conv's left context is the
+previous rank's last ``conv_width - 1`` input rows (``seq.prev_rows``),
+and the scan's entering state is ``seq.carry_in`` of every earlier rank's
+chunk-final state (one scan from zero) and its summed log decay ``A *
+sum_t dt_t``; the chunk's outputs are a second scan from that state.
 """
 from __future__ import annotations
 
@@ -150,14 +158,15 @@ def selective_scan_steps(xc, dt, b_in, c_in, a, h0):
 
 def ssm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
               state: Optional[Dict[str, torch.Tensor]] = None,
-              chunk: int = 128):
+              chunk: int = 128, seq=None):
     """``x [*L, b, T, d]`` for leaves ``[*L, ...]`` (``L`` the leading model
     axes, none for one model); ``state``: None (prefill, training) or
     ``{"conv" [*L, b, cw - 1, di], "h" [*L, b, di, N] fp32}`` (the decode
     carry). Returns ``(out [*L, b, T, d] in x.dtype, new_state)``: the
     depthwise causal conv over the carried or zero-padded inputs, the
     selective scan from the carried or zero state, the skip and the
-    ``silu(z)`` gate."""
+    ``silu(z)`` gate. ``seq``: a sequence axis whose rank holds this chunk
+    (``state`` None, ``T >= cw - 1``; the module docstring)."""
     lead = p["in_proj"].shape[:-2]
     G = math.prod(lead)
     *_, b, t, d = x.shape
@@ -172,7 +181,14 @@ def ssm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         return v[:, None, None]
 
     xs, z = mm(x.reshape(G, b, t, d), q["in_proj"]).split(di, -1)
-    if state is None:
+    if seq is not None:
+        if t < cw - 1:
+            raise ValueError(f"a sequence chunk of {t} tokens is shorter "
+                             f"than the causal conv's {cw - 1} steps of "
+                             f"left context: split the sequence over fewer "
+                             f"ranks")
+        conv_in = torch.cat([seq.prev_rows(xs, cw - 1, 2), xs], 2)
+    elif state is None:
         # cw - 1 zero steps before the first, as a cat (DTensor refuses the
         # pad's constant_pad_nd on some releases)
         conv_in = torch.cat([torch.zeros_like(xs[:, :, :1])] * (cw - 1)
@@ -196,8 +212,14 @@ def ssm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     def rows(v):                    # [G, b, T, k] -> [G * b, T, k]
         return v.reshape(G * b, t, v.shape[-1])
 
-    y, h_t = selective_scan(rows(xf), rows(dt), rows(b_in.float()),
-                            rows(c_in.float()), a, h0, chunk)
+    scan_in = (rows(xf), rows(dt), rows(b_in.float()), rows(c_in.float()),
+               a)
+    if seq is not None:
+        _, h_local = selective_scan(*scan_in, h0, chunk)
+        # the chunk's decay exp(a * sum_t dt_t), per (row, di, N)
+        log_a = (a if a.dim() == 2 else a[:, 0]) * rows(dt).sum(1)[..., None]
+        h0 = seq.carry_in(h_local, log_a)
+    y, h_t = selective_scan(*scan_in, h0, chunk)
     y = (y.reshape(G, b, t, di) + per_model(q["d_skip"]) * xf) \
         * F.silu(z.float())
     out = mm(y.to(x.dtype), q["out_proj"])

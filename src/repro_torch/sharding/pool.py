@@ -152,6 +152,36 @@ class _GatherPrefix(torch.autograd.Function):
         return full.narrow(dim, axis.index * t, t), None, None
 
 
+class _GatherAll(torch.autograd.Function):
+    """``SequenceAxis.gather_all``: every rank's ``x`` stacked on a new
+    leading axis in rank order; backward: the stacked gradient all-reduced
+    (every rank's uses of every slot), this rank's slot of it."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis._all_gather(x.unsqueeze(0), 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        return axis._all_reduce(g)[axis.index], None
+
+
+class _AllSum(torch.autograd.Function):
+    """``SequenceAxis.all_sum``: ``x`` summed over the ranks; backward: the
+    gradient summed over the ranks too (every rank's loss uses the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis._all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._all_reduce(g), None
+
+
 class SequenceAxis:
     """A rank's share of each sequence on the mesh's ``"model"`` axis
     (Megatron-style sequence parallelism, the reference's
@@ -165,16 +195,23 @@ class SequenceAxis:
     ``repro_torch.models.model`` through ``specs.sequence_axis``) each
     attention block all-gathers K and V and keeps their prefix up to its
     chunk (``gather_prefix``: an autograd op whose backward all-reduces the
-    prefix's gradient and keeps the chunk); norms, products, the MLP and
-    the loss stay local. ``reduce_grads`` and ``reduce_loss`` all-reduce a
-    parameter gradient or the per-client losses and divide by ``size``:
-    each rank's loss is the mean over its ``b * T / size`` tokens, so that
-    is the mean over all ``b * T`` (exact division when ``size`` is a power
-    of two), and every rank holds the same bits after it. ``host_staged``
-    (gloo) copies a CUDA tensor to the host for the collective and back.
-    Each collective is tallied by kind (``"all-gather"``,
-    ``"all-reduce"``): its output bytes, its count and the wall seconds of
-    all (``stats``, ``seconds``; ``reset``)."""
+    prefix's gradient and keeps the chunk); the recurrent and routed
+    layers take what the earlier ranks carry into the chunk: a token
+    shift's or a causal conv's last rows (``prev_rows``), a linear
+    recurrence's entering state (``carry_in``), an MoE row's expert counts
+    before the chunk (``gather_all`` without a gradient) and its
+    whole-row sums (``all_sum``); norms, products, the MLP and the loss
+    stay local. Every exchange is an autograd op whose backward is a
+    collective too, so every rank runs the same collectives in the same
+    order, forward and backward. ``reduce_grads`` and ``reduce_loss``
+    all-reduce a parameter gradient or the per-client losses and divide by
+    ``size``: each rank's loss is the mean over its ``b * T / size``
+    tokens, so that is the mean over all ``b * T`` (exact division when
+    ``size`` is a power of two), and every rank holds the same bits after
+    it. ``host_staged`` (gloo) copies a CUDA tensor to the host for the
+    collective and back. Each collective is tallied by kind
+    (``"all-gather"``, ``"all-reduce"``): its output bytes, its count and
+    the wall seconds of all (``stats``, ``seconds``; ``reset``)."""
 
     splits_sequence = True
 
@@ -209,6 +246,55 @@ class SequenceAxis:
         """``x`` (this rank's chunk along ``dim``) all-gathered, up to the
         end of this rank's chunk: ``[0, (index + 1) * t)``."""
         return _GatherPrefix.apply(x, self, dim)
+
+    def gather_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` stacked ``[size, *x.shape]`` in rank order;
+        its gradient goes back to each slot's owner (all-reduced)."""
+        return _GatherAll.apply(x, self)
+
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks. Its backward sums the gradient over
+        the ranks too, not the identity: every rank adds what it computes
+        from the sum to its own loss, and ``reduce_grads`` then divides by
+        ``size``."""
+        return _AllSum.apply(x, self)
+
+    def prev_rows(self, x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+        """The last ``n`` rows along ``dim`` of the previous rank's chunk
+        (zeros on rank 0): the left context of a token shift (``n = 1``) or
+        a causal conv of width ``n + 1``. Their gradient goes back to the
+        previous rank's last rows."""
+        t = x.shape[dim]
+        if t < n:
+            raise ValueError(f"a chunk of {t} along dim {dim} holds fewer "
+                             f"than the {n} rows the next rank needs")
+        every = self.gather_all(x.narrow(dim, t - n, n))
+        # rank 0's zeros through the same ops as every rank (the graph, and
+        # so the backward's collectives, is the same on every rank)
+        return torch.cat([torch.zeros_like(every[:1]), every[:-1]])[
+            self.index]
+
+    def carry_in(self, s_local: torch.Tensor,
+                 log_decay: torch.Tensor) -> torch.Tensor:
+        """The state entering this rank's chunk of a linear recurrence ``S
+        <- exp(log_decay_t) * S + delta_t``: ``s_local`` is this chunk's
+        final state run from zero, ``log_decay`` (broadcast against it) the
+        chunk's summed log decay. Both are all-gathered in one collective
+        and combined here in fp32, ``S_in(r) = sum_{q<r} exp(sum_{q<p<r}
+        L_p) * S_loc(q)``, as the scan ``S_in(r + 1) = exp(L_r) * S_in(r) +
+        S_loc(r)`` over the ranks; each contribution's gradient goes back
+        to its owner."""
+        n = s_local.numel()
+        every = self.gather_all(torch.cat([s_local.float().reshape(-1),
+                                           log_decay.float().reshape(-1)]))
+        states = every[:, :n].reshape((self.size,) + s_local.shape)
+        decays = every[:, n:].reshape((self.size,) + log_decay.shape)
+        acc = torch.zeros_like(states[0])
+        entering = [acc]
+        for r in range(self.size - 1):
+            acc = torch.exp(decays[r]) * acc + states[r]
+            entering.append(acc)
+        return torch.stack(entering)[self.index]
 
     def reduce_grads(self, grad):
         """A parameter gradient (or its ``Groups``) summed over the ranks

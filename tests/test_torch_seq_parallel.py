@@ -13,9 +13,12 @@ chunk: summed over the chunks, the prefix gradients of K and V and the
 chunks' gradients of Q equal the autograd of the whole attention within
 1e-6. The collective itself runs in the pool tests
 (``tests/test_torch_shard_2d.py``). Also: the flash wrapper's plain
-version and ``dispatch.attention`` at an offset, the dispatch rule, and
+version and ``dispatch.attention`` at an offset, the dispatch rule,
 ``roofline.attention_pairs`` / ``flash_work`` at an offset against a
-brute-force count.
+brute-force count, and which families a sequence axis takes: the MoE,
+RWKV6 and hybrid forwards on two simulated ranks (``tests/_seq_ranks.py``)
+against one device, the vlm and audio ones refused (the families' own
+checks are ``tests/test_torch_seq_parallel_families.py``).
 """
 import numpy as np
 import pytest
@@ -31,6 +34,10 @@ from repro_torch.launch.roofline import attention_pairs, flash_work  # noqa: E40
 from repro_torch.models.attention import attention_ref  # noqa: E402
 
 TOL = 1e-6
+# a whole forward's final normed hidden states (~1 in magnitude): the
+# carried recurrent states and the whole-row MoE sums reassociated through
+# two layers (the sharded runs' SEQ_TOL)
+FAMILY_TOL = 1e-5
 # (ranks, kind, window, softcap, heads, kv heads): the LM sweep's split (2
 # ranks, full), 4 ranks with a window shorter and longer than a chunk, a
 # softcap, GQA
@@ -184,18 +191,37 @@ class _Axis:
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "rwkv6-3b",
                                   "jamba-1.5-large-398b",
-                                  "seamless-m4t-medium"])
+                                  "seamless-m4t-medium",
+                                  "llama-3.2-vision-90b"])
 def test_families_outside_the_dense_stack_refuse_a_sequence_axis(arch):
-    """Under an active sequence axis the MoE, RWKV6, hybrid and audio
-    families raise before any work, naming the ROADMAP entry, instead of
-    running without their exchange between the ranks."""
+    """Under an active sequence axis the audio and vlm families raise
+    before any work, saying why (the LM sweep gives their cross layers no
+    memory); the MoE, RWKV6 and hybrid families run with their exchanges
+    between the ranks (``tests/_seq_ranks.py``: two simulated ranks), and
+    the ranks' hidden states joined equal one device's within
+    ``FAMILY_TOL``."""
+    import dataclasses
+
+    from _seq_ranks import run_ranks
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import model as tmodel
     from repro_torch.sharding.specs import sequence_axis, sequence_parallel
 
-    cfg = reduced(get_config(arch))
-    tokens = torch.zeros(1, 4, dtype=torch.long)
-    with sequence_parallel(_Axis(1, 2)):
-        with pytest.raises(ValueError, match="item 6d"):
-            tmodel.hidden_forward({}, cfg, tokens)
+    cfg = dataclasses.replace(reduced(get_config(arch), d_model=32),
+                              dtype="float32")
+    if cfg.family in ("vlm", "audio"):
+        tokens = torch.zeros(1, 4, dtype=torch.long)
+        with sequence_parallel(_Axis(1, 2)):
+            with pytest.raises(ValueError, match="no memory|memory that"):
+                tmodel.hidden_forward({}, cfg, tokens)
+        assert sequence_axis() is None
+        return
+    params = tmodel.init_leaves(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, T),
+                           generator=torch.Generator().manual_seed(1))
+    want, _ = tmodel.hidden_forward(params, cfg, tokens)
+    got = run_ranks(2, lambda a: tmodel.hidden_forward(
+        params, cfg, a.take_seq(tokens))[0])
+    torch.testing.assert_close(torch.cat(got, 1), want, rtol=FAMILY_TOL,
+                               atol=FAMILY_TOL)
     assert sequence_axis() is None
