@@ -550,9 +550,30 @@ and collective seconds; then WKV6 at rank 1's local shape there (D = 128)
 from a carried state, checked and timed. Phase 25 is held to
 ``PHASE25_LIMIT_S``.
 
-The four CUDA sources (the flash kernels' two routes, WKV6's forward and
-backward) are built at the start, one ``nvcc`` each, started together
-while phase 1 builds and checks the Triton kernel.
+Phase 26 runs the LM sweep at every width the reference runs: with
+``reduced()``'s 4 heads, ``lm_d_model`` / 4 passes the WKV6 kernels' 128
+above 512 and the flash kernels' 256 above 1024. (a) The WKV6 block route
+(``rwkv6_chunk.fold_blocks``: the head dim's key and value blocks of
+``BLOCK_DIM`` folded into the head axis, one call of the kernels) at
+``WIDE_WKV_SHAPES`` (26b's launch shape first) from a non-zero ``s0``
+with a non-zero ``dS_T``, forward and backward against the plain version
+within ``WKV_TOL`` / ``WKV_BWD_TOL``, timed beside its plain version and
+bounds at the true head dim; the flash kernels'
+wide-head route (``csrc/flash_attention_wide.cu``) at
+``WIDE_FLASH_SHAPES`` through ``flash_attention``'s routing (one wide
+launch a pass, none aligned) within ``FLASH_TOL`` fp32, timed beside the
+plain version, its bounds at the true head dim and SDPA on the first of
+its backends that runs there, named. (b) ``LM_SWEEP`` at each of
+``LM_WIDE_HEADS`` (cut to ``LM_WIDE_HEADS_CUT``) on one device through
+the kernels, its launches as counted (the wide flash kernels or the WKV6
+block route, no aligned flash, no plain attention or WKV6), against the
+plain path within ``LM_PATHS_TOL``, peak memory under
+``WIDE_HEADS_PEAK_GIB``. Phase 26 is held to ``PHASE26_LIMIT_S``.
+
+The five CUDA sources (the flash kernels' three routes: self-attention,
+causal offset and wide heads; WKV6's forward and backward) are built at
+the start, one ``nvcc`` each, started together while phase 1 builds and
+checks the Triton kernel.
 
 Output: per-phase lines, a ``{"paper": {...}}`` JSON line (phase 9's
 seconds, launches, family batches and results), a ``{"scale": {...}}``
@@ -566,7 +587,8 @@ kernel checks and momentum check), a ``{"zoo": {...}}`` line (phases 14 to 17), 
 ``{"analysis": {...}}`` line (phase 22's census and pins), a
 ``{"meshes": {...}}`` line (phase 23's rows, rank-0 run and examples),
 a ``{"seq_parallel": {...}}`` line (phase 24's cells), a
-``{"seq_families": {...}}`` line (phase 25's), then a
+``{"seq_families": {...}}`` line (phase 25's), a ``{"wide_heads":
+{...}}`` line (phase 26's), then a
 ``{"kernels": [...]}`` JSON line (the aggregation with phase 9's launches
 by suite as ``paper_launches``, phase 24's by rank as
 ``seq_parallel_launches``, phase 10's as ``scale_launches``, phase
@@ -603,7 +625,12 @@ forward's and the chunked WKV6 route's timings at the ``kernels`` suite's
 shapes as ``kernels_suite_shapes``; phase 22's launches as
 ``analysis_launches``: the aggregation's in 22a and 22c, each flash
 kernel's in 22b's two serve runs; the flash forward's in 23b as
-``mesh_rank0_launches``, with the local shape it launched at), the card's
+``mesh_rank0_launches``, with the local shape it launched at; the three
+wide-head flash kernels with their 26b launches, their timings at 26b's
+launch shape and by head dim, and the SDPA backend timed beside them;
+the WKV6 block route, ``rwkv6_chunk_blocked``, with its launches in 26b's
+rwkv6 run and both directions' timings at 26b's launch shape and by
+shape), the card's
 name and power
 limit from nvidia-smi, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no
@@ -611,6 +638,7 @@ result line. Without CUDA, or without the repository beside it, it exits
 non-zero at once.
 """
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -900,9 +928,10 @@ LM_SWEEP = dict(algorithms=FAMILY, schemes=("bernoulli_ti",), seeds=(0,),
                 lm_n_seqs=256, lm_n_test=64, use_kernel=True)
 # lm-cohort: the benchmark's cohort arm (fedpbc and fedavg, m = 10,000, a
 # C = 256 cohort, 4 sequences a client, 1 local step, 512 sequences, 5
-# rounds); lm-wide: the widest model reduced() gives at a head dim the flash
-# kernel takes (d_model 512: 4 heads of 128; 4 layers, sequences of 256),
-# m = 8, the quartet at lr 0.1, 5 rounds
+# rounds); lm-wide: a wider cell than the benchmark's arms, d_model 512
+# (4 heads of 128: the flash kernels' own tiles and the WKV6 kernels'
+# widest head; wider heads take their wide-head and block routes, phase
+# 26; 4 layers, sequences of 256), m = 8, the quartet at lr 0.1, 5 rounds
 LM_COHORT = dict(algorithms=FAMILY[:2], rounds=5, eval_every=5,
                  num_clients=10_000, cohort_size=256, per_client=4,
                  local_steps=1, lm_n_seqs=512)
@@ -1052,6 +1081,9 @@ TRAIN_FLASH = ((128, 1024, 64, "float32"), (128, 512, 64, "bfloat16"))
 PHASE17_LIMIT_S = 150.0
 FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkdv")
+# the wide-head route's three kernels (fp32 self-attention above D = 256)
+FLASH_WIDE_NAMES = ("flash_attention_wide_fwd", "flash_attention_wide_bwd_dq",
+                    "flash_attention_wide_bwd_dkdv")
 # Phase 18, launch and checkpointing: the resumed SmolLM-135M run (full
 # width and depth, bf16) and the two-group run (jamba at reduced() in bf16)
 CKPT_LM = dict(clients=8, steps=2, batch=2, seq=512, rounds=4)
@@ -1198,6 +1230,24 @@ SEQ_FAMILY_ARCHS = ("rwkv6-3b", "mixtral-8x22b", "jamba-1.5-large-398b")
 SEQ_FAMILY_WIDE_ARCHS = ("rwkv6-3b",)
 WKV_PAD_SHAPES = ((2, 128, 32, 16), (2, 128, 32, 32))
 PHASE25_LIMIT_S = 150.0
+# Phase 26, the LM sweep at every width the reference runs: reduced()
+# keeps 4 heads, so lm_d_model / 4 passes the WKV6 kernels' 128 above
+# lm_d_model 512 and the flash kernels' 256 above 1024. 26a: the WKV6 block
+# route, (b, h, t, d), at 26b's launch shape (lm-family's G = 32 models x
+# 4 heads of 256, b 2, T = 32: rwkv6-3b at lm_d_model 1024), and at b 2,
+# 4 heads, T = 128, at D = 256 and at rwkv6-3b's own width, 2,560 (D = 640);
+# the wide-head flash kernels at 26b's launch shape (lm-family's G = 32
+# models x b 2 x 4 heads, T = 32, D = 288) and at D = 512 (lm_d_model
+# 2048), (bh, t, d). 26b: lm-family through the kernels at
+# (smollm-135m, 1152: flash D = 288) and (rwkv6-3b, 1024: WKV6 D = 256),
+# cut to 3 rounds as lm-576 is, against the plain path.
+WIDE_WKV_SHAPES = ((2, 128, 32, 256), (2, 4, 128, 256), (2, 4, 128, 640))
+WIDE_FLASH_SHAPES = ((256, 32, 288), (64, 256, 512))
+LM_WIDE_HEADS = (("smollm-135m", 1152), ("rwkv6-3b", 1024))
+LM_WIDE_HEADS_CUT = dict(rounds=3, eval_every=3)
+# 26b's peak device memory a run, kept well inside the card's 80 GB
+WIDE_HEADS_PEAK_GIB = 40.0
+PHASE26_LIMIT_S = 90.0
 
 
 def fail(msg):
@@ -1507,14 +1557,15 @@ def print_ptxas(phase, log):
 def ptxas_table(log):
     """{(kernel, head dim): {registers, spill_stores, spill_loads}} from an
     ``nvcc -Xptxas -v`` report; a flash kernel's causal-offset
-    instantiation is ``<kernel>_offset``."""
+    instantiation is ``<kernel>_offset``, and a kernel that is no template
+    on the head dim (the wide-head route's) has head dim None."""
     table, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d(flash_[a-z_]+)ILi(\d+)E(Lb1E)?", line)
+            m = re.search(r"\d(flash_[a-z_]+?)(ILi(\d+)E(Lb1E)?|E)", line)
             key = None if m is None else (
-                m.group(1) + ("_offset" if m.group(3) else ""),
-                int(m.group(2)))
+                m.group(1) + ("_offset" if m.group(4) else ""),
+                int(m.group(3)) if m.group(3) else None)
             if key:
                 table[key] = {}
         elif key and "spill stores" in line:
@@ -1583,7 +1634,8 @@ def check_flash_shape(torch, fa, ref, gen, shape, tag, forward_only=False):
 
 
 def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
-                 window=0, cap=0.0, forward_only=False, q_offset=0):
+                 window=0, cap=0.0, forward_only=False, q_offset=0,
+                 wide=False):
     """The three kernels at ``[bh, t, d]`` causal, with ``window`` and
     softcap ``cap`` (CUDA-graph replays; ``q_offset``: the causal-offset
     route, keys ``[bh, q_offset + t, d]``, SDPA then with an explicit
@@ -1597,29 +1649,41 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     softcap: with either, its time is of plain causal attention (more
     pairs, no tanh), kept as ``sdpa_ms`` and not as ``library_ms``.
     ``forward_only``: the forward alone (a serving shape, which no path
-    differentiates)."""
+    differentiates). ``wide``: the wide-head route's kernels (fp32 above D
+    = 256, self-attention), and SDPA under the first of its backends that
+    runs at this shape (flash, memory-efficient, cuDNN, math), named as
+    ``sdpa_backend``."""
+    import contextlib
+
     import torch.nn.functional as F
 
     from repro_torch.launch.roofline import flash_work
 
     dev = gen.device
     dt = getattr(torch, dtype)
-    kw = dict(causal=True, window=window, logit_softcap=cap,
-              q_offset=q_offset)
+    kw = dict(causal=True, window=window, logit_softcap=cap)
+    if wide:
+        fwd_fn, dq_fn, dkdv_fn = (fa.flash_attention_wide_fwd,
+                                  fa.flash_attention_wide_bwd_dq,
+                                  fa.flash_attention_wide_bwd_dkdv)
+    else:
+        kw["q_offset"] = q_offset
+        fwd_fn, dq_fn, dkdv_fn = (fa.flash_attention_fwd,
+                                  fa.flash_attention_bwd_dq,
+                                  fa.flash_attention_bwd_dkdv)
     tk = q_offset + t
     q, do = (torch.randn(bh, t, d, generator=gen, device=dev).to(dt)
              for _ in range(2))
     k, v = (torch.randn(bh, tk, d, generator=gen, device=dev).to(dt)
             for _ in range(2))
-    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
-    ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
-                         iters=20)}
+    o, lse = fwd_fn(q, k, v, **kw)
+    ms = {"fwd": time_ms(lambda: fwd_fn(q, k, v, **kw), iters=20)}
     if not forward_only:
-        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, **kw)
-        ms["dq"] = time_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, o, do, lse, **kw), iters=20)
-        ms["dkdv"] = time_ms(lambda: fa.flash_attention_bwd_dkdv(
-            q, k, v, do, lse, delta, **kw), iters=20)
+        dq, delta = dq_fn(q, k, v, o, do, lse, **kw)
+        ms["dq"] = time_ms(lambda: dq_fn(q, k, v, o, do, lse, **kw),
+                           iters=20)
+        ms["dkdv"] = time_ms(lambda: dkdv_fn(q, k, v, do, lse, delta, **kw),
+                             iters=20)
         del dq, delta
     # the plain version: forward, and its autograd for dq alone and for
     # dk, dv alone (each less the forward it reruns)
@@ -1654,17 +1718,36 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
     def sdpa():
         return F.scaled_dot_product_attention(q4, k4, v4, **causal)
 
+    backend, pick = None, contextlib.nullcontext
+    if wide:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        for b in (SDPBackend.FLASH_ATTENTION,
+                  SDPBackend.EFFICIENT_ATTENTION,
+                  SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel(b):
+                    torch.autograd.grad(sdpa(), [q4, k4, v4],
+                                        do.view(1, bh, t, d))
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            backend = b.name
+            pick = functools.partial(sdpa_kernel, b)
+            break
     same = not window and not cap
-    with torch.no_grad():
+    with torch.no_grad(), pick():
         sdpa_err = (sdpa().float() - o.view(1, bh, t, d).float()).abs(
         ).max() if same else None
-    lib_f = time_ms(lambda: F.scaled_dot_product_attention(
-        q4.detach(), k4.detach(), v4.detach(), **causal), iters=20)
+    with pick():
+        lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+            q4.detach(), k4.detach(), v4.detach(), **causal), iters=20)
     sdpa_ms = {"fwd": lib_f}
     if not forward_only:
-        lib_b = time_ms_events(lambda: torch.autograd.grad(
-            sdpa(), [q4, k4, v4], do.view(1, bh, t, d)), iters=10) \
-            - time_ms_events(sdpa, iters=10)
+        with pick():
+            lib_b = time_ms_events(lambda: torch.autograd.grad(
+                sdpa(), [q4, k4, v4], do.view(1, bh, t, d)), iters=10) \
+                - time_ms_events(sdpa, iters=10)
         sdpa_ms.update(dq=lib_b, dkdv=lib_b)
     note = "" if same else (" (causal only: SDPA has no window and no "
                             "softcap, so not the same function)")
@@ -1683,12 +1766,14 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
         f", q_offset {q_offset} (bottom-right SDPA mask)" if q_offset
         else "")
     at = f"[{bh},{t},{d}]" if not q_offset else f"[{bh},{t}|{tk},{d}]"
+    route = "flash_attention_wide_" if wide else "flash_attention_"
+    named = f" ({backend} backend)" if backend else ""
     for kk in ms:
-        print(f"{tag} timing flash_attention_"
+        print(f"{tag} timing {route}"
               f"{'fwd' if kk == 'fwd' else 'bwd_' + kk} "
               f"{at} {short} {masks}: kernel {ms[kk]:.5f} ms, "
-              f"plain {plain[kk]:.5f} ms, scaled_dot_product_attention "
-              f"{'fwd' if kk == 'fwd' else 'bwd (dq+dk+dv)'} "
+              f"plain {plain[kk]:.5f} ms, scaled_dot_product_attention"
+              f"{named} {'fwd' if kk == 'fwd' else 'bwd (dq+dk+dv)'} "
               f"{sdpa_ms[kk]:.5f} ms{note}, bound {bound[kk]:.5f} ms "
               f"({flops[kk]:.4e} flop at {peak / 1e12:g} TFLOP/s {short}; "
               f"{nbytes[kk]} bytes)"
@@ -1717,7 +1802,8 @@ def flash_timing(torch, fa, ref, gen, bh, t, d, dtype, bw, peak, tag,
                      flops=flops[kk], bytes=nbytes[kk],
                      shape=[bh, t, d], dtype=dtype, window=window,
                      softcap=cap, **({"tk": tk, "q_offset": q_offset}
-                                     if q_offset else {}))
+                                     if q_offset else {}),
+                     **({"sdpa_backend": backend} if wide else {}))
             for kk in ms}
 
 
@@ -6727,20 +6813,28 @@ def _wkv_timed(torch, rk, ref, gen, shape, label, bw, fp32_peak):
     """The WKV6 wrapper at ``shape`` ``(b, h, t, d)`` from a non-zero
     ``s0`` with a non-zero ``dS_T`` (a state carried into a chunk), checked
     forward and backward against the plain version (the backward through
-    ``rwkv6_chunk_autograd``, ``WKV_BWD_TOL``), then timed: the forward
+    ``rwkv6_chunk_autograd``, ``WKV_BWD_TOL``) and counted on the pad or
+    block route the head dim takes, then timed: the forward
     (``rwkv6_chunk``, CUDA-graph replays) and the autograd backward (CUDA
-    events; at a padded head dim the pads' and slices' copies included)
-    beside the plain version's and the bounds at the true head dim."""
+    events; on the pad or block route the pads', folds' and slices' copies
+    included) beside the plain version's and the bounds at the true head
+    dim."""
     b, h, t, d = shape
     ins, do, ds_t = _wkv_bwd_inputs(torch, gen, b, h, t, d, "ref")
-    before = dict(rk.rwkv6_chunk.padded_launches)
+    routes = ("padded", "blocked")
+    before = {r: dict(getattr(rk.rwkv6_chunk, f"{r}_launches"))
+              for r in routes}
     err = max(_wkv_fwd_check(torch, rk, ref, ins, label),
               _wkv_bwd_check(torch, rk, ref, ins, do, ds_t, label))
-    padded = {k: v - before[k]
-              for k, v in rk.rwkv6_chunk.padded_launches.items()}
-    want_padded = 1 if rk.padded_head_dim(d) != d else 0
-    if padded != {"forward": 2 * want_padded, "backward": want_padded}:
-        fail(f"{label}: the zero-padded route counted {padded}")
+    # the head dim's route, if any: blocks above 128, the pads below
+    route = None if d in rk.HEAD_DIMS else (
+        "blocked" if d > rk.HEAD_DIMS[-1] else "padded")
+    for r in routes:
+        got = {k: v - before[r][k] for k, v in
+               getattr(rk.rwkv6_chunk, f"{r}_launches").items()}
+        one = int(r == route)
+        if got != {"forward": 2 * one, "backward": one}:
+            fail(f"{label}: the {r} route counted {got}")
     ms = time_ms(lambda: rk.rwkv6_chunk(*ins, route="chunked"), iters=50)
     plain_ms = time_ms_events(lambda: ref.rwkv6_chunk_plain(
         *ins, chunk=rk.CHUNK), iters=5)
@@ -6754,7 +6848,7 @@ def _wkv_timed(torch, rk, ref, gen, shape, label, bw, fp32_peak):
     bwd_ms = backward_ms(rk.rwkv6_chunk_autograd, 10)
     plain_bwd_ms = backward_ms(ref.rwkv6_chunk_plain, 3)
     row = dict(shape=list(shape), padded_to=rk.padded_head_dim(d),
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               route=route, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                backward_ms=bwd_ms, plain_backward_ms=plain_bwd_ms,
                library_ms=None)
     for key, direction in (("", "fwd"), ("backward_", "bwd")):
@@ -6763,7 +6857,8 @@ def _wkv_timed(torch, rk, ref, gen, shape, label, bw, fp32_peak):
         row[f"{key}bound_by"] = ("operations" if flops / fp32_peak
                                  > nbytes / bw else "bytes")
     print(f"{label} timing {list(shape)} fp32 (head dim {d} run at "
-          f"{row['padded_to']}): forward {ms:.5f} ms (CUDA-graph replays; "
+          f"{row['padded_to']}, {route or 'as it is'}): forward {ms:.5f} ms "
+          f"(CUDA-graph replays; "
           f"plain {plain_ms:.5f}), autograd backward {bwd_ms:.5f} ms (CUDA "
           f"events; plain {plain_bwd_ms:.5f}); bounds {row['bound_ms']:.5f} "
           f"/ {row['backward_bound_ms']:.5f} ms by {row['bound_by']} / "
@@ -6775,8 +6870,9 @@ def _wkv_timed(torch, rk, ref, gen, shape, label, bw, fp32_peak):
 
 
 def _one_device_counted(torch, grid, spec, task=None):
-    """One family batch of ``spec`` on one device with every count (flash,
-    aggregation, WKV6, the plain attention and WKV6 calls) set to 0 just
+    """One family batch of ``spec`` on one device with every count (flash
+    and its wide-head route, aggregation, WKV6 and its pad and block
+    routes, the plain attention and WKV6 calls) set to 0 just
     before and read just after: ``(server, out, counts, wall s, peak
     bytes, batch, task, fed)``; the rest of the final state is freed, and
     the allocator's cache emptied, so that a pool sharing the card finds
@@ -6791,10 +6887,11 @@ def _one_device_counted(torch, grid, spec, task=None):
     task = task or grid.get_traced_task(spec)
     batch = grid.make_cell_batch(spec, fed, task, algos=spec.algorithms)
     runner = grid.make_runner(spec, fed, task)
-    fns = dict(zip(FLASH_NAMES, (fa.flash_attention_fwd,
-                                 fa.flash_attention_bwd_dq,
-                                 fa.flash_attention_bwd_dkdv)),
-               fused_masked_agg=masked_agg.fused_masked_agg)
+    fns = dict(zip(FLASH_NAMES + FLASH_WIDE_NAMES, (
+        fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+        fa.flash_attention_bwd_dkdv, fa.flash_attention_wide_fwd,
+        fa.flash_attention_wide_bwd_dq, fa.flash_attention_wide_bwd_dkdv)),
+        fused_masked_agg=masked_agg.fused_masked_agg)
     gc.collect()
     torch.cuda.empty_cache()
     for f in fns.values():
@@ -6965,9 +7062,11 @@ def phase25_seq_families(torch, rk, ref, grid, bw, fp32_peak):
     server_k, out_k, counts = one[:3]
     E = len(sweep.eval_rounds(spec.rounds, spec.eval_every))
     L, steps = spec.lm_layers, spec.local_steps * spec.rounds
-    want = dict(zip(FLASH_NAMES, (0, 0, 0)), fused_masked_agg=spec.rounds,
+    want = dict(dict.fromkeys(FLASH_NAMES + FLASH_WIDE_NAMES, 0),
+                fused_masked_agg=spec.rounds,
                 wkv6_fwd=L * (steps + E), wkv6_bwd=L * steps,
                 wkv6_fwd_padded=L * (steps + E), wkv6_bwd_padded=L * steps,
+                wkv6_fwd_blocked=0, wkv6_bwd_blocked=0,
                 plain_attention=0, plain_wkv6=0)
     plain_task = tasks.make_traced_lm_task(
         data_seed=spec.data_seed, num_clients=spec.num_clients,
@@ -7039,6 +7138,128 @@ def phase25_seq_families(torch, rk, ref, grid, bw, fp32_peak):
     return res
 
 
+def phase26_wide_heads(torch, fa, rk, ref, grid, bw, fp32_peak, build_log):
+    """The LM sweep at every width the reference runs: (a) the WKV6 block
+    route and the flash kernels' wide-head route checked against their
+    plain versions and timed (the wide kernels' registers and spills from
+    ``build_log``, their library's report); (b) lm-family through them at
+    ``LM_WIDE_HEADS`` against the plain path (``PHASE26_LIMIT_S``); see
+    the constants above."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.experiments import sweep, tasks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    gen = torch.Generator(device=card).manual_seed(26)
+    print_ptxas("phase26a", build_log)
+    res = {"wkv6_blocked": {}, "flash_wide": {}, "b": {},
+           "ptxas": {k: v for (k, _), v in ptxas_table(build_log).items()}}
+    # (a) the WKV6 block route, from a carried state
+    for shape in WIDE_WKV_SHAPES:
+        label = f"phase26a wkv6 block route {list(shape)}"
+        res["wkv6_blocked"]["x".join(map(str, shape))] = _wkv_timed(
+            torch, rk, ref, gen, shape, label, bw, fp32_peak)
+    # (a) the wide-head flash kernels, through flash_attention's routing
+    fns = [getattr(fa, n) for n in FLASH_WIDE_NAMES + FLASH_NAMES]
+    for bh, t, d in WIDE_FLASH_SHAPES:
+        before = [f.launches for f in fns]
+        errs = check_flash_shape(torch, fa, ref, gen,
+                                 (bh, 1, t, d, 0, 0.0, "float32", True),
+                                 "phase26a")
+        got = [f.launches - n for f, n in zip(fns, before)]
+        if got != [1, 1, 1, 0, 0, 0]:
+            fail(f"phase26a: flash_attention at D = {d} launched {got} "
+                 f"(wide fwd, dq, dkdv, then the aligned three)")
+        timed = flash_timing(torch, fa, ref, gen, bh, t, d, "float32", bw,
+                             fp32_peak, "phase26a", wide=True)
+        for kk, r in timed.items():
+            r["max_abs_err"] = (errs["o"] if kk == "fwd" else errs["dq"]
+                                if kk == "dq" else max(errs["dk"],
+                                                       errs["dv"]))
+        res["flash_wide"][f"D={d}"] = timed
+    res["a_seconds"] = time.perf_counter() - t_phase
+    print(f"phase26a done at {res['a_seconds']:.1f} s", flush=True)
+    # (b) lm-family through the routes at each width, against the plain
+    # path from the same generators
+    for arch, d_model in LM_WIDE_HEADS:
+        spec = grid.SweepSpec(**{**LM_SWEEP, **LM_WIDE_HEADS_CUT,
+                                 "lm_arch": arch, "lm_d_model": d_model})
+        cfg = reduced(get_config(arch), d_model=d_model,
+                      layers=spec.lm_layers)
+        kinds = [cfg.layer_kind(i) for i in range(spec.lm_layers)]
+        attn, rwkv = kinds.count("attn"), kinds.count("rwkv")
+        server_k, out_k, counts, sec, peak = _one_device_counted(
+            torch, grid, spec)[:5]
+        E = len(sweep.eval_rounds(spec.rounds, spec.eval_every))
+        steps = spec.local_steps * spec.rounds
+        want = dict(dict.fromkeys(FLASH_NAMES, 0),
+                    **dict(zip(FLASH_WIDE_NAMES, (attn * (steps + E),
+                                                  attn * steps,
+                                                  attn * steps))),
+                    fused_masked_agg=spec.rounds,
+                    wkv6_fwd=rwkv * (steps + E), wkv6_bwd=rwkv * steps,
+                    wkv6_fwd_padded=0, wkv6_bwd_padded=0,
+                    wkv6_fwd_blocked=rwkv * (steps + E),
+                    wkv6_bwd_blocked=rwkv * steps,
+                    plain_attention=0, plain_wkv6=0)
+        plain_task = tasks.make_traced_lm_task(
+            data_seed=spec.data_seed, num_clients=spec.num_clients,
+            arch=arch, d_model=d_model, layers=spec.lm_layers,
+            seq_len=spec.lm_seq, classes=spec.classes,
+            n_seqs=spec.lm_n_seqs, n_test=spec.lm_n_test,
+            per_client=spec.per_client, local_steps=spec.local_steps,
+            batch_size=spec.batch_size, device=card, backend="torch")
+        server_p, out_p, counts_p, sec_p, peak_p = _one_device_counted(
+            torch, grid, dataclasses.replace(spec, use_kernel=False),
+            task=plain_task)[:5]
+        rows = (server_k - server_p).abs().amax(-1)
+        heads = {"attention": cfg.head_dim if attn else None,
+                 "wkv6": cfg.rwkv.head_dim if rwkv else None}
+        loss = out_k["metrics"]["loss"]
+        row = dict(arch=arch, d_model=d_model, head_dims=heads, kinds=kinds,
+                   B=len(spec.algorithms) * len(spec.lrs), m=spec.num_clients,
+                   rounds=spec.rounds, seconds_kernel=sec, seconds_plain=sec_p,
+                   peak_gib=peak / 2 ** 30, plain_peak_gib=peak_p / 2 ** 30,
+                   counts=counts, want_counts=want, plain_path_counts=counts_p,
+                   paths_max_row_diff=rows.max().item(),
+                   final_loss=loss[:, -1].tolist())
+        res["b"][arch] = row
+        print(f"phase26b {arch} LM sweep (d_model {d_model}: {kinds}, head "
+              f"dims {heads}), {spec.rounds} rounds on one device: kernels "
+              f"{sec:.3f} s (peak {row['peak_gib']:.3f} GiB), plain path "
+              f"{sec_p:.3f} s (peak {row['plain_peak_gib']:.3f} GiB); counts "
+              f"{counts}, expected {want}; plain path {counts_p}; largest "
+              f"|server diff| of a trajectory {rows.max().item():.3e} (tol "
+              f"{LM_PATHS_TOL:g})", flush=True)
+        if counts != want:
+            fail(f"phase26b {arch}: counts {counts}, expected {want}")
+        if any(counts_p[k] for k in FLASH_NAMES + FLASH_WIDE_NAMES
+               + ("fused_masked_agg", "wkv6_fwd", "wkv6_bwd")) \
+                or not counts_p["plain_attention"] + counts_p["plain_wkv6"]:
+            fail(f"phase26b {arch}: the plain path launched a kernel or "
+                 f"took no plain version ({counts_p})")
+        if not (torch.isfinite(loss).all()
+                and torch.isfinite(server_k).all()):
+            fail(f"phase26b {arch}: a non-finite loss or parameter")
+        if not rows.max() <= LM_PATHS_TOL:
+            fail(f"phase26b {arch}: the kernel and plain paths diverge")
+        if max(row["peak_gib"], row["plain_peak_gib"]) > WIDE_HEADS_PEAK_GIB:
+            fail(f"phase26b {arch}: peak memory over "
+                 f"{WIDE_HEADS_PEAK_GIB:g} GiB")
+        del server_k, out_k, server_p, out_p, plain_task
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase26 done in {res['seconds']:.1f} s (limit "
+          f"{PHASE26_LIMIT_S:g} s)", flush=True)
+    if res["seconds"] > PHASE26_LIMIT_S:
+        fail(f"phase 26 took {res['seconds']:.1f} s, over its "
+             f"{PHASE26_LIMIT_S:g} s")
+    return res
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -7076,7 +7297,8 @@ def main():
     t0 = time.perf_counter()
     # the CUDA sources build (one nvcc each, the flash kernels' two routes
     # apart) while phase 1 builds the Triton kernel
-    sources = [fa.SOURCE, fa.OFFSET_SOURCE, rk.SOURCE, rk.BWD_SOURCE]
+    sources = [fa.SOURCE, fa.OFFSET_SOURCE, fa.WIDE_SOURCE, rk.SOURCE,
+               rk.BWD_SOURCE]
     with ThreadPoolExecutor(1) as pool:
         nvcc = pool.submit(build.compile_all, sources)
         k = phase1_kernel(torch, masked, ref)
@@ -7116,6 +7338,8 @@ def main():
     seq = phase24_seq_parallel(torch, fa, ref, grid, bw, fp32_peak,
                                bf16_peak)
     fam = phase25_seq_families(torch, rk, ref, grid, bw, fp32_peak)
+    wide_heads = phase26_wide_heads(torch, fa, rk, ref, grid, bw, fp32_peak,
+                                    logs[fa.WIDE_SOURCE.name])
     sl = suites["launches"]
     zoo_s = gemma["seconds"] + moe["seconds"]
     print(f"phases 14-15 took {zoo_s:.1f} s (limit {PHASE14_15_LIMIT_S:g} "
@@ -7358,6 +7582,53 @@ def main():
             k2: [[r["wkv6_fwd_padded"], r["wkv6_bwd_padded"]]
                  for r in cell["launches"]]
             for k2, cell in cells25.items()}})
+    # phase 26: the wide-head flash kernels and the WKV6 block route,
+    # launched in 26b's runs and timed at 26b's launch shapes (and by
+    # shape)
+    b26 = wide_heads["b"]
+    for i, (key, name) in enumerate(zip(("fwd", "dq", "dkdv"),
+                                        FLASH_WIDE_NAMES)):
+        timed = wide_heads["flash_wide"]
+        r = timed[f"D={WIDE_FLASH_SHAPES[0][2]}"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_wide.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:76 "
+                        "(flash_attention -> _kernel, fp32 above head dim "
+                        "256" + ("" if key == "fwd" else
+                                 "; its VJP, which the TPU kernel lacks: "
+                                 + ("delta and dQ" if key == "dq"
+                                    else "dK and dV")) + ")",
+            "launches": b26["smollm-135m"]["counts"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "sdpa_backend": r["sdpa_backend"], "flops": r["flops"],
+            "bytes": r["bytes"], "shape": r["shape"],
+            "by_head_dim": {dd: v[key] for dd, v in timed.items()},
+            **wide_heads["ptxas"].get(f"flash_wide_{key}", {}),
+            "lm_sweep_launches": {
+                arch: row["counts"][name] for arch, row in b26.items()}})
+    blk = wide_heads["wkv6_blocked"]
+    first = blk["x".join(map(str, WIDE_WKV_SHAPES[0]))]
+    kernels.append({
+        "name": "rwkv6_chunk_blocked", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
+        "replaces": replaces + "; at a head dim above 128: the (key block, "
+                    "value block) pairs of BLOCK_DIM folded into the head "
+                    "axis, one call of the kernels, o summed over the key "
+                    "blocks)",
+        "launches": b26["rwkv6-3b"]["counts"]["wkv6_fwd_blocked"],
+        "max_abs_err": max(r2["max_abs_err"] for r2 in blk.values()),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None, "shape": first["shape"],
+        "block_dim": rk.BLOCK_DIM,
+        "backward_launches": b26["rwkv6-3b"]["counts"]["wkv6_bwd_blocked"],
+        "backward_ms": first["backward_ms"],
+        "plain_backward_ms": first["plain_backward_ms"],
+        "backward_bound_ms": first["backward_bound_ms"],
+        "by_shape": blk})
     print(json.dumps({"paper": paper}), flush=True)
     print(json.dumps({"scale": scale}), flush=True)
     print(json.dumps({"search": found}), flush=True)
@@ -7382,6 +7653,7 @@ def main():
     print(json.dumps({"seq_parallel": {k2: v for k2, v in seq.items()
                                        if k2 != "c"}}), flush=True)
     print(json.dumps({"seq_families": fam}), flush=True)
+    print(json.dumps({"wide_heads": wide_heads}), flush=True)
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -63,16 +63,22 @@ def sequence_split(spec, activation_spec, model: int) -> bool:
     spec, a task without a sequence, a length that does not divide) the
     call runs as with ``None``, as ``specs.maybe_constrain`` leaves a dim
     it cannot split replicated. Raises ``ValueError`` for any other spec
-    (the residual's ``d`` over ``"model"``, or a spec over ``"batch"``);
-    the LM's forward raises for an arch of the vlm or audio family."""
+    (the residual's ``d`` over ``"model"``, or a spec over ``"batch"``),
+    as the reference's ``run_sharded_2d`` does: its trajectory and client
+    vmaps already name both mesh axes as their ``spmd_axis_name``, so its
+    ``with_sharding_constraint`` refuses a spec that names either. The
+    sequence split itself goes beyond the reference, which refuses
+    ``SEQUENCE_SPEC`` the same way. The LM's forward raises for an arch of
+    the vlm or audio family."""
     if activation_spec is None:
         return False
     if tuple(activation_spec) != tuple(SEQUENCE_SPEC):
         raise ValueError(
             f"run_sharded_2d takes activation_spec=None or "
             f"{SEQUENCE_SPEC!r} (each sequence over 'model'); got "
-            f"{activation_spec!r}, which is not ported (ROADMAP Queue 1, "
-            f"item 6e)")
+            f"{activation_spec!r}, which the reference refuses too: its "
+            f"trajectory and client vmaps already use both mesh axes, so "
+            f"no other spec can place an activation")
     return spec.task == "lm" and model > 1 and spec.lm_seq % model == 0
 
 
@@ -250,16 +256,21 @@ def _launch_counters():
     return {"fused_masked_agg": masked_agg.fused_masked_agg,
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-            "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv}
+            "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
+            "flash_attention_wide_fwd": fa.flash_attention_wide_fwd,
+            "flash_attention_wide_bwd_dq": fa.flash_attention_wide_bwd_dq,
+            "flash_attention_wide_bwd_dkdv": fa.flash_attention_wide_bwd_dkdv}
 
 
 def _wkv6_launches(rk) -> Dict[str, int]:
     """The WKV6 wrapper's counts: forward calls, backward calls, and those
-    of each that took the zero-padded route."""
+    of each that took the zero-padded route and the block route."""
     return {"wkv6_fwd": rk.rwkv6_chunk.launches,
             "wkv6_bwd": rk.rwkv6_chunk.launches_by_route["backward"],
             "wkv6_fwd_padded": rk.rwkv6_chunk.padded_launches["forward"],
-            "wkv6_bwd_padded": rk.rwkv6_chunk.padded_launches["backward"]}
+            "wkv6_bwd_padded": rk.rwkv6_chunk.padded_launches["backward"],
+            "wkv6_fwd_blocked": rk.rwkv6_chunk.blocked_launches["forward"],
+            "wkv6_bwd_blocked": rk.rwkv6_chunk.blocked_launches["backward"]}
 
 
 def _digest(tree) -> str:

@@ -131,7 +131,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On CUDA tensors the kernel path repeats GQA's KV heads, folds ``[B, H]``
     into the kernel's batch axis and makes one forward launch (two backward
     launches under autograd); autograd sums the KV gradient over the
-    repeats.
+    repeats. The head dim takes no part in the shape test: up to 256 the
+    flash kernels take it, above 256 fp32 self-attention takes their
+    wide-head route and anything else raises (``flash_attention``).
     """
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as ref
@@ -173,8 +175,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward and, in the backward, the two backward kernels; any other call
     takes ``rwkv6_chunk``, one forward route by T. All walk chunks of
     ``rwkv6_chunk.CHUNK`` steps; a head dim below 64, or between 64 and
-    128, takes the kernels' zero-padded route. Each call that takes the
-    plain version adds one to ``plain_wkv6_calls``.
+    128, takes the kernels' zero-padded route, one above 128 their block
+    route. Each call that takes the plain version adds one to
+    ``plain_wkv6_calls``.
     """
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_chunk as rk

@@ -31,7 +31,22 @@ whatever ``w`` is, a zero ``v`` column gives a zero output column, and a
 zero ``r`` column reads nothing. Under autograd the pads' own backward
 slices every gradient back to ``D``. Each padded call also counts one in
 ``rwkv6_chunk.padded_launches["forward"]`` (its backward in
-``["backward"]``). A ``D`` above 128 raises.
+``["backward"]``).
+
+A ``D`` above 128 takes the block route (``fold_blocks``): every state
+element ``S[i, j]`` follows its own recurrence ``S <- w[i] S + k[i] v[j]``,
+and ``o[t, j]`` sums over the key channels ``i`` terms of channel ``i``
+alone (the state read, the intra-chunk scores, the bonus). So with ``D``
+zero-padded (the pad route's rules) to ``n`` blocks of ``BLOCK_DIM``, the
+call is ``n * n`` calls at ``BLOCK_DIM``, one for each (key block, value
+block) pair: ``r``, ``k``, ``w``, ``u`` of the key block, ``v`` of the
+value block, ``s0``'s block of the pair. They are folded into the head
+axis and run as one call of the kernels; ``o`` sums over the key blocks
+and ``S_T``'s blocks are the pairs' own. Under autograd the fold's own
+backward sums ``dr``, ``dk``, ``dw``, ``du`` over the value blocks and
+``dv`` over the key blocks. Each blocked call also counts one in
+``rwkv6_chunk.blocked_launches["forward"]`` (its backward in
+``["backward"]``); ``padded_head_dim`` then raises only for ``D < 1``.
 
 ``rwkv6_chunk_autograd`` is the same function under autograd: on CUDA
 tensors its forward is the chunked route whatever T is, and it keeps the
@@ -58,16 +73,20 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_chunk.cu"
 BWD_SOURCE = SOURCE.with_name("rwkv6_chunk_bwd.cu")
 HEAD_DIMS = (64, 128)
 CHUNK = 64
+# the block route's block size: 128 folds a quarter of 64's pairs, reads
+# r, k, w half as often and does half the intra-chunk work;
+# scripts/wkv6_block_dim.py times both on the card (PERF.md section 6)
+BLOCK_DIM = 128
 # the longest T that takes the step route: at [8, 40, T, 64] on an H100 the
 # step route took 0.0196 ms at T = 8 against the chunked route's 0.0296, and
 # 0.0358 against 0.0299 at T = 16 (chip_smoke.py phase 7 times both)
 STEP_MAX_T = 8
 ROUTES = ("chunked", "step")
 
-__all__ = ["BWD_KERNELS", "CHUNK", "COUNTED", "HEAD_DIMS", "KERNELS",
-           "ROUTES", "STEP_MAX_T", "pad_inputs", "padded_head_dim",
-           "reset_counts", "route_for", "rwkv6_chunk", "rwkv6_chunk_autograd",
-           "rwkv6_chunk_backward", "shared_bytes"]
+__all__ = ["BLOCK_DIM", "BWD_KERNELS", "CHUNK", "COUNTED", "HEAD_DIMS",
+           "KERNELS", "ROUTES", "STEP_MAX_T", "fold_blocks", "pad_inputs",
+           "padded_head_dim", "reset_counts", "route_for", "rwkv6_chunk",
+           "rwkv6_chunk_autograd", "rwkv6_chunk_backward", "shared_bytes"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # chunked: r, k, v, w, u, s0, o, s_out, workspace; step: without it
@@ -127,14 +146,14 @@ def route_for(t_len: int) -> str:
 
 def padded_head_dim(d: int) -> int:
     """The head dim the kernels run ``d`` at: ``d`` itself when it is one
-    of ``HEAD_DIMS``, else the next one above (the zero-padded route);
-    raises for ``d`` above 128 or below 1."""
+    of ``HEAD_DIMS``, the next one above below 128 (the zero-padded route),
+    ``BLOCK_DIM`` above 128 (the block route); raises for ``d`` below 1."""
+    if d < 1:
+        raise ValueError(f"a WKV6 head dim must be at least 1, got {d}")
     if d in HEAD_DIMS:
         return d
-    if not 1 <= d < HEAD_DIMS[-1]:
-        raise ValueError(f"the WKV6 kernels take head dims {HEAD_DIMS}, and "
-                         f"a head dim below {HEAD_DIMS[-1]} through the "
-                         f"zero-padded route; got {d}")
+    if d > HEAD_DIMS[-1]:
+        return BLOCK_DIM
     return next(h for h in HEAD_DIMS if h > d)
 
 
@@ -148,6 +167,41 @@ def pad_inputs(r, k, v, w, u, s0, dp: int):
     return (*(F.pad(x, (0, pd)) for x in (r, k, v)),
             F.pad(w, (0, pd), value=1.0), F.pad(u, (0, pd)),
             F.pad(s0, (0, pd, 0, pd)))
+
+
+def fold_blocks(fn, r, k, v, w, u, s0):
+    """WKV6 at head dim ``D`` as one call of ``fn`` (a WKV6 function of
+    ``(r, k, v, w, u, s0)`` at head dim ``BLOCK_DIM``, e.g. the kernels'
+    wrapper, or the plain version) over the (key block, value block) pairs
+    of ``D`` zero-padded to ``n`` blocks of ``BLOCK_DIM`` (``pad_inputs``'
+    rules), folded into the head axis: ``[B, H * n * n, T, BLOCK_DIM]`` in
+    (head, key block, value block) order. Returns ``(o [B, H, T, D], S_T
+    [B, H, D, D])``: ``o`` summed over the key blocks (in block order),
+    ``S_T``'s blocks the pairs' own. Differentiable: the fold's backward
+    sums ``dr``, ``dk``, ``dw``, ``du`` over the value blocks and ``dv``
+    over the key blocks."""
+    b, h, t, d = r.shape
+    db = BLOCK_DIM
+    dp = -(-d // db) * db
+    if dp != d:
+        r, k, v, w, u, s0 = pad_inputs(r, k, v, w, u, s0, dp)
+    n = dp // db
+
+    def blocks(x, key: bool):
+        """``x [B, H, T, dp]`` as ``[B, H * n * n, T, db]``: block ``kb``
+        of the pair (``key``) or block ``vb``, repeated over the other."""
+        x = x.reshape(b, h, t, n, db).permute(0, 1, 3, 2, 4)
+        x = x.unsqueeze(3 if key else 2)
+        return x.expand(b, h, n, n, t, db).reshape(b, h * n * n, t, db)
+
+    uf = u.reshape(h, n, 1, db).expand(h, n, n, db).reshape(h * n * n, db)
+    sf = s0.reshape(b, h, n, db, n, db).permute(0, 1, 2, 4, 3, 5)
+    o, s_t = fn(blocks(r, True), blocks(k, True), blocks(v, False),
+                blocks(w, True), uf, sf.reshape(b, h * n * n, db, db))
+    o = o.reshape(b, h, n, n, t, db).sum(2).permute(0, 1, 3, 2, 4)
+    s_t = s_t.reshape(b, h, n, n, db, db).permute(0, 1, 2, 4, 3, 5)
+    return (o.reshape(b, h, t, dp)[..., :d],
+            s_t.reshape(b, h, dp, dp)[..., :d, :d])
 
 
 def _check_inputs(r, k, v, w, u, s0=None):
@@ -209,6 +263,11 @@ def rwkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if resolve_backend(r) == "torch":
         return rwkv6_chunk_plain(r, k, v, w, u, s0, chunk=CHUNK)
     d = r.shape[-1]
+    if r.dim() == 4 and d > HEAD_DIMS[-1]:
+        o, s_out = fold_blocks(
+            functools.partial(rwkv6_chunk, route=route), r, k, v, w, u, s0)
+        rwkv6_chunk.blocked_launches["forward"] += 1
+        return o.contiguous(), s_out.contiguous()
     if r.dim() == 4 and d not in HEAD_DIMS:
         o, s_out = rwkv6_chunk(*pad_inputs(r, k, v, w, u, s0,
                                            padded_head_dim(d)), route=route)
@@ -256,18 +315,30 @@ class _ChunkedWKV6(torch.autograd.Function):
     kernels."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u, s0, padded):
+    def forward(ctx, r, k, v, w, u, s0, counted):
         o, s_out, ws = _forward(r, k, v, w, u, s0, "chunked")
         ctx.save_for_backward(r, k, v, w, u, ws)
-        ctx.padded = padded
+        ctx.counted = counted
         return o, s_out
 
     @staticmethod
     def backward(ctx, do, ds_t):         # an unused output's gradient: zeros
         r, k, v, w, u, ws = ctx.saved_tensors
-        if ctx.padded:
-            rwkv6_chunk.padded_launches["backward"] += 1
+        if ctx.counted is not None:
+            getattr(rwkv6_chunk, f"{ctx.counted}_launches")["backward"] += 1
         return (*rwkv6_chunk_backward(r, k, v, w, u, ws, do, ds_t), None)
+
+
+def _chunked_apply(counted: Optional[str]):
+    """``_ChunkedWKV6`` on checked inputs, its backward counted in
+    ``rwkv6_chunk.<counted>_launches`` (``"padded"``, ``"blocked"``, or
+    None for no route's count)."""
+
+    def apply(r, k, v, w, u, s0):
+        _check_inputs(r, k, v, w, u, s0)
+        return _ChunkedWKV6.apply(r, k, v, w, u, s0, counted)
+
+    return apply
 
 
 def rwkv6_chunk_autograd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -278,22 +349,25 @@ def rwkv6_chunk_autograd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if resolve_backend(r) == "torch":
         return rwkv6_chunk_plain(r, k, v, w, u, s0, chunk=CHUNK)
     d = r.shape[-1]
+    if r.dim() == 4 and d > HEAD_DIMS[-1]:
+        out = fold_blocks(_chunked_apply("blocked"), r, k, v, w, u, s0)
+        rwkv6_chunk.blocked_launches["forward"] += 1
+        return out
     if r.dim() == 4 and d not in HEAD_DIMS:
         padded = pad_inputs(r, k, v, w, u, s0, padded_head_dim(d))
-        _check_inputs(*padded)
-        o, s_out = _ChunkedWKV6.apply(*padded, True)
+        o, s_out = _chunked_apply("padded")(*padded)
         rwkv6_chunk.padded_launches["forward"] += 1
         return o[..., :d], s_out[..., :d, :d]
-    _check_inputs(r, k, v, w, u, s0)
-    return _ChunkedWKV6.apply(r, k, v, w, u, s0, False)
+    return _chunked_apply(None)(r, k, v, w, u, s0)
 
 
 def reset_counts():
     """Every count to 0: calls, calls by route and the backward's, and the
-    zero-padded route's by direction."""
+    zero-padded and block routes' by direction."""
     rwkv6_chunk.launches = 0
     rwkv6_chunk.launches_by_route = dict.fromkeys(COUNTED, 0)
     rwkv6_chunk.padded_launches = {"forward": 0, "backward": 0}
+    rwkv6_chunk.blocked_launches = {"forward": 0, "backward": 0}
 
 
 reset_counts()

@@ -36,8 +36,13 @@ def test_library_path_follows_the_source_and_its_headers(sources, edited,
 
 
 def test_dependencies_of_the_port_sources():
-    names = [p.name for p in build.dependencies(tflash.SOURCE)]
-    assert names == ["flash_attention.cu", "warp_mma.cuh", "mma3.cuh"]
+    """Each source with the headers it includes, directly or through
+    another: the flash kernels' self-attention and wide-head sources share
+    ``flash_common.cuh`` (which includes ``mma3.cuh``), so an edit of
+    either header rebuilds both libraries."""
+    for source in (tflash.SOURCE, tflash.WIDE_SOURCE):
+        assert [p.name for p in build.dependencies(source)] == [
+            source.name, "warp_mma.cuh", "flash_common.cuh", "mma3.cuh"]
     for source in (trwkv.SOURCE, trwkv.BWD_SOURCE):
         assert [p.name for p in build.dependencies(source)] == [
             source.name, "warp_mma.cuh", "mma3.cuh", "wkv6_chunk.cuh"]

@@ -88,10 +88,11 @@ def test_emulated_fp32_backward_matches_jax_grad(emulated, cap):
 
 
 def test_emulated_launch_refuses_an_unsupported_head_dim(emulated):
-    """Past the largest instantiation the C interface refuses (-1) and the
-    wrapper raises before any launch, naming the gap; the self-attention
-    library refuses an offset call (-2: the offset route's library takes
-    it)."""
+    """Past the largest instantiation the C interface refuses (-1): an
+    fp32 head dim above 256 runs in the wide-head route's library, padded
+    to a multiple of 128, and a bf16 one raises before any launch, naming
+    the gap; the self-attention library refuses an offset call (-2: the
+    offset route's library takes it)."""
     x = torch.zeros(1, 64, 272)
     lse = torch.empty(1, 64)
     assert emulated.flash_attention_fwd(
@@ -101,5 +102,6 @@ def test_emulated_launch_refuses_an_unsupported_head_dim(emulated):
     assert emulated.flash_attention_fwd(
         x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
         lse.data_ptr(), 1, 32, 64, 32, 64, 0, 1, 0, 0.0, 0.125, None) == -2
+    assert tflash.padded_head_dim(272) == 384
     with pytest.raises(ValueError, match="head dims 1 to 256"):
-        tflash.padded_head_dim(272)
+        tflash.padded_head_dim(272, torch.bfloat16)

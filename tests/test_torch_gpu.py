@@ -1011,3 +1011,84 @@ def test_sequence_parallel_lm_round_matches_one_device(cuda):
     assert [off[n] for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
                              "flash_attention_bwd_dkdv")] == [steps] * 3
     assert not any(ranks[0]["offset_launches"].values())
+
+
+# the wide-head route: fp32 self-attention above D = 256, (bh, t, d, window,
+# softcap); the LM sweep's [256, 32, 288] at lm_d_model 1152, a ragged T at
+# D = 512 with a window and softcap
+FLASH_WIDE_CASES = [(256, 32, 288, 0, 0.0), (2, 200, 512, 70, 50.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,d,win,cap", FLASH_WIDE_CASES)
+def test_flash_wide_route_matches_plain_version(cuda, bh, t, d, win, cap):
+    """``flash_attention`` at an fp32 head dim above 256 takes the
+    wide-head kernels (one launch each, none of the aligned ones) and
+    matches ``flash_attention_ref`` and its autograd within the fp32 flash
+    bar."""
+    gen = torch.Generator(device=cuda).manual_seed(t + d)
+    q, k, v, g = (torch.randn(1, bh, t, d, generator=gen, device=cuda)
+                  for _ in range(4))
+    wide = (tflash.flash_attention_wide_fwd, tflash.flash_attention_wide_bwd_dq,
+            tflash.flash_attention_wide_bwd_dkdv)
+    aligned = (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+               tflash.flash_attention_bwd_dkdv)
+    counts = [f.launches for f in wide + aligned]
+    ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tflash.flash_attention(*ts, window=win, logit_softcap=cap)
+    grads = torch.autograd.grad(out, ts, g)
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(wide + aligned, counts)] == \
+        [1, 1, 1, 0, 0, 0]
+    rs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = tref.flash_attention_ref(*rs, window=win, logit_softcap=cap)
+    ref_grads = torch.autograd.grad(ref, rs, g)
+    torch.testing.assert_close(out, ref, rtol=2e-3, atol=2e-3)
+    for got, want in zip(grads, ref_grads):
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_flash_above_256_refuses_bf16_and_an_offset(cuda):
+    """No path reaches bf16 or the causal-offset route above 256: both
+    raise before any launch, naming the gap, and never fall back."""
+    x = torch.zeros(1, 2, 64, 288, device=cuda)
+    before = tflash.flash_attention_wide_fwd.launches
+    with pytest.raises(ValueError, match="ROADMAP Queue 3"):
+        tflash.flash_attention(*(x.bfloat16() for _ in range(3)))
+    with pytest.raises(ValueError, match="ROADMAP Queue 3"):
+        tflash.flash_attention(x[:, :, 32:], x, x, q_offset=32)
+    assert tflash.flash_attention_wide_fwd.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [144, 256])
+def test_wkv6_block_route_matches_plain_version(cuda, d):
+    """A head dim above 128 through the block route: the forward (one
+    call of the kernels over the folded block pairs) and, through
+    ``dispatch.wkv6`` under autograd, the backward, from a non-zero ``s0``
+    with a non-zero ``dS_T``, within 1e-4 of the plain version (forward)
+    and 1e-3 of its autograd scaled by each gradient's largest magnitude
+    (the bars above); counted once a direction as blocked."""
+    from repro_torch.kernels import dispatch
+
+    ins = _wkv_inputs(2, 2, 100, d, "ref", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    do = torch.randn(2, 2, 100, d, generator=gen, device=cuda)
+    ds_t = 0.1 * torch.randn(2, 2, d, d, generator=gen, device=cuda)
+    before = dict(trwkv.rwkv6_chunk.blocked_launches)
+    o, s = trwkv.rwkv6_chunk(*ins)
+    want_o, want_s = tref.rwkv6_chunk_plain(*ins)
+    torch.testing.assert_close(o, want_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    got = torch.autograd.grad(dispatch.wkv6(*leaves), leaves, [do, ds_t])
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in
+            trwkv.rwkv6_chunk.blocked_launches.items()} == {
+        "forward": 2, "backward": 1}
+    want = tref.rwkv6_chunk_grads(*ins, do, ds_t)
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        scale = x.abs().max()
+        torch.testing.assert_close(g / scale, x / scale, rtol=1e-3,
+                                   atol=1e-3, msg=lambda m: f"{name}: {m}")
